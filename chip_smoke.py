@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke run of sextans_tpu_torch on one NVIDIA GPU.
+"""Smoke run of sextans_tpu_torch on one NVIDIA GPU, and its kernel timings.
 
 Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero):
+Phases (each prints its lines; any failure exits non-zero):
 
 0. torch / CUDA versions and the card's name and power limit (nvidia-smi).
 1. Build the CUDA kernels from ``sextans_tpu_torch/csrc`` (timed).
@@ -14,26 +14,44 @@ Phases (each prints one line; any failure exits non-zero):
    (104,756 nnz, the one ``bench.py`` uses without nasa4704); block kernel
    (K3) at N = 512 and 16 with the default config, slab kernel (K1) at
    N = 512 and skinny slab kernel (K2) at N = 16 with ``bench.py``'s slab
-   config. Tolerance: 4 * spacing(f32(max |plain|)).
-3. The main path end to end: write_mtx -> read_mtx -> pack / pack_mxu ->
-   plan(device="cuda") -> verify against golden_spmm, and max-abs against
-   golden_spmm_exact in ulp of max|C| (bar: 4 ulp), for pallas and mxu at
-   N = 512 and 16; alpha 0.85, beta -2.06, B and C from numpy seed 0.
+   config, edge kernel (K4) at N = 512 and, with ``edge_masked`` and
+   ``edge_lanes=4``, at N = 16, ELL gather kernel (K5) at N = 512 and 16.
+   Tolerance: 4 * spacing(f32(max |plain|)).
+3. The main path end to end: write_mtx -> read_mtx -> the backend's packer
+   -> plan(device="cuda") -> verify against golden_spmm, and max-abs against
+   golden_spmm_exact in ulp of max|C| (bar: 4 ulp), for pallas, mxu, edge
+   and ell_pallas at N = 512 and 16; alpha 0.85, beta -2.06, B and C from
+   numpy seed 0.
 4. The same at full size: cant_like (fem_like(62451, dofs=3, neighbors=21,
-   seed=2), 3,781,404 nnz) at N = 512 through pallas and mxu, with kernel
-   ms and GFLOPS = 2 * N * (nnz + M) / t.
-5. ``python -m sextans_tpu_torch <mtx> 16 --backend mxu`` must print
-   Success!.
+   seed=2), 3,781,404 nnz) at N = 512 through all four backends, and each
+   kernel against its plain version there as in phase 2.
+5. ``python -m sextans_tpu_torch <mtx> 16 --backend B`` for B in mxu, edge
+   and ell_pallas, run together; each must print Success!.
 
-Launch counters are zeroed just before phase 3 and must be above zero for
-every kernel after phase 4. The last two lines are a JSON object with one
-entry per kernel and ``{"ok": true, "device": {...}}``.
+Timings. Beside each kernel of phases 2 and 4: its plain version's time, the
+library call ``torch.sparse.addmm(C, A_csr, B, beta, alpha)`` on the same
+matrix and N (timed only, never used by the package), and the bound
+max(2 * nnz * N / 67 TFLOP/s, bytes / 3.35 TB/s), bytes = 8 per nonzero + B
++ C in + C out, each once. The three are sampled in turns plain, kernel,
+library, library, kernel, plain, ``ROUNDS`` times; each sample is CUDA
+events over a few launches; the median is printed. Each path of phases 3
+and 4 prints its pack (seconds, bytes on the card, slots and the share that
+holds a nonzero), ``time_repeat`` (median of 3) and GFLOPS = 2 * N *
+(nnz + M) / t, and a ``torch.profiler`` breakdown of 20 plan calls: device
+time in the kernel, in every other device op, and the idle share of the
+calls' host-clock time.
+
+Every run of phases 3 and 4 is one main path: the launch counters are set
+to 0 just before it and read just after, and its kernel must have launched.
+The last two lines are a JSON object with one entry per kernel (its phase-2
+row at the first N) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -43,13 +61,23 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ALPHA, BETA = 0.85, -2.06
 ULP_BAR = 4.0
+PEAK_F32_FLOPS = 67e12  # one H100 SXM, f32 outside the tensor cores
+PEAK_HBM_BYTES = 3.35e12
+ROUNDS = 3
 
 
 def fail(msg: str):
     raise RuntimeError(f"chip_smoke FAILED: {msg}")
 
 
-def event_ms(fn, iters: int = 10) -> float:
+def bound(nnz: int, m: int, k: int, n: int):
+    """Least milliseconds of C = alpha * A @ B + beta * C, and its limit."""
+    flop_ms = 2.0 * nnz * n / PEAK_F32_FLOPS * 1e3
+    byte_ms = (8.0 * nnz + 4.0 * k * n + 8.0 * m * n) / PEAK_HBM_BYTES * 1e3
+    return max(flop_ms, byte_ms), "operations" if flop_ms > byte_ms else "bytes"
+
+
+def event_ms(fn, iters: int) -> float:
     """Mean device milliseconds of ``fn()`` over ``iters`` launches, after a
     warm-up, bracketed by CUDA events."""
     import torch
@@ -66,6 +94,104 @@ def event_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def abba_ms(fns: dict, iters: int) -> dict:
+    """Median of ``event_ms`` for each of ``fns`` ("kernel", "plain",
+    "library"), sampled in turns plain, kernel, library, library, kernel,
+    plain, ``ROUNDS`` times."""
+    samples = {name: [] for name in fns}
+    for _ in range(ROUNDS):
+        for name in ("plain", "kernel", "library", "library", "kernel", "plain"):
+            samples[name].append(event_ms(fns[name], iters))
+    return {name: statistics.median(s) for name, s in samples.items()}
+
+
+def kernel_calls(pl, n):
+    """(name, kernel call, plain call) of ``pl``'s kernel, as ``fn(b_p, c_p)``."""
+    from sextans_tpu_torch.ops.spmm_block import spmm_block_padded, spmm_block_padded_ref
+    from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded, spmm_edge_padded_ref
+    from sextans_tpu_torch.ops.spmm_ell import (
+        spmm_ell_gather_padded,
+        spmm_ell_gather_padded_ref,
+    )
+    from sextans_tpu_torch.ops.spmm_slab import (
+        SKINNY_MAX_N,
+        spmm_slab_padded,
+        spmm_slab_padded_ref,
+        spmm_slab_skinny_padded,
+    )
+
+    packed, cfg = pl.packed, pl.packed.config
+    extra = dict(ranges=pl.ranges)
+    if pl.backend == "ell_pallas":
+        name, kernel, plain = "spmm_ell", spmm_ell_gather_padded, spmm_ell_gather_padded_ref
+        kw, extra = dict(m_base=packed.m_base), {}
+    elif pl.backend == "edge":
+        name, kernel, plain = "spmm_edge", spmm_edge_padded, spmm_edge_padded_ref
+        kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k,
+                  edge_chunk=cfg.edge_chunk, masked=cfg.edge_masked)
+    else:
+        if pl.backend == "pallas":
+            name, kernel, plain = "spmm_block", spmm_block_padded, spmm_block_padded_ref
+        elif n <= SKINNY_MAX_N:
+            name, kernel, plain = ("spmm_slab_skinny", spmm_slab_skinny_padded,
+                                   spmm_slab_padded_ref)
+        else:
+            name, kernel, plain = "spmm_slab", spmm_slab_padded, spmm_slab_padded_ref
+        kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k, block_k=cfg.block_k,
+                  group_blocks=cfg.group_blocks)
+    return (name,
+            lambda b_p, c_p: kernel(*pl.arrays, b_p, c_p, ALPHA, BETA, **kw, **extra),
+            lambda b_p, c_p: plain(*pl.arrays, b_p, c_p, ALPHA, BETA, **kw))
+
+
+def library_call(coo):
+    """``torch.sparse.addmm`` on A as a CUDA CSR tensor, as ``fn(b, c)``:
+    the yardstick, never used by the package."""
+    import numpy as np
+    import torch
+
+    import sextans_tpu_torch as sx
+
+    csr = sx.CSRMatrix.from_coo(coo)
+    a = torch.sparse_csr_tensor(
+        torch.as_tensor(csr.indptr.astype(np.int32), device="cuda"),
+        torch.as_tensor(csr.indices.astype(np.int32), device="cuda"),
+        torch.as_tensor(csr.vals, device="cuda"), size=coo.shape)
+    return lambda b, c: torch.sparse.addmm(c, a, b, beta=BETA, alpha=ALPHA)
+
+
+def profile(pl, b_dev, c_dev, kernel_name: str, calls: int = 20) -> str:
+    """Device milliseconds per plan call in the kernel and in every other
+    device op, and the idle share of the calls' host-clock time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    pl(b_dev, ALPHA, BETA, c_dev)
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            pl(b_dev, ALPHA, BETA, c_dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernel_us = other_us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if kernel_name in evt.key:
+            kernel_us += us
+        else:
+            other_us += us
+    if kernel_us == 0.0:
+        return "profile: the trace held no device time (not measured)"
+    idle = max(0.0, 1.0 - (kernel_us + other_us) / 1e3 / wall_ms)
+    return (f"profile per call: kernel {kernel_us / 1e3 / calls:.4f} ms, other device "
+            f"{other_us / 1e3 / calls:.4f} ms, idle {100 * idle:.1f} %")
+
+
 def main() -> int:
     import torch
 
@@ -73,16 +199,16 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; nothing run",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
     import sextans_tpu_torch as sx
-    from sextans_tpu_torch.ops.spmm_block import spmm_block_padded, spmm_block_padded_ref
-    from sextans_tpu_torch.ops.spmm_slab import (
-        spmm_slab_padded,
-        spmm_slab_padded_ref,
-        spmm_slab_skinny_padded,
-    )
+    from sextans_tpu_torch.ops.plan import BACKEND_FORMATS
+    from sextans_tpu_torch.ops.spmm_block import spmm_block_padded
+    from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded
+    from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded
+    from sextans_tpu_torch.ops.spmm_slab import spmm_slab_padded, spmm_slab_skinny_padded
     from sextans_tpu_torch.runtime.build import build_kernels
     from sextans_tpu_torch.utils.matrices import fem_like
     from sextans_tpu_torch.utils.timing import time_repeat
@@ -103,8 +229,9 @@ def main() -> int:
           flush=True)
 
     block_cfg = sx.SpmmConfig()
-    slab_cfg = sx.SpmmConfig(tile_m=1024, window_k=4096, block_k=128,
-                             group_blocks=8, chunk_unroll=2)
+    slab_cfg = sx.SpmmConfig(tile_m=1024, window_k=4096, block_k=128, group_blocks=8,
+                             chunk_unroll=2)
+    masked_cfg = sx.SpmmConfig(edge_masked=True, edge_lanes=4)
     synth = sx.COOMatrix.random(4704, 4704, 104756, seed=42, banded=True,
                                 bandwidth=300)
     if synth.nnz != 104756:
@@ -116,66 +243,105 @@ def main() -> int:
         c = rng.standard_normal((m, n)).astype(np.float32)
         return b, c
 
-    # ---- phase 2: kernel vs plain version on the card ----
-    kernels = {}
-    packs = {"pallas": sx.pack(synth, block_cfg), "mxu": sx.pack_mxu(synth, slab_cfg)}
-    cases = [
-        ("spmm_block", spmm_block_padded, spmm_block_padded_ref, "pallas", 512),
-        ("spmm_block", spmm_block_padded, spmm_block_padded_ref, "pallas", 16),
-        ("spmm_slab", spmm_slab_padded, spmm_slab_padded_ref, "mxu", 512),
-        ("spmm_slab_skinny", spmm_slab_skinny_padded, spmm_slab_padded_ref, "mxu", 16),
-    ]
-    for name, kernel, plain, backend, n in cases:
-        packed = packs[backend]
-        pl = sx.plan(packed, n, backend, device="cuda")
-        b, c = operands(*synth.shape, n)
-        b_p, c_p = pl.pad_b(b), pl.pad_c(c)
-        cfg = packed.config
-        kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k,
-                  block_k=cfg.block_k, group_blocks=cfg.group_blocks)
-        got = kernel(*pl.arrays, b_p, c_p, ALPHA, BETA, ranges=pl.ranges, **kw)
-        want = plain(*pl.arrays, b_p, c_p, ALPHA, BETA, **kw)
+    def check_kernel(tag, coo, pl, b_dev, c_dev, iters):
+        """Hold ``pl``'s kernel against its plain version on the card and
+        time both beside the library call and the bound."""
+        n = pl.n
+        b_p, c_p = pl.pad_b(b_dev), pl.pad_c(c_dev)
+        name, run_kernel, run_plain = kernel_calls(pl, n)
+        got, want = run_kernel(b_p, c_p), run_plain(b_p, c_p)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         tol = ULP_BAR * float(np.spacing(np.float32(want.abs().max().item())))
-        ms = event_ms(lambda: kernel(*pl.arrays, b_p, c_p, ALPHA, BETA,
-                                     ranges=pl.ranges, **kw))
-        plain_ms = event_ms(lambda: plain(*pl.arrays, b_p, c_p, ALPHA, BETA, **kw))
         ok = bool(torch.isfinite(got).all().item()) and err <= tol
-        print(f"phase 2: {name} N={n}: max_abs_err vs plain {err:.3e} "
-              f"(tol {tol:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        del got, want
+        library = library_call(coo)
+        ms = abba_ms({"kernel": lambda: run_kernel(b_p, c_p),
+                      "plain": lambda: run_plain(b_p, c_p),
+                      "library": lambda: library(b_dev, c_dev)}, iters)
+        bound_ms, bound_by = bound(coo.nnz, *coo.shape, n)
+        print(f"{tag}: {name} ({pl.backend}) N={n}: max_abs_err vs plain {err:.3e} "
+              f"(tol {tol:.3e}) kernel {ms['kernel']:.4f} ms plain {ms['plain']:.4f} ms "
+              f"torch.sparse.addmm {ms['library']:.4f} ms bound {bound_ms:.5f} ms "
+              f"({bound_by}) {'ok' if ok else 'MISMATCH'}", flush=True)
         if not ok:
-            fail(f"{name} at N={n} disagrees with its plain version")
-        if name not in kernels:  # the N=512 row of the block kernel is kept
-            kernels[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            fail(f"{tag}: {name} at N={n} disagrees with its plain version")
+        return name, dict(max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"],
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=ms["library"])
+
+    # ---- phase 2: kernel vs plain version on the card ----
+    kernels = {}
+    packs = {"pallas": sx.pack(synth, block_cfg), "mxu": sx.pack_mxu(synth, slab_cfg),
+             "edge": sx.pack_edge(synth, block_cfg),
+             "edge_masked": sx.pack_edge(synth, masked_cfg),
+             "ell_pallas": sx.pack_ell(synth, block_cfg)}
+    cases = [("pallas", "pallas", 512), ("pallas", "pallas", 16), ("mxu", "mxu", 512),
+             ("mxu", "mxu", 16), ("edge", "edge", 512), ("edge_masked", "edge", 16),
+             ("ell_pallas", "ell_pallas", 512), ("ell_pallas", "ell_pallas", 16)]
+    for pack_key, backend, n in cases:
+        pl = sx.plan(packs[pack_key], n, backend, device="cuda")
+        b, c = operands(*synth.shape, n)
+        name, row = check_kernel(
+            f"phase 2 ({pack_key})", synth, pl, torch.as_tensor(b, device="cuda"),
+            torch.as_tensor(c, device="cuda"), iters=10)
+        kernels.setdefault(name, row)  # the first (N = 512 where run there) row
+    del packs
 
     # ---- phases 3 and 4: the main path ----
-    counted = (spmm_block_padded, spmm_slab_padded, spmm_slab_skinny_padded)
-    for fn in counted:
-        fn.launches = 0
+    counted = {"spmm_block": spmm_block_padded, "spmm_slab": spmm_slab_padded,
+               "spmm_slab_skinny": spmm_slab_skinny_padded,
+               "spmm_edge": spmm_edge_padded, "spmm_ell": spmm_ell_gather_padded}
+    launches = dict.fromkeys(counted, 0)
+    goldens = {}
 
-    def drive(tag, coo, backend, cfg, n, times):
-        packed = sx.pack_mxu(coo, cfg) if backend == "mxu" else sx.pack(coo, cfg)
+    def golden(tag, coo, n):
+        if (tag, n) not in goldens:
+            b, c = operands(*coo.shape, n)
+            csr = sx.CSRMatrix.from_coo(coo)
+            goldens[tag, n] = (b, c, sx.golden_spmm(csr, b, ALPHA, BETA, c),
+                               sx.golden_spmm_exact(csr, b, ALPHA, BETA, c))
+        return goldens[tag, n]
+
+    def drive(tag, coo, backend, n, times):
+        b, c, ref, exact = golden(tag.split()[-1], coo, n)
+        cfg = slab_cfg if backend == "mxu" else block_cfg
+        t0 = time.perf_counter()
+        packed = BACKEND_FORMATS[backend][0](coo, cfg)
+        t_pack = time.perf_counter() - t0
+        for fn in counted.values():
+            fn.launches = 0
         pl = sx.plan(packed, n, backend, device="cuda")
-        b, c = operands(*coo.shape, n)
         got = pl(b, ALPHA, BETA, c).cpu().numpy()
-        csr = sx.CSRMatrix.from_coo(coo)
-        res = sx.verify(sx.golden_spmm(csr, b, ALPHA, BETA, c), got)
-        exact = sx.golden_spmm_exact(csr, b, ALPHA, BETA, c)
-        max_abs = float(np.abs(got.astype(np.float64) - exact).max())
-        ulp = max_abs / float(np.spacing(np.float32(np.abs(exact).max())))
         b_dev = torch.as_tensor(b, device=pl.device)
         c_dev = torch.as_tensor(c, device=pl.device)
-        t = time_repeat(pl, b_dev, ALPHA, BETA, c_dev, times=times)
+        t = statistics.median(time_repeat(pl, b_dev, ALPHA, BETA, c_dev, times=times)
+                              for _ in range(3))
+        expected = kernel_calls(pl, n)[0]
+        traced = profile(pl, b_dev, c_dev, expected)
+        torch.cuda.synchronize()
+        ran = {name: fn.launches for name, fn in counted.items() if fn.launches}
+        if ran.get(expected, 0) == 0 or set(ran) != {expected}:
+            fail(f"{tag} {backend} N={n}: launches {ran}, expected {expected} only")
+        for name, count in ran.items():
+            launches[name] += count
+        res = sx.verify(ref, got)
+        max_abs = float(np.abs(got.astype(np.float64) - exact).max())
+        ulp = max_abs / float(np.spacing(np.float32(np.abs(exact).max())))
         m = coo.shape[0]
         ok = res.passed and ulp <= ULP_BAR and bool(np.isfinite(got).all()) \
             and got.shape == (m, n)
+        pack_mb = sum(a.nbytes for a in pl.arrays + (pl.ranges or ())) / 1e6
+        shape = (f"R={packed.slots_per_row}, {packed.n_virt} virtual rows"
+                 if backend == "ell_pallas" else f"{packed.stats.groups} groups")
         print(f"{tag}: {backend} N={n} {coo.shape[0]}x{coo.shape[1]} nnz={coo.nnz} "
               f"verify {'Success!' if res.passed else 'Failed.'} "
               f"({res.mismatch_percent:.2f}% mismatches) max_abs_vs_f64 "
               f"{max_abs:.3e} = {ulp:.2f} ulp of max|C|; kernel {t * 1e3:.4f} ms "
-              f"GFLOPS {sx.gflops(coo.nnz, m, n, t):.1f}", flush=True)
+              f"GFLOPS {sx.gflops(coo.nnz, m, n, t):.1f}; pack {t_pack:.3f} s "
+              f"{pack_mb:.2f} MB on the card, {packed.stats.slots} slots "
+              f"({100 * packed.stats.block_fill:.1f} % filled, {shape}); {traced}; "
+              f"launches {ran}", flush=True)
         if not ok:
             fail(f"{tag} {backend} N={n}: verify {res.passed}, {ulp:.2f} ulp")
         return pl, b_dev, c_dev
@@ -186,47 +352,50 @@ def main() -> int:
         coo = sx.read_mtx(mtx)
         if coo.nnz != synth.nnz or coo.shape != synth.shape:
             fail("write_mtx/read_mtx round trip changed the matrix")
-        for backend, n in (("pallas", 512), ("pallas", 16), ("mxu", 512), ("mxu", 16)):
-            drive("phase 3", coo, backend, slab_cfg if backend == "mxu" else block_cfg,
-                  n, times=50)
+        for backend in ("pallas", "mxu", "edge", "ell_pallas"):
+            for n in (512, 16):
+                drive("phase 3 synthetic4704", coo, backend, n, times=50)
 
         t0 = time.perf_counter()
         cant = fem_like(62451, dofs=3, neighbors=21, seed=2)
         if cant.nnz != 3781404:
             fail(f"cant_like has {cant.nnz} nnz, expected 3781404")
         print(f"phase 4: cant_like built in {time.perf_counter() - t0:.1f} s", flush=True)
-        for backend, cfg, plain in (("pallas", block_cfg, spmm_block_padded_ref),
-                                    ("mxu", slab_cfg, spmm_slab_padded_ref)):
-            pl, b_dev, c_dev = drive("phase 4", cant, backend, cfg, 512, times=10)
-            b_p, c_p = pl.pad_b(b_dev), pl.pad_c(c_dev)
-            kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k,
-                      block_k=cfg.block_k, group_blocks=cfg.group_blocks)
-            plain_ms = event_ms(lambda: plain(*pl.arrays, b_p, c_p, ALPHA, BETA, **kw),
-                                iters=3)
-            print(f"phase 4: {backend} plain version {plain_ms:.4f} ms", flush=True)
+        for backend in ("pallas", "mxu", "edge", "ell_pallas"):
+            pl, b_dev, c_dev = drive("phase 4 cant_like", cant, backend, 512, times=10)
+            check_kernel("phase 4 cant_like", cant, pl, b_dev, c_dev, iters=2)
+            del pl, b_dev, c_dev
+            torch.cuda.empty_cache()
 
-        launches = {
-            "spmm_block": spmm_block_padded.launches,
-            "spmm_slab": spmm_slab_padded.launches,
-            "spmm_slab_skinny": spmm_slab_skinny_padded.launches,
-        }
-        print(f"phase 3-4: launches on the main path {launches}", flush=True)
+        print(f"phase 3-4: launches on the main paths {launches}", flush=True)
         if min(launches.values()) == 0:
             fail(f"a kernel of the main path never launched: {launches}")
 
-        # ---- phase 5: the CLI ----
+        # ---- phase 5: the CLI, one process per backend, all at once ----
         env = dict(os.environ)
         env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
-        proc = subprocess.run(
-            [sys.executable, "-m", "sextans_tpu_torch", str(mtx), "16",
-             "--backend", "mxu"],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
-        )
-        last = [ln for ln in proc.stdout.splitlines() if ln.strip()][-3:]
-        print(f"phase 5: CLI rc={proc.returncode}: {' | '.join(last)}", flush=True)
-        if proc.returncode != 0 or "Success!" not in proc.stdout:
-            fail(f"CLI did not succeed:\n{proc.stdout}\n{proc.stderr}")
+        procs = {
+            backend: subprocess.Popen(
+                [sys.executable, "-m", "sextans_tpu_torch", str(mtx), "16",
+                 "--backend", backend],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+            for backend in ("mxu", "edge", "ell_pallas")
+        }
+        for backend, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                for p in procs.values():
+                    p.kill()
+                fail(f"CLI --backend {backend} did not finish")
+            last = [ln for ln in out.splitlines() if ln.strip()][-3:]
+            print(f"phase 5: CLI --backend {backend} rc={proc.returncode}: "
+                  f"{' | '.join(last)}", flush=True)
+            if proc.returncode != 0 or "Success!" not in out:
+                fail(f"CLI --backend {backend} did not succeed:\n{out}\n{err}")
 
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     sources = {
         "spmm_block": ("sextans_tpu_torch/csrc/spmm_block.cu",
                        "sextans_tpu/ops/spmm_pallas.py:202"),
@@ -234,6 +403,10 @@ def main() -> int:
                       "sextans_tpu/ops/spmm_mxu_pallas.py:146"),
         "spmm_slab_skinny": ("sextans_tpu_torch/csrc/spmm_slab.cu",
                              "sextans_tpu/ops/spmm_mxu_pallas.py:388"),
+        "spmm_edge": ("sextans_tpu_torch/csrc/spmm_edge.cu",
+                      "sextans_tpu/ops/spmm_edge_pallas.py:205"),
+        "spmm_ell": ("sextans_tpu_torch/csrc/spmm_ell.cu",
+                     "sextans_tpu/ops/spmm_ell_pallas.py:156"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

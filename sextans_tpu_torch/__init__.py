@@ -5,7 +5,9 @@ The port of ``sextans_tpu`` (JAX, Pallas kernels for the TPU), which stays
 beside it as the reference. The NumPy host layer (Matrix Market I/O, COO/CSR,
 the block and slab packers, the golden oracle and the verify gate) is
 carried over so that this package never imports JAX; tests hold its packs
-byte-identical to the JAX package's.
+byte-identical to the JAX package's. Four packed formats run: the block
+format (``pack``), the slab format (``pack_mxu``), the edge stream
+(``pack_edge``) and the ELL gather format (``pack_ell``).
 
 Quick start::
 
@@ -13,7 +15,10 @@ Quick start::
 
     a = sx.read_mtx("matrix.mtx")            # COO, symmetric-expanded
     packed = sx.pack(a)                      # host pack pass (do once)
-    c = sx.spmm(packed, b, alpha=0.85, beta=-2.06, c=c0, device="cuda")
+    c = sx.spmm(packed, b, alpha=0.85, beta=-2.06, c=c0)   # on cuda
+
+``spmm`` runs on ``cuda`` unless ``b`` is a tensor elsewhere or the caller
+passes ``device="cpu"``.
 
 The CUDA kernels are compiled at first use into ``sextans_tpu_torch/build/``
 (runtime/build.py); on CPU tensors the same calls run plain PyTorch versions.
@@ -29,6 +34,8 @@ from sextans_tpu_torch.format.pack import (
     reorder_columns,
     reorder_rows,
 )
+from sextans_tpu_torch.format.pack_edge import PackedSpMatrixEdge, pack_edge
+from sextans_tpu_torch.format.pack_ell import PackedSpMatrixELL, pack_ell
 from sextans_tpu_torch.format.pack_mxu import PackedSpMatrixMXU, pack_mxu
 from sextans_tpu_torch.io.mtx import MtxHeader, read_mtx, read_mtx_coo, write_mtx
 from sextans_tpu_torch.ops.golden import golden_spmm, golden_spmm_exact, spmm_flops
@@ -55,6 +62,10 @@ __all__ = [
     "reorder_columns",
     "reorder_rows",
     "pack_mxu",
+    "pack_edge",
+    "pack_ell",
+    "PackedSpMatrixEdge",
+    "PackedSpMatrixELL",
     "PackedSpMatrixMXU",
     "from_reference",
     "prepare",

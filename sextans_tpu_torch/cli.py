@@ -7,7 +7,7 @@ Reference usage (src/sextans-host.cpp:26-48)::
 Here::
 
     python -m sextans_tpu_torch [matrix A file] [N] [rp_time] [alpha] [beta]
-        [--backend pallas|mxu|xla] [--tile-m ..] [--window-k ..]
+        [--backend pallas|mxu|xla|edge|ell|ell_pallas] [--tile-m ..] [--window-k ..]
         [--block-k ..] [--group-blocks ..] [--device cuda|cpu]
 
 The same positional semantics, B (all 1.0, src/sextans-host.cpp:100-104),
@@ -28,10 +28,9 @@ import numpy as np
 import torch
 
 from sextans_tpu_torch.format.csr import CSRMatrix
-from sextans_tpu_torch.format.pack import pack
-from sextans_tpu_torch.format.pack_mxu import pack_mxu
 from sextans_tpu_torch.io.mtx import read_mtx
 from sextans_tpu_torch.ops.golden import golden_spmm
+from sextans_tpu_torch.ops.plan import BACKEND_FORMATS
 from sextans_tpu_torch.ops.spmm import plan as make_plan
 from sextans_tpu_torch.utils.config import SpmmConfig, round_up
 from sextans_tpu_torch.utils.timing import time_repeat
@@ -51,9 +50,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--backend",
         default="pallas",
-        choices=["pallas", "mxu", "xla"],
+        choices=list(BACKEND_FORMATS),
         help="pallas = block kernel; mxu = slab kernels (skinny kernel at "
-        "N <= 32); xla = plain PyTorch block version",
+        "N <= 32); xla = plain PyTorch block version; edge = per-nonzero "
+        "edge-stream kernel; ell_pallas = ELL row-gather kernel; ell = plain "
+        "PyTorch ELL gather engine",
     )
     p.add_argument("--tile-m", type=int, default=None)
     p.add_argument("--window-k", type=int, default=None)
@@ -96,7 +97,7 @@ def main(argv=None) -> int:
 
     print(f"Packing sparse A for {args.device} ...", flush=True)
     t0 = time.perf_counter()
-    packed = pack_mxu(coo, cfg) if args.backend == "mxu" else pack(coo, cfg)
+    packed = BACKEND_FORMATS[args.backend][0](coo, cfg)
     t_pack = time.perf_counter() - t0
     s = packed.stats
     print(

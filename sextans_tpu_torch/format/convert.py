@@ -1,9 +1,9 @@
 """Carry a packed matrix across from the JAX package.
 
-A ``sextans_tpu`` pack (``PackedSpMatrix`` or ``PackedSpMatrixMXU``) holds
-NumPy arrays and plain fields only, so it converts without importing
-``sextans_tpu``: fields are read by name. Tests use this to feed the same
-packed A to both packages.
+A ``sextans_tpu`` pack (block, slab, edge or ELL format) holds NumPy arrays
+and plain fields only, so it converts without importing ``sextans_tpu``:
+fields are read by name. Tests use this to feed the same packed A to both
+packages.
 """
 
 from __future__ import annotations
@@ -14,40 +14,57 @@ from typing import Union
 import numpy as np
 
 from sextans_tpu_torch.format.pack import PackedSpMatrix, PackStats
+from sextans_tpu_torch.format.pack_edge import PackedSpMatrixEdge
+from sextans_tpu_torch.format.pack_ell import PackedSpMatrixELL
 from sextans_tpu_torch.format.pack_mxu import PackedSpMatrixMXU
 from sextans_tpu_torch.utils.config import SpmmConfig
 
 __all__ = ["from_reference"]
+
+# format -> (class, its arrays with their dtypes, its scalar fields)
+_FORMATS = {
+    "qm": (PackedSpMatrixMXU, (("vals", np.float32), ("qm", np.int32),
+                               ("bcol", np.int32), ("group_mtile", np.int32),
+                               ("group_kwin", np.int32)),
+           ("n_mtiles", "n_kwins")),
+    "qrow": (PackedSpMatrix, (("vals", np.float32), ("qrow", np.int32),
+                              ("bcol", np.int32), ("group_mtile", np.int32),
+                              ("group_kwin", np.int32)),
+             ("n_mtiles", "n_kwins")),
+    "meta": (PackedSpMatrixEdge, (("vals", np.float32), ("meta", np.int32),
+                                  ("chunk_mtile", np.int32),
+                                  ("chunk_kwin", np.int32)),
+             ("n_mtiles", "n_kwins")),
+    "fold_rows": (PackedSpMatrixELL, (("cols", np.int32), ("vals", np.float32),
+                                      ("fold_rows", np.int32)),
+                  ("slots_per_row", "m_base")),
+}
+
+Packed = Union[PackedSpMatrix, PackedSpMatrixMXU, PackedSpMatrixEdge, PackedSpMatrixELL]
 
 
 def _copy_fields(cls, obj):
     return cls(**{f.name: getattr(obj, f.name) for f in fields(cls)})
 
 
-def from_reference(packed) -> Union[PackedSpMatrix, PackedSpMatrixMXU]:
-    """Convert a ``sextans_tpu`` block or slab pack into this package's.
+def from_reference(packed) -> Packed:
+    """Convert a ``sextans_tpu`` block, slab, edge or ELL pack into this
+    package's.
 
-    The format is told by its index array: ``qm`` (slab format) or ``qrow``
-    (block format). Arrays are taken as NumPy with their dtypes checked, so
-    the result is byte-identical to packing the same COO here.
+    The format is told by its index array: ``qm`` (slab), ``qrow`` (block),
+    ``meta`` (edge) or ``fold_rows`` (ELL). Arrays are taken as NumPy with
+    their dtypes checked, so the result is byte-identical to packing the
+    same COO here.
     """
-    if hasattr(packed, "qm"):
-        cls, idx_name = PackedSpMatrixMXU, "qm"
-    elif hasattr(packed, "qrow"):
-        cls, idx_name = PackedSpMatrix, "qrow"
-    else:
+    fmt = next((name for name in _FORMATS if hasattr(packed, name)), None)
+    if fmt is None:
         raise TypeError(
-            f"{type(packed).__name__} is neither a block nor a slab pack "
-            "(no qrow/qm array)"
+            f"{type(packed).__name__} is not a block, slab, edge or ELL pack "
+            "(no qrow/qm/meta/fold_rows array)"
         )
+    cls, array_dtypes, scalars = _FORMATS[fmt]
     arrays = {}
-    for name, dtype in (
-        ("vals", np.float32),
-        (idx_name, np.int32),
-        ("bcol", np.int32),
-        ("group_mtile", np.int32),
-        ("group_kwin", np.int32),
-    ):
+    for name, dtype in array_dtypes:
         a = np.asarray(getattr(packed, name))
         if a.dtype != dtype:
             raise TypeError(f"{name} must be {np.dtype(dtype).name}, got {a.dtype}")
@@ -61,9 +78,8 @@ def from_reference(packed) -> Union[PackedSpMatrix, PackedSpMatrixMXU]:
         k=int(packed.k),
         nnz=int(packed.nnz),
         config=_copy_fields(SpmmConfig, packed.config),
-        n_mtiles=int(packed.n_mtiles),
-        n_kwins=int(packed.n_kwins),
         stats=_copy_fields(PackStats, packed.stats),
+        **{name: int(getattr(packed, name)) for name in scalars},
         **arrays,
         **perms,
     )

@@ -1,5 +1,6 @@
 """What the kernel wrappers share: the host scan of a pack's group steering,
-operand checks before a launch, and the f32 rule of the plain versions."""
+bounds checks of the packs before upload, operand checks before a launch,
+and the f32 rule of the plain versions."""
 
 from __future__ import annotations
 
@@ -8,19 +9,30 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sextans_tpu_torch.format.pack_edge import COL_SHIFT, ROW_SHIFT
+
 __all__ = [
     "SMEM_LIMIT",
+    "COL_MASK",
     "group_ranges",
     "check_pack_indices",
+    "check_edge_pack",
+    "check_ell_pack",
+    "need",
+    "check_dense",
     "check_operands",
     "no_tf32",
     "add_rows_in_order",
+    "fma_f32",
     "f32",
     "stream_of",
 ]
 
 # Dynamic shared memory one CUDA block may use on an H100 (sm_90), in bytes.
 SMEM_LIMIT = 232448
+
+# The column field of an edge's meta word, after the shift by COL_SHIFT.
+COL_MASK = (1 << (ROW_SHIFT - COL_SHIFT)) - 1
 
 
 def group_ranges(group_mtile: np.ndarray, n_mtiles: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -59,7 +71,47 @@ def check_pack_indices(packed, idx: np.ndarray, idx_limit: int) -> None:
         raise ValueError("a block's bcol runs past the end of its K-window")
 
 
-def _need(t: torch.Tensor, name: str, dtype, shape: Sequence[int], device) -> None:
+def check_edge_pack(packed) -> None:
+    """Bounds of an edge pack's meta words and chunk steering, checked once
+    on the host before upload: the edge kernel trusts them for its
+    addresses. ``chunk_mtile`` is checked by :func:`group_ranges`."""
+    cfg = packed.config
+    nc, E = packed.n_chunks, cfg.edge_chunk
+    if packed.vals.shape != (nc, 1, E) or packed.meta.shape != (nc, 1, E):
+        raise ValueError(f"vals and meta must be ({nc}, 1, {E})")
+    if packed.chunk_mtile.shape != (nc + 1,) or packed.chunk_mtile[-1] != -1:
+        raise ValueError("chunk_mtile must be (chunks+1,) and end in the sentinel -1")
+    if nc == 0:
+        raise ValueError("an edge pack has at least one chunk per M-tile")
+    if packed.chunk_kwin.min() < 0 or packed.chunk_kwin.max() >= packed.n_kwins:
+        raise ValueError("chunk_kwin holds a K-window outside the padded K")
+    w = packed.meta.view(np.uint32)
+    if (w >> ROW_SHIFT).max() >= cfg.tile_m:
+        raise ValueError(f"an edge's row is outside [0, tile_m={cfg.tile_m})")
+    if ((w >> COL_SHIFT) & COL_MASK).max() >= cfg.window_k:
+        raise ValueError(f"an edge's column is outside [0, window_k={cfg.window_k})")
+
+
+def check_ell_pack(packed) -> None:
+    """Bounds of an ELL pack, checked once on the host before upload: the
+    gather kernel trusts ``cols`` and the hub fold trusts ``fold_rows``."""
+    shape = packed.cols.shape
+    if packed.vals.shape != shape or len(shape) != 2 or shape[1] < 1:
+        raise ValueError("cols and vals must be one (m_padded, R) shape")
+    if packed.m_base != packed.m:
+        raise ValueError(f"m_base {packed.m_base} must equal m {packed.m}")
+    if packed.m_base + packed.n_virt > shape[0]:
+        raise ValueError("the virtual hub rows run past m_padded")
+    if packed.cols.size and (packed.cols.min() < 0 or packed.cols.max() >= max(packed.k, 1)):
+        raise ValueError(f"a slot's column is outside [0, k={packed.k})")
+    fr = packed.fold_rows
+    if fr.size and (fr.min() < 0 or fr.max() >= packed.m):
+        raise ValueError(f"fold_rows holds a row outside [0, m={packed.m})")
+
+
+def need(t: torch.Tensor, name: str, dtype, shape: Sequence[int], device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -70,24 +122,14 @@ def _need(t: torch.Tensor, name: str, dtype, shape: Sequence[int], device) -> No
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_operands(
-    vals, idx, bcol, group_mtile, group_kwin, b_padded, c_padded, ranges,
-    *, vals_shape_per_group: Tuple[int, int], tile_m: int, window_k: int,
-    group_blocks: int, with_c: bool,
-) -> Tuple[int, int, int]:
-    """Check every operand of a launch; returns ``(m_padded, n, n_mtiles)``.
+def check_dense(
+    b_padded, c_padded, *, tile_m: int, window_k: int, with_c: bool, device,
+) -> Tuple[int, int]:
+    """Check the padded B and C of a launch; returns ``(m_padded, n)``.
 
     With ``with_c=False``, ``c_padded`` is used for its shape only and may be
     a broadcast view (e.g. ``torch.zeros(1).expand(m_padded, n)``).
     """
-    device = vals.device
-    ng = vals.shape[0]
-    G = group_blocks
-    _need(vals, "vals", torch.float32, (ng, *vals_shape_per_group), device)
-    _need(idx, "qrow/qm", torch.int32, (ng, G), device)
-    _need(bcol, "bcol", torch.int32, (ng, G), device)
-    _need(group_mtile, "group_mtile", torch.int32, (ng + 1,), device)
-    _need(group_kwin, "group_kwin", torch.int32, (ng,), device)
     if b_padded.dim() != 2 or c_padded.dim() != 2:
         raise ValueError("b_padded and c_padded must be 2-D")
     k_padded, n = b_padded.shape
@@ -97,20 +139,41 @@ def check_operands(
             f"B rows {k_padded} must be a multiple of window_k {window_k}, "
             f"C rows {m_padded} a positive multiple of tile_m {tile_m}"
         )
-    _need(b_padded, "b_padded", torch.float32, (k_padded, n), device)
+    need(b_padded, "b_padded", torch.float32, (k_padded, n), device)
     if with_c:
-        _need(c_padded, "c_padded", torch.float32, (m_padded, n), device)
+        need(c_padded, "c_padded", torch.float32, (m_padded, n), device)
     elif tuple(c_padded.shape) != (m_padded, n):
         raise ValueError(f"c_padded must have shape {(m_padded, n)}")
-    n_mtiles = m_padded // tile_m
-    tile_ptr, tile_groups = ranges
-    _need(tile_ptr, "tile_ptr", torch.int32, (n_mtiles + 1,), device)
-    _need(tile_groups, "tile_groups", torch.int32, (ng,), device)
-    if vals.data_ptr() % 16:
-        raise ValueError("vals must be 16-byte aligned")
     # grid.y counts column chunks of at least 8 columns and is at most 65535
     if n == 0 or n > 65535 * 8:
         raise ValueError(f"N must be in [1, {65535 * 8}], got {n}")
+    return m_padded, n
+
+
+def check_operands(
+    vals, idx, bcol, group_mtile, group_kwin, b_padded, c_padded, ranges,
+    *, vals_shape_per_group: Tuple[int, int], tile_m: int, window_k: int,
+    group_blocks: int, with_c: bool,
+) -> Tuple[int, int, int]:
+    """Check every operand of a block or slab launch; returns
+    ``(m_padded, n, n_mtiles)``. ``c_padded`` is as in :func:`check_dense`.
+    """
+    device = vals.device
+    ng = vals.shape[0]
+    G = group_blocks
+    need(vals, "vals", torch.float32, (ng, *vals_shape_per_group), device)
+    need(idx, "qrow/qm", torch.int32, (ng, G), device)
+    need(bcol, "bcol", torch.int32, (ng, G), device)
+    need(group_mtile, "group_mtile", torch.int32, (ng + 1,), device)
+    need(group_kwin, "group_kwin", torch.int32, (ng,), device)
+    m_padded, n = check_dense(b_padded, c_padded, tile_m=tile_m,
+                              window_k=window_k, with_c=with_c, device=device)
+    n_mtiles = m_padded // tile_m
+    tile_ptr, tile_groups = ranges
+    need(tile_ptr, "tile_ptr", torch.int32, (n_mtiles + 1,), device)
+    need(tile_groups, "tile_groups", torch.int32, (ng,), device)
+    if vals.data_ptr() % 16:
+        raise ValueError("vals must be 16-byte aligned")
     return m_padded, n, n_mtiles
 
 
@@ -136,6 +199,15 @@ def add_rows_in_order(acc: torch.Tensor, index: torch.Tensor, src: torch.Tensor)
         acc.index_put_((index,), src, accumulate=True)
     else:
         acc.index_add_(0, index, src)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for f32 tensors, rounded once to f32, as a kernel's
+    ``__fmaf_rn`` rounds it: the product of two f32 values is exact in f64,
+    the sum rounds once in f64 and again to f32. The two roundings differ
+    from one only when the f64 sum lands exactly halfway between two f32
+    values while the exact sum does not, about once in 2**29 operations."""
+    return torch.addcmul(c.double(), a.double(), b.double()).float()
 
 
 def f32(x) -> float:

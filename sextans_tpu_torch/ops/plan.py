@@ -1,18 +1,23 @@
 """SpmmPlan: a reusable, device-resident execution plan for one packed matrix.
 
 The PyTorch counterpart of ``sextans_tpu.ops.plan.SpmmPlan``: the packed
-arrays and the per-M-tile group ranges are uploaded once (memoized on the
-packed object per device); each call pads B to ``k_padded`` and C to
-``m_padded``, runs one kernel and slices the result. N is not padded: the
-kernels mask a ragged last column chunk.
+arrays (and, for the block, slab and edge formats, the per-M-tile group
+ranges) are uploaded once (memoized on the packed object per device); each
+call pads B to ``k_padded`` and C to ``m_padded``, runs one kernel and slices
+the result. N is not padded: the kernels mask a ragged last column chunk.
 
 Backends keep the JAX package's names so that flags read the same:
 
-* ``"pallas"`` — the block kernel (ops/spmm_block.py) over ``pack``;
-* ``"mxu"``    — the slab kernels (ops/spmm_slab.py) over ``pack_mxu``; the
-  skinny kernel when N <= 32;
-* ``"xla"``    — the plain PyTorch block version, on any device;
-* ``"auto"``   — ``"mxu"`` for a slab pack, else ``"pallas"``.
+* ``"pallas"``     — the block kernel (ops/spmm_block.py) over ``pack``;
+* ``"mxu"``        — the slab kernels (ops/spmm_slab.py) over ``pack_mxu``;
+  the skinny kernel when N <= 32;
+* ``"xla"``        — the plain PyTorch block version, on any device;
+* ``"edge"``       — the edge kernel (ops/spmm_edge.py) over ``pack_edge``;
+* ``"ell_pallas"`` — the ELL gather kernel (ops/spmm_ell.py) over
+  ``pack_ell``;
+* ``"ell"``        — the plain PyTorch ELL engine, on any device;
+* ``"auto"``       — the pack's kernel: ``"mxu"``, ``"edge"``,
+  ``"ell_pallas"`` or ``"pallas"``.
 
 ``device`` is explicit. On a CUDA device the plan launches the kernels; on
 the CPU the same calls run their plain versions.
@@ -26,19 +31,39 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sextans_tpu_torch.format.pack import PackedSpMatrix
-from sextans_tpu_torch.format.pack_mxu import MSLAB, PackedSpMatrixMXU
-from sextans_tpu_torch.ops.launch import check_pack_indices, group_ranges
+from sextans_tpu_torch.format.pack import PackedSpMatrix, pack
+from sextans_tpu_torch.format.pack_edge import PackedSpMatrixEdge, pack_edge
+from sextans_tpu_torch.format.pack_ell import PackedSpMatrixELL, pack_ell
+from sextans_tpu_torch.format.pack_mxu import MSLAB, PackedSpMatrixMXU, pack_mxu
+from sextans_tpu_torch.ops.launch import (
+    check_edge_pack,
+    check_ell_pack,
+    check_pack_indices,
+    group_ranges,
+)
 from sextans_tpu_torch.ops.spmm_block import spmm_block_padded, spmm_block_padded_ref
+from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded
+from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded, spmm_ell_padded_ref
 from sextans_tpu_torch.ops.spmm_slab import (
     SKINNY_MAX_N,
     spmm_slab_padded,
     spmm_slab_skinny_padded,
 )
 
-__all__ = ["SpmmPlan", "BACKENDS", "resolve_device"]
+__all__ = ["SpmmPlan", "BACKENDS", "BACKEND_FORMATS", "PACKS", "resolve_device"]
 
-BACKENDS = ("auto", "pallas", "mxu", "xla")
+# backend -> (the packer that makes its format, the pack type it runs on);
+# "auto" picks the first backend listed for the pack's type
+BACKEND_FORMATS = {
+    "pallas": (pack, PackedSpMatrix),
+    "xla": (pack, PackedSpMatrix),
+    "mxu": (pack_mxu, PackedSpMatrixMXU),
+    "edge": (pack_edge, PackedSpMatrixEdge),
+    "ell_pallas": (pack_ell, PackedSpMatrixELL),
+    "ell": (pack_ell, PackedSpMatrixELL),
+}
+BACKENDS = ("auto", *BACKEND_FORMATS)
+PACKS = tuple(dict.fromkeys(kind for _, kind in BACKEND_FORMATS.values()))
 
 
 def resolve_device(device) -> torch.device:
@@ -48,57 +73,88 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _put(a, dtype, device):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+
 def _upload(packed, device: torch.device):
-    """Device copies of the packed arrays and group ranges, made once per
-    device and kept on the packed object."""
+    """Device copies of the packed arrays and, except for the ELL format, the
+    group ranges, made once per device and kept on the packed object.
+    Returns ``(arrays, ranges)``; ``ranges`` is None for the ELL format."""
     cache = packed.__dict__.setdefault("_dev_cache", {})
     key = str(device)
-    if key not in cache:
-        cfg = packed.config
+    if key in cache:
+        return cache[key]
+    if isinstance(packed, PackedSpMatrixELL):
+        check_ell_pack(packed)
+        arrays = (_put(packed.vals, np.float32, device),
+                  _put(packed.cols, np.int32, device),
+                  _put(packed.fold_rows, np.int32, device))
+        cache[key] = (arrays, None)
+        return cache[key]
+    if isinstance(packed, PackedSpMatrixEdge):
+        check_edge_pack(packed)
+        named = ((packed.vals, np.float32), (packed.meta, np.int32),
+                 (packed.chunk_mtile, np.int32), (packed.chunk_kwin, np.int32))
+    else:
         is_slab = isinstance(packed, PackedSpMatrixMXU)
         idx = packed.qm if is_slab else packed.qrow
-        check_pack_indices(
-            packed, idx, cfg.tile_m // (MSLAB if is_slab else 8)
-        )
-        tile_ptr, tile_groups = group_ranges(packed.group_mtile, packed.n_mtiles)
-
-        def put(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
-
-        arrays = (
-            put(packed.vals, np.float32),
-            put(idx, np.int32),
-            put(packed.bcol, np.int32),
-            put(packed.group_mtile, np.int32),
-            put(packed.group_kwin, np.int32),
-        )
-        ranges = (put(tile_ptr, np.int32), put(tile_groups, np.int32))
-        cache[key] = (arrays, ranges)
+        check_pack_indices(packed, idx, packed.config.tile_m // (MSLAB if is_slab else 8))
+        named = ((packed.vals, np.float32), (idx, np.int32),
+                 (packed.bcol, np.int32), (packed.group_mtile, np.int32),
+                 (packed.group_kwin, np.int32))
+    tile_ptr, tile_groups = group_ranges(packed.group_mtile, packed.n_mtiles)
+    arrays = tuple(_put(a, dtype, device) for a, dtype in named)
+    ranges = (_put(tile_ptr, np.int32, device), _put(tile_groups, np.int32, device))
+    cache[key] = (arrays, ranges)
     return cache[key]
+
+
+def _runner(packed, backend: str, n: int, ranges):
+    """The padded-operand function of ``backend``, with its static
+    arguments bound: ``run(*arrays, b_p, c_p, alpha, beta, with_c=...)``."""
+    cfg = packed.config
+    if backend in ("ell", "ell_pallas"):
+        fn = spmm_ell_padded_ref if backend == "ell" else spmm_ell_gather_padded
+        return functools.partial(fn, m_base=packed.m_base)
+    if backend == "edge":
+        return functools.partial(
+            spmm_edge_padded, tile_m=cfg.tile_m, window_k=cfg.window_k,
+            edge_chunk=cfg.edge_chunk, masked=cfg.edge_masked, ranges=ranges)
+    kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k,
+              block_k=cfg.block_k, group_blocks=cfg.group_blocks)
+    if backend == "xla":
+        return functools.partial(spmm_block_padded_ref, **kw)
+    kernel = (
+        spmm_block_padded if backend == "pallas"
+        else spmm_slab_skinny_padded if n <= SKINNY_MAX_N
+        else spmm_slab_padded
+    )
+    return functools.partial(kernel, ranges=ranges, **kw)
 
 
 class SpmmPlan:
     """SpMM executor for a fixed (packed A, N, backend, device)."""
 
     def __init__(self, packed, n: int, backend: str = "auto", *, device):
-        is_slab = isinstance(packed, PackedSpMatrixMXU)
-        if not is_slab and not isinstance(packed, PackedSpMatrix):
+        if type(packed) not in PACKS:
             raise TypeError(
-                f"SpmmPlan takes a PackedSpMatrix or PackedSpMatrixMXU, not "
+                "SpmmPlan takes a PackedSpMatrix, PackedSpMatrixMXU, "
+                f"PackedSpMatrixEdge or PackedSpMatrixELL, not "
                 f"{type(packed).__name__} (see format/convert.py for packs "
                 "made by sextans_tpu)"
             )
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
         if backend == "auto":
-            backend = "mxu" if is_slab else "pallas"
-        if is_slab != (backend == "mxu"):
+            backend = next(name for name, (_, kind) in BACKEND_FORMATS.items()
+                           if kind is type(packed))
+        if BACKEND_FORMATS[backend][1] is not type(packed):
             raise ValueError(
                 f"backend {backend!r} does not match packed format "
                 f"{type(packed).__name__}"
             )
-        cfg = packed.config
-        if int(cfg.precise) != 0:
+        if int(packed.config.precise) != 0:
             raise NotImplementedError(
                 "precise accumulation (SpmmConfig.precise=1/2) is not ported "
                 "yet: ROADMAP.md queue 1 item 6"
@@ -111,19 +167,7 @@ class SpmmPlan:
         self.n = n
         self.device = resolve_device(device)
         self.arrays, self.ranges = _upload(packed, self.device)
-
-        kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k,
-                  block_k=cfg.block_k, group_blocks=cfg.group_blocks)
-        if backend == "xla":
-            run = functools.partial(spmm_block_padded_ref, **kw)
-        else:
-            kernel = (
-                spmm_block_padded if backend == "pallas"
-                else spmm_slab_skinny_padded if n <= SKINNY_MAX_N
-                else spmm_slab_padded
-            )
-            run = functools.partial(kernel, ranges=self.ranges, **kw)
-        self._run = run
+        self._run = _runner(packed, backend, n, self.ranges)
 
         def as_index(p):
             return None if p is None else torch.as_tensor(
@@ -179,7 +223,8 @@ class SpmmPlan:
     def repeat(self, b, alpha=1.0, beta=0.0, c=None, times: int = 1) -> torch.Tensor:
         """Run the kernel ``times`` times on the current stream, feeding C
         back each time (the reference's rp_time loop). Padding and the row
-        permutation happen once, outside the loop."""
+        permutation happen once, outside the loop; the carry is the whole
+        padded C, virtual ELL rows included, as in the JAX package."""
         b_p = self.pad_b(b)
         if c is None:
             if float(beta) != 0.0:
@@ -189,4 +234,3 @@ class SpmmPlan:
         for _ in range(times):
             c_p = self._run(*self.arrays, b_p, c_p, alpha, beta)
         return self._unpad(c_p)
-

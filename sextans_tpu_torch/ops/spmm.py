@@ -16,23 +16,27 @@ import torch
 from sextans_tpu_torch.format.coo import COOMatrix
 from sextans_tpu_torch.format.csr import CSCMatrix, CSRMatrix
 from sextans_tpu_torch.format.pack import PackedSpMatrix, pack
+from sextans_tpu_torch.format.pack_edge import PackedSpMatrixEdge
+from sextans_tpu_torch.format.pack_ell import PackedSpMatrixELL
 from sextans_tpu_torch.format.pack_mxu import PackedSpMatrixMXU
-from sextans_tpu_torch.ops.plan import SpmmPlan, resolve_device
+from sextans_tpu_torch.ops.plan import PACKS, SpmmPlan, resolve_device
 from sextans_tpu_torch.utils.config import SpmmConfig
 
 __all__ = ["spmm", "prepare", "plan"]
-
-MatrixLike = Union[PackedSpMatrix, PackedSpMatrixMXU, COOMatrix, CSRMatrix, CSCMatrix]
+MatrixLike = Union[
+    PackedSpMatrix, PackedSpMatrixMXU, PackedSpMatrixEdge, PackedSpMatrixELL,
+    COOMatrix, CSRMatrix, CSCMatrix,
+]
 
 
 def prepare(a, config: Optional[SpmmConfig] = None):
     """Coerce any supported sparse container into a packed matrix.
 
-    A pack is returned as it is; COO, CSR, CSC, any ``scipy.sparse`` matrix
-    and dense 2-D NumPy arrays or tensors (exact zeros dropped) are packed
-    into the block format with ``config``.
+    A pack (block, slab, edge or ELL format) is returned as it is; COO, CSR,
+    CSC, any ``scipy.sparse`` matrix and dense 2-D NumPy arrays or tensors
+    (exact zeros dropped) are packed into the block format with ``config``.
     """
-    if isinstance(a, (PackedSpMatrix, PackedSpMatrixMXU)):
+    if isinstance(a, PACKS):
         return a
     cfg = config or SpmmConfig()
     if isinstance(a, (CSRMatrix, CSCMatrix)):
@@ -74,11 +78,12 @@ def spmm(
     ``a``: sparse (M, K) in any supported container (pack it once and pass
     the pack when calling repeatedly). ``b``: dense (K, N). ``c``: dense
     (M, N), required when ``beta != 0``. ``device``: where to run; by default
-    the device of ``b`` when it is a tensor, else the CPU.
+    the device of ``b`` when it is a tensor, else ``cuda``. The CPU runs only
+    when asked for, with ``device="cpu"`` or a CPU tensor ``b``.
     """
     packed = prepare(a, config)
     if device is None:
-        device = b.device if isinstance(b, torch.Tensor) else "cpu"
+        device = b.device if isinstance(b, torch.Tensor) else "cuda"
     if not isinstance(b, torch.Tensor):
         b = np.asarray(b, dtype=np.float32)
     k = packed.shape[1]

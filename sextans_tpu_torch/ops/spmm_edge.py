@@ -1,0 +1,173 @@
+"""SpMM over the edge-stream pack (format/pack_edge.py).
+
+``spmm_edge_padded`` is the twin of ``sextans_tpu.ops.spmm_edge_pallas``'s
+``spmm_edge_padded`` (kernel K4): on a CUDA tensor it launches the
+hand-written kernel in ``csrc/spmm_edge.cu``; on a CPU tensor it runs the
+plain PyTorch version ``spmm_edge_padded_ref``. Any other device raises.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from sextans_tpu_torch.format.pack_edge import COL_SHIFT, PAD_BIT, ROW_END, ROW_SHIFT
+from sextans_tpu_torch.ops.launch import (
+    COL_MASK,
+    add_rows_in_order,
+    check_dense,
+    f32,
+    fma_f32,
+    need,
+    stream_of,
+)
+from sextans_tpu_torch.runtime.build import build_kernels, check_launch
+
+__all__ = ["spmm_edge_padded", "spmm_edge_padded_ref"]
+
+# Bytes of one temporary (the edge products) per chunk of chunks of the plain
+# version: at cant_like N = 512 an unchunked gather would be ~8 GB.
+_REF_CHUNK_BYTES = 256 << 20
+
+
+def spmm_edge_padded_ref(
+    vals: torch.Tensor,  # (chunks, 1, E) f32
+    meta: torch.Tensor,  # (chunks, 1, E) i32
+    chunk_mtile: torch.Tensor,  # (chunks+1,) i32
+    chunk_kwin: torch.Tensor,  # (chunks,) i32
+    b_padded: torch.Tensor,  # (k_padded, n) f32
+    c_padded: torch.Tensor,  # (m_padded, n) f32
+    alpha: float,
+    beta: float,
+    *,
+    tile_m: int,
+    window_k: int,
+    edge_chunk: int,
+    masked: bool = False,
+    with_c: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version, rounding as the kernel does: decode the meta
+    words into (row, B row) indices; sum each row run (the edges up to and
+    including a ``row_end`` slot) with one fused multiply-add per edge, in
+    pack order, from zero; add the run sums into their rows in pack order;
+    then ``fma(alpha, acc, beta * C)``. With ``masked`` a pad slot is
+    skipped; without it, it adds ``0 * B``, which changes a sum only where B
+    is not finite. Works in chunks of chunks so that its temporaries stay
+    bounded."""
+    nc, E = vals.shape[0], edge_chunk
+    m_padded, n = c_padded.shape
+    device = vals.device
+    acc = torch.zeros((m_padded, n), dtype=torch.float32, device=device)
+    w = meta.view(nc, E).long()
+    row = chunk_mtile[:nc].long()[:, None] * tile_m + (w >> ROW_SHIFT)
+    brow = chunk_kwin.long()[:, None] * window_k + ((w >> COL_SHIFT) & COL_MASK)
+    end = (w & ROW_END) != 0
+    real = (w & PAD_BIT) == 0
+    # A run also stops at its chunk's last slot: the register does not
+    # outlive its chunk. The packer forces row_end there, except in the
+    # all-padding chunks of empty M-tiles, whose partial (zeros) is dropped.
+    stop = end.clone()
+    stop[:, -1] = True
+    # B rows whose 0 * B is not 0: only they make an unmasked pad count
+    nonfinite = ~torch.isfinite(b_padded).all(dim=1)
+    v = vals.view(nc, E)
+    step = max(1, _REF_CHUNK_BYTES // (4 * E * n))
+    for g0 in range(0, nc, step):
+        g1 = min(nc, g0 + step)
+        e_stop, e_real = stop[g0:g1].reshape(-1), real[g0:g1].reshape(-1)
+        e_v, e_b = v[g0:g1].reshape(-1), brow[g0:g1].reshape(-1)
+        run = torch.cumsum(e_stop, 0) - e_stop.long()
+        first = torch.ones_like(e_stop)
+        first[1:] = e_stop[:-1]
+        pos = torch.arange(run.numel(), device=device)
+        pos = pos - pos[first][run]  # place of each edge in its run
+        regs = torch.zeros((int(e_stop.sum()), n), dtype=torch.float32, device=device)
+        # the runs' p-th real edges, for p = 0, 1, ...: one multiply-add each
+        edges = torch.nonzero(e_real).squeeze(1)
+        edges = edges[torch.argsort(pos[edges], stable=True)]
+        counts = torch.bincount(pos[edges]).tolist() if edges.numel() else []
+        for sel in torch.split(edges, counts):
+            r = run[sel]
+            regs[r] = fma_f32(e_v[sel, None], b_padded[e_b[sel]], regs[r])
+        if not masked:
+            hit = ~e_real & nonfinite[e_b]
+            if bool(hit.any()):
+                regs.index_put_((run[hit],), 0.0 * b_padded[e_b[hit]], accumulate=True)
+        flush = end[g0:g1].reshape(-1)[e_stop]
+        add_rows_in_order(acc, row[g0:g1].reshape(-1)[e_stop][flush], regs[flush])
+    if not with_c:
+        return acc * f32(alpha)
+    return fma_f32(torch.full_like(acc, f32(alpha)), acc, c_padded * f32(beta))
+
+
+def _check_edge_operands(vals, meta, chunk_mtile, chunk_kwin, b_padded, c_padded,
+                         ranges, *, tile_m, window_k, edge_chunk, with_c):
+    device = vals.device
+    nc = vals.shape[0]
+    need(vals, "vals", torch.float32, (nc, 1, edge_chunk), device)
+    need(meta, "meta", torch.int32, (nc, 1, edge_chunk), device)
+    need(chunk_mtile, "chunk_mtile", torch.int32, (nc + 1,), device)
+    need(chunk_kwin, "chunk_kwin", torch.int32, (nc,), device)
+    m_padded, n = check_dense(b_padded, c_padded, tile_m=tile_m,
+                              window_k=window_k, with_c=with_c, device=device)
+    n_mtiles = m_padded // tile_m
+    need(ranges[0], "tile_ptr", torch.int32, (n_mtiles + 1,), device)
+    need(ranges[1], "tile_chunks", torch.int32, (nc,), device)
+    return m_padded, n, n_mtiles
+
+
+def spmm_edge_padded(
+    vals: torch.Tensor,
+    meta: torch.Tensor,
+    chunk_mtile: torch.Tensor,
+    chunk_kwin: torch.Tensor,
+    b_padded: torch.Tensor,
+    c_padded: torch.Tensor,
+    alpha: float,
+    beta: float,
+    *,
+    tile_m: int,
+    window_k: int,
+    edge_chunk: int,
+    ranges: Tuple[torch.Tensor, torch.Tensor],
+    masked: bool = False,
+    with_c: bool = True,
+) -> torch.Tensor:
+    """``alpha * A @ B + beta * C`` on padded operands; returns the padded
+    (m_padded, n) result.
+
+    ``ranges`` is ``(tile_ptr, tile_chunks)`` from
+    :func:`~sextans_tpu_torch.ops.launch.group_ranges` over ``chunk_mtile``,
+    on the same device; ``masked`` is ``SpmmConfig.edge_masked``;
+    ``with_c=False`` drops the C read and ``c_padded`` then gives the shape
+    only. The kernel walks edges one by one, so ``edge_lanes`` needs no
+    argument: it changes only where the pack puts its pads.
+    """
+    kw = dict(tile_m=tile_m, window_k=window_k, edge_chunk=edge_chunk,
+              with_c=with_c)
+    if vals.device.type == "cpu":
+        return spmm_edge_padded_ref(
+            vals, meta, chunk_mtile, chunk_kwin, b_padded, c_padded, alpha,
+            beta, masked=masked, **kw,
+        )
+    if vals.device.type != "cuda":
+        raise ValueError(f"spmm_edge runs on cpu or cuda, not {vals.device}")
+    m_padded, n, n_mtiles = _check_edge_operands(
+        vals, meta, chunk_mtile, chunk_kwin, b_padded, c_padded, ranges, **kw)
+    out = torch.empty((m_padded, n), dtype=torch.float32, device=vals.device)
+    lib = build_kernels()
+    with torch.cuda.device(vals.device):
+        err = lib.spmm_edge_launch(
+            vals.data_ptr(), meta.data_ptr(), chunk_kwin.data_ptr(),
+            ranges[0].data_ptr(), ranges[1].data_ptr(), b_padded.data_ptr(),
+            c_padded.data_ptr() if with_c else None, out.data_ptr(),
+            n_mtiles, n, tile_m, window_k, edge_chunk, float(alpha),
+            float(beta), int(with_c), int(masked), stream_of(vals.device),
+        )
+    check_launch(lib, "spmm_edge", err)
+    spmm_edge_padded.launches += 1
+    return out
+
+
+spmm_edge_padded.launches = 0

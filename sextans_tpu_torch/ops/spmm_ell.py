@@ -1,0 +1,168 @@
+"""SpMM over the ELL gather pack (format/pack_ell.py).
+
+``spmm_ell_gather_padded`` is the twin of ``sextans_tpu.ops.spmm_ell_pallas``'s
+``spmm_ell_gather_padded`` (kernel K5): on a CUDA tensor it launches the
+hand-written kernel in ``csrc/spmm_ell.cu`` and then folds the virtual hub
+rows in PyTorch; on a CPU tensor it runs the plain PyTorch version
+``spmm_ell_gather_padded_ref``. Any other device raises.
+
+``spmm_ell_padded_ref`` is the plain twin of
+``sextans_tpu.ops.spmm_ell_xla.spmm_ell_padded``, the engine of backend
+``"ell"`` on any device. The two engines differ where the JAX package's do:
+
+* ``ell`` multiplies every slot, pads included (``0 * B[0]``, NaN for a
+  non-finite ``B[0]``), folds the virtual rows into ``A @ B`` and then
+  applies ``alpha``/``beta``;
+* ``ell_pallas`` selects out every slot whose value is 0, applies
+  ``alpha``/``beta`` to every padded row, virtual rows included, and then
+  folds ``out[m_base + j] - beta * C[m_base + j]`` into ``fold_rows[j]``,
+  which stays exact when C is the live carry of ``SpmmPlan.repeat``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sextans_tpu_torch.ops.launch import add_rows_in_order, f32, fma_f32, need, stream_of
+from sextans_tpu_torch.runtime.build import build_kernels, check_launch
+
+__all__ = ["spmm_ell_gather_padded", "spmm_ell_gather_padded_ref", "spmm_ell_padded_ref"]
+
+# Bytes of one (rows, n) temporary per step of the plain versions.
+_REF_CHUNK_BYTES = 256 << 20
+
+
+def _row_steps(m_padded: int, n: int):
+    step = max(1, _REF_CHUNK_BYTES // (4 * n))
+    return ((r0, min(m_padded, r0 + step)) for r0 in range(0, m_padded, step))
+
+
+def spmm_ell_padded_ref(
+    vals: torch.Tensor,  # (m_padded, R) f32
+    cols: torch.Tensor,  # (m_padded, R) i32
+    fold_rows: torch.Tensor,  # (n_virt,) i32
+    b_padded: torch.Tensor,  # (k, n) f32
+    c_padded: torch.Tensor,  # (m_padded, n) f32
+    alpha: float,
+    beta: float,
+    *,
+    m_base: int,
+    with_c: bool = True,
+) -> torch.Tensor:
+    """Plain gather engine (backend ``"ell"``): ``AB[i] = sum_r vals[i, r] *
+    B[cols[i, r]]`` in slot order, pads multiplied; the virtual rows folded
+    into ``AB`` (duplicates in order); then ``alpha * AB + beta * C``."""
+    m_padded, r_slots = vals.shape
+    n = b_padded.shape[1]
+    ab = torch.empty((m_padded, n), dtype=torch.float32, device=vals.device)
+    for r0, r1 in _row_steps(m_padded, n):
+        v, cl = vals[r0:r1], cols[r0:r1].long()
+        acc = v[:, 0, None] * b_padded[cl[:, 0]]
+        for r in range(1, r_slots):
+            acc = acc + v[:, r, None] * b_padded[cl[:, r]]
+        ab[r0:r1] = acc
+    n_virt = fold_rows.shape[0]
+    if n_virt:
+        add_rows_in_order(ab, fold_rows.long(), ab[m_base:m_base + n_virt].clone())
+    out = ab * f32(alpha)
+    return out + c_padded * f32(beta) if with_c else out
+
+
+def _fold(out, fold_rows, c_padded, beta, *, m_base, with_c):
+    """``out[fold_rows[j]] += out[m_base + j] - beta * C[m_base + j]`` (the
+    beta term only with C), in place, duplicates in order."""
+    n_virt = fold_rows.shape[0]
+    if not n_virt:
+        return out
+    virt = out[m_base:m_base + n_virt]
+    add = virt - c_padded[m_base:m_base + n_virt] * f32(beta) if with_c else virt.clone()
+    add_rows_in_order(out, fold_rows.long(), add)
+    return out
+
+
+def spmm_ell_gather_padded_ref(
+    vals: torch.Tensor,
+    cols: torch.Tensor,
+    fold_rows: torch.Tensor,
+    b_padded: torch.Tensor,
+    c_padded: torch.Tensor,
+    alpha: float,
+    beta: float,
+    *,
+    m_base: int,
+    with_c: bool = True,
+) -> torch.Tensor:
+    """Plain version of K5 (backend ``"ell_pallas"`` on the CPU), rounding as
+    the kernel does: one fused multiply-add per slot in slot order from zero,
+    value-0 slots selected out; ``fma(alpha, acc, beta * C)`` on every padded
+    row; then the hub fold that strips the virtual rows' ``beta * C`` term."""
+    m_padded, r_slots = vals.shape
+    n = b_padded.shape[1]
+    acc = torch.zeros((m_padded, n), dtype=torch.float32, device=vals.device)
+    for r0, r1 in _row_steps(m_padded, n):
+        v, cl = vals[r0:r1, :, None], cols[r0:r1].long()
+        a = acc[r0:r1]
+        for r in range(r_slots):
+            a = torch.where(v[:, r] != 0, fma_f32(v[:, r], b_padded[cl[:, r]], a), a)
+        acc[r0:r1] = a
+    if with_c:
+        out = fma_f32(torch.full_like(acc, f32(alpha)), acc, c_padded * f32(beta))
+    else:
+        out = acc * f32(alpha)
+    return _fold(out, fold_rows, c_padded, beta, m_base=m_base, with_c=with_c)
+
+
+def spmm_ell_gather_padded(
+    vals: torch.Tensor,
+    cols: torch.Tensor,
+    fold_rows: torch.Tensor,
+    b_padded: torch.Tensor,
+    c_padded: torch.Tensor,
+    alpha: float,
+    beta: float,
+    *,
+    m_base: int,
+    with_c: bool = True,
+) -> torch.Tensor:
+    """``alpha * A @ B + beta * C`` on padded operands, any n; returns the
+    padded (m_padded, n) result, virtual rows included and already folded
+    into their real rows. ``with_c=False`` drops the C read and ``c_padded``
+    then gives the shape only."""
+    kw = dict(m_base=m_base, with_c=with_c)
+    if vals.device.type == "cpu":
+        return spmm_ell_gather_padded_ref(
+            vals, cols, fold_rows, b_padded, c_padded, alpha, beta, **kw)
+    if vals.device.type != "cuda":
+        raise ValueError(f"spmm_ell runs on cpu or cuda, not {vals.device}")
+    device = vals.device
+    m_padded, r_slots = vals.shape
+    need(vals, "vals", torch.float32, (m_padded, r_slots), device)
+    need(cols, "cols", torch.int32, (m_padded, r_slots), device)
+    need(fold_rows, "fold_rows", torch.int32, (fold_rows.shape[0],), device)
+    if b_padded.dim() != 2 or b_padded.shape[1] == 0:
+        raise ValueError("b_padded must be 2-D with at least one column")
+    k, n = b_padded.shape
+    need(b_padded, "b_padded", torch.float32, (k, n), device)
+    if with_c:
+        need(c_padded, "c_padded", torch.float32, (m_padded, n), device)
+    elif tuple(c_padded.shape) != (m_padded, n):
+        raise ValueError(f"c_padded must have shape {(m_padded, n)}")
+    if m_base + fold_rows.shape[0] > m_padded:
+        raise ValueError("the virtual hub rows run past m_padded")
+    out = torch.empty((m_padded, n), dtype=torch.float32, device=device)
+    dense = (b_padded, out) + ((c_padded,) if with_c else ())
+    vec = 4 if n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in dense) else 1
+    lib = build_kernels()
+    with torch.cuda.device(device):
+        err = lib.spmm_ell_launch(
+            vals.data_ptr(), cols.data_ptr(), b_padded.data_ptr(),
+            c_padded.data_ptr() if with_c else None, out.data_ptr(),
+            m_padded, r_slots, n, float(alpha), float(beta), int(with_c), vec,
+            stream_of(device),
+        )
+    check_launch(lib, "spmm_ell", err)
+    spmm_ell_gather_padded.launches += 1
+    return _fold(out, fold_rows, c_padded, beta, **kw)
+
+
+spmm_ell_gather_padded.launches = 0

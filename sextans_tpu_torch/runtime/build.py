@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels.
 
 At first use, every ``sextans_tpu_torch/csrc/*.cu`` is compiled by ``nvcc``
-for Hopper (``sm_90a``) into one shared library with a plain C interface,
-written to ``sextans_tpu_torch/build/`` under a name keyed by a hash of the
-sources and flags, and loaded with ``ctypes``. A later call, or another
-process, with the same sources loads the same file without compiling.
+for Hopper (``sm_90a``), one ``nvcc -c`` per source, all started together,
+and the objects are linked into one shared library with a plain C
+interface, written to ``sextans_tpu_torch/build/`` under a name keyed by a
+hash of the sources and flags, and loaded with ``ctypes``. A later call, or
+another process, with the same sources loads the same file without
+compiling.
 
 There is no fallback: without ``nvcc`` this raises ``RuntimeError``, and a
 failed compile raises with the compiler's output.
@@ -29,7 +31,7 @@ BUILD_DIR = PACKAGE_DIR / "build"
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -46,6 +48,11 @@ _SIGNATURES = {
     # alpha beta with_c stream
     "spmm_slab_launch": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
     "spmm_slab_skinny_launch": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
+    # vals meta chunk_kwin tile_ptr tile_chunks b c out
+    # n_mtiles n tile_m window_k edge_chunk alpha beta with_c masked stream
+    "spmm_edge_launch": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _P],
+    # vals cols b c out m_padded r_slots n alpha beta with_c vec stream
+    "spmm_ell_launch": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _I, _P],
     "sx_error_string": [_I],
 }
 
@@ -79,6 +86,20 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> None:
+    """Start every command of ``cmds`` at once and wait for all; raise with
+    the compiler's output if any failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 @functools.lru_cache(maxsize=None)
 def build_kernels() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library; cached per process."""
@@ -86,23 +107,15 @@ def build_kernels() -> ctypes.CDLL:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"libsextans_kernels_{_source_hash()}.so"
     if not lib_path.exists():
-        # Build under a unique name, then rename: a concurrent process
+        # Build in a private directory, then rename: a concurrent process
         # building the same sources never sees a half-written library.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp,
-                   *map(str, _sources())]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, lib_path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+            _run_all([nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(obj), str(src)]
+                     for src, obj in zip(_sources(), objs))
+            so = Path(tmp) / "lib.so"
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(so), *map(str, objs)]])
+            os.replace(so, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -43,8 +43,14 @@ class SpmmConfig:
       are interchangeable; the CUDA kernels ignore them.
     * ``precise`` — compensated accumulation (0 off, 1 Neumaier + df32
       epilogue, 2 full error-free inner chain). Only 0 runs in this package.
-    * ``edge_chunk``, ``edge_lanes``, ``ell_r``, ``edge_masked`` — knobs of
-      the edge and ELL formats, which this package does not run yet.
+    * ``edge_chunk`` — edges per chunk of the edge format (format/pack_edge.py).
+    * ``edge_lanes`` — the edge pack pads each row run to a multiple of it
+      (the TPU kernel's independent registers); the CUDA edge kernel walks
+      edges one by one, so it changes only the padding, not the result.
+    * ``edge_masked`` — the edge kernel selects pad slots out instead of
+      adding ``0 * B`` (IEEE-clean for a non-finite B).
+    * ``ell_r`` — slots per row of the ELL format (format/pack_ell.py);
+      None lets ``pack_ell`` choose.
     """
 
     tile_m: int = 512

@@ -1,0 +1,206 @@
+"""The port's edge-stream engine against the JAX package's, on the CPU.
+
+The same edge pack (packed by ``sextans_tpu`` and carried over with
+``from_reference``), B, C, alpha = 0.85 and beta = -2.06 go through the
+port's ``edge`` backend (on CPU tensors, the plain version
+``spmm_edge_padded_ref``) and the JAX package's ``edge_interpret`` backend
+(the Pallas kernel K4 in interpret mode). Tolerance: ``max|port - jax| <= 4 *
+spacing(f32(max|C_f64|))``, with both passing ``verify`` against the f64
+oracle: both sides sum the same f32 products per row run and add the runs in
+pack order, with and without fused multiply-adds.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import sextans_tpu_torch as tx
+from sextans_tpu.format.coo import COOMatrix as RefCOO
+from sextans_tpu.format.csr import CSRMatrix as RefCSR
+from sextans_tpu.format.pack_edge import pack_edge as ref_pack_edge
+from sextans_tpu.ops.golden import golden_spmm_exact
+from sextans_tpu.ops.plan import SpmmPlan as RefPlan
+from sextans_tpu.utils.config import SpmmConfig as RefConfig
+from sextans_tpu_torch.format.convert import from_reference
+from sextans_tpu_torch.ops.launch import check_edge_pack, group_ranges
+from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded, spmm_edge_padded_ref
+
+ALPHA, BETA = 0.85, -2.06
+CFG = dict(tile_m=64, window_k=64, edge_chunk=32)
+
+
+def _dense_rows():
+    # three long rows straddle several chunks; a sprinkle of short rows
+    rng = np.random.default_rng(6)
+    rows = np.concatenate([np.repeat([1, 2, 70], 90), rng.integers(0, 150, 120)])
+    cols = np.concatenate([np.tile(rng.permutation(120)[:90], 3),
+                           rng.integers(0, 120, 120)])
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    return RefCOO((150, 120), rows, cols, vals)
+
+
+MATRICES = {
+    "random": lambda: RefCOO.random(150, 130, 500, seed=1),
+    "dense_rows": _dense_rows,
+    "empty_mtiles": lambda: RefCOO((200, 90), np.arange(40) % 30,
+                                   np.arange(40) * 2 % 90,
+                                   np.linspace(-1, 1, 40).astype(np.float32)),
+}
+
+
+def _operands(m, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((k, n)).astype(np.float32),
+            rng.standard_normal((m, n)).astype(np.float32))
+
+
+def _tol(x):
+    return 4 * np.spacing(np.float32(np.abs(x).max()))
+
+
+def _packs(coo, **kw):
+    pk = dict(reorder_cols=kw.pop("reorder_cols", False),
+              reorder_rows_=kw.pop("reorder_rows_", False))
+    ref = ref_pack_edge(coo, RefConfig(**CFG, **kw), impl="numpy", **pk)
+    return ref, from_reference(ref)
+
+
+@pytest.mark.parametrize(
+    "matrix,n,lanes,reorder,with_c",
+    [
+        ("random", 24, 1, False, True),
+        ("random", 13, 4, False, True),
+        ("dense_rows", 16, 1, False, True),
+        ("dense_rows", 8, 4, False, False),
+        ("empty_mtiles", 24, 2, False, True),
+        ("random", 16, 1, True, True),
+    ],
+)
+def test_edge_matches_jax_interpret(matrix, n, lanes, reorder, with_c):
+    coo = MATRICES[matrix]()
+    ref, port = _packs(coo, edge_lanes=lanes, reorder_cols=reorder, reorder_rows_=reorder)
+    b, c = _operands(*coo.shape, n)
+    beta, cin = (BETA, c) if with_c else (0.0, None)
+    want = np.asarray(RefPlan(ref, n, backend="edge_interpret")(b, ALPHA, beta, cin))
+    got = tx.plan(port, n, "edge", device="cpu")(b, ALPHA, beta, cin)
+    assert got.device.type == "cpu" and got.shape == (coo.shape[0], n)
+    got = got.numpy()
+    exact = golden_spmm_exact(RefCSR.from_coo(coo), b, ALPHA, beta, cin)
+    assert tx.verify(exact, got).passed and tx.verify(exact, want).passed
+    assert np.abs(got - want).max() <= _tol(exact)
+    assert np.abs(got - exact).max() <= _tol(exact)
+
+
+def test_edge_lanes_change_only_padding():
+    coo = MATRICES["dense_rows"]()
+    b, c = _operands(*coo.shape, 16, seed=2)
+    outs = []
+    for lanes in (1, 2, 4, 8):
+        _, port = _packs(coo, edge_lanes=lanes)
+        outs.append(tx.plan(port, 16, "edge", device="cpu")(b, ALPHA, BETA, c).numpy())
+    exact = golden_spmm_exact(RefCSR.from_coo(coo), b, ALPHA, BETA, c)
+    for out in outs:
+        assert np.abs(out - outs[0]).max() <= _tol(exact)
+        assert np.abs(out - exact).max() <= _tol(exact)
+
+
+def test_edge_repeat_matches_jax():
+    coo = MATRICES["random"]()
+    ref, port = _packs(coo, edge_lanes=2, reorder_rows_=True)
+    b, c = _operands(*coo.shape, 16, seed=4)
+    want = np.asarray(RefPlan(ref, 16, backend="edge_interpret")
+                      .repeat(b, ALPHA, BETA, c, times=3))
+    pl = tx.plan(port, 16, "edge", device="cpu")
+    got = pl.repeat(b, ALPHA, BETA, c, times=3).numpy()
+    assert np.abs(got - want).max() <= _tol(want)
+    step = c
+    for _ in range(3):
+        step = pl(b, ALPHA, BETA, step).numpy()
+    assert np.abs(got - step).max() <= _tol(step)
+
+
+def test_edge_empty_matrix_gives_beta_c():
+    empty = RefCOO((100, 70), np.empty(0, np.int64), np.empty(0, np.int64),
+                   np.empty(0, np.float32))
+    ref, port = _packs(empty)
+    assert port.n_chunks == port.n_mtiles == 2
+    b, c = _operands(100, 70, 8)
+    b[0] = np.inf  # the all-padding chunks never flush, so nothing leaks
+    got = tx.plan(port, 8, "edge", device="cpu")(b, ALPHA, BETA, c).numpy()
+    assert got.tobytes() == (c * np.float32(BETA)).tobytes()
+    want = np.asarray(RefPlan(ref, 8, backend="edge_interpret")(b, ALPHA, BETA, c))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_edge_masked_pads_and_nonfinite_b(masked):
+    # rows and columns from 1 on: only pad slots read B's row 0
+    rng = np.random.default_rng(3)
+    m, k, n = 64, 96, 16
+    rows = rng.integers(1, m, 300)
+    cols = rng.integers(1, k, 300)
+    vals = rng.standard_normal(300).astype(np.float32)
+    vals[vals == 0] = 1.0
+    coo = RefCOO((m, k), rows, cols, vals)
+    cfg = dict(tile_m=32, window_k=32, edge_chunk=64)
+    ref = ref_pack_edge(coo, RefConfig(**cfg, edge_lanes=2, edge_masked=masked),
+                        impl="numpy")
+    port = from_reference(ref)
+    assert port.config.edge_masked == masked
+    b, c = _operands(m, k, n, seed=5)
+    b[0] = np.inf
+    want = np.asarray(RefPlan(ref, n, backend="edge_interpret")(b, ALPHA, BETA, c))
+    got = tx.plan(port, n, "edge", device="cpu")(b, ALPHA, BETA, c).numpy()
+    b_clean = b.copy()
+    b_clean[0] = 0.0
+    exact = golden_spmm_exact(RefCSR.from_coo(coo), b_clean, ALPHA, BETA, c)
+    finite, jax_finite = np.isfinite(got), np.isfinite(want)
+    assert finite.all() == masked == jax_finite.all()
+    # Unmasked, a pad's 0 * Inf poisons its own row run here; the TPU
+    # kernel's multiplicative register reset (0 * NaN) also carries it into
+    # the later runs of the chunk, so it has at least these NaN rows.
+    assert not (~finite & jax_finite).any()
+    both = finite & jax_finite
+    assert np.abs(got[both] - want[both]).max() <= _tol(exact)
+    assert np.abs(got[finite] - exact[finite]).max() <= _tol(exact)
+    if masked:
+        assert tx.verify(exact, got).passed
+
+
+def test_edge_wrapper_runs_plain_version_on_cpu():
+    coo = MATRICES["dense_rows"]()
+    _, port = _packs(coo)
+    pl = tx.plan(port, 24, "edge", device="cpu")
+    b, c = _operands(*coo.shape, 24)
+    b_p, c_p = pl.pad_b(b), pl.pad_c(c)
+    kw = dict(tile_m=CFG["tile_m"], window_k=CFG["window_k"],
+              edge_chunk=CFG["edge_chunk"])
+    via = spmm_edge_padded(*pl.arrays, b_p, c_p, ALPHA, BETA, ranges=pl.ranges, **kw)
+    ref = spmm_edge_padded_ref(*pl.arrays, b_p, c_p, ALPHA, BETA, **kw)
+    assert torch.equal(via, ref)
+    tile_ptr, tile_chunks = group_ranges(port.chunk_mtile, port.n_mtiles)
+    assert [t.tolist() for t in pl.ranges] == [tile_ptr.tolist(), tile_chunks.tolist()]
+    meta = torch.empty((1, 1, 8), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        spmm_edge_padded(meta, meta, meta, meta, meta, meta, 1.0, 0.0,
+                         ranges=(meta, meta), tile_m=8, window_k=8, edge_chunk=8)
+
+
+@pytest.mark.parametrize(
+    "field,mutate,match",
+    [
+        ("meta", lambda a: a.__setitem__((0, 0, 0), 70 << 17), "row"),
+        ("meta", lambda a: a.__setitem__((0, 0, 0), 65 << 2), "column"),
+        ("chunk_kwin", lambda a: a.__setitem__(0, 9), "K-window"),
+        ("chunk_mtile", lambda a: a.__setitem__(-1, 0), "sentinel"),
+    ],
+)
+def test_edge_pack_bounds_checked_before_upload(field, mutate, match):
+    _, port = _packs(MATRICES["random"]())
+    arr = getattr(port, field).copy()
+    mutate(arr)
+    setattr(port, field, arr)
+    with pytest.raises(ValueError, match=match):
+        check_edge_pack(port)
+    with pytest.raises(ValueError, match=match):
+        tx.SpmmPlan(port, 8, "edge", device="cpu")

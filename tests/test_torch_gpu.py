@@ -16,6 +16,8 @@ import torch
 
 import sextans_tpu_torch as tx
 from sextans_tpu_torch.ops.spmm_block import spmm_block_padded, spmm_block_padded_ref
+from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded, spmm_edge_padded_ref
+from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded, spmm_ell_gather_padded_ref
 from sextans_tpu_torch.ops.spmm_slab import (
     spmm_slab_padded,
     spmm_slab_padded_ref,
@@ -92,13 +94,117 @@ def test_slab_skinny_kernel_matches_plain(cuda, kind, n):
            tx.pack_mxu(_matrix(kind), cfg), n, with_c=n != 8)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "mxu", "xla"])
+def _hub_matrix():
+    # rows 5 and 600 hold 300 nonzeros each: at R = 8 they spill into
+    # virtual rows that the fold adds back
+    rng = np.random.default_rng(5)
+    rows = np.concatenate([np.full(300, 5), np.full(300, 600), rng.integers(0, 1030, 4000)])
+    cols = rng.integers(0, 777, rows.size)
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    return tx.COOMatrix((1030, 777), rows, cols, vals)
+
+
+def _check_new(kernel, plain, cuda, packed, backend, n, with_c, nonfinite_b=False):
+    pl = tx.plan(packed, n, backend, device=cuda)
+    rng = np.random.default_rng(n)
+    b_host = rng.standard_normal((packed.k, n)).astype(np.float32)
+    if nonfinite_b:
+        b_host[0] = np.inf  # read only by pad slots: A has no column 0
+    b = pl.pad_b(b_host)
+    c = pl.pad_c(rng.standard_normal((packed.m, n)).astype(np.float32))
+    if not with_c:
+        c = torch.zeros(1, device=cuda).expand(packed.m_padded, n)
+    cfg = packed.config
+    if backend == "edge":
+        kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k,
+                  edge_chunk=cfg.edge_chunk, masked=cfg.edge_masked, with_c=with_c)
+        extra = dict(ranges=pl.ranges)
+    else:
+        kw, extra = dict(m_base=packed.m_base, with_c=with_c), {}
+    before = kernel.launches
+    got = kernel(*pl.arrays, b, c, ALPHA, BETA, **kw, **extra)
+    want = plain(*pl.arrays, b, c, ALPHA, BETA, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.shape == want.shape == (packed.m_padded, n) and got.device == cuda
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    tol = 4 * np.spacing(np.float32(want.abs().max().item()))
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("kind", ["banded", "empty_mtiles"])
+@pytest.mark.parametrize("n", [1, 13, 64, 200])
+@pytest.mark.parametrize("lanes", [1, 4])
+def test_edge_kernel_matches_plain(cuda, kind, n, lanes):
+    cfg = tx.SpmmConfig(tile_m=256, window_k=256, edge_chunk=136, edge_lanes=lanes)
+    _check_new(spmm_edge_padded, spmm_edge_padded_ref, cuda,
+               tx.pack_edge(_matrix(kind), cfg), "edge", n, with_c=n != 13)
+
+
+@pytest.mark.parametrize("n", [1, 13, 64])
+def test_edge_kernel_masked_pads_with_nonfinite_b(cuda, n):
+    coo = _matrix("banded")
+    keep = coo.cols != 0
+    coo = tx.COOMatrix(coo.shape, coo.rows[keep], coo.cols[keep], coo.vals[keep])
+    cfg = tx.SpmmConfig(tile_m=128, window_k=512, edge_chunk=64, edge_lanes=4,
+                        edge_masked=True)
+    _check_new(spmm_edge_padded, spmm_edge_padded_ref, cuda, tx.pack_edge(coo, cfg),
+               "edge", n, with_c=True, nonfinite_b=True)
+
+
+def test_edge_kernel_empty_matrix_gives_beta_c(cuda):
+    empty = tx.COOMatrix((300, 200), [], [], [])
+    packed = tx.pack_edge(empty, tx.SpmmConfig(tile_m=128, window_k=128, edge_chunk=64))
+    c = np.random.default_rng(0).standard_normal((300, 24)).astype(np.float32)
+    got = tx.plan(packed, 24, "edge", device=cuda)(np.ones((200, 24), np.float32),
+                                                    ALPHA, BETA, c)
+    assert torch.equal(got.cpu(), torch.from_numpy(c) * np.float32(BETA))
+
+
+@pytest.mark.parametrize("kind", ["banded", "empty_mtiles", "hub_rows"])
+@pytest.mark.parametrize("n", [1, 13, 64, 200])
+def test_ell_kernel_matches_plain(cuda, kind, n):
+    coo = _hub_matrix() if kind == "hub_rows" else _matrix(kind)
+    packed = tx.pack_ell(coo, tx.SpmmConfig(tile_m=64), slots_per_row=8)
+    if kind == "hub_rows":
+        assert packed.n_virt > 60
+    _check_new(spmm_ell_gather_padded, spmm_ell_gather_padded_ref, cuda, packed,
+               "ell_pallas", n, with_c=n != 13)
+
+
+@pytest.mark.parametrize("n", [13, 64])
+def test_ell_kernel_selects_out_pads_with_nonfinite_b(cuda, n):
+    coo = _matrix("banded")
+    keep = coo.cols != 0
+    coo = tx.COOMatrix(coo.shape, coo.rows[keep], coo.cols[keep], coo.vals[keep])
+    _check_new(spmm_ell_gather_padded, spmm_ell_gather_padded_ref, cuda,
+               tx.pack_ell(coo, tx.SpmmConfig(tile_m=64), slots_per_row=32),
+               "ell_pallas", n, with_c=True, nonfinite_b=True)
+
+
+def test_ell_repeat_on_card_matches_cpu(cuda):
+    packed = tx.pack_ell(_hub_matrix(), tx.SpmmConfig(tile_m=64), slots_per_row=4)
+    rng = np.random.default_rng(2)
+    b = rng.standard_normal((777, 48)).astype(np.float32)
+    c = rng.standard_normal((1030, 48)).astype(np.float32)
+    on_card = tx.plan(packed, 48, "ell_pallas", device=cuda).repeat(b, ALPHA, BETA, c, times=3)
+    on_cpu = tx.plan(packed, 48, "ell_pallas", device="cpu").repeat(b, ALPHA, BETA, c, times=3)
+    tol = 4 * np.spacing(np.float32(on_cpu.abs().max().item()))
+    assert (on_card.cpu() - on_cpu).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("backend", ["pallas", "mxu", "xla", "edge", "ell", "ell_pallas"])
 @pytest.mark.parametrize("n", [16, 96])
 def test_plan_on_card_matches_cpu(cuda, backend, n):
     coo = _matrix("banded")
     cfg = tx.SpmmConfig(tile_m=256, window_k=256, block_k=8, group_blocks=16)
-    packed = tx.pack_mxu(coo, cfg, reorder_rows_=True) if backend == "mxu" \
+    packed = (
+        tx.pack_mxu(coo, cfg, reorder_rows_=True) if backend == "mxu"
+        else tx.pack_edge(coo, cfg, reorder_cols=True, reorder_rows_=True)
+        if backend == "edge"
+        else tx.pack_ell(coo, cfg) if backend in ("ell", "ell_pallas")
         else tx.pack(coo, cfg, reorder_cols=True)
+    )
     rng = np.random.default_rng(1)
     b = rng.standard_normal((coo.shape[1], n)).astype(np.float32)
     c = rng.standard_normal((coo.shape[0], n)).astype(np.float32)

@@ -2,9 +2,11 @@
 with nvcc and never fall back, and what it does not run yet raises."""
 
 import ctypes
+import importlib.util
 import re
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -70,15 +72,57 @@ def test_failed_compile_raises_and_leaves_no_library(monkeypatch, tmp_path):
 
 
 def test_build_flags_target_hopper_and_hash_sources():
-    flags = " ".join(build.NVCC_FLAGS)
-    assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
-    assert {p.name for p in build._sources()} == {"spmm_block.cu", "spmm_slab.cu"}
+    assert "arch=compute_90a,code=sm_90a" in " ".join(build.NVCC_FLAGS)
+    assert {p.name for p in build._sources()} == {
+        "spmm_block.cu", "spmm_slab.cu", "spmm_edge.cu", "spmm_ell.cu"}
     assert build._source_hash() == build._source_hash()
     # every pointer and the stream are c_void_p, so none is cut to 32 bits
-    for name, argtypes in build._SIGNATURES.items():
-        if name.endswith("_launch"):
-            assert argtypes[:9] == [ctypes.c_void_p] * 9 and argtypes[-1] is ctypes.c_void_p
-            assert argtypes.count(ctypes.c_float) == 2
+    pointers = {"spmm_block_launch": 9, "spmm_slab_launch": 9,
+                "spmm_slab_skinny_launch": 9, "spmm_edge_launch": 8,
+                "spmm_ell_launch": 5}
+    launches = [name for name in build._SIGNATURES if name.endswith("_launch")]
+    assert sorted(launches) == sorted(pointers)
+    for name in launches:
+        argtypes = build._SIGNATURES[name]
+        p = pointers[name]
+        assert argtypes[:p] == [ctypes.c_void_p] * p and argtypes[-1] is ctypes.c_void_p
+        assert ctypes.c_void_p not in argtypes[p:-1]
+        assert argtypes.count(ctypes.c_float) == 2
+
+
+def test_each_source_is_compiled_by_its_own_nvcc(monkeypatch, tmp_path):
+    calls = []
+
+    class FakeProc:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            calls.append(cmd)
+            if "-o" in cmd:
+                Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+
+        def communicate(self):
+            return "", ""
+
+    monkeypatch.setattr(build.shutil, "which", lambda name: "/nvcc")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build.subprocess, "Popen", FakeProc)
+    # the library "loaded": one plain object per C entry point
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: types.SimpleNamespace(
+        **{name: types.SimpleNamespace() for name in build._SIGNATURES}))
+    build.build_kernels.cache_clear()
+    try:
+        lib = build.build_kernels()
+    finally:
+        build.build_kernels.cache_clear()
+    assert lib.spmm_edge_launch.argtypes == build._SIGNATURES["spmm_edge_launch"]
+    compiles, link = calls[:-1], calls[-1]
+    assert sorted(Path(c[-1]).name for c in compiles) == sorted(
+        p.name for p in build._sources())
+    assert all("-c" in c and "-shared" not in c for c in compiles)
+    assert "-shared" in link and sum(a.endswith(".o") for a in link) == len(compiles)
+    assert [p.name for p in (tmp_path / "build").iterdir()] == [
+        f"libsextans_kernels_{build._source_hash()}.so"]
 
 
 def test_check_launch_raises_on_cuda_error():
@@ -101,12 +145,31 @@ def test_cuda_device_has_no_cpu_fallback():
 
 
 @pytest.mark.parametrize("precise", [1, 2])
-@pytest.mark.parametrize("fmt", ["block", "slab"])
+@pytest.mark.parametrize("fmt", ["block", "slab", "edge", "ell"])
 def test_precise_raises_not_implemented(precise, fmt):
     coo = tx.COOMatrix.random(200, 200, 900, seed=precise)
     cfg = tx.SpmmConfig(tile_m=128, window_k=128, precise=precise)
-    packed = tx.pack_mxu(coo, cfg) if fmt == "slab" else tx.pack(coo, cfg)
+    packer = {"block": tx.pack, "slab": tx.pack_mxu, "edge": tx.pack_edge,
+              "ell": tx.pack_ell}[fmt]
+    packed = packer(coo, cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
         tx.plan(packed, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tx.spmm(packed, np.ones((200, 16), np.float32), device="cpu")
+
+
+def test_smoke_bound_and_no_card_refusal(capsys):
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    # cant_like at N = 512: 30 MB of A, 128 MB of B, 2 x 128 MB of C
+    ms, by = smoke.bound(3781404, 62451, 62451, 512)
+    assert by == "bytes"
+    assert ms == pytest.approx((8 * 3781404 + 12 * 62451 * 512) / 3.35e12 * 1e3)
+    ms, by = smoke.bound(10**9, 8, 8, 4096)  # dense work on tiny B and C
+    assert by == "operations" and ms == pytest.approx(2 * 10**9 * 4096 / 67e12 * 1e3)
+    if torch.cuda.is_available():
+        pytest.skip("checks a host without a CUDA device")
+    assert smoke.main() == 2
+    captured = capsys.readouterr()
+    assert "is_available() is False" in captured.err and captured.out == ""

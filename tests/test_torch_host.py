@@ -16,6 +16,10 @@ import sextans_tpu_torch as tx
 from sextans_tpu.format.coo import COOMatrix as RefCOO
 from sextans_tpu.format.csr import CSRMatrix as RefCSR
 from sextans_tpu.format.pack import pack as ref_pack
+from sextans_tpu.format.pack_edge import PackedSpMatrixEdge as RefEdge
+from sextans_tpu.format.pack_edge import pack_edge as ref_pack_edge
+from sextans_tpu.format.pack_ell import PackedSpMatrixELL as RefELL
+from sextans_tpu.format.pack_ell import pack_ell as ref_pack_ell
 from sextans_tpu.format.pack_mxu import pack_mxu as ref_pack_mxu
 from sextans_tpu.io import mtx as ref_mtx
 from sextans_tpu.ops import golden as ref_golden
@@ -107,16 +111,143 @@ def test_slab_pack_byte_identical(matrix, bk, reorder):
     assert_same_pack(port, ref, "qm")
 
 
+EDGE_ARRAYS = ("vals", "meta", "chunk_mtile", "chunk_kwin")
+ELL_ARRAYS = ("cols", "vals", "fold_rows")
+
+
+def assert_same_arrays(port, ref, names, scalars):
+    for name in names:
+        a, b = getattr(port, name), getattr(ref, name)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert a.tobytes() == b.tobytes(), name
+    for name in ("m", "k", "nnz", *scalars):
+        assert getattr(port, name) == getattr(ref, name), name
+    assert asdict(port.stats) == asdict(ref.stats)
+    assert asdict(port.config) == asdict(ref.config)
+    for name in ("col_perm", "row_perm"):
+        a, b = getattr(port, name), getattr(ref, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert a.tobytes() == b.tobytes(), name
+
+
+@pytest.mark.parametrize("matrix", sorted(MATRICES))
+@pytest.mark.parametrize("lanes,reorder", [(1, False), (4, False), (1, True), (4, True)])
+def test_edge_pack_byte_identical(matrix, lanes, reorder):
+    port_coo, ref_coo = MATRICES[matrix]()
+    kw = dict(tile_m=64, window_k=128, edge_chunk=32, edge_lanes=lanes)
+    port = tx.pack_edge(port_coo, tx.SpmmConfig(**kw), reorder_cols=reorder,
+                        reorder_rows_=reorder)
+    ref = ref_pack_edge(ref_coo, RefConfig(**kw), impl="numpy",
+                        reorder_cols=reorder, reorder_rows_=reorder)
+    assert_same_arrays(port, ref, EDGE_ARRAYS, ("n_mtiles", "n_kwins"))
+
+
+def _hub_pair():
+    rng = np.random.default_rng(8)
+    rows = np.concatenate([np.full(90, 3), np.full(40, 77), rng.integers(0, 120, 300)])
+    cols = rng.integers(0, 160, rows.size)
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    return _coo_pair((120, 160), rows, cols, vals)
+
+
+@pytest.mark.parametrize("matrix", sorted(MATRICES) + ["hub_rows"])
+@pytest.mark.parametrize("r", [None, 3, 16])
+def test_ell_pack_byte_identical(matrix, r):
+    port_coo, ref_coo = _hub_pair() if matrix == "hub_rows" else MATRICES[matrix]()
+    port = tx.pack_ell(port_coo, tx.SpmmConfig(tile_m=32), slots_per_row=r)
+    ref = ref_pack_ell(ref_coo, RefConfig(tile_m=32), slots_per_row=r)
+    assert_same_arrays(port, ref, ELL_ARRAYS, ("slots_per_row", "m_base"))
+    if matrix == "hub_rows" and r == 3:
+        assert port.n_virt > 40
+
+
+def test_ell_config_r_and_helpers_match_reference():
+    from sextans_tpu.format import pack_ell as ref_ell
+    from sextans_tpu_torch.format import pack_ell as port_ell
+
+    port_coo, ref_coo = _hub_pair()
+    cfg = dict(tile_m=64, ell_r=6)
+    assert_same_arrays(tx.pack_ell(port_coo, tx.SpmmConfig(**cfg)),
+                       ref_pack_ell(ref_coo, RefConfig(**cfg)), ELL_ARRAYS,
+                       ("slots_per_row", "m_base"))
+    deg = np.bincount(port_coo.rows, minlength=120)
+    for n in (16, 512):
+        assert port_ell.choose_slots_per_row(port_coo, n) == \
+            ref_ell.choose_slots_per_row(ref_coo, n)
+        assert port_ell.ell_traffic_bytes(deg, 4, n) == ref_ell.ell_traffic_bytes(deg, 4, n)
+    assert port_ell.ell_bytes_per_nnz(deg, 4, 430, 7) == ref_ell.ell_bytes_per_nnz(deg, 4, 430, 7)
+    # the inflation refusal: one row of a huge, nearly empty matrix
+    wide_p, wide_r = _coo_pair((300000, 10), [5], [1], [1.0])
+    for packer, coo, Cfg in ((tx.pack_ell, wide_p, tx.SpmmConfig),
+                             (ref_pack_ell, wide_r, RefConfig)):
+        with pytest.raises(ValueError, match="inflation"):
+            packer(coo, Cfg(), slots_per_row=4)
+    for check in (port_ell.check_ell_inflation, ref_ell.check_ell_inflation):
+        with pytest.raises(ValueError, match="inflation"):
+            check(np.ones(300000, np.int64), 8, 10)
+        check(deg, 4, 430)
+
+
+@pytest.mark.parametrize("fmt", ["edge", "ell"])
+def test_edge_and_ell_save_load_match_reference(tmp_path, fmt):
+    port_coo, ref_coo = _hub_pair()
+    if fmt == "edge":
+        kw = dict(tile_m=64, window_k=64, edge_chunk=16, edge_lanes=2)
+        port = tx.pack_edge(port_coo, tx.SpmmConfig(**kw), reorder_cols=True)
+        ref = ref_pack_edge(ref_coo, RefConfig(**kw), impl="numpy", reorder_cols=True)
+        port_cls, ref_cls, names = tx.PackedSpMatrixEdge, RefEdge, EDGE_ARRAYS
+        scalars = ("n_mtiles", "n_kwins")
+    else:
+        port = tx.pack_ell(port_coo, tx.SpmmConfig(tile_m=32), slots_per_row=4)
+        ref = ref_pack_ell(ref_coo, RefConfig(tile_m=32), slots_per_row=4)
+        port_cls, ref_cls, names = tx.PackedSpMatrixELL, RefELL, ELL_ARRAYS
+        scalars = ("slots_per_row", "m_base")
+    port.save(tmp_path / "port.npz")
+    ref.save(tmp_path / "ref.npz")
+    with np.load(tmp_path / "port.npz") as a, np.load(tmp_path / "ref.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in a.files:
+            assert a[key].dtype == b[key].dtype and a[key].tobytes() == b[key].tobytes(), key
+    # each package loads the other's file into the same pack
+    for path in ("port.npz", "ref.npz"):
+        assert_same_arrays(port_cls.load(tmp_path / path), ref_cls.load(tmp_path / path),
+                           names, scalars)
+    with pytest.raises(ValueError, match="not an"):
+        (tx.PackedSpMatrixELL if fmt == "edge" else tx.PackedSpMatrixEdge).load(
+            tmp_path / "port.npz")
+
+
 def test_pack_impl_choices():
     coo, _ = MATRICES["random"]()
     cfg = tx.SpmmConfig(tile_m=128, window_k=128, block_k=8, group_blocks=16)
     assert tx.pack(coo, cfg, impl="auto").vals.tobytes() == \
         tx.pack(coo, cfg, impl="numpy").vals.tobytes()
-    for packer in (tx.pack, tx.pack_mxu):
+    assert tx.pack_edge(coo, cfg, impl="auto").meta.tobytes() == \
+        tx.pack_edge(coo, cfg, impl="numpy").meta.tobytes()
+    for packer in (tx.pack, tx.pack_mxu, tx.pack_edge):
         with pytest.raises(NotImplementedError, match="native"):
             packer(coo, cfg, impl="native")
         with pytest.raises(ValueError, match="impl"):
             packer(coo, cfg, impl="fortran")
+
+
+@pytest.mark.parametrize("fmt", ["edge", "ell"])
+def test_from_reference_carries_edge_and_ell_packs(fmt):
+    port_coo, ref_coo = _hub_pair()
+    if fmt == "edge":
+        kw = dict(tile_m=64, window_k=64, edge_chunk=16)
+        port = tx.pack_edge(port_coo, tx.SpmmConfig(**kw), reorder_rows_=True)
+        ref = ref_pack_edge(ref_coo, RefConfig(**kw), impl="numpy", reorder_rows_=True)
+        names, scalars = EDGE_ARRAYS, ("n_mtiles", "n_kwins")
+    else:
+        port = tx.pack_ell(port_coo, tx.SpmmConfig(tile_m=32))
+        ref = ref_pack_ell(ref_coo, RefConfig(tile_m=32))
+        names, scalars = ELL_ARRAYS, ("slots_per_row", "m_base")
+    converted = from_reference(ref)
+    assert type(converted) is type(port)
+    assert_same_arrays(converted, ref, names, scalars)
+    assert_same_arrays(from_reference(converted), port, names, scalars)
 
 
 @pytest.mark.parametrize("fmt", ["block", "slab"])

@@ -24,6 +24,9 @@ ALPHA, BETA = 0.85, -2.06
 
 BLOCK_CFG = dict(tile_m=64, window_k=128, block_k=8, group_blocks=16)
 SLAB_CFG = dict(tile_m=128, window_k=128, block_k=16, group_blocks=4)
+EDGE_CFG = dict(tile_m=64, window_k=128, edge_chunk=64, edge_lanes=2)
+ELL_CFG = dict(tile_m=64)
+ELL_R = 4  # slots per row: the JAX interpreter's time grows with it
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +50,21 @@ def _tol(exact):
 def _pack(coo, backend, **kw):
     if backend == "mxu":
         return tx.pack_mxu(coo, tx.SpmmConfig(**SLAB_CFG), **kw)
+    if backend == "edge":
+        return tx.pack_edge(coo, tx.SpmmConfig(**EDGE_CFG), **kw)
+    if backend in ("ell", "ell_pallas"):
+        return tx.pack_ell(coo, tx.SpmmConfig(**ELL_CFG), slots_per_row=ELL_R, **kw)
     return tx.pack(coo, tx.SpmmConfig(**BLOCK_CFG), **kw)
+
+
+def _ref_pack(ref_coo, backend, **kw):
+    if backend == "mxu":
+        return sx.pack_mxu(ref_coo, sx.SpmmConfig(**SLAB_CFG), impl="numpy", **kw)
+    if backend == "edge":
+        return sx.pack_edge(ref_coo, sx.SpmmConfig(**EDGE_CFG), impl="numpy", **kw)
+    if backend in ("ell", "ell_pallas"):
+        return sx.pack_ell(ref_coo, sx.SpmmConfig(**ELL_CFG), slots_per_row=ELL_R, **kw)
+    return sx.pack(ref_coo, sx.SpmmConfig(**BLOCK_CFG), impl="numpy", **kw)
 
 
 @pytest.mark.parametrize(
@@ -58,6 +75,9 @@ def _pack(coo, backend, **kw):
         ("pallas", "xla", 8),
         ("mxu", "mxu_interpret", 40),
         ("mxu", "mxu_interpret", 16),
+        ("edge", "edge_interpret", 24),
+        ("ell", "ell", 13),
+        ("ell_pallas", "ell_pallas_interpret", 24),
     ],
 )
 def test_main_path_matches_jax(mtx_file, backend, jax_backend, n):
@@ -70,16 +90,14 @@ def test_main_path_matches_jax(mtx_file, backend, jax_backend, n):
     got = got.numpy()
 
     ref_coo = sx.read_mtx(mtx_file)
-    cfg = sx.SpmmConfig(**(SLAB_CFG if backend == "mxu" else BLOCK_CFG))
-    ref_packed = (sx.pack_mxu(ref_coo, cfg, impl="numpy") if backend == "mxu"
-                  else sx.pack(ref_coo, cfg, impl="numpy"))
+    ref_packed = _ref_pack(ref_coo, backend)
     want = np.asarray(sx.spmm(ref_packed, b, ALPHA, BETA, c, backend=jax_backend))
     exact = sx.golden_spmm_exact(sx.CSRMatrix.from_coo(ref_coo), b, ALPHA, BETA, c)
     assert tx.verify(exact, got).passed and tx.verify(exact, want).passed
     assert np.abs(got - want).max() <= _tol(exact)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "mxu", "xla"])
+@pytest.mark.parametrize("backend", ["pallas", "mxu", "xla", "edge", "ell", "ell_pallas"])
 def test_no_c_path(mtx_file, backend):
     coo = tx.read_mtx(mtx_file)
     b, _ = _operands(*coo.shape, 40)
@@ -89,7 +107,7 @@ def test_no_c_path(mtx_file, backend):
     assert np.abs(got - exact).max() <= _tol(exact)
 
 
-@pytest.mark.parametrize("backend", ["pallas", "mxu"])
+@pytest.mark.parametrize("backend", ["pallas", "mxu", "edge"])
 def test_col_and_row_permutations(mtx_file, backend):
     coo = tx.read_mtx(mtx_file)
     b, c = _operands(*coo.shape, 24, seed=3)
@@ -146,7 +164,11 @@ def test_plan_errors(mtx_file):
     with pytest.raises(ValueError, match="does not match"):
         tx.SpmmPlan(_pack(coo, "mxu"), 8, "pallas", device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
+        tx.SpmmPlan(packed, 8, "edge_interpret", device="cpu")
+    with pytest.raises(ValueError, match="does not match"):
         tx.SpmmPlan(packed, 8, "edge", device="cpu")
+    with pytest.raises(ValueError, match="does not match"):
+        tx.SpmmPlan(_pack(coo, "ell"), 8, "pallas", device="cpu")
     with pytest.raises(TypeError, match="PackedSpMatrix"):
         tx.SpmmPlan(coo, 8, device="cpu")
     with pytest.raises(ValueError, match="positive"):
@@ -183,7 +205,8 @@ def test_spmm_and_prepare_inputs(mtx_file):
     for a in (coo, tx.CSRMatrix.from_coo(coo), tx.CSCMatrix.from_coo(coo),
               coo.to_scipy().tocsr(), sp.csc_array(coo.to_scipy()), dense,
               torch.from_numpy(dense)):
-        got = tx.spmm(a, b, ALPHA, BETA, c, config=tx.SpmmConfig(**BLOCK_CFG))
+        got = tx.spmm(a, b, ALPHA, BETA, c, config=tx.SpmmConfig(**BLOCK_CFG),
+                      device="cpu")
         assert np.abs(got.numpy() - exact).max() <= _tol(exact), type(a)
     got = tx.spmm(coo, torch.from_numpy(b), ALPHA, BETA, torch.from_numpy(c),
                   backend="xla")
@@ -192,6 +215,40 @@ def test_spmm_and_prepare_inputs(mtx_file):
         tx.prepare("not a matrix")
     with pytest.raises(ValueError, match="B must be"):
         tx.spmm(coo, b[:5])
+
+
+def test_prepare_passes_every_pack_through(mtx_file):
+    coo = tx.read_mtx(mtx_file)
+    b, c = _operands(*coo.shape, 8)
+    exact = tx.golden_spmm_exact(tx.CSRMatrix.from_coo(coo), b, ALPHA, BETA, c)
+    for backend in ("pallas", "mxu", "edge", "ell"):
+        packed = _pack(coo, backend)
+        assert tx.prepare(packed) is packed
+        got = tx.spmm(packed, b, ALPHA, BETA, c, device="cpu").numpy()
+        assert np.abs(got - exact).max() <= _tol(exact), backend
+    auto = {"pallas": "pallas", "mxu": "mxu", "edge": "edge", "ell": "ell_pallas"}
+    for backend, picked in auto.items():
+        assert tx.SpmmPlan(_pack(coo, backend), 8, device="cpu").backend == picked
+
+
+def test_spmm_defaults_to_cuda(mtx_file, monkeypatch):
+    packed = _pack(tx.read_mtx(mtx_file), "edge")
+    b = np.ones((packed.k, 8), np.float32)
+    if not torch.cuda.is_available():
+        # no card: the call raises instead of running on the CPU
+        with pytest.raises((RuntimeError, AssertionError)):
+            tx.spmm(packed, b)
+    seen = []
+
+    def fake_plan(packed, n, backend="auto", *, device):
+        seen.append(torch.device(device).type)
+        return lambda b, alpha, beta, c: torch.zeros(1)
+
+    monkeypatch.setattr("sextans_tpu_torch.ops.spmm.plan", fake_plan)
+    tx.spmm(packed, b)
+    tx.spmm(packed, torch.from_numpy(b))
+    tx.spmm(packed, b, device="cpu")
+    assert seen == ["cuda", "cpu", "cpu"]
 
 
 def test_time_repeat_on_cpu_reports_cpu(mtx_file):
@@ -211,7 +268,7 @@ def test_exports_mirror_jax_package():
         {f.name for f in dataclasses.fields(sx.SpmmConfig)}
 
 
-@pytest.mark.parametrize("backend", ["pallas", "mxu", "xla"])
+@pytest.mark.parametrize("backend", ["pallas", "mxu", "xla", "edge", "ell", "ell_pallas"])
 def test_cli_prints_success(mtx_file, backend, capsys):
     rc = cli_main([str(mtx_file), "13", "2", "--backend", backend,
                    "--device", "cpu", "--tile-m", "128", "--window-k", "128",
