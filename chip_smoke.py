@@ -15,7 +15,9 @@ Phases (each prints its lines; any failure exits non-zero):
    (K3) at N = 512 and 16 with the default config, slab kernel (K1) at
    N = 512 and skinny slab kernel (K2) at N = 16 with ``bench.py``'s slab
    config, edge kernel (K4) at N = 512 and, with ``edge_masked`` and
-   ``edge_lanes=4``, at N = 16, ELL gather kernel (K5) at N = 512 and 16.
+   ``edge_lanes=4``, at N = 16, ELL gather kernel (K5) at N = 512 and 16, and
+   the DIA kernels over the diagonal part of its hybrid split (256
+   diagonals): K6 at N = 512, K7 at N = 16.
    Tolerance: 4 * spacing(f32(max |plain|)).
 3. The main path end to end: write_mtx -> read_mtx -> the backend's packer
    -> plan(device="cuda") -> verify against golden_spmm, and max-abs against
@@ -25,24 +27,40 @@ Phases (each prints its lines; any failure exits non-zero):
 4. The same at full size: cant_like (fem_like(62451, dofs=3, neighbors=21,
    seed=2), 3,781,404 nnz) at N = 512 through all four backends, and each
    kernel against its plain version there as in phase 2.
-5. ``python -m sextans_tpu_torch <mtx> 16 --backend B`` for B in mxu, edge
-   and ell_pallas, run together; each must print Success!.
+5. The hybrid path: split_structure(coo, n=N) -> HybridSpmmPlan(device=
+   "cuda", residue on ``pallas``) -> verify, on synthetic4704 at N = 512
+   (K6) and 16 (K7), both with head columns, hub rows and a residue; and at
+   full size scircuit_like (circuit_like(170998, seed=9), 906,267 nnz, 121
+   diagonals, 40 hub columns and rows, no residue) at N = 512 and
+   laplace3d_64 (stencil_3d(64, seed=12), 1,826,686 nnz, 7 diagonals) at
+   N = 16. Bar: 4 ulp of max|C|, 16 on scircuit_like, whose hub rows are
+   dot products of ~850 terms in 170,998 columns; the worst element's row
+   is printed, and whether it is a hub row.
+6. ``python -m sextans_tpu_torch <mtx> 16 --backend B`` for B in mxu, edge
+   and ell_pallas, and ``--hybrid --backend pallas``, run together; each
+   must print Success!.
 
 Timings. Beside each kernel of phases 2 and 4: its plain version's time, the
 library call ``torch.sparse.addmm(C, A_csr, B, beta, alpha)`` on the same
 matrix and N (timed only, never used by the package), and the bound
 max(2 * nnz * N / 67 TFLOP/s, bytes / 3.35 TB/s), bytes = 8 per nonzero + B
-+ C in + C out, each once. The three are sampled in turns plain, kernel,
-library, library, kernel, plain, ``ROUNDS`` times; each sample is CUDA
-events over a few launches; the median is printed. Each path of phases 3
++ C in + C out, each once; for the DIA kernels the dense DIA work,
+max(2 * D * M * N / 67 TFLOP/s, (4 * D * M + B + C in + C out) / 3.35 TB/s),
+with the library call on the diagonal part as CSR. The three are sampled
+in turns plain, kernel, library, library, kernel, plain, ``ROUNDS`` times;
+each sample is CUDA events over a few launches; the median is printed.
+Each path of phases 3
 and 4 prints its pack (seconds, bytes on the card, slots and the share that
 holds a nonzero), ``time_repeat`` (median of 3) and GFLOPS = 2 * N *
 (nnz + M) / t, and a ``torch.profiler`` breakdown of 20 plan calls: device
 time in the kernel, in every other device op, and the idle share of the
-calls' host-clock time.
+calls' host-clock time. Each hybrid run of phase 5 prints the same for its
+split (seconds, bytes of every part on the card), with the DIA kernel and
+the residue's kernel apart in the profile.
 
-Every run of phases 3 and 4 is one main path: the launch counters are set
-to 0 just before it and read just after, and its kernel must have launched.
+Every run of phases 3, 4 and 5 is one main path: the launch counters are
+set to 0 just before it and read just after, and its kernels must have
+launched.
 The last two lines are a JSON object with one entry per kernel (its phase-2
 row at the first N) and ``{"ok": true, "device": {...}}``.
 """
@@ -61,6 +79,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ALPHA, BETA = 0.85, -2.06
 ULP_BAR = 4.0
+HUB_ULP_BAR = 16.0  # scircuit_like's hybrid path: long hub-row dot products
 PEAK_F32_FLOPS = 67e12  # one H100 SXM, f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 ROUNDS = 3
@@ -74,6 +93,13 @@ def bound(nnz: int, m: int, k: int, n: int):
     """Least milliseconds of C = alpha * A @ B + beta * C, and its limit."""
     flop_ms = 2.0 * nnz * n / PEAK_F32_FLOPS * 1e3
     byte_ms = (8.0 * nnz + 4.0 * k * n + 8.0 * m * n) / PEAK_HBM_BYTES * 1e3
+    return max(flop_ms, byte_ms), "operations" if flop_ms > byte_ms else "bytes"
+
+
+def dia_bound(n_diags: int, m: int, k: int, n: int):
+    """Least milliseconds of the DIA kernels' dense work, and its limit."""
+    flop_ms = 2.0 * n_diags * m * n / PEAK_F32_FLOPS * 1e3
+    byte_ms = (4.0 * n_diags * m + 4.0 * k * n + 8.0 * m * n) / PEAK_HBM_BYTES * 1e3
     return max(flop_ms, byte_ms), "operations" if flop_ms > byte_ms else "bytes"
 
 
@@ -160,8 +186,9 @@ def library_call(coo):
     return lambda b, c: torch.sparse.addmm(c, a, b, beta=BETA, alpha=ALPHA)
 
 
-def profile(pl, b_dev, c_dev, kernel_name: str, calls: int = 20) -> str:
-    """Device milliseconds per plan call in the kernel and in every other
+def profile(pl, b_dev, c_dev, kernel_names, calls: int = 20) -> str:
+    """Device milliseconds per plan call in each of ``kernel_names`` (a
+    device op counts for the longest name its key holds) and in every other
     device op, and the idle share of the calls' host-clock time."""
     import torch
     from torch.profiler import ProfilerActivity, profile as trace
@@ -174,21 +201,26 @@ def profile(pl, b_dev, c_dev, kernel_name: str, calls: int = 20) -> str:
             pl(b_dev, ALPHA, BETA, c_dev)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernel_us = other_us = 0.0
+    names = sorted(kernel_names, key=len, reverse=True)
+    kernel_us = dict.fromkeys(names, 0.0)
+    other_us = 0.0
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        if kernel_name in evt.key:
-            kernel_us += us
-        else:
+        name = next((k for k in names if k in evt.key), None)
+        if name is None:
             other_us += us
-    if kernel_us == 0.0:
-        return "profile: the trace held no device time (not measured)"
-    idle = max(0.0, 1.0 - (kernel_us + other_us) / 1e3 / wall_ms)
-    return (f"profile per call: kernel {kernel_us / 1e3 / calls:.4f} ms, other device "
+        else:
+            kernel_us[name] += us
+    if min(kernel_us.values()) == 0.0:
+        return "profile: the trace held no device time for a kernel (not measured)"
+    idle = max(0.0, 1.0 - (sum(kernel_us.values()) + other_us) / 1e3 / wall_ms)
+    kernels = ", ".join(f"{name} {us / 1e3 / calls:.4f} ms" for name, us in
+                        sorted(kernel_us.items()))
+    return (f"profile per call: kernel {kernels}, other device "
             f"{other_us / 1e3 / calls:.4f} ms, idle {100 * idle:.1f} %")
 
 
@@ -206,11 +238,13 @@ def main() -> int:
     import sextans_tpu_torch as sx
     from sextans_tpu_torch.ops.plan import BACKEND_FORMATS
     from sextans_tpu_torch.ops.spmm_block import spmm_block_padded
+    from sextans_tpu_torch.ops.spmm_dia import spmm_dia, spmm_dia_ref, spmm_dia_skinny
     from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded
     from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded
     from sextans_tpu_torch.ops.spmm_slab import spmm_slab_padded, spmm_slab_skinny_padded
     from sextans_tpu_torch.runtime.build import build_kernels
-    from sextans_tpu_torch.utils.matrices import fem_like
+    from sextans_tpu_torch.ops.spmm_slab import SKINNY_MAX_N
+    from sextans_tpu_torch.utils.matrices import circuit_like, fem_like, stencil_3d
     from sextans_tpu_torch.utils.timing import time_repeat
 
     # ---- phase 0 ----
@@ -288,10 +322,52 @@ def main() -> int:
         kernels.setdefault(name, row)  # the first (N = 512 where run there) row
     del packs
 
+    def check_dia(tag, split, n, iters):
+        """Hold the DIA kernel of N against its plain version on the card and
+        time both beside the library call on the diagonal part and the
+        bound of the DIA work."""
+        kernel = spmm_dia_skinny if n <= SKINNY_MAX_N else spmm_dia
+        name = kernel.__name__
+        m, k = split.m, split.k
+        dv = torch.as_tensor(split.diag_vals, device="cuda")
+        offs = torch.as_tensor(split.diag_offsets.astype(np.int32), device="cuda")
+        b, c = (torch.as_tensor(x, device="cuda") for x in operands(m, k, n))
+        got = kernel(dv, offs, b, c, ALPHA, BETA)
+        want = spmm_dia_ref(dv, offs, b, c, ALPHA, BETA)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = ULP_BAR * float(np.spacing(np.float32(want.abs().max().item())))
+        ok = bool(torch.isfinite(got).all().item()) and err <= tol
+        del got, want
+        d_idx, rows = np.nonzero(split.diag_vals)
+        diag_coo = sx.COOMatrix((m, k), rows, rows + split.diag_offsets[d_idx],
+                                split.diag_vals[d_idx, rows])
+        library = library_call(diag_coo)
+        ms = abba_ms({"kernel": lambda: kernel(dv, offs, b, c, ALPHA, BETA),
+                      "plain": lambda: spmm_dia_ref(dv, offs, b, c, ALPHA, BETA),
+                      "library": lambda: library(b, c)}, iters)
+        n_diags = split.diag_offsets.size
+        bound_ms, bound_by = dia_bound(n_diags, m, k, n)
+        print(f"{tag}: {name} N={n} D={n_diags} ({diag_coo.nnz} nnz on the diagonals): "
+              f"max_abs_err vs plain {err:.3e} (tol {tol:.3e}) kernel {ms['kernel']:.4f} ms "
+              f"plain {ms['plain']:.4f} ms torch.sparse.addmm {ms['library']:.4f} ms "
+              f"bound {bound_ms:.5f} ms ({bound_by}) {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok:
+            fail(f"{tag}: {name} at N={n} disagrees with its plain version")
+        return name, dict(max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"],
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=ms["library"])
+
+    for n in (512, 16):
+        name, row = check_dia("phase 2 (dia)", sx.split_structure(synth, n=n), n, iters=10)
+        kernels[name] = row
+    print(f"phase 2: done (at {time.perf_counter() - t_start:.1f} s)", flush=True)
+
     # ---- phases 3 and 4: the main path ----
     counted = {"spmm_block": spmm_block_padded, "spmm_slab": spmm_slab_padded,
                "spmm_slab_skinny": spmm_slab_skinny_padded,
-               "spmm_edge": spmm_edge_padded, "spmm_ell": spmm_ell_gather_padded}
+               "spmm_edge": spmm_edge_padded, "spmm_ell": spmm_ell_gather_padded,
+               "spmm_dia": spmm_dia, "spmm_dia_skinny": spmm_dia_skinny}
     launches = dict.fromkeys(counted, 0)
     goldens = {}
 
@@ -318,7 +394,7 @@ def main() -> int:
         t = statistics.median(time_repeat(pl, b_dev, ALPHA, BETA, c_dev, times=times)
                               for _ in range(3))
         expected = kernel_calls(pl, n)[0]
-        traced = profile(pl, b_dev, c_dev, expected)
+        traced = profile(pl, b_dev, c_dev, (expected,))
         torch.cuda.synchronize()
         ran = {name: fn.launches for name, fn in counted.items() if fn.launches}
         if ran.get(expected, 0) == 0 or set(ran) != {expected}:
@@ -354,46 +430,109 @@ def main() -> int:
             fail("write_mtx/read_mtx round trip changed the matrix")
         for backend in ("pallas", "mxu", "edge", "ell_pallas"):
             for n in (512, 16):
-                drive("phase 3 synthetic4704", coo, backend, n, times=50)
+                drive("phase 3 synthetic4704", coo, backend, n, times=20)
 
         t0 = time.perf_counter()
         cant = fem_like(62451, dofs=3, neighbors=21, seed=2)
         if cant.nnz != 3781404:
             fail(f"cant_like has {cant.nnz} nnz, expected 3781404")
-        print(f"phase 4: cant_like built in {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"phase 4: cant_like built in {time.perf_counter() - t0:.1f} s "
+              f"(at {time.perf_counter() - t_start:.1f} s)", flush=True)
         for backend in ("pallas", "mxu", "edge", "ell_pallas"):
             pl, b_dev, c_dev = drive("phase 4 cant_like", cant, backend, 512, times=10)
-            check_kernel("phase 4 cant_like", cant, pl, b_dev, c_dev, iters=2)
+            check_kernel("phase 4 cant_like", cant, pl, b_dev, c_dev, iters=1)
             del pl, b_dev, c_dev
             torch.cuda.empty_cache()
 
-        print(f"phase 3-4: launches on the main paths {launches}", flush=True)
+        # ---- phase 5: the hybrid path ----
+        def drive_hybrid(tag, coo, n, times, bar):
+            b, c, ref, exact = golden(tag.split()[-1], coo, n)
+            t0 = time.perf_counter()
+            split = sx.split_structure(coo, n=n)
+            t_split = time.perf_counter() - t0
+            for fn in counted.values():
+                fn.launches = 0
+            pl = sx.HybridSpmmPlan(split, n, residue_config=block_cfg, backend="pallas",
+                                   device="cuda")
+            got = pl(b, ALPHA, BETA, c).cpu().numpy()
+            b_dev = torch.as_tensor(b, device=pl.device)
+            c_dev = torch.as_tensor(c, device=pl.device)
+            t = statistics.median(time_repeat(pl, b_dev, ALPHA, BETA, c_dev, times=times)
+                                  for _ in range(3))
+            dia = "spmm_dia_skinny" if n <= SKINNY_MAX_N else "spmm_dia"
+            expected = {dia} | ({"spmm_block"} if pl.residue_plan else set())
+            traced = profile(pl, b_dev, c_dev, tuple(expected))
+            torch.cuda.synchronize()
+            ran = {name: fn.launches for name, fn in counted.items() if fn.launches}
+            if set(ran) != expected:
+                fail(f"{tag} hybrid N={n}: launches {ran}, expected {sorted(expected)}")
+            for name, count in ran.items():
+                launches[name] += count
+            res = sx.verify(ref, got)
+            err = np.abs(got.astype(np.float64) - exact)
+            ulp = float(err.max()) / float(np.spacing(np.float32(np.abs(exact).max())))
+            worst = int(np.unravel_index(np.argmax(err), err.shape)[0])
+            m = coo.shape[0]
+            ok = res.passed and ulp <= bar and bool(np.isfinite(got).all()) \
+                and got.shape == (m, n)
+            mb = pl.nbytes / 1e6
+            print(f"{tag}: hybrid N={n} {coo.shape[0]}x{coo.shape[1]} nnz={coo.nnz} "
+                  f"{split.summary()} in {t_split:.3f} s, {mb:.2f} MB on the card; verify "
+                  f"{'Success!' if res.passed else 'Failed.'} ({res.mismatch_percent:.2f}% "
+                  f"mismatches) max_abs_vs_f64 {err.max():.3e} = {ulp:.2f} ulp of max|C| "
+                  f"(bar {bar:g}; worst in row {worst}, "
+                  f"{'a hub row' if worst in set(split.head_rows.tolist()) else 'not a hub row'}"
+                  f"); time_repeat {t * 1e3:.4f} ms GFLOPS {sx.gflops(coo.nnz, m, n, t):.1f}; "
+                  f"{traced}; launches {ran}", flush=True)
+            if not ok:
+                fail(f"{tag} hybrid N={n}: verify {res.passed}, {ulp:.2f} ulp (bar {bar})")
+            del pl, b_dev, c_dev
+            torch.cuda.empty_cache()
+
+        for n in (512, 16):
+            drive_hybrid("phase 5 synthetic4704", coo, n, times=20, bar=ULP_BAR)
+        t0 = time.perf_counter()
+        scircuit = circuit_like(170998, seed=9)
+        laplace = stencil_3d(64, seed=12)
+        if (scircuit.nnz, laplace.nnz) != (906267, 1826686):
+            fail(f"scircuit_like / laplace3d_64 have {scircuit.nnz} / {laplace.nnz} nnz")
+        print(f"phase 5: scircuit_like and laplace3d_64 built in "
+              f"{time.perf_counter() - t0:.1f} s (at {time.perf_counter() - t_start:.1f} s)",
+              flush=True)
+        drive_hybrid("phase 5 scircuit_like", scircuit, 512, times=10, bar=HUB_ULP_BAR)
+        drive_hybrid("phase 5 laplace3d_64", laplace, 16, times=10, bar=ULP_BAR)
+        del scircuit, laplace, goldens[("scircuit_like", 512)], goldens[("laplace3d_64", 16)]
+
+        print(f"phase 3-5: launches on the main paths {launches} (at "
+              f"{time.perf_counter() - t_start:.1f} s)", flush=True)
         if min(launches.values()) == 0:
             fail(f"a kernel of the main path never launched: {launches}")
 
-        # ---- phase 5: the CLI, one process per backend, all at once ----
+        # ---- phase 6: the CLI, one process per run, all at once ----
         env = dict(os.environ)
         env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+        runs = {f"--backend {backend}": ["--backend", backend]
+                for backend in ("mxu", "edge", "ell_pallas")}
+        runs["--hybrid --backend pallas"] = ["--hybrid", "--backend", "pallas"]
         procs = {
-            backend: subprocess.Popen(
-                [sys.executable, "-m", "sextans_tpu_torch", str(mtx), "16",
-                 "--backend", backend],
+            label: subprocess.Popen(
+                [sys.executable, "-m", "sextans_tpu_torch", str(mtx), "16", *flags],
                 cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)
-            for backend in ("mxu", "edge", "ell_pallas")
+            for label, flags in runs.items()
         }
-        for backend, proc in procs.items():
+        for label, proc in procs.items():
             try:
                 out, err = proc.communicate(timeout=600)
             except subprocess.TimeoutExpired:
                 for p in procs.values():
                     p.kill()
-                fail(f"CLI --backend {backend} did not finish")
+                fail(f"CLI {label} did not finish")
             last = [ln for ln in out.splitlines() if ln.strip()][-3:]
-            print(f"phase 5: CLI --backend {backend} rc={proc.returncode}: "
+            print(f"phase 6: CLI {label} rc={proc.returncode}: "
                   f"{' | '.join(last)}", flush=True)
             if proc.returncode != 0 or "Success!" not in out:
-                fail(f"CLI --backend {backend} did not succeed:\n{out}\n{err}")
+                fail(f"CLI {label} did not succeed:\n{out}\n{err}")
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     sources = {
@@ -407,6 +546,10 @@ def main() -> int:
                       "sextans_tpu/ops/spmm_edge_pallas.py:205"),
         "spmm_ell": ("sextans_tpu_torch/csrc/spmm_ell.cu",
                      "sextans_tpu/ops/spmm_ell_pallas.py:156"),
+        "spmm_dia": ("sextans_tpu_torch/csrc/spmm_dia.cu",
+                     "sextans_tpu/ops/spmm_dia_pallas.py:124"),
+        "spmm_dia_skinny": ("sextans_tpu_torch/csrc/spmm_dia.cu",
+                            "sextans_tpu/ops/spmm_dia_pallas.py:294"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -7,7 +7,9 @@ the block and slab packers, the golden oracle and the verify gate) is
 carried over so that this package never imports JAX; tests hold its packs
 byte-identical to the JAX package's. Four packed formats run: the block
 format (``pack``), the slab format (``pack_mxu``), the edge stream
-(``pack_edge``) and the ELL gather format (``pack_ell``).
+(``pack_edge``) and the ELL gather format (``pack_ell``); and the hybrid
+structure split (``split_structure`` -> ``HybridSpmmPlan``): diagonals, dense
+hub columns and rows, and a residue in one of those formats.
 
 Quick start::
 
@@ -39,6 +41,7 @@ from sextans_tpu_torch.format.pack_ell import PackedSpMatrixELL, pack_ell
 from sextans_tpu_torch.format.pack_mxu import PackedSpMatrixMXU, pack_mxu
 from sextans_tpu_torch.io.mtx import MtxHeader, read_mtx, read_mtx_coo, write_mtx
 from sextans_tpu_torch.ops.golden import golden_spmm, golden_spmm_exact, spmm_flops
+from sextans_tpu_torch.ops.hybrid import HybridSplit, HybridSpmmPlan, split_structure
 from sextans_tpu_torch.ops.plan import SpmmPlan
 from sextans_tpu_torch.ops.spmm import plan, prepare, spmm
 from sextans_tpu_torch.utils.config import SpmmConfig
@@ -68,6 +71,9 @@ __all__ = [
     "PackedSpMatrixELL",
     "PackedSpMatrixMXU",
     "from_reference",
+    "HybridSplit",
+    "split_structure",
+    "HybridSpmmPlan",
     "prepare",
     "plan",
     "SpmmPlan",

@@ -8,7 +8,7 @@ Here::
 
     python -m sextans_tpu_torch [matrix A file] [N] [rp_time] [alpha] [beta]
         [--backend pallas|mxu|xla|edge|ell|ell_pallas] [--tile-m ..] [--window-k ..]
-        [--block-k ..] [--group-blocks ..] [--device cuda|cpu]
+        [--block-k ..] [--group-blocks ..] [--device cuda|cpu] [--hybrid]
 
 The same positional semantics, B (all 1.0, src/sextans-host.cpp:100-104),
 C ((m+1)(n+1)/M/N, src/sextans-host.cpp:107-111), defaults (alpha=0.85,
@@ -16,6 +16,9 @@ beta=-2.06, rp_time=1), GFLOPS formula and Success!/Failed report as
 ``python -m sextans_tpu``. N is rounded up to a multiple of 8 like
 tapa::round_up<8> (src/sextans-host.cpp:51). The device defaults to
 ``cuda``; there is no fallback to the CPU, which takes ``--device cpu``.
+
+``--hybrid`` splits A at N (``split_structure``), prints the split, and runs
+``HybridSpmmPlan`` with the residue on ``--backend``'s format and kernel.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 from sextans_tpu_torch.format.csr import CSRMatrix
 from sextans_tpu_torch.io.mtx import read_mtx
 from sextans_tpu_torch.ops.golden import golden_spmm
+from sextans_tpu_torch.ops.hybrid import HybridSpmmPlan, split_structure
 from sextans_tpu_torch.ops.plan import BACKEND_FORMATS
 from sextans_tpu_torch.ops.spmm import plan as make_plan
 from sextans_tpu_torch.utils.config import SpmmConfig, round_up
@@ -61,6 +65,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--block-k", type=int, default=None)
     p.add_argument("--group-blocks", type=int, default=None)
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument(
+        "--hybrid",
+        action="store_true",
+        help="structure split at N: diagonals (DIA kernels), dense hub columns "
+        "and rows, and the residue on --backend",
+    )
     return p
 
 
@@ -95,15 +105,20 @@ def main(argv=None) -> int:
             cfg_kwargs[name] = v
     cfg = SpmmConfig(**cfg_kwargs)
 
-    print(f"Packing sparse A for {args.device} ...", flush=True)
-    t0 = time.perf_counter()
-    packed = BACKEND_FORMATS[args.backend][0](coo, cfg)
-    t_pack = time.perf_counter() - t0
-    s = packed.stats
-    print(
-        f"done ({t_pack * 1e3:.1f} msec): {s.blocks} blocks, "
-        f"fill {s.block_fill:.3f}, {s.groups} groups, group fill {s.group_fill:.3f}"
-    )
+    if args.hybrid:
+        t0 = time.perf_counter()
+        split = split_structure(coo, n=n)
+        print(f"{split.summary()} ({(time.perf_counter() - t0) * 1e3:.1f} msec)")
+    else:
+        print(f"Packing sparse A for {args.device} ...", flush=True)
+        t0 = time.perf_counter()
+        packed = BACKEND_FORMATS[args.backend][0](coo, cfg)
+        t_pack = time.perf_counter() - t0
+        s = packed.stats
+        print(
+            f"done ({t_pack * 1e3:.1f} msec): {s.blocks} blocks, "
+            f"fill {s.block_fill:.3f}, {s.groups} groups, group fill {s.group_fill:.3f}"
+        )
 
     print("Run spmm on cpu...", flush=True)
     csr = CSRMatrix.from_coo(coo)
@@ -114,7 +129,11 @@ def main(argv=None) -> int:
     print(f"CPU GFLOPS: {gflops(nnz, m, n, t_cpu):.3f}")
 
     print("launch kernel", flush=True)
-    pl = make_plan(packed, n, backend=args.backend, device=args.device)
+    if args.hybrid:
+        pl = HybridSpmmPlan(split, n, residue_config=cfg, backend=args.backend,
+                            device=args.device)
+    else:
+        pl = make_plan(packed, n, backend=args.backend, device=args.device)
     device_name = (
         torch.cuda.get_device_name(pl.device) if pl.device.type == "cuda" else "cpu"
     )

@@ -1,9 +1,9 @@
-"""Carry a packed matrix across from the JAX package.
+"""Carry a packed matrix or a hybrid split across from the JAX package.
 
-A ``sextans_tpu`` pack (block, slab, edge or ELL format) holds NumPy arrays
-and plain fields only, so it converts without importing ``sextans_tpu``:
-fields are read by name. Tests use this to feed the same packed A to both
-packages.
+A ``sextans_tpu`` pack (block, slab, edge or ELL format) or ``HybridSplit``
+holds NumPy arrays and plain fields only, so it converts without importing
+``sextans_tpu``: fields are read by name. Tests use this to feed the same
+packed A, or the same split, to both packages.
 """
 
 from __future__ import annotations
@@ -16,7 +16,9 @@ import numpy as np
 from sextans_tpu_torch.format.pack import PackedSpMatrix, PackStats
 from sextans_tpu_torch.format.pack_edge import PackedSpMatrixEdge
 from sextans_tpu_torch.format.pack_ell import PackedSpMatrixELL
+from sextans_tpu_torch.format.coo import COOMatrix
 from sextans_tpu_torch.format.pack_mxu import PackedSpMatrixMXU
+from sextans_tpu_torch.ops.hybrid import HybridSplit
 from sextans_tpu_torch.utils.config import SpmmConfig
 
 __all__ = ["from_reference"]
@@ -42,33 +44,51 @@ _FORMATS = {
 
 Packed = Union[PackedSpMatrix, PackedSpMatrixMXU, PackedSpMatrixEdge, PackedSpMatrixELL]
 
+# HybridSplit's arrays with their dtypes
+_SPLIT_ARRAYS = (("diag_offsets", np.int64), ("diag_vals", np.float32),
+                 ("head_cols", np.int32), ("head_dense", np.float32),
+                 ("head_rows", np.int32), ("head_rows_dense", np.float32))
+
 
 def _copy_fields(cls, obj):
     return cls(**{f.name: getattr(obj, f.name) for f in fields(cls)})
 
 
-def from_reference(packed) -> Packed:
-    """Convert a ``sextans_tpu`` block, slab, edge or ELL pack into this
-    package's.
+def _arrays(obj, array_dtypes) -> dict:
+    arrays = {}
+    for name, dtype in array_dtypes:
+        a = np.asarray(getattr(obj, name))
+        if a.dtype != dtype:
+            raise TypeError(f"{name} must be {np.dtype(dtype).name}, got {a.dtype}")
+        arrays[name] = np.ascontiguousarray(a)
+    return arrays
+
+
+def from_reference(packed) -> Union[Packed, HybridSplit]:
+    """Convert a ``sextans_tpu`` block, slab, edge or ELL pack, or a
+    ``HybridSplit``, into this package's.
 
     The format is told by its index array: ``qm`` (slab), ``qrow`` (block),
-    ``meta`` (edge) or ``fold_rows`` (ELL). Arrays are taken as NumPy with
-    their dtypes checked, so the result is byte-identical to packing the
-    same COO here.
+    ``meta`` (edge), ``fold_rows`` (ELL) or ``diag_offsets`` (a hybrid
+    split). Arrays are taken as NumPy with their dtypes checked, so the
+    result is byte-identical to packing, or splitting, the same COO here.
     """
+    if hasattr(packed, "diag_offsets"):
+        res = packed.residue
+        return HybridSplit(
+            m=int(packed.m), k=int(packed.k), nnz=int(packed.nnz),
+            residue=COOMatrix(tuple(int(x) for x in res.shape), res.rows, res.cols,
+                              res.vals),
+            **_arrays(packed, _SPLIT_ARRAYS),
+        )
     fmt = next((name for name in _FORMATS if hasattr(packed, name)), None)
     if fmt is None:
         raise TypeError(
             f"{type(packed).__name__} is not a block, slab, edge or ELL pack "
-            "(no qrow/qm/meta/fold_rows array)"
+            "or a hybrid split (no qrow/qm/meta/fold_rows/diag_offsets array)"
         )
     cls, array_dtypes, scalars = _FORMATS[fmt]
-    arrays = {}
-    for name, dtype in array_dtypes:
-        a = np.asarray(getattr(packed, name))
-        if a.dtype != dtype:
-            raise TypeError(f"{name} must be {np.dtype(dtype).name}, got {a.dtype}")
-        arrays[name] = np.ascontiguousarray(a)
+    arrays = _arrays(packed, array_dtypes)
     perms = {}
     for name in ("col_perm", "row_perm"):
         p = getattr(packed, name, None)

@@ -1,0 +1,475 @@
+"""Hybrid structure-split SpMM: diagonals + dense head columns and rows +
+residue, on one CUDA device or the CPU.
+
+The PyTorch counterpart of ``sextans_tpu.ops.hybrid``. ``split_structure``
+is its host NumPy code, copied, so that both packages split every matrix
+into the same arrays (held array-identical by ``tests/test_torch_hybrid.py``):
+
+* **diagonals**: diagonal ``off`` stores ``A[i, i + off]`` as a dense row of
+  ``diag_vals``; its product is a shifted elementwise multiply-add, run by
+  the DIA kernels (ops/spmm_dia.py: K6 for N > 32, K7 for N <= 32);
+* **dense head columns**: the hub columns, lifted into a dense (M, H)
+  matrix, one matmul ``head @ B[head_cols]``;
+* **dense head rows**: the hub rows, a dense (R, K) matmul whose rows are
+  added into their C rows;
+* **residue**: the rest, in original coordinates, through one
+  :class:`~sextans_tpu_torch.ops.plan.SpmmPlan`.
+
+``HybridSpmmPlan`` computes one step in the JAX package's order: the DIA
+epilogue ``alpha * diag + beta * C`` (or ``beta * C``), then
+``+ alpha * head``, then the hub rows, and the partial result goes to the
+residue's plan as its C with beta = 1.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sextans_tpu_torch.format.coo import COOMatrix
+from sextans_tpu_torch.format.pack import pack
+from sextans_tpu_torch.format.pack_edge import pack_edge
+from sextans_tpu_torch.format.pack_ell import pack_ell
+from sextans_tpu_torch.format.pack_mxu import pack_mxu
+from sextans_tpu_torch.ops.launch import check_split, f32, no_tf32
+from sextans_tpu_torch.ops.plan import (
+    BACKEND_FORMATS,
+    BACKENDS,
+    SpmmPlan,
+    dense_operand,
+    resolve_device,
+)
+from sextans_tpu_torch.ops.spmm_dia import spmm_dia, spmm_dia_ref, spmm_dia_skinny
+from sextans_tpu_torch.ops.spmm_slab import SKINNY_MAX_N
+from sextans_tpu_torch.utils.config import SpmmConfig
+
+__all__ = ["HybridSplit", "split_structure", "HybridSpmmPlan", "SPLIT_VERSION",
+           "RESIDUE_FORMATS", "DIA_BACKENDS"]
+
+# The split rule's cost constants: the JAX package's TPU v5e model
+# (sextans_tpu/utils/autotune.py: BYTES_PER_CYCLE, EDGE_CYCLES_FIXED,
+# EDGE_CYCLES_PER_128LANES), kept at their values so that both packages split
+# every matrix identically. They say nothing about the H100; recalibrating
+# them for it is ROADMAP.md queue 1 item 12.
+BYTES_PER_CYCLE = 850.0
+EDGE_CYCLES_FIXED = 6.0
+EDGE_CYCLES_PER_128LANES = 20.0
+
+# The JAX package's split version, bumped with split_structure's selection
+# logic (its pack cache keys cached splits on it); kept equal to it.
+SPLIT_VERSION = 3
+
+
+@dataclass
+class HybridSplit:
+    """Structure decomposition of a sparse matrix (host-side)."""
+
+    m: int
+    k: int
+    nnz: int
+    # diagonals: offsets c (col - row); vals[d, i] = A[i, i + offsets[d]]
+    diag_offsets: np.ndarray  # (D,) int64
+    diag_vals: np.ndarray  # (D, m) float32
+    # dense head columns (original column ids) and their dense values
+    head_cols: np.ndarray  # (H,) int32
+    head_dense: np.ndarray  # (m, H) float32
+    # dense head rows (hub rows, e.g. circuit power nets): full dense rows
+    head_rows: np.ndarray  # (R,) int32
+    head_rows_dense: np.ndarray  # (R, k) float32
+    residue: COOMatrix
+
+    @property
+    def diag_nnz(self) -> int:
+        return int(np.count_nonzero(self.diag_vals))
+
+    @property
+    def head_nnz(self) -> int:
+        return int(np.count_nonzero(self.head_dense))
+
+    @property
+    def head_row_nnz(self) -> int:
+        return int(np.count_nonzero(self.head_rows_dense))
+
+    def summary(self) -> str:
+        return (
+            f"HybridSplit(m={self.m}, k={self.k}, nnz={self.nnz}: "
+            f"{self.diag_offsets.size} diagonals ({self.diag_nnz}), "
+            f"{self.head_cols.size} head cols ({self.head_nnz}), "
+            f"{self.head_rows.size} head rows ({self.head_row_nnz}), "
+            f"residue {self.residue.nnz})"
+        )
+
+    # -- persistence: split_structure costs minutes of host scatter work on
+    #    10M+-edge matrices and is re-run per (matrix, N) benchmark row, so
+    #    it joins the pack cache (format/pack_cache.py) as a cacheable
+    #    preprocessing artifact. The dense planes compress well (they are
+    #    mostly zeros: only head/diag entries are populated). --
+    def save(self, path) -> None:
+        np.savez_compressed(
+            Path(path),
+            dims=np.array([self.m, self.k, self.nnz], dtype=np.int64),
+            diag_offsets=self.diag_offsets,
+            diag_vals=self.diag_vals,
+            head_cols=self.head_cols,
+            head_dense=self.head_dense,
+            head_rows=self.head_rows,
+            head_rows_dense=self.head_rows_dense,
+            residue_rows=self.residue.rows,
+            residue_cols=self.residue.cols,
+            residue_vals=self.residue.vals,
+        )
+
+    @staticmethod
+    def load(path) -> "HybridSplit":
+        z = np.load(Path(path))
+        m, k, nnz = (int(x) for x in z["dims"])
+        return HybridSplit(
+            m=m,
+            k=k,
+            nnz=nnz,
+            diag_offsets=z["diag_offsets"],
+            diag_vals=z["diag_vals"],
+            head_cols=z["head_cols"],
+            head_dense=z["head_dense"],
+            head_rows=z["head_rows"],
+            head_rows_dense=z["head_rows_dense"],
+            residue=COOMatrix(
+                (m, k), z["residue_rows"], z["residue_cols"],
+                z["residue_vals"],
+            ),
+        )
+
+
+def _residue_edge_cycles(n: int) -> float:
+    """Best-case modeled cycles to process ONE residue nonzero across the
+    full N width (the edge-kernel model of the constants above)."""
+    best = float("inf")
+    for tn in (128, 256, 512):
+        panels = max(1, -(-n // tn))
+        best = min(
+            best,
+            EDGE_CYCLES_FIXED * panels + EDGE_CYCLES_PER_128LANES * n / 128,
+        )
+    return best
+
+
+def _cost_based_degree(m_other: int, n: int, length: int) -> int:
+    """Marginal break-even degree for lifting one column (or row) into the
+    dense head: lift when ``deg * residue_edge_cycles`` exceeds the dense
+    strip's cost (MXU flops at ~10k FLOP/cycle + its HBM read)."""
+    dense_cycles = 2.0 * length * n / 10000.0 + length * 4 / BYTES_PER_CYCLE
+    return max(4, int(dense_cycles / max(_residue_edge_cycles(n), 1e-9)))
+
+
+def _cost_based_diag(m: int, n: int) -> int:
+    """Marginal break-even count for lifting one DIAGONAL: the tiled DIA
+    kernel adds ~``2*M*n/2048`` VPU FMA cycles + an ``M*4``-byte dvals read
+    per diagonal (clustered offsets share the B window, so the window
+    traffic is not marginal). Circuit/stencil bands of many ~3%-dense
+    diagonals clear this easily where the old fixed 15% rule rejected
+    them (round-3: scircuit-class)."""
+    dia_cycles = 2.0 * m * n / 2048.0 + m * 4 / BYTES_PER_CYCLE
+    return max(4, int(dia_cycles / max(_residue_edge_cycles(n), 1e-9)))
+
+
+def split_structure(
+    coo: COOMatrix,
+    *,
+    n: Optional[int] = None,
+    diag_min_density: float = 0.15,
+    max_diags: int = 48,
+    head_min_degree_frac: float = 0.004,
+    max_head_cols: int = 2048,
+    min_head_cols: int = 32,
+    row_min_degree_frac: float = 0.004,
+    max_head_rows: int = 256,
+    min_head_rows: int = 8,
+) -> HybridSplit:
+    """Decompose ``coo`` into diagonals + dense head columns + residue.
+
+    Selection heuristics (cost-motivated):
+
+    * a diagonal is lifted when it holds >= ``diag_min_density * m``
+      nonzeros — below that, the (M, N) elementwise pass costs more memory
+      traffic than the nonzeros justify;
+    * a column is lifted into the head when it pays: with ``n`` given, the
+      threshold is the *marginal break-even degree* — the dense MXU strip
+      costs ``2*M*n/10k + M*4/BW`` cycles vs ~``deg * edge-kernel
+      per-edge`` cycles in the residue (round-3 widening: on webgraph-class
+      at N=512 this lifts columns down to degree ~125 where the old fixed
+      0.4%% rule stopped at 400). Without ``n``, the fixed
+      ``head_min_degree_frac * m`` rule applies. Either way the head is
+      capped at ``max_head_cols`` densest columns (M x H x 4 bytes);
+    * everything else is the residue, in ORIGINAL coordinates (no global
+      permutation: B is only gathered for the head's H rows).
+    """
+    m, k = coo.shape
+    rows = coo.rows.astype(np.int64)
+    cols = coo.cols.astype(np.int64)
+    vals = coo.vals
+    n_edges = rows.size
+
+    taken = np.zeros(n_edges, dtype=bool)
+
+    # --- diagonals ---
+    d = cols - rows  # in [-(m-1), k-1]
+    dmin = int(d.min(initial=0))
+    counts = np.bincount((d - dmin).astype(np.int64))
+    if n is not None:
+        thresh = _cost_based_diag(m, n)
+        # dvals is (D, m) dense: cap its footprint at ~1.5 GB
+        max_diags = min(max(max_diags, 256),
+                        max(8, int(1.5e9 / max(4 * m, 1))))
+    else:
+        thresh = max(1, int(diag_min_density * min(m, k)))
+    cand = np.flatnonzero(counts >= thresh)
+    order = np.argsort(-counts[cand], kind="stable")
+    cand = cand[order[:max_diags]]
+    diag_offsets = np.sort(cand + dmin)
+    if diag_offsets.size:
+        on_diag = np.isin(d, diag_offsets)
+        taken |= on_diag
+        diag_vals = np.zeros((diag_offsets.size, m), dtype=np.float32)
+        off_index = {int(c): i for i, c in enumerate(diag_offsets)}
+        dsel = np.flatnonzero(on_diag)
+        didx = np.fromiter(
+            (off_index[int(x)] for x in d[dsel]), count=dsel.size, dtype=np.int64
+        )
+        np.add.at(diag_vals, (didx, rows[dsel]), vals[dsel])
+    else:
+        diag_vals = np.zeros((0, m), dtype=np.float32)
+
+    # --- dense head columns (degree computed on what's left) ---
+    rem = ~taken
+    deg = np.bincount(cols[rem], minlength=k)
+    # absolute floor: a column below ~4 nnz never beats the residue
+    if n is not None:
+        deg_thresh = _cost_based_degree(k, n, length=m)
+    else:
+        deg_thresh = max(4, int(head_min_degree_frac * m))
+    head_cols = np.flatnonzero(deg >= deg_thresh)
+    # memory cap: the dense head costs M x H x 4 bytes on host AND device —
+    # bound it at ~1.5 GB so 1M-row matrices cannot blow up under the
+    # cost-widened threshold
+    max_head_eff = min(max_head_cols, max(min_head_cols,
+                                          int(1.5e9 / max(4 * m, 1))))
+    if head_cols.size > max_head_eff:
+        top = np.argsort(-deg[head_cols], kind="stable")[:max_head_eff]
+        head_cols = np.sort(head_cols[top])
+    if head_cols.size < min_head_cols:
+        head_cols = np.zeros(0, dtype=np.int64)
+    if head_cols.size:
+        in_head = np.zeros(k, dtype=bool)
+        in_head[head_cols] = True
+        on_head = rem & in_head[cols]
+        taken |= on_head
+        col_rank = np.zeros(k, dtype=np.int64)
+        col_rank[head_cols] = np.arange(head_cols.size)
+        head_dense = np.zeros((m, head_cols.size), dtype=np.float32)
+        hsel = np.flatnonzero(on_head)
+        np.add.at(head_dense, (rows[hsel], col_rank[cols[hsel]]), vals[hsel])
+    else:
+        head_dense = np.zeros((m, 0), dtype=np.float32)
+
+    # --- dense head rows (hub rows — circuit nets, supernode rows) ---
+    rem = ~taken
+    rdeg = np.bincount(rows[rem], minlength=m)
+    if n is not None:
+        rdeg_thresh = _cost_based_degree(m, n, length=k)
+    else:
+        rdeg_thresh = max(4, int(row_min_degree_frac * k))
+    head_rows = np.flatnonzero(rdeg >= rdeg_thresh)
+    if head_rows.size > max_head_rows:
+        top = np.argsort(-rdeg[head_rows], kind="stable")[:max_head_rows]
+        head_rows = np.sort(head_rows[top])
+    if head_rows.size < min_head_rows:
+        head_rows = np.zeros(0, dtype=np.int64)
+    if head_rows.size:
+        in_hrow = np.zeros(m, dtype=bool)
+        in_hrow[head_rows] = True
+        on_hrow = rem & in_hrow[rows]
+        taken |= on_hrow
+        row_rank = np.zeros(m, dtype=np.int64)
+        row_rank[head_rows] = np.arange(head_rows.size)
+        head_rows_dense = np.zeros((head_rows.size, k), dtype=np.float32)
+        rsel_ = np.flatnonzero(on_hrow)
+        np.add.at(head_rows_dense, (row_rank[rows[rsel_]], cols[rsel_]), vals[rsel_])
+    else:
+        head_rows_dense = np.zeros((0, k), dtype=np.float32)
+
+    # --- residue ---
+    rsel = np.flatnonzero(~taken)
+    residue = COOMatrix(
+        (m, k),
+        coo.rows[rsel],
+        coo.cols[rsel],
+        coo.vals[rsel],
+    )
+    return HybridSplit(
+        m=m,
+        k=k,
+        nnz=coo.nnz,
+        diag_offsets=diag_offsets.astype(np.int64),
+        diag_vals=diag_vals,
+        head_cols=head_cols.astype(np.int32),
+        head_dense=head_dense,
+        head_rows=head_rows.astype(np.int32),
+        head_rows_dense=head_rows_dense,
+        residue=residue,
+    )
+
+
+# The JAX package's residue format names -> this package's packers.
+RESIDUE_FORMATS = {"vpu": pack, "mxu": pack_mxu, "edge": pack_edge, "ell": pack_ell}
+# "pallas": the DIA kernels (their plain version on CPU tensors); "xla": the
+# plain PyTorch version on any device. The JAX package's names.
+DIA_BACKENDS = ("auto", "pallas", "xla")
+
+
+class HybridSpmmPlan:
+    """Executor for a :class:`HybridSplit` at a fixed N on one device::
+
+        C' = residue(B, C_in = beta*C + alpha*(diag + head + hub-row parts))
+
+    with the residue's plan run at beta = 1. The same ``__call__`` /
+    ``repeat`` surface as :class:`~sextans_tpu_torch.ops.plan.SpmmPlan`.
+
+    ``device`` is explicit. ``dia_backend="auto"`` is ``"pallas"`` on a CUDA
+    device (the DIA kernel: K7 ``spmm_dia_skinny`` for N <= 32, else K6
+    ``spmm_dia``) and ``"xla"`` (the plain version) on the CPU.
+
+    The residue is packed by ``RESIDUE_FORMATS[residue_fmt]`` (``vpu``,
+    ``mxu``, ``edge``, ``ell``) or, without ``residue_fmt``, by the packer of
+    ``backend`` (``ops/plan.py:BACKEND_FORMATS``), with ``residue_config``
+    (default ``SpmmConfig()``), and run by ``SpmmPlan(packed, n, backend)``.
+    An empty residue is skipped and needs neither. The JAX package picks the
+    residue's format with ``choose_backend`` from TPU cycle models; that
+    choice is not ported (ROADMAP.md queue 1 item 12), so a non-empty residue
+    without ``residue_fmt`` or a concrete ``backend`` raises ``ValueError``.
+    """
+
+    def __init__(
+        self,
+        split: HybridSplit,
+        n: int,
+        *,
+        residue_config: Optional[SpmmConfig] = None,
+        residue_fmt: Optional[str] = None,
+        backend: str = "auto",
+        dia_backend: str = "auto",
+        precise: int = 0,
+        device,
+    ):
+        if int(precise) != 0:
+            raise NotImplementedError(
+                "precise accumulation (precise=1/2) is not ported yet: "
+                "ROADMAP.md queue 1 item 6"
+            )
+        if n < 1:
+            raise ValueError(f"N must be positive, got {n}")
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+        if residue_fmt is not None and residue_fmt not in RESIDUE_FORMATS:
+            raise ValueError(f"unknown residue_fmt {residue_fmt!r}; expected one of "
+                             f"{tuple(RESIDUE_FORMATS)}")
+        if dia_backend not in DIA_BACKENDS:
+            raise ValueError(f"unknown dia_backend {dia_backend!r}; expected one of "
+                             f"{DIA_BACKENDS}")
+        check_split(split)
+        self.split = split
+        self.m, self.k = split.m, split.k
+        self.n = n
+        self.device = resolve_device(device)
+        if dia_backend == "auto":
+            dia_backend = "pallas" if self.device.type == "cuda" else "xla"
+        self.dia_backend = dia_backend
+
+        self.residue_plan = None
+        if split.residue.nnz > 0:
+            if residue_fmt is not None:
+                packer = RESIDUE_FORMATS[residue_fmt]
+            elif backend != "auto":
+                packer = BACKEND_FORMATS[backend][0]
+            else:
+                raise ValueError(
+                    f"the residue holds {split.residue.nnz} nonzeros and neither "
+                    "residue_fmt nor a backend names its format; the JAX package's "
+                    "choice (choose_backend) is not ported: ROADMAP.md queue 1 item 12"
+                )
+            packed = packer(split.residue, residue_config or SpmmConfig())
+            self.residue_plan = SpmmPlan(packed, n, backend, device=self.device)
+
+        def put(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(self.device)
+
+        self._dvals = self._offsets = self._dia = None
+        if split.diag_offsets.size:
+            self._dvals = put(split.diag_vals, np.float32)
+            self._offsets = put(split.diag_offsets, np.int32)
+            self._dia = (spmm_dia_ref if dia_backend == "xla"
+                         else spmm_dia_skinny if n <= SKINNY_MAX_N else spmm_dia)
+        self._head = self._head_cols = None
+        if split.head_cols.size:
+            self._head = put(split.head_dense, np.float32)
+            self._head_cols = put(split.head_cols, np.int64)
+        self._hrows = self._hrows_idx = None
+        if split.head_rows.size:
+            self._hrows = put(split.head_rows_dense, np.float32)
+            self._hrows_idx = put(split.head_rows, np.int64)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes the plan keeps on its device: the split's dense parts and
+        the residue's pack."""
+        parts = [self._dvals, self._offsets, self._head, self._head_cols, self._hrows,
+                 self._hrows_idx]
+        if self.residue_plan is not None:
+            parts += [*self.residue_plan.arrays, *(self.residue_plan.ranges or ())]
+        return sum(t.nbytes for t in parts if t is not None)
+
+    def _operands(self, b, beta, c):
+        b = dense_operand(b, (self.k, self.n), "B", self.device).contiguous()
+        if c is None:
+            if float(beta) != 0.0:
+                raise ValueError("beta != 0 requires an input C")
+            return b, None
+        return b, dense_operand(c, (self.m, self.n), "C", self.device).contiguous()
+
+    def _step(self, b, c, alpha, beta) -> torch.Tensor:
+        """One hybrid step; ``c`` None is the no-C path (beta = 0)."""
+        with_c = c is not None
+        if self._dia is not None:
+            c_in = c if with_c else torch.zeros(1, device=self.device).expand(self.m, self.n)
+            acc = self._dia(self._dvals, self._offsets, b, c_in, alpha, beta, with_c=with_c)
+        elif with_c:
+            acc = c * f32(beta)
+        else:
+            acc = torch.zeros((self.m, self.n), dtype=torch.float32, device=self.device)
+        if self._head is not None or self._hrows is not None:
+            no_tf32()
+        if self._head is not None:
+            acc = acc + f32(alpha) * torch.matmul(self._head, b[self._head_cols])
+        if self._hrows is not None:
+            # head rows are unique, so this adds deterministically
+            acc.index_add_(0, self._hrows_idx, f32(alpha) * torch.matmul(self._hrows, b))
+        if self.residue_plan is not None:
+            acc = self.residue_plan(b, alpha, 1.0, acc)
+        return acc
+
+    def __call__(self, b, alpha=1.0, beta=0.0, c=None) -> torch.Tensor:
+        b, c = self._operands(b, beta, c)
+        return self._step(b, c, alpha, beta)
+
+    def repeat(self, b, alpha=1.0, beta=0.0, c=None, times: int = 1) -> torch.Tensor:
+        """The whole hybrid step ``times`` times on the current stream, C fed
+        back each time (the reference's rp_time loop)."""
+        b, c = self._operands(b, beta, c)
+        if c is None:
+            c = torch.zeros((self.m, self.n), dtype=torch.float32, device=self.device)
+        for _ in range(times):
+            c = self._step(b, c, alpha, beta)
+        return c

@@ -18,6 +18,7 @@ __all__ = [
     "check_pack_indices",
     "check_edge_pack",
     "check_ell_pack",
+    "check_split",
     "need",
     "check_dense",
     "check_operands",
@@ -107,6 +108,30 @@ def check_ell_pack(packed) -> None:
     fr = packed.fold_rows
     if fr.size and (fr.min() < 0 or fr.max() >= packed.m):
         raise ValueError(f"fold_rows holds a row outside [0, m={packed.m})")
+
+
+def check_split(split) -> None:
+    """Shapes and indices of a hybrid split, checked once on the host before
+    upload: the plan gathers B rows at ``head_cols`` and adds into C rows at
+    ``head_rows``, and a diagonal must cross A."""
+    m, k = split.m, split.k
+    offs, rows = np.asarray(split.diag_offsets), np.asarray(split.head_rows)
+    cols = np.asarray(split.head_cols)
+    shapes = {"diag_vals": (offs.size, m), "head_dense": (m, cols.size),
+              "head_rows_dense": (rows.size, k)}
+    for name, shape in shapes.items():
+        if np.shape(getattr(split, name)) != shape:
+            raise ValueError(f"{name} must be {shape}, got {np.shape(getattr(split, name))}")
+    if offs.ndim != 1 or cols.ndim != 1 or rows.ndim != 1:
+        raise ValueError("diag_offsets, head_cols and head_rows must be 1-D")
+    if tuple(split.residue.shape) != (m, k):
+        raise ValueError(f"the residue must be ({m}, {k}), got {tuple(split.residue.shape)}")
+    if offs.size and (np.any(np.diff(offs) <= 0) or offs[0] <= -m or offs[-1] >= k):
+        raise ValueError(f"diag_offsets must ascend strictly within ({-m}, {k})")
+    if cols.size and (cols.min() < 0 or cols.max() >= k):
+        raise ValueError(f"head_cols holds a column outside [0, k={k})")
+    if rows.size and (np.any(np.diff(rows) <= 0) or rows[0] < 0 or rows[-1] >= m):
+        raise ValueError(f"head_rows must ascend strictly within [0, m={m})")
 
 
 def need(t: torch.Tensor, name: str, dtype, shape: Sequence[int], device) -> None:

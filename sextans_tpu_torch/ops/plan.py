@@ -50,7 +50,8 @@ from sextans_tpu_torch.ops.spmm_slab import (
     spmm_slab_skinny_padded,
 )
 
-__all__ = ["SpmmPlan", "BACKENDS", "BACKEND_FORMATS", "PACKS", "resolve_device"]
+__all__ = ["SpmmPlan", "BACKENDS", "BACKEND_FORMATS", "PACKS", "resolve_device",
+           "dense_operand"]
 
 # backend -> (the packer that makes its format, the pack type it runs on);
 # "auto" picks the first backend listed for the pack's type
@@ -71,6 +72,15 @@ def resolve_device(device) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def dense_operand(x, shape, name: str, device: torch.device) -> torch.Tensor:
+    """``x`` (array or tensor) as an f32 tensor on ``device``; raises unless
+    its shape is ``shape``."""
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+    return x
 
 
 def _put(a, dtype, device):
@@ -182,22 +192,16 @@ class SpmmPlan:
             inv[packed.row_perm] = np.arange(self.m)
             self._inv_row = as_index(inv)
 
-    def _dense(self, x, shape, name) -> torch.Tensor:
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
-        return x
-
     def pad_b(self, b) -> torch.Tensor:
         """B as the kernel takes it: column-permuted, padded to k_padded."""
-        b = self._dense(b, (self.k, self.n), "B")
+        b = dense_operand(b, (self.k, self.n), "B", self.device)
         if self._col_perm is not None:  # A was packed as A[:, col_perm]
             b = b[self._col_perm]
         return F.pad(b, (0, 0, 0, self.packed.k_padded - self.k)).contiguous()
 
     def pad_c(self, c) -> torch.Tensor:
         """C as the kernel takes it: row-permuted, padded to m_padded."""
-        c = self._dense(c, (self.m, self.n), "C")
+        c = dense_operand(c, (self.m, self.n), "C", self.device)
         if self._row_perm is not None:  # A was packed as A[row_perm, :]
             c = c[self._row_perm]
         return F.pad(c, (0, 0, 0, self.packed.m_padded - self.m)).contiguous()

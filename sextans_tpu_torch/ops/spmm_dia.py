@@ -1,0 +1,151 @@
+"""SpMM over the diagonal part of a hybrid split (ops/hybrid.py).
+
+``spmm_dia`` is the twin of ``sextans_tpu.ops.spmm_dia_pallas``'s
+``spmm_dia_padded`` (kernel K6, the hybrid plan's route for N > 32) and
+``spmm_dia_skinny`` of its ``spmm_dia_ct_padded`` (kernel K7, N <= 32). On a
+CUDA tensor each launches its hand-written kernel in ``csrc/spmm_dia.cu``; on
+a CPU tensor both run the one plain PyTorch version, ``spmm_dia_ref``. Any
+other device raises.
+
+The layout is the port's own: one (D, M) ``dvals`` array for both kernels,
+the (D,) offsets as an int32 tensor beside it, and B and C as they are,
+(K, N) and (M, N). The JAX kernels take B padded with
+``pad_lo = max(0, -min(offsets))`` zero rows on top and zero rows below it,
+K7 on B and C transposed; here a row of B outside [0, K) reads as 0, which is
+what those zero rows held, so no padded or transposed copy is made.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from sextans_tpu_torch.ops.launch import f32, fma_f32, need, stream_of
+from sextans_tpu_torch.runtime.build import build_kernels, check_launch
+
+__all__ = ["spmm_dia", "spmm_dia_skinny", "spmm_dia_ref"]
+
+# Bytes of one (rows, n) f64 temporary per row step of the plain version.
+_REF_CHUNK_BYTES = 256 << 20
+
+
+def spmm_dia_ref(
+    dvals: torch.Tensor,  # (D, m) f32
+    offsets: torch.Tensor,  # (D,) i32
+    b: torch.Tensor,  # (k, n) f32
+    c: torch.Tensor,  # (m, n) f32
+    alpha: float,
+    beta: float,
+    *,
+    with_c: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version of both kernels, rounding as they do: for each
+    row, one fused multiply-add per diagonal in offset order from zero,
+    ``dvals[d, i] * B[i + offsets[d]]`` with B zero-padded above and below,
+    then ``fma(alpha, acc, beta * C)``. Works in row steps, so that no
+    (M, N) temporary is made per diagonal."""
+    n_diags, m = dvals.shape
+    k, n = b.shape
+    offs = [int(o) for o in offsets.tolist()]
+    pad_lo = max(0, -min(offs, default=0))
+    pad_hi = max(0, max(offs, default=0) + m - k)
+    b_p = F.pad(b, (0, 0, pad_lo, pad_hi))
+    acc = torch.empty((m, n), dtype=torch.float32, device=dvals.device)
+    step = max(1, _REF_CHUNK_BYTES // (8 * n))
+    for r0 in range(0, m, step):
+        r1 = min(m, r0 + step)
+        a = torch.zeros((r1 - r0, n), dtype=torch.float32, device=dvals.device)
+        for d, off in enumerate(offs):
+            lo = r0 + off + pad_lo
+            a = fma_f32(dvals[d, r0:r1, None], b_p[lo:lo + r1 - r0], a)
+        acc[r0:r1] = a
+    if not with_c:
+        return acc * f32(alpha)
+    return fma_f32(torch.full_like(acc, f32(alpha)), acc, c * f32(beta))
+
+
+def _check_dia_operands(dvals, offsets, b, c, *, with_c):
+    """Check every operand of a launch; returns ``(n_diags, m, k, n)``. With
+    ``with_c=False``, ``c`` is used for its shape only and may be a
+    broadcast view."""
+    device = dvals.device
+    if dvals.dim() != 2 or b.dim() != 2 or c.dim() != 2:
+        raise ValueError("dvals, b and c must be 2-D")
+    n_diags, m = dvals.shape
+    k, n = b.shape
+    need(dvals, "dvals", torch.float32, (n_diags, m), device)
+    need(offsets, "offsets", torch.int32, (n_diags,), device)
+    need(b, "b", torch.float32, (k, n), device)
+    if with_c:
+        need(c, "c", torch.float32, (m, n), device)
+    elif tuple(c.shape) != (m, n):
+        raise ValueError(f"c must have shape {(m, n)}")
+    if m == 0 or n == 0 or max(m, k, n) >= 2**31:
+        raise ValueError(f"M, K and N must be in [1, 2**31), got {(m, k, n)}")
+    return n_diags, m, k, n
+
+
+def _launch(name, dvals, offsets, b, c, alpha, beta, *, with_c, wide):
+    if dvals.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {dvals.device}")
+    n_diags, m, k, n = _check_dia_operands(dvals, offsets, b, c, with_c=with_c)
+    out = torch.empty((m, n), dtype=torch.float32, device=dvals.device)
+    lib = build_kernels()
+    args = (dvals.data_ptr(), offsets.data_ptr(), b.data_ptr(),
+            c.data_ptr() if with_c else None, out.data_ptr(), m, k, n, n_diags,
+            float(alpha), float(beta), int(with_c))
+    with torch.cuda.device(dvals.device):
+        if wide:
+            dense = (b, c) if with_c else (b,)
+            vec = 4 if n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in dense) else 1
+            err = lib.spmm_dia_launch(*args, vec, stream_of(dvals.device))
+        else:
+            err = lib.spmm_dia_skinny_launch(*args, stream_of(dvals.device))
+    check_launch(lib, name, err)
+    return out
+
+
+def spmm_dia(
+    dvals: torch.Tensor,
+    offsets: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    alpha: float,
+    beta: float,
+    *,
+    with_c: bool = True,
+) -> torch.Tensor:
+    """``alpha * A_dia @ B + beta * C`` with the wide-N kernel; returns the
+    (M, N) result. ``with_c=False`` drops the C read and ``c`` then gives the
+    shape only."""
+    if dvals.device.type == "cpu":
+        return spmm_dia_ref(dvals, offsets, b, c, alpha, beta, with_c=with_c)
+    out = _launch("spmm_dia", dvals, offsets, b, c, alpha, beta, with_c=with_c,
+                  wide=True)
+    spmm_dia.launches += 1
+    return out
+
+
+def spmm_dia_skinny(
+    dvals: torch.Tensor,
+    offsets: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    alpha: float,
+    beta: float,
+    *,
+    with_c: bool = True,
+) -> torch.Tensor:
+    """The same function as :func:`spmm_dia` with the skinny-N kernel (one
+    thread per output cell, consecutive threads on consecutive cells of the
+    row-major C); correct at any N, chosen for N <= 32."""
+    if dvals.device.type == "cpu":
+        return spmm_dia_ref(dvals, offsets, b, c, alpha, beta, with_c=with_c)
+    out = _launch("spmm_dia_skinny", dvals, offsets, b, c, alpha, beta, with_c=with_c,
+                  wide=False)
+    spmm_dia_skinny.launches += 1
+    return out
+
+
+spmm_dia.launches = 0
+spmm_dia_skinny.launches = 0

@@ -53,6 +53,9 @@ _SIGNATURES = {
     "spmm_edge_launch": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _P],
     # vals cols b c out m_padded r_slots n alpha beta with_c vec stream
     "spmm_ell_launch": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _I, _P],
+    # dvals offsets b c out m k n n_diags alpha beta with_c [vec] stream
+    "spmm_dia_launch": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _I, _P],
+    "spmm_dia_skinny_launch": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _P],
     "sx_error_string": [_I],
 }
 

@@ -16,6 +16,7 @@ import torch
 
 import sextans_tpu_torch as tx
 from sextans_tpu_torch.ops.spmm_block import spmm_block_padded, spmm_block_padded_ref
+from sextans_tpu_torch.ops.spmm_dia import spmm_dia, spmm_dia_ref, spmm_dia_skinny
 from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded, spmm_edge_padded_ref
 from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded, spmm_ell_gather_padded_ref
 from sextans_tpu_torch.ops.spmm_slab import (
@@ -23,6 +24,7 @@ from sextans_tpu_torch.ops.spmm_slab import (
     spmm_slab_padded_ref,
     spmm_slab_skinny_padded,
 )
+from sextans_tpu_torch.utils.matrices import circuit_like, stencil_3d
 
 pytestmark = pytest.mark.gpu
 
@@ -240,3 +242,109 @@ def test_wrappers_check_operands(cuda):
         spmm_block_padded(*pl.arrays, b, c[:-8], 1.0, 0.0, **kw)
     with pytest.raises(ValueError, match="c_padded must have shape"):
         spmm_block_padded(*pl.arrays, b, c[:, :8], 1.0, 0.0, **kw)
+
+
+def _dia_split(kind):
+    if kind == "stencil":  # offsets 0, +-1, +-12, +-144: one consecutive run
+        return tx.split_structure(stencil_3d(12, seed=1), n=16)
+    if kind == "band":  # a +-60 band of consecutive offsets, and hub parts
+        return tx.split_structure(circuit_like(3000, seed=2), n=64)
+    # rectangular, offsets spread and negative: every B row read is shifted
+    rng = np.random.default_rng(7)
+    rows = np.concatenate([np.arange(900)] * 3 + [rng.integers(0, 900, 3000)])
+    cols = np.concatenate([np.arange(900) + 40, np.arange(900) // 2,
+                           np.clip(np.arange(900) - 333, 0, 1199),
+                           rng.integers(0, 1200, 3000)])
+    return tx.split_structure(tx.COOMatrix((900, 1200), rows, cols,
+                                           rng.standard_normal(rows.size)), n=64)
+
+
+def _check_dia(kernel, cuda, split, n, with_c, misaligned=False):
+    rng = np.random.default_rng(n)
+    dv = torch.as_tensor(split.diag_vals, device=cuda)
+    offs = torch.as_tensor(split.diag_offsets.astype(np.int32), device=cuda)
+    b = torch.as_tensor(rng.standard_normal((split.k, n)).astype(np.float32), device=cuda)
+    if misaligned:  # B one float past a 16-byte boundary: 4-byte loads
+        buf = torch.empty(b.numel() + 1, device=cuda)
+        buf[1:] = b.reshape(-1)
+        b = buf[1:].view(split.k, n)
+    c = torch.as_tensor(rng.standard_normal((split.m, n)).astype(np.float32), device=cuda)
+    if not with_c:
+        c = torch.zeros(1, device=cuda).expand(split.m, n)
+    before = kernel.launches
+    got = kernel(dv, offs, b, c, ALPHA, BETA, with_c=with_c)
+    want = spmm_dia_ref(dv, offs, b, c, ALPHA, BETA, with_c=with_c)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.shape == want.shape == (split.m, n) and got.device == cuda
+    assert torch.isfinite(got).all()
+    tol = 4 * np.spacing(np.float32(want.abs().max().item()))
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("kind", ["stencil", "band", "rect"])
+@pytest.mark.parametrize("n", [33, 40, 64, 130, 512])
+def test_dia_kernel_matches_plain(cuda, kind, n):
+    split = _dia_split(kind)
+    assert split.diag_offsets.size >= 5
+    _check_dia(spmm_dia, cuda, split, n, with_c=n != 40)
+
+
+@pytest.mark.parametrize("kind", ["stencil", "band", "rect"])
+@pytest.mark.parametrize("n", [1, 8, 13, 16, 32])
+def test_dia_skinny_kernel_matches_plain(cuda, kind, n):
+    _check_dia(spmm_dia_skinny, cuda, _dia_split(kind), n, with_c=n != 13)
+
+
+@pytest.mark.parametrize("kernel", [spmm_dia, spmm_dia_skinny])
+def test_dia_kernels_take_misaligned_b(cuda, kernel):
+    _check_dia(kernel, cuda, _dia_split("band"), 64, with_c=True, misaligned=True)
+
+
+@pytest.mark.parametrize("n,backend", [(16, "pallas"), (64, "pallas"), (16, "edge"),
+                                       (64, "ell_pallas"), (64, "mxu")])
+def test_hybrid_plan_on_card_matches_cpu(cuda, n, backend):
+    coo = circuit_like(3000, seed=2)
+    split = tx.split_structure(coo, n=n, min_head_cols=1, min_head_rows=1)
+    cfg = tx.SpmmConfig(tile_m=256, window_k=256, block_k=8, group_blocks=16)
+    rng = np.random.default_rng(1)
+    b = rng.standard_normal((3000, n)).astype(np.float32)
+    c = rng.standard_normal((3000, n)).astype(np.float32)
+    on_card = tx.HybridSpmmPlan(split, n, residue_config=cfg, backend=backend, device=cuda)
+    on_cpu = tx.HybridSpmmPlan(split, n, residue_config=cfg, backend=backend, device="cpu")
+    assert on_card.dia_backend == "pallas" and on_cpu.dia_backend == "xla"
+    dia = spmm_dia_skinny if n <= 32 else spmm_dia
+    exact = tx.golden_spmm_exact(tx.CSRMatrix.from_coo(coo), b, ALPHA, BETA, c)
+    tol = 4 * np.spacing(np.float32(np.abs(exact).max()))
+    before = dia.launches
+    for got in (on_card(b, ALPHA, BETA, c), on_card.repeat(b, ALPHA, BETA, c, times=1)):
+        assert got.device == cuda
+        got = got.cpu().numpy()
+        assert tx.verify(exact, got).passed
+        assert np.abs(got - on_cpu(b, ALPHA, BETA, c).numpy()).max() <= tol
+    assert dia.launches == before + 2
+    noc = on_card(b, 1.5).cpu().numpy()
+    assert np.abs(noc - on_cpu(b, 1.5).numpy()).max() <= tol
+
+
+def test_dia_wrappers_check_operands(cuda):
+    split = _dia_split("band")
+    dv = torch.as_tensor(split.diag_vals, device=cuda)
+    offs = torch.as_tensor(split.diag_offsets.astype(np.int32), device=cuda)
+    b = torch.ones((split.k, 16), device=cuda)
+    c = torch.ones((split.m, 16), device=cuda)
+    for kernel in (spmm_dia, spmm_dia_skinny):
+        with pytest.raises(ValueError, match="float32"):
+            kernel(dv, offs, b.double(), c, 1.0, 0.0)
+        with pytest.raises(ValueError, match="int32"):
+            kernel(dv, offs.long(), b, c, 1.0, 0.0)
+        with pytest.raises(ValueError, match="contiguous"):
+            kernel(dv, offs, b.t().contiguous().t(), c, 1.0, 0.0)
+        with pytest.raises(ValueError, match="expected cuda"):
+            kernel(dv, offs, b.cpu(), c, 1.0, 0.0)
+        with pytest.raises(ValueError, match="offsets must have shape"):
+            kernel(dv, offs[:-1], b, c, 1.0, 0.0)
+        with pytest.raises(ValueError, match="c must have shape"):
+            kernel(dv, offs, b, c[:, :8], 1.0, 0.0)
+        with pytest.raises(ValueError, match="c must have shape"):
+            kernel(dv, offs, b, c[:-1], 1.0, 0.0, with_c=False)

@@ -22,7 +22,7 @@ PACKAGE = REPO / "sextans_tpu_torch"
 
 def test_import_loads_no_jax():
     code = (
-        "import sys, sextans_tpu_torch, sextans_tpu_torch.cli\n"
+        "import sys, sextans_tpu_torch, sextans_tpu_torch.cli, sextans_tpu_torch.ops.hybrid\n"
         "import sextans_tpu_torch.utils.timing, sextans_tpu_torch.utils.matrices\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sextans_tpu', 'triton'))\n"
@@ -74,12 +74,12 @@ def test_failed_compile_raises_and_leaves_no_library(monkeypatch, tmp_path):
 def test_build_flags_target_hopper_and_hash_sources():
     assert "arch=compute_90a,code=sm_90a" in " ".join(build.NVCC_FLAGS)
     assert {p.name for p in build._sources()} == {
-        "spmm_block.cu", "spmm_slab.cu", "spmm_edge.cu", "spmm_ell.cu"}
+        "spmm_block.cu", "spmm_slab.cu", "spmm_edge.cu", "spmm_ell.cu", "spmm_dia.cu"}
     assert build._source_hash() == build._source_hash()
     # every pointer and the stream are c_void_p, so none is cut to 32 bits
     pointers = {"spmm_block_launch": 9, "spmm_slab_launch": 9,
                 "spmm_slab_skinny_launch": 9, "spmm_edge_launch": 8,
-                "spmm_ell_launch": 5}
+                "spmm_ell_launch": 5, "spmm_dia_launch": 5, "spmm_dia_skinny_launch": 5}
     launches = [name for name in build._SIGNATURES if name.endswith("_launch")]
     assert sorted(launches) == sorted(pointers)
     for name in launches:
@@ -139,9 +139,11 @@ def test_check_launch_raises_on_cuda_error():
 def test_cuda_device_has_no_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("checks a host without a CUDA device")
-    packed = tx.pack(tx.COOMatrix.random(64, 64, 200, seed=1))
+    coo = tx.COOMatrix.random(64, 64, 200, seed=1)
     with pytest.raises((RuntimeError, AssertionError)):
-        tx.SpmmPlan(packed, 8, device="cuda")
+        tx.SpmmPlan(tx.pack(coo), 8, device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        tx.HybridSpmmPlan(tx.split_structure(coo, n=8), 8, backend="pallas", device="cuda")
 
 
 @pytest.mark.parametrize("precise", [1, 2])

@@ -280,7 +280,7 @@ def test_cli_prints_success(mtx_file, backend, capsys):
 
 
 def test_cli_rejects_options_not_ported(mtx_file, capsys):
-    for flag in ("--autotune", "--hybrid", "--precise"):
+    for flag in ("--autotune", "--precise"):
         with pytest.raises(SystemExit):
             cli_main([str(mtx_file), "8", flag, "--device", "cpu"])
     capsys.readouterr()
