@@ -35,10 +35,31 @@ Phases (each prints its lines; any failure exits non-zero):
    laplace3d_64 (stencil_3d(64, seed=12), 1,826,686 nnz, 7 diagonals) at
    N = 16. Bar: 4 ulp of max|C|, 16 on scircuit_like, whose hub rows are
    dot products of ~850 terms in 170,998 columns; the worst element's row
-   is printed, and whether it is a hub row.
+   is printed, and whether it is a hub row. On those two, the DIA kernel is
+   also held against its plain version and timed beside it and the library
+   call on the diagonal part, as in phase 2.
 6. ``python -m sextans_tpu_torch <mtx> 16 --backend B`` for B in mxu, edge
-   and ell_pallas, and ``--hybrid --backend pallas``, run together; each
-   must print Success!.
+   and ell_pallas, and ``--hybrid --backend pallas``, and with ``--precise``
+   for B in pallas, mxu and edge, run together; each must print Success!.
+   ``--precise`` with ``ell_pallas`` and with ``--hybrid`` (the CLI's main,
+   in this process) must return 2 and name ``ROADMAP.md`` (not ported yet).
+7. The EFT probe (the twin of the TPU probe P3,
+   ``benchmarks/scratch/mosaic_eft_probe.py``): two_sum / two_prod over its
+   (8, 128) inputs and its 64-term two_prod + acc_step chain, compiled by
+   nvcc with the kernels' flags; 0 violations against f64, 0 elements of
+   the chain above the f32 representation floor, and equal to its plain
+   version on the card.
+8. Precise levels (``SpmmConfig.precise``) on the main path: synthetic4704
+   at N = 512 and 16 through pallas (K3), edge (K4, the masked pack at
+   N = 16) and mxu (K1 at 512, K2 at 16) at levels 1 and 2; each kernel
+   against its plain version on the card (K3 and K4 to the bit, K1 and K2
+   within 4 ulp), and the path against golden_spmm_exact: pallas and edge
+   within 1 ulp of max|C| at level 1 and 0.5001 (correctly rounded) at
+   level 2, mxu within 1.5 and no worse than its plain mode. Then cant_like
+   N = 512 through pallas and edge at level 2 and mxu at level 1, against
+   phase 4's f64 oracle. Each run prints its ulp, the elements above their
+   own f32 representation floor, and the kernel's time beside its plain
+   mode's (same inputs, in turns; on cant_like phase 4's ``time_repeat``).
 
 Timings. Beside each kernel of phases 2 and 4: its plain version's time, the
 library call ``torch.sparse.addmm(C, A_csr, B, beta, alpha)`` on the same
@@ -47,8 +68,11 @@ max(2 * nnz * N / 67 TFLOP/s, bytes / 3.35 TB/s), bytes = 8 per nonzero + B
 + C in + C out, each once; for the DIA kernels the dense DIA work,
 max(2 * D * M * N / 67 TFLOP/s, (4 * D * M + B + C in + C out) / 3.35 TB/s),
 with the library call on the diagonal part as CSR. The three are sampled
-in turns plain, kernel, library, library, kernel, plain, ``ROUNDS`` times;
-each sample is CUDA events over a few launches; the median is printed.
+in turns plain, kernel, library, library, kernel, plain, ``ROUNDS`` times
+(2 on the full-size shapes and in phase 8, whose precise kernels are also
+sampled in plain mode); each sample is CUDA events over a few launches, the
+plain version's over one (on the full-size shapes and in phase 8 in the
+first round only); the median is printed.
 Each path of phases 3
 and 4 prints its pack (seconds, bytes on the card, slots and the share that
 holds a nonzero), ``time_repeat`` (median of 3) and GFLOPS = 2 * N *
@@ -58,15 +82,20 @@ calls' host-clock time. Each hybrid run of phase 5 prints the same for its
 split (seconds, bytes of every part on the card), with the DIA kernel and
 the residue's kernel apart in the profile.
 
-Every run of phases 3, 4 and 5 is one main path: the launch counters are
+Every run of phases 3, 4, 5, 7 and 8 is one path: the launch counters are
 set to 0 just before it and read just after, and its kernels must have
-launched.
+launched. Nothing failing is passed over: a kernel that does not build or
+launch raises, and nothing falls back to a plain version or the CPU.
 The last two lines are a JSON object with one entry per kernel (its phase-2
-row at the first N) and ``{"ok": true, "device": {...}}``.
+row at the first N; a precise variant's phase-8 row, named
+``<kernel>_precise<level>``; the probe's two kernels) and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -80,6 +109,8 @@ ROOT = Path(__file__).resolve().parent
 ALPHA, BETA = 0.85, -2.06
 ULP_BAR = 4.0
 HUB_ULP_BAR = 16.0  # scircuit_like's hybrid path: long hub-row dot products
+PRECISE_BAR = {1: 1.0, 2: 0.5001}  # block and edge paths (docs/ACCURACY.md)
+SLAB_PRECISE_BAR = 1.5
 PEAK_F32_FLOPS = 67e12  # one H100 SXM, f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 ROUNDS = 3
@@ -103,12 +134,13 @@ def dia_bound(n_diags: int, m: int, k: int, n: int):
     return max(flop_ms, byte_ms), "operations" if flop_ms > byte_ms else "bytes"
 
 
-def event_ms(fn, iters: int) -> float:
+def event_ms(fn, iters: int, warm: bool = True) -> float:
     """Mean device milliseconds of ``fn()`` over ``iters`` launches, after a
-    warm-up, bracketed by CUDA events."""
+    warm-up launch if ``warm``, bracketed by CUDA events."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -120,19 +152,27 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def abba_ms(fns: dict, iters: int) -> dict:
-    """Median of ``event_ms`` for each of ``fns`` ("kernel", "plain",
-    "library"), sampled in turns plain, kernel, library, library, kernel,
-    plain, ``ROUNDS`` times."""
+def abba_ms(fns: dict, iters: int, rounds: int = ROUNDS, slow_plain: bool = False) -> dict:
+    """Median of ``event_ms`` for each of ``fns``, sampled in turns: their
+    order, then the reverse (plain, kernel, library, library, kernel, plain
+    for those three), ``rounds`` times, over ``iters`` launches a sample.
+    "plain" (called once by the caller just before) takes one launch a
+    sample and no warm-up; with ``slow_plain`` it is sampled in the first
+    round only."""
     samples = {name: [] for name in fns}
-    for _ in range(ROUNDS):
-        for name in ("plain", "kernel", "library", "library", "kernel", "plain"):
-            samples[name].append(event_ms(fns[name], iters))
+    order = list(fns)
+    for turn in range(rounds):
+        for name in order + order[::-1]:
+            if name != "plain":
+                samples[name].append(event_ms(fns[name], iters))
+            elif turn == 0 or not slow_plain:
+                samples[name].append(event_ms(fns[name], 1, warm=False))
     return {name: statistics.median(s) for name, s in samples.items()}
 
 
-def kernel_calls(pl, n):
-    """(name, kernel call, plain call) of ``pl``'s kernel, as ``fn(b_p, c_p)``."""
+def kernel_calls(pl, n, precise=None):
+    """(name, kernel call, plain call) of ``pl``'s kernel, as ``fn(b_p, c_p)``,
+    at the pack's precise level or at ``precise``."""
     from sextans_tpu_torch.ops.spmm_block import spmm_block_padded, spmm_block_padded_ref
     from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded, spmm_edge_padded_ref
     from sextans_tpu_torch.ops.spmm_ell import (
@@ -148,6 +188,7 @@ def kernel_calls(pl, n):
 
     packed, cfg = pl.packed, pl.packed.config
     extra = dict(ranges=pl.ranges)
+    level = dict(precise=int(cfg.precise if precise is None else precise))
     if pl.backend == "ell_pallas":
         name, kernel, plain = "spmm_ell", spmm_ell_gather_padded, spmm_ell_gather_padded_ref
         kw, extra = dict(m_base=packed.m_base), {}
@@ -165,6 +206,8 @@ def kernel_calls(pl, n):
             name, kernel, plain = "spmm_slab", spmm_slab_padded, spmm_slab_padded_ref
         kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k, block_k=cfg.block_k,
                   group_blocks=cfg.group_blocks)
+    if pl.backend != "ell_pallas":
+        kw.update(level)
     return (name,
             lambda b_p, c_p: kernel(*pl.arrays, b_p, c_p, ALPHA, BETA, **kw, **extra),
             lambda b_p, c_p: plain(*pl.arrays, b_p, c_p, ALPHA, BETA, **kw))
@@ -236,6 +279,7 @@ def main() -> int:
     import numpy as np
 
     import sextans_tpu_torch as sx
+    from sextans_tpu_torch.ops import df32
     from sextans_tpu_torch.ops.plan import BACKEND_FORMATS
     from sextans_tpu_torch.ops.spmm_block import spmm_block_padded
     from sextans_tpu_torch.ops.spmm_dia import spmm_dia, spmm_dia_ref, spmm_dia_skinny
@@ -277,25 +321,34 @@ def main() -> int:
         c = rng.standard_normal((m, n)).astype(np.float32)
         return b, c
 
-    def check_kernel(tag, coo, pl, b_dev, c_dev, iters):
-        """Hold ``pl``'s kernel against its plain version on the card and
-        time both beside the library call and the bound."""
+    def check_kernel(tag, coo, pl, b_dev, c_dev, iters, exact=False, rounds=ROUNDS,
+                     slow_plain=False):
+        """Hold ``pl``'s kernel against its plain version on the card (to
+        the bit with ``exact``) and time both beside the library call and
+        the bound; at a precise level, also beside the same kernel in plain
+        mode."""
         n = pl.n
         b_p, c_p = pl.pad_b(b_dev), pl.pad_c(c_dev)
         name, run_kernel, run_plain = kernel_calls(pl, n)
         got, want = run_kernel(b_p, c_p), run_plain(b_p, c_p)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        tol = ULP_BAR * float(np.spacing(np.float32(want.abs().max().item())))
+        tol = 0.0 if exact else ULP_BAR * float(np.spacing(np.float32(want.abs().max().item())))
         ok = bool(torch.isfinite(got).all().item()) and err <= tol
         del got, want
         library = library_call(coo)
-        ms = abba_ms({"kernel": lambda: run_kernel(b_p, c_p),
-                      "plain": lambda: run_plain(b_p, c_p),
-                      "library": lambda: library(b_dev, c_dev)}, iters)
+        fns = {"plain": lambda: run_plain(b_p, c_p), "kernel": lambda: run_kernel(b_p, c_p),
+               "library": lambda: library(b_dev, c_dev)}
+        if pl.packed.config.precise:
+            run_mode0 = kernel_calls(pl, n, precise=0)[1]
+            fns["mode0"] = lambda: run_mode0(b_p, c_p)
+        ms = abba_ms(fns, iters, rounds, slow_plain)
         bound_ms, bound_by = bound(coo.nnz, *coo.shape, n)
-        print(f"{tag}: {name} ({pl.backend}) N={n}: max_abs_err vs plain {err:.3e} "
-              f"(tol {tol:.3e}) kernel {ms['kernel']:.4f} ms plain {ms['plain']:.4f} ms "
+        mode0 = (f" (plain mode {ms['mode0']:.4f} ms, x{ms['kernel'] / ms['mode0']:.2f})"
+                 if "mode0" in ms else "")
+        print(f"{tag}: {name} ({pl.backend}, precise={pl.packed.config.precise}) N={n}: "
+              f"max_abs_err vs plain {err:.3e} (tol {tol:.3e}) kernel {ms['kernel']:.4f} ms"
+              f"{mode0} plain {ms['plain']:.4f} ms "
               f"torch.sparse.addmm {ms['library']:.4f} ms bound {bound_ms:.5f} ms "
               f"({bound_by}) {'ok' if ok else 'MISMATCH'}", flush=True)
         if not ok:
@@ -322,7 +375,7 @@ def main() -> int:
         kernels.setdefault(name, row)  # the first (N = 512 where run there) row
     del packs
 
-    def check_dia(tag, split, n, iters):
+    def check_dia(tag, split, n, iters, rounds=ROUNDS, slow_plain=False):
         """Hold the DIA kernel of N against its plain version on the card and
         time both beside the library call on the diagonal part and the
         bound of the DIA work."""
@@ -345,7 +398,7 @@ def main() -> int:
         library = library_call(diag_coo)
         ms = abba_ms({"kernel": lambda: kernel(dv, offs, b, c, ALPHA, BETA),
                       "plain": lambda: spmm_dia_ref(dv, offs, b, c, ALPHA, BETA),
-                      "library": lambda: library(b, c)}, iters)
+                      "library": lambda: library(b, c)}, iters, rounds, slow_plain)
         n_diags = split.diag_offsets.size
         bound_ms, bound_by = dia_bound(n_diags, m, k, n)
         print(f"{tag}: {name} N={n} D={n_diags} ({diag_coo.nnz} nnz on the diagonals): "
@@ -379,9 +432,12 @@ def main() -> int:
                                sx.golden_spmm_exact(csr, b, ALPHA, BETA, c))
         return goldens[tag, n]
 
-    def drive(tag, coo, backend, n, times):
+    runs = {}  # (matrix, backend, N, precise) -> (ulp, time_repeat s)
+
+    def drive(tag, coo, backend, n, times, cfg=None, bar=ULP_BAR, tally=None):
         b, c, ref, exact = golden(tag.split()[-1], coo, n)
-        cfg = slab_cfg if backend == "mxu" else block_cfg
+        cfg = cfg or (slab_cfg if backend == "mxu" else block_cfg)
+        tally = launches if tally is None else tally
         t0 = time.perf_counter()
         packed = BACKEND_FORMATS[backend][0](coo, cfg)
         t_pack = time.perf_counter() - t0
@@ -400,27 +456,33 @@ def main() -> int:
         if ran.get(expected, 0) == 0 or set(ran) != {expected}:
             fail(f"{tag} {backend} N={n}: launches {ran}, expected {expected} only")
         for name, count in ran.items():
-            launches[name] += count
+            tally[name] = tally.get(name, 0) + count
         res = sx.verify(ref, got)
-        max_abs = float(np.abs(got.astype(np.float64) - exact).max())
+        err = np.abs(got.astype(np.float64) - exact)
+        max_abs = float(err.max())
         ulp = max_abs / float(np.spacing(np.float32(np.abs(exact).max())))
+        # elements off the f32 nearest to their f64 value
+        above = int((err > np.abs(exact.astype(np.float32).astype(np.float64) - exact)).sum())
+        runs[tag.split()[-1], backend, n, int(cfg.precise)] = (ulp, t)
         m = coo.shape[0]
-        ok = res.passed and ulp <= ULP_BAR and bool(np.isfinite(got).all()) \
+        ok = res.passed and ulp <= bar and bool(np.isfinite(got).all()) \
             and got.shape == (m, n)
         pack_mb = sum(a.nbytes for a in pl.arrays + (pl.ranges or ())) / 1e6
         shape = (f"R={packed.slots_per_row}, {packed.n_virt} virtual rows"
                  if backend == "ell_pallas" else f"{packed.stats.groups} groups")
-        print(f"{tag}: {backend} N={n} {coo.shape[0]}x{coo.shape[1]} nnz={coo.nnz} "
-              f"verify {'Success!' if res.passed else 'Failed.'} "
+        print(f"{tag}: {backend} precise={cfg.precise} N={n} {coo.shape[0]}x{coo.shape[1]} "
+              f"nnz={coo.nnz} verify {'Success!' if res.passed else 'Failed.'} "
               f"({res.mismatch_percent:.2f}% mismatches) max_abs_vs_f64 "
-              f"{max_abs:.3e} = {ulp:.2f} ulp of max|C|; kernel {t * 1e3:.4f} ms "
+              f"{max_abs:.3e} = {ulp:.4f} ulp of max|C| (bar {bar:g}), {above} of "
+              f"{err.size} elements above their f32 floor; kernel {t * 1e3:.4f} ms "
               f"GFLOPS {sx.gflops(coo.nnz, m, n, t):.1f}; pack {t_pack:.3f} s "
               f"{pack_mb:.2f} MB on the card, {packed.stats.slots} slots "
               f"({100 * packed.stats.block_fill:.1f} % filled, {shape}); {traced}; "
               f"launches {ran}", flush=True)
         if not ok:
-            fail(f"{tag} {backend} N={n}: verify {res.passed}, {ulp:.2f} ulp")
-        return pl, b_dev, c_dev
+            fail(f"{tag} {backend} precise={cfg.precise} N={n}: verify {res.passed}, "
+                 f"{ulp:.4f} ulp (bar {bar:g})")
+        return pl, b_dev, c_dev, ran
 
     with tempfile.TemporaryDirectory() as tmp:
         mtx = Path(tmp) / "synthetic4704.mtx"
@@ -430,7 +492,7 @@ def main() -> int:
             fail("write_mtx/read_mtx round trip changed the matrix")
         for backend in ("pallas", "mxu", "edge", "ell_pallas"):
             for n in (512, 16):
-                drive("phase 3 synthetic4704", coo, backend, n, times=20)
+                drive("phase 3 synthetic4704", coo, backend, n, times=10)
 
         t0 = time.perf_counter()
         cant = fem_like(62451, dofs=3, neighbors=21, seed=2)
@@ -439,13 +501,14 @@ def main() -> int:
         print(f"phase 4: cant_like built in {time.perf_counter() - t0:.1f} s "
               f"(at {time.perf_counter() - t_start:.1f} s)", flush=True)
         for backend in ("pallas", "mxu", "edge", "ell_pallas"):
-            pl, b_dev, c_dev = drive("phase 4 cant_like", cant, backend, 512, times=10)
-            check_kernel("phase 4 cant_like", cant, pl, b_dev, c_dev, iters=1)
+            pl, b_dev, c_dev, _ = drive("phase 4 cant_like", cant, backend, 512, times=10)
+            check_kernel("phase 4 cant_like", cant, pl, b_dev, c_dev, iters=1, rounds=2,
+                         slow_plain=True)
             del pl, b_dev, c_dev
             torch.cuda.empty_cache()
 
         # ---- phase 5: the hybrid path ----
-        def drive_hybrid(tag, coo, n, times, bar):
+        def drive_hybrid(tag, coo, n, times, bar, time_dia=False):
             b, c, ref, exact = golden(tag.split()[-1], coo, n)
             t0 = time.perf_counter()
             split = sx.split_structure(coo, n=n)
@@ -488,6 +551,9 @@ def main() -> int:
                 fail(f"{tag} hybrid N={n}: verify {res.passed}, {ulp:.2f} ulp (bar {bar})")
             del pl, b_dev, c_dev
             torch.cuda.empty_cache()
+            if time_dia:  # the DIA kernel alone, beside its plain version and the library
+                check_dia(tag, split, n, iters=1, rounds=2, slow_plain=True)
+                torch.cuda.empty_cache()
 
         for n in (512, 16):
             drive_hybrid("phase 5 synthetic4704", coo, n, times=20, bar=ULP_BAR)
@@ -499,8 +565,10 @@ def main() -> int:
         print(f"phase 5: scircuit_like and laplace3d_64 built in "
               f"{time.perf_counter() - t0:.1f} s (at {time.perf_counter() - t_start:.1f} s)",
               flush=True)
-        drive_hybrid("phase 5 scircuit_like", scircuit, 512, times=10, bar=HUB_ULP_BAR)
-        drive_hybrid("phase 5 laplace3d_64", laplace, 16, times=10, bar=ULP_BAR)
+        drive_hybrid("phase 5 scircuit_like", scircuit, 512, times=10, bar=HUB_ULP_BAR,
+                     time_dia=True)
+        drive_hybrid("phase 5 laplace3d_64", laplace, 16, times=10, bar=ULP_BAR,
+                     time_dia=True)
         del scircuit, laplace, goldens[("scircuit_like", 512)], goldens[("laplace3d_64", 16)]
 
         print(f"phase 3-5: launches on the main paths {launches} (at "
@@ -511,16 +579,29 @@ def main() -> int:
         # ---- phase 6: the CLI, one process per run, all at once ----
         env = dict(os.environ)
         env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
-        runs = {f"--backend {backend}": ["--backend", backend]
-                for backend in ("mxu", "edge", "ell_pallas")}
-        runs["--hybrid --backend pallas"] = ["--hybrid", "--backend", "pallas"]
+        cli_runs = {f"--backend {backend}": ["--backend", backend]
+                    for backend in ("mxu", "edge", "ell_pallas")}
+        cli_runs["--hybrid --backend pallas"] = ["--hybrid", "--backend", "pallas"]
+        for backend in ("pallas", "mxu", "edge"):
+            cli_runs[f"--precise --backend {backend}"] = ["--precise", "--backend", backend]
         procs = {
             label: subprocess.Popen(
                 [sys.executable, "-m", "sextans_tpu_torch", str(mtx), "16", *flags],
                 cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)
-            for label, flags in runs.items()
+            for label, flags in cli_runs.items()
         }
+        # what the CLI refuses it refuses before it reaches the card: these
+        # two run in this process, through the CLI's main (its exit code)
+        from sextans_tpu_torch.cli import main as cli_main
+        for flags in (["--backend", "ell_pallas"], ["--hybrid", "--backend", "pallas"]):
+            out_buf, err_buf = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out_buf), contextlib.redirect_stderr(err_buf):
+                rc = cli_main([str(mtx), "16", "--precise", *flags])
+            err = err_buf.getvalue().strip()
+            print(f"phase 6: CLI --precise {' '.join(flags)} rc={rc}: {err}", flush=True)
+            if rc != 2 or "ROADMAP.md" not in err or "Success!" in out_buf.getvalue():
+                fail(f"CLI --precise {' '.join(flags)} was not refused as not ported")
         for label, proc in procs.items():
             try:
                 out, err = proc.communicate(timeout=600)
@@ -534,7 +615,95 @@ def main() -> int:
             if proc.returncode != 0 or "Success!" not in out:
                 fail(f"CLI {label} did not succeed:\n{out}\n{err}")
 
+        # ---- phase 7: the EFT probe (P3's twin) ----
+        probe = {"df32_probe_pairs": df32.eft_probe_pairs,
+                 "df32_probe_chain": df32.eft_probe_chain}
+        a, b, v, bb = df32.probe_inputs(0)
+        ta, tb, tv, tbb = (torch.as_tensor(x, device="cuda") for x in (a, b, v, bb))
+        for fn in probe.values():
+            fn.launches = 0
+        pairs, chain = df32.eft_probe_pairs(ta, tb), df32.eft_probe_chain(tv, tbb)
+        torch.cuda.synchronize()
+        probe_launches = {name: fn.launches for name, fn in probe.items()}
+        if min(probe_launches.values()) == 0:
+            fail(f"phase 7: a probe kernel never launched: {probe_launches}")
+        report = df32.probe_report(a, b, v, bb, [x.cpu().numpy() for x in pairs],
+                                   chain.cpu().numpy())
+        print(f"phase 7: EFT probe on the card: {report}; launches {probe_launches}",
+              flush=True)
+        if (report["two_sum_violations"] or report["two_prod_violations"]
+                or report["add_mismatches"] or report["mul_mismatches"]
+                or report["chain_above_floor"] or report["chain_excess"] > 0):
+            fail(f"phase 7: nvcc broke an error-free transform: {report}")
+        probe_calls = {
+            "df32_probe_pairs": ((lambda: df32.eft_probe_pairs(ta, tb)),
+                                 (lambda: df32.eft_probe_pairs_ref(ta, tb)),
+                                 # a, b in; s, e, p, pe out; two_sum 6 ops, two_prod 3
+                                 24 * a.size, 9 * a.size),
+            "df32_probe_chain": ((lambda: (df32.eft_probe_chain(tv, tbb),)),
+                                 (lambda: (df32.eft_probe_chain_ref(tv, tbb),)),
+                                 # v, bb in; one f32 a column out; two_prod + acc_step
+                                 # 10 ops a term, the epilogue 6 a column
+                                 8 * v.size + 4 * v.shape[1], 10 * v.size + 6 * v.shape[1]),
+        }
+        for name, (run_kernel, run_plain, nbytes, nops) in probe_calls.items():
+            got, want = run_kernel(), run_plain()
+            torch.cuda.synchronize()
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"phase 7: {name} differs from its plain version by {err:.3e}")
+            ms = abba_ms({"plain": run_plain, "kernel": run_kernel}, iters=20)
+            byte_ms = nbytes / PEAK_HBM_BYTES * 1e3
+            flop_ms = nops / PEAK_F32_FLOPS * 1e3
+            kernels[name] = dict(max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"],
+                                 bound_ms=max(byte_ms, flop_ms),
+                                 bound_by="operations" if flop_ms > byte_ms else "bytes",
+                                 library_ms=None)
+            launches[name] = probe_launches[name]
+            print(f"phase 7: {name}: kernel - plain 0 (to the bit); kernel {ms['kernel']:.4f} ms "
+                  f"plain {ms['plain']:.4f} ms bound {kernels[name]['bound_ms']:.7f} ms "
+                  f"({kernels[name]['bound_by']})", flush=True)
+
+        # ---- phase 8: precise levels on the main path ----
+        print(f"phase 8: precise levels (at {time.perf_counter() - t_start:.1f} s)", flush=True)
+        for n in (512, 16):
+            for backend in ("pallas", "edge", "mxu"):
+                for level in (1, 2):
+                    base = (slab_cfg if backend == "mxu"
+                            else masked_cfg if backend == "edge" and n <= SKINNY_MAX_N
+                            else block_cfg)
+                    bar = (min(SLAB_PRECISE_BAR, runs["synthetic4704", "mxu", n, 0][0])
+                           if backend == "mxu" else PRECISE_BAR[level])
+                    tally = {}
+                    pl, b_dev, c_dev, ran = drive(
+                        "phase 8 synthetic4704", coo, backend, n, times=5,
+                        cfg=base.with_(precise=level), bar=bar, tally=tally)
+                    name, row = check_kernel("phase 8 synthetic4704", synth, pl, b_dev, c_dev,
+                                             iters=3, exact=backend != "mxu", rounds=2,
+                                             slow_plain=True)
+                    variant = f"{name}_precise{level}"
+                    kernels.setdefault(variant, row)
+                    launches[variant] = launches.get(variant, 0) + tally[name]
+                    del pl, b_dev, c_dev
+        for backend, level in (("pallas", 2), ("edge", 2), ("mxu", 1)):
+            bar = (min(SLAB_PRECISE_BAR, runs["cant_like", "mxu", 512, 0][0])
+                   if backend == "mxu" else PRECISE_BAR[level])
+            tally = {}
+            base = slab_cfg if backend == "mxu" else block_cfg
+            pl, b_dev, c_dev, ran = drive("phase 8 cant_like", cant, backend, 512, times=5,
+                                          cfg=base.with_(precise=level), bar=bar, tally=tally)
+            name = kernel_calls(pl, 512)[0]
+            launches[f"{name}_precise{level}"] += tally[name]
+            ulp0, t0_ = runs["cant_like", backend, 512, 0]
+            ulp1, t1_ = runs["cant_like", backend, 512, level]
+            print(f"phase 8 cant_like: {name} precise={level}: {ulp1:.4f} ulp against "
+                  f"{ulp0:.4f} in plain mode; time_repeat {t1_ * 1e3:.4f} ms against "
+                  f"{t0_ * 1e3:.4f} ms (phase 4), x{t1_ / t0_:.2f}", flush=True)
+            del pl, b_dev, c_dev
+            torch.cuda.empty_cache()
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    probe_src = "benchmarks/scratch/mosaic_eft_probe.py"
     sources = {
         "spmm_block": ("sextans_tpu_torch/csrc/spmm_block.cu",
                        "sextans_tpu/ops/spmm_pallas.py:202"),
@@ -551,6 +720,11 @@ def main() -> int:
         "spmm_dia_skinny": ("sextans_tpu_torch/csrc/spmm_dia.cu",
                             "sextans_tpu/ops/spmm_dia_pallas.py:294"),
     }
+    for name in ("spmm_block", "spmm_edge", "spmm_slab", "spmm_slab_skinny"):
+        for level in (1, 2):
+            sources[f"{name}_precise{level}"] = sources[name]
+    sources["df32_probe_pairs"] = ("sextans_tpu_torch/csrc/df32_probe.cu", f"{probe_src}:21")
+    sources["df32_probe_chain"] = ("sextans_tpu_torch/csrc/df32_probe.cu", f"{probe_src}:39")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **kernels[name]}

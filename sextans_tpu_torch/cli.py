@@ -9,6 +9,7 @@ Here::
     python -m sextans_tpu_torch [matrix A file] [N] [rp_time] [alpha] [beta]
         [--backend pallas|mxu|xla|edge|ell|ell_pallas] [--tile-m ..] [--window-k ..]
         [--block-k ..] [--group-blocks ..] [--device cuda|cpu] [--hybrid]
+        [--precise]
 
 The same positional semantics, B (all 1.0, src/sextans-host.cpp:100-104),
 C ((m+1)(n+1)/M/N, src/sextans-host.cpp:107-111), defaults (alpha=0.85,
@@ -19,6 +20,9 @@ tapa::round_up<8> (src/sextans-host.cpp:51). The device defaults to
 
 ``--hybrid`` splits A at N (``split_structure``), prints the split, and runs
 ``HybridSpmmPlan`` with the residue on ``--backend``'s format and kernel.
+``--precise`` sets ``SpmmConfig.precise`` to 1 (compensated accumulation,
+as ``python -m sextans_tpu --precise``); where a path does not run it yet
+(``ell``, ``ell_pallas``, ``--hybrid``) the CLI prints why and exits 2.
 """
 
 from __future__ import annotations
@@ -71,6 +75,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="structure split at N: diagonals (DIA kernels), dense hub columns "
         "and rows, and the residue on --backend",
     )
+    p.add_argument(
+        "--precise",
+        action="store_true",
+        help="compensated accumulation and double-float epilogue "
+        "(SpmmConfig.precise=1): within ~1 ulp of the float64 oracle",
+    )
     return p
 
 
@@ -103,7 +113,7 @@ def main(argv=None) -> int:
         v = getattr(args, name)
         if v is not None:
             cfg_kwargs[name] = v
-    cfg = SpmmConfig(**cfg_kwargs)
+    cfg = SpmmConfig(precise=int(args.precise), **cfg_kwargs)
 
     if args.hybrid:
         t0 = time.perf_counter()
@@ -119,6 +129,15 @@ def main(argv=None) -> int:
             f"done ({t_pack * 1e3:.1f} msec): {s.blocks} blocks, "
             f"fill {s.block_fill:.3f}, {s.groups} groups, group fill {s.group_fill:.3f}"
         )
+    try:
+        if args.hybrid:
+            pl = HybridSpmmPlan(split, n, residue_config=cfg, backend=args.backend,
+                                precise=cfg.precise, device=args.device)
+        else:
+            pl = make_plan(packed, n, backend=args.backend, device=args.device)
+    except NotImplementedError as err:  # a precise level this path does not run yet
+        print(f"sextans_tpu_torch: {err}", file=sys.stderr)
+        return 2
 
     print("Run spmm on cpu...", flush=True)
     csr = CSRMatrix.from_coo(coo)
@@ -129,11 +148,6 @@ def main(argv=None) -> int:
     print(f"CPU GFLOPS: {gflops(nnz, m, n, t_cpu):.3f}")
 
     print("launch kernel", flush=True)
-    if args.hybrid:
-        pl = HybridSpmmPlan(split, n, residue_config=cfg, backend=args.backend,
-                            device=args.device)
-    else:
-        pl = make_plan(packed, n, backend=args.backend, device=args.device)
     device_name = (
         torch.cuda.get_device_name(pl.device) if pl.device.type == "cuda" else "cpu"
     )

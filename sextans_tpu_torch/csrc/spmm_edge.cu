@@ -42,8 +42,23 @@
 // latency hiding (32 loads in flight per lane, no shared memory so that many
 // warps fit on an SM). With one warp per (M-tile, 32 columns), a skinny N
 // leaves most SMs idle (synthetic4704 at N = 16: 10 warps for 132 SMs).
+//
+// Precise levels (PRECISE, SpmmConfig.precise; spmm_edge_pallas.py:87-182),
+// with the error-free transforms of df32.cuh. The lane's register becomes a
+// pair (reg, regc): per edge, the product p = fl(v * B) (level 2: two_prod,
+// p and its error pe) goes in by acc_step(reg, regc, p[, pe]) in place of
+// the FMA. At row_end the register goes into the persistent pair by
+// acc_step(acc, comp, reg), then comp += regc, and both registers are reset
+// by assignment. The epilogue is compensated_epilogue, one final rounding.
+// comp is a second output-shaped buffer in device memory (the wrapper
+// allocates it), owned cell by cell by the same lane as the accumulator. A
+// masked pad adds nothing, its error included; an unmasked pad adds
+// 0 * B[window row] and its error, as on the TPU. The TPU's L lane pairs
+// summed at the flush become one pair here (its edges one by one).
 
 #include <cuda_runtime.h>
+
+#include "df32.cuh"
 
 namespace {
 
@@ -52,7 +67,7 @@ constexpr int kColShift = 2;
 constexpr unsigned kColMask = (1u << (kRowShift - kColShift)) - 1;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <bool MASKED>
+template <bool MASKED, int PRECISE>
 __global__ void spmm_edge_kernel(
     const float* __restrict__ vals,        // (chunks, E)
     const int* __restrict__ meta,          // (chunks, E)
@@ -62,6 +77,7 @@ __global__ void spmm_edge_kernel(
     const float* __restrict__ b,           // (k_padded, n)
     const float* __restrict__ c,           // (m_padded, n) or null
     float* __restrict__ out,               // (m_padded, n)
+    float* __restrict__ comp,              // (m_padded, n) if PRECISE, else null
     int n, int tile_m, int window_k, int edge_chunk, float alpha, float beta,
     int with_c) {
   const int mt = blockIdx.x;
@@ -70,9 +86,13 @@ __global__ void spmm_edge_kernel(
   if (col - lane >= n) return;  // the whole warp is past the last column
   const bool live = col < n;    // ragged last warp: lanes still shuffle
   float* acc = out + (size_t)mt * tile_m * n + col;
+  float* cmp = PRECISE ? comp + (size_t)mt * tile_m * n + col : nullptr;
 
   if (live)
-    for (int r = 0; r < tile_m; ++r) acc[(size_t)r * n] = 0.f;
+    for (int r = 0; r < tile_m; ++r) {
+      acc[(size_t)r * n] = 0.f;
+      if constexpr (PRECISE != 0) cmp[(size_t)r * n] = 0.f;
+    }
 
   const int p1 = tile_ptr[mt + 1];
   for (int p = tile_ptr[mt]; p < p1; ++p) {
@@ -80,7 +100,7 @@ __global__ void spmm_edge_kernel(
     const float* bwin = b + (size_t)chunk_kwin[g] * window_k * n + col;
     const int* mg = meta + (size_t)g * edge_chunk;
     const float* vg = vals + (size_t)g * edge_chunk;
-    float reg = 0.f;
+    float reg = 0.f, regc = 0.f;
     for (int e0 = 0; e0 < edge_chunk; e0 += 32) {
       const int cnt = min(32, edge_chunk - e0);
       unsigned my_w = 0;
@@ -102,13 +122,29 @@ __global__ void spmm_edge_kernel(
       for (int j = 0; j < 32; ++j) {
         const float v = __shfl_sync(kFull, my_v, j);
         if (j < cnt) {
-          if (!(MASKED && (w[j] & 1u))) reg = __fmaf_rn(v, bv[j], reg);
+          if (!(MASKED && (w[j] & 1u))) {
+            if constexpr (PRECISE == 0) {
+              reg = __fmaf_rn(v, bv[j], reg);
+            } else if constexpr (PRECISE == 1) {
+              sx_df32::acc_step(reg, regc, __fmul_rn(v, bv[j]));
+            } else {
+              float p, pe;
+              sx_df32::two_prod(v, bv[j], p, pe);
+              sx_df32::acc_step(reg, regc, p, pe);
+            }
+          }
           if (w[j] & 2u) {
             if (live) {
-              float* a = acc + (size_t)(w[j] >> kRowShift) * n;
-              *a = __fadd_rn(*a, reg);
+              const size_t off = (size_t)(w[j] >> kRowShift) * n;
+              if constexpr (PRECISE == 0) {
+                acc[off] = __fadd_rn(acc[off], reg);
+              } else {
+                sx_df32::acc_step(acc[off], cmp[off], reg);
+                cmp[off] = __fadd_rn(cmp[off], regc);
+              }
             }
             reg = 0.f;
+            regc = 0.f;
           }
         }
       }
@@ -120,8 +156,19 @@ __global__ void spmm_edge_kernel(
   for (int r = 0; r < tile_m; ++r) {
     const size_t idx = (row0 + r) * n + col;
     const float a = out[idx];
-    out[idx] = with_c ? __fmaf_rn(alpha, a, __fmul_rn(beta, c[idx])) : __fmul_rn(alpha, a);
+    if constexpr (PRECISE == 0)
+      out[idx] = with_c ? __fmaf_rn(alpha, a, __fmul_rn(beta, c[idx])) : __fmul_rn(alpha, a);
+    else
+      out[idx] = with_c ? sx_df32::compensated_epilogue(alpha, a, comp[idx], beta, c[idx])
+                        : sx_df32::compensated_epilogue(alpha, a, comp[idx]);
   }
+}
+
+template <bool MASKED>
+auto pick(int precise) {
+  return precise == 0   ? spmm_edge_kernel<MASKED, 0>
+         : precise == 1 ? spmm_edge_kernel<MASKED, 1>
+                        : spmm_edge_kernel<MASKED, 2>;
 }
 
 }  // namespace
@@ -129,16 +176,18 @@ __global__ void spmm_edge_kernel(
 extern "C" int spmm_edge_launch(
     const void* vals, const void* meta, const void* chunk_kwin,
     const void* tile_ptr, const void* tile_chunks, const void* b,
-    const void* c, void* out, int n_mtiles, int n, int tile_m, int window_k,
-    int edge_chunk, float alpha, float beta, int with_c, int masked,
-    void* stream) {
+    const void* c, void* out, void* comp, int n_mtiles, int n, int tile_m,
+    int window_k, int edge_chunk, float alpha, float beta, int with_c,
+    int masked, int precise, void* stream) {
+  if (precise < 0 || precise > 2 || (precise && comp == nullptr))
+    return cudaErrorInvalidValue;
   const int threads = n >= 128 ? 128 : (n + 31) / 32 * 32;
   const dim3 grid(n_mtiles, (n + threads - 1) / threads);
-  auto kernel = masked ? spmm_edge_kernel<true> : spmm_edge_kernel<false>;
+  auto kernel = masked ? pick<true>(precise) : pick<false>(precise);
   kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const float*)vals, (const int*)meta, (const int*)chunk_kwin,
       (const int*)tile_ptr, (const int*)tile_chunks, (const float*)b,
-      (const float*)c, (float*)out, n, tile_m, window_k, edge_chunk, alpha,
-      beta, with_c);
+      (const float*)c, (float*)out, (float*)comp, n, tile_m, window_k,
+      edge_chunk, alpha, beta, with_c);
   return cudaGetLastError();
 }

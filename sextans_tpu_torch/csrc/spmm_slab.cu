@@ -28,8 +28,22 @@
 // through shared memory once per N-chunk. K2 (n <= 32) reads vals straight
 // from global memory, coalesced along the 128 rows; it is bound by the vals
 // stream, since each value feeds only n flops.
+//
+// Precise mode (PRECISE, SpmmConfig.precise >= 1; spmm_mxu_pallas.py:89-98,
+// 113-121 for K1, :339-344, :356-363 for K2): one compensation register
+// beside each accumulator register (K1: 32 more per thread), a Neumaier step
+// acc_step(acc, comp, contrib) in place of acc += contrib, and
+// compensated_epilogue (df32.cuh), one final rounding. The TPU's matrix unit
+// contracts a whole block at once and steps once per block visit; here the
+// step comes after every 8 terms of a block's FFMA chain (bk / 8 steps a
+// block), so only chains of 8 terms round uncompensated. One step per visit
+// of a bk = 128 block left 1.56 ulp of max|C| on cant_like at N = 512 on an
+// H100 (SXM, 700 W), against 1.64 in plain mode. The TPU slab kernels have
+// no level-2 branch, so level 2 runs level 1.
 
 #include <cuda_runtime.h>
+
+#include "df32.cuh"
 
 namespace {
 
@@ -37,6 +51,7 @@ constexpr int MSLAB = 128;
 constexpr int SLAB_TN = 64;        // K1 columns per CUDA block
 constexpr int SLAB_THREADS = 256;  // K1: 16 x 16 threads, 8 rows x 4 cols each
 
+template <bool PRECISE>
 __global__ void __launch_bounds__(SLAB_THREADS) spmm_slab_kernel(
     const float* __restrict__ vals,        // (ng, G * bk, 128)
     const int* __restrict__ qm,            // (ng, G)
@@ -60,11 +75,11 @@ __global__ void __launch_bounds__(SLAB_THREADS) spmm_slab_kernel(
   const int tx = tid % 16;  // columns tx*4 .. tx*4+3
   const int ty = tid / 16;  // rows ty*8 .. ty*8+7
 
-  float acc[8][4];
+  float acc[8][4], comp[8][4];  // comp is read only when PRECISE
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[i][j] = comp[i][j] = 0.f;
 
   const int G = group_blocks;
   const int p1 = tile_ptr[mt + 1];
@@ -99,11 +114,24 @@ __global__ void __launch_bounds__(SLAB_THREADS) spmm_slab_kernel(
         for (int r = 0; r < 8; ++r)
 #pragma unroll
           for (int j = 0; j < 4; ++j) cf[r][j] = fmaf(a[r], bb[j], cf[r][j]);
+        if constexpr (PRECISE) {
+          if ((kk & 7) == 7) {  // block_k % 8 == 0: every term is stepped in
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                sx_df32::acc_step(acc[r][j], comp[r][j], cf[r][j]);
+                cf[r][j] = 0.f;
+              }
+          }
+        }
       }
+      if constexpr (!PRECISE) {
 #pragma unroll
-      for (int r = 0; r < 8; ++r)
+        for (int r = 0; r < 8; ++r)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r][j] += cf[r][j];
+          for (int j = 0; j < 4; ++j) acc[r][j] += cf[r][j];
+      }
     }
   }
 
@@ -115,7 +143,12 @@ __global__ void __launch_bounds__(SLAB_THREADS) spmm_slab_kernel(
       const int col = n0 + tx * 4 + j;
       if (col < n) {
         const size_t idx = (row0 + r) * n + col;
-        out[idx] = with_c ? alpha * acc[r][j] + beta * c[idx] : alpha * acc[r][j];
+        if constexpr (PRECISE)
+          out[idx] = with_c
+              ? sx_df32::compensated_epilogue(alpha, acc[r][j], comp[r][j], beta, c[idx])
+              : sx_df32::compensated_epilogue(alpha, acc[r][j], comp[r][j]);
+        else
+          out[idx] = with_c ? alpha * acc[r][j] + beta * c[idx] : alpha * acc[r][j];
       }
     }
   }
@@ -126,6 +159,7 @@ __global__ void __launch_bounds__(SLAB_THREADS) spmm_slab_kernel(
 // shares cg, so its B loads are one broadcast address and its vals loads
 // are 32 consecutive floats. C stays in the (M, N) layout: the TPU's
 // transposed-C trick (lane waste at skinny N) has no counterpart here.
+template <bool PRECISE>
 __global__ void spmm_slab_skinny_kernel(
     const float* __restrict__ vals, const int* __restrict__ qm,
     const int* __restrict__ bcol, const int* __restrict__ group_kwin,
@@ -139,9 +173,9 @@ __global__ void spmm_slab_skinny_kernel(
   const int mm = threadIdx.x % MSLAB;
   const int c0 = (threadIdx.x / MSLAB) * 8;
 
-  float acc[8];
+  float acc[8], comp[8];  // comp is read only when PRECISE
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+  for (int j = 0; j < 8; ++j) acc[j] = comp[j] = 0.f;
 
   const int G = group_blocks;
   const int p1 = tile_ptr[mt + 1];
@@ -162,9 +196,20 @@ __global__ void spmm_slab_skinny_kernel(
           const float bv = c0 + j < n ? bp[(size_t)kk * n + j] : 0.f;
           cf[j] = fmaf(a, bv, cf[j]);
         }
-      }
+        if constexpr (PRECISE) {
+          if ((kk & 7) == 7) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] += cf[j];
+            for (int j = 0; j < 8; ++j) {
+              sx_df32::acc_step(acc[j], comp[j], cf[j]);
+              cf[j] = 0.f;
+            }
+          }
+        }
+      }
+      if constexpr (!PRECISE) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[j] += cf[j];
+      }
     }
   }
 
@@ -173,7 +218,12 @@ __global__ void spmm_slab_skinny_kernel(
   for (int j = 0; j < 8; ++j) {
     if (c0 + j < n) {
       const size_t idx = row * n + c0 + j;
-      out[idx] = with_c ? alpha * acc[j] + beta * c[idx] : alpha * acc[j];
+      if constexpr (PRECISE)
+        out[idx] = with_c
+            ? sx_df32::compensated_epilogue(alpha, acc[j], comp[j], beta, c[idx])
+            : sx_df32::compensated_epilogue(alpha, acc[j], comp[j]);
+      else
+        out[idx] = with_c ? alpha * acc[j] + beta * c[idx] : alpha * acc[j];
     }
   }
 }
@@ -185,13 +235,15 @@ extern "C" int spmm_slab_launch(
     const void* tile_ptr, const void* tile_groups, const void* b,
     const void* c, void* out, int n_mtiles, int n, int tile_m, int window_k,
     int block_k, int group_blocks, float alpha, float beta, int with_c,
-    void* stream) {
+    int precise, void* stream) {
+  if (precise < 0 || precise > 2) return cudaErrorInvalidValue;
+  auto kernel = precise ? spmm_slab_kernel<true> : spmm_slab_kernel<false>;
   const size_t smem = (size_t)block_k * (MSLAB + SLAB_TN) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      spmm_slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(n_mtiles * (tile_m / MSLAB), (n + SLAB_TN - 1) / SLAB_TN);
-  spmm_slab_kernel<<<grid, SLAB_THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, SLAB_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)vals, (const int*)qm, (const int*)bcol,
       (const int*)group_kwin, (const int*)tile_ptr, (const int*)tile_groups,
       (const float*)b, (const float*)c, (float*)out, n, tile_m, window_k,
@@ -204,10 +256,11 @@ extern "C" int spmm_slab_skinny_launch(
     const void* tile_ptr, const void* tile_groups, const void* b,
     const void* c, void* out, int n_mtiles, int n, int tile_m, int window_k,
     int block_k, int group_blocks, float alpha, float beta, int with_c,
-    void* stream) {
+    int precise, void* stream) {
+  if (precise < 0 || precise > 2) return cudaErrorInvalidValue;
+  auto kernel = precise ? spmm_slab_skinny_kernel<true> : spmm_slab_skinny_kernel<false>;
   const int threads = MSLAB * ((n + 7) / 8);
-  spmm_slab_skinny_kernel<<<n_mtiles * (tile_m / MSLAB), threads, 0,
-                            (cudaStream_t)stream>>>(
+  kernel<<<n_mtiles * (tile_m / MSLAB), threads, 0, (cudaStream_t)stream>>>(
       (const float*)vals, (const int*)qm, (const int*)bcol,
       (const int*)group_kwin, (const int*)tile_ptr, (const int*)tile_groups,
       (const float*)b, (const float*)c, (float*)out, n, tile_m, window_k,

@@ -13,6 +13,7 @@ from sextans_tpu_torch.format.pack_edge import COL_SHIFT, ROW_SHIFT
 
 __all__ = [
     "SMEM_LIMIT",
+    "SharedMemoryError",
     "COL_MASK",
     "group_ranges",
     "check_pack_indices",
@@ -31,6 +32,11 @@ __all__ = [
 
 # Dynamic shared memory one CUDA block may use on an H100 (sm_90), in bytes.
 SMEM_LIMIT = 232448
+
+
+class SharedMemoryError(ValueError):
+    """A kernel's shared-memory request does not fit in one CUDA block: the
+    counterpart of the JAX package's ``check_kernel_vmem`` refusal."""
 
 # The column field of an edge's meta word, after the shift by COL_SHIFT.
 COL_MASK = (1 << (ROW_SHIFT - COL_SHIFT)) - 1
@@ -228,11 +234,21 @@ def add_rows_in_order(acc: torch.Tensor, index: torch.Tensor, src: torch.Tensor)
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """``a * b + c`` for f32 tensors, rounded once to f32, as a kernel's
-    ``__fmaf_rn`` rounds it: the product of two f32 values is exact in f64,
-    the sum rounds once in f64 and again to f32. The two roundings differ
-    from one only when the f64 sum lands exactly halfway between two f32
-    values while the exact sum does not, about once in 2**29 operations."""
-    return torch.addcmul(c.double(), a.double(), b.double()).float()
+    ``__fmaf_rn`` rounds it. The product of two f32 values is exact in f64;
+    the f64 sum is rounded to odd (TwoSum recovers its error, and an inexact
+    sum whose last bit is even steps one f64 ulp toward the exact value). A
+    sum rounded to odd at 53 bits rounds to nearest at 24 bits as the exact
+    sum does (Boldo and Melquiond), so no double rounding creeps in where
+    the f64 sum lands halfway between two f32 values. Elementwise ops only,
+    so it never waits for the device."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    v = s - p
+    e = (p - (s - v)) + (cd - v)
+    fix = (e != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(e > 0, torch.inf, -torch.inf).to(s.dtype)
+    return torch.where(fix, torch.nextafter(s, toward), s).float()
 
 
 def f32(x) -> float:

@@ -11,7 +11,8 @@ Backends keep the JAX package's names so that flags read the same:
 * ``"pallas"``     — the block kernel (ops/spmm_block.py) over ``pack``;
 * ``"mxu"``        — the slab kernels (ops/spmm_slab.py) over ``pack_mxu``;
   the skinny kernel when N <= 32;
-* ``"xla"``        — the plain PyTorch block version, on any device;
+* ``"xla"``        — the plain PyTorch block version, on any device; it
+  ignores ``SpmmConfig.precise``, as the JAX plan's ``xla`` backend does;
 * ``"edge"``       — the edge kernel (ops/spmm_edge.py) over ``pack_edge``;
 * ``"ell_pallas"`` — the ELL gather kernel (ops/spmm_ell.py) over
   ``pack_ell``;
@@ -20,7 +21,9 @@ Backends keep the JAX package's names so that flags read the same:
   ``"ell_pallas"`` or ``"pallas"``.
 
 ``device`` is explicit. On a CUDA device the plan launches the kernels; on
-the CPU the same calls run their plain versions.
+the CPU the same calls run their plain versions. ``SpmmConfig.precise`` (1
+or 2) runs the compensated levels of the block, slab and edge kernels; the
+ELL engine's precise mode is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -127,10 +130,12 @@ def _runner(packed, backend: str, n: int, ranges):
     if backend in ("ell", "ell_pallas"):
         fn = spmm_ell_padded_ref if backend == "ell" else spmm_ell_gather_padded
         return functools.partial(fn, m_base=packed.m_base)
+    precise = int(cfg.precise)
     if backend == "edge":
         return functools.partial(
             spmm_edge_padded, tile_m=cfg.tile_m, window_k=cfg.window_k,
-            edge_chunk=cfg.edge_chunk, masked=cfg.edge_masked, ranges=ranges)
+            edge_chunk=cfg.edge_chunk, masked=cfg.edge_masked, ranges=ranges,
+            precise=precise)
     kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k,
               block_k=cfg.block_k, group_blocks=cfg.group_blocks)
     if backend == "xla":
@@ -140,7 +145,7 @@ def _runner(packed, backend: str, n: int, ranges):
         else spmm_slab_skinny_padded if n <= SKINNY_MAX_N
         else spmm_slab_padded
     )
-    return functools.partial(kernel, ranges=ranges, **kw)
+    return functools.partial(kernel, ranges=ranges, precise=precise, **kw)
 
 
 class SpmmPlan:
@@ -164,10 +169,10 @@ class SpmmPlan:
                 f"backend {backend!r} does not match packed format "
                 f"{type(packed).__name__}"
             )
-        if int(packed.config.precise) != 0:
+        if int(packed.config.precise) != 0 and backend in ("ell", "ell_pallas"):
             raise NotImplementedError(
-                "precise accumulation (SpmmConfig.precise=1/2) is not ported "
-                "yet: ROADMAP.md queue 1 item 6"
+                f"precise accumulation (SpmmConfig.precise=1/2) of the ELL engine "
+                f"(backend {backend!r}) is not ported yet: ROADMAP.md queue 1 item 6"
             )
         if n < 1:
             raise ValueError(f"N must be positive, got {n}")

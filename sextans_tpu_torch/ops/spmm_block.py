@@ -5,6 +5,8 @@
 hand-written kernel in ``csrc/spmm_block.cu``; on a CPU tensor it runs the
 plain PyTorch version ``spmm_block_padded_ref``, the twin of
 ``sextans_tpu.ops.spmm_xla.spmm_xla_padded``. Any other device raises.
+Both take ``precise`` (``SpmmConfig.precise``): 1 and 2 run the TPU
+kernel's compensated levels, with ``ops/df32.py`` in the plain version.
 """
 
 from __future__ import annotations
@@ -13,11 +15,19 @@ from typing import Optional, Tuple
 
 import torch
 
+from sextans_tpu_torch.ops.df32 import (
+    add_rows_compensated,
+    compensated_epilogue,
+    two_prod,
+    two_sum,
+)
 from sextans_tpu_torch.ops.launch import (
     SMEM_LIMIT,
+    SharedMemoryError,
     add_rows_in_order,
     check_operands,
     f32,
+    fma_f32,
     no_tf32,
     stream_of,
 )
@@ -29,18 +39,51 @@ __all__ = ["spmm_block_padded", "spmm_block_padded_ref", "block_tile_n"]
 # Bytes of temporaries (gathered B rows + products) one chunk of groups of the
 # plain version may hold: keeps it near 1 GB even on a cant-sized pack.
 _REF_CHUNK_BYTES = 256 << 20
+# The same in precise mode, whose steps cost launches per chunk: 1 GB.
+_REF_PRECISE_CHUNK_BYTES = 1 << 30
 
 
-def block_tile_n(tile_m: int, n: int) -> int:
+def _cell_bytes(precise: int) -> int:
+    """Shared memory per accumulator cell: the f32 sum, and in precise mode
+    its f32 compensation beside it."""
+    return 8 if precise else 4
+
+
+def block_tile_n(tile_m: int, n: int, precise: int = 0) -> int:
     """Columns per CUDA block: up to 64, no wider than N needs, and with the
-    tile_m x tile_n f32 accumulator inside the shared-memory limit."""
-    t = min(64, round_up(n, 8), SMEM_LIMIT // (4 * tile_m) // 8 * 8)
+    tile_m x tile_n accumulator (and its compensation array in precise mode)
+    inside the shared-memory limit; raises :class:`SharedMemoryError` when
+    not even 8 columns fit."""
+    cell = _cell_bytes(precise)
+    t = min(64, round_up(n, 8), SMEM_LIMIT // (cell * tile_m) // 8 * 8)
     if t < 8:
-        raise ValueError(
-            f"tile_m={tile_m} leaves no room for an 8-column f32 accumulator "
-            f"in {SMEM_LIMIT} bytes of shared memory"
+        raise SharedMemoryError(
+            f"tile_m={tile_m} leaves no room for an 8-column accumulator of "
+            f"{cell} bytes per cell (precise={int(precise)}) in {SMEM_LIMIT} "
+            "bytes of shared memory"
         )
     return t
+
+
+def _block_contrib(vb: torch.Tensor, brows: torch.Tensor, precise: int):
+    """The kernel's per-block sums in precise mode, ``(contrib, cerr)`` of
+    shape (gc, G, 8, n) from blocks ``vb`` (gc, G, 8, bk) and their B rows
+    ``brows`` (gc, G, bk, n): level 1 the FFMA chain over j from
+    ``v[0] * b[0]`` (``cerr`` None); level 2 the EFT chain, with
+    ``contrib + cerr`` the block's exact sum up to the rounding of
+    ``cerr``."""
+    terms = [(vb[..., j, None], brows[:, :, j, None, :]) for j in range(vb.shape[-1])]
+    if precise >= 2:
+        contrib, cerr = two_prod(*terms[0])
+        for v, b in terms[1:]:
+            p, pe = two_prod(v, b)
+            contrib, e = two_sum(contrib, p)
+            cerr = cerr + (pe + e)
+        return contrib, cerr
+    contrib = terms[0][0] * terms[0][1]
+    for v, b in terms[1:]:
+        contrib = fma_f32(v, b, contrib)
+    return contrib, None
 
 
 def spmm_block_padded_ref(
@@ -59,28 +102,47 @@ def spmm_block_padded_ref(
     block_k: int,
     group_blocks: int,
     with_c: bool = True,
+    precise: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version: gather each block's bk B rows, contract the
     8 x bk block against them, add the 8-row products into their stripes in
     pack order, then ``alpha * acc + beta * C``. Works in chunks of groups so
     that its temporaries stay bounded. Contractions are full f32 (see
-    :func:`~sextans_tpu_torch.ops.launch.no_tf32`)."""
+    :func:`~sextans_tpu_torch.ops.launch.no_tf32`).
+
+    With ``precise`` it rounds as the kernel does: each block's sum by
+    :func:`_block_contrib`, one Neumaier step per block visit in pack order
+    (:func:`~sextans_tpu_torch.ops.df32.add_rows_compensated`), then the
+    compensated epilogue."""
     no_tf32()
     ng = vals.shape[0]
     G, bk = group_blocks, block_k
     m_padded, n = c_padded.shape
     device = vals.device
     acc = torch.zeros((m_padded // 8, 8, n), dtype=torch.float32, device=device)
+    comp = torch.zeros_like(acc) if precise else None
     vblk = vals.view(ng, 8, G, bk).permute(0, 2, 1, 3)  # (ng, G, 8, bk)
     stripe = group_mtile[:ng].long()[:, None] * (tile_m // 8) + qrow.long()
     col0 = group_kwin.long()[:, None] * window_k + bcol.long()
     jj = torch.arange(bk, device=device)
-    step = max(1, _REF_CHUNK_BYTES // (4 * G * (bk + 8) * n))
+    if precise:  # ~14 f32-sized temporaries per product, f64 ones among them
+        step = max(1, _REF_PRECISE_CHUNK_BYTES // (4 * G * (bk + 14 * 8) * n))
+    else:
+        step = max(1, _REF_CHUNK_BYTES // (4 * G * (bk + 8) * n))
     for g0 in range(0, ng, step):
         g1 = min(ng, g0 + step)
         brows = b_padded[col0[g0:g1, :, None] + jj]  # (gc, G, bk, n)
+        rows = stripe[g0:g1].reshape(-1)
+        if precise:
+            contrib, cerr = _block_contrib(vblk[g0:g1], brows, precise)
+            add_rows_compensated(acc, comp, rows, contrib.reshape(-1, 8, n),
+                                 None if cerr is None else cerr.reshape(-1, 8, n))
+            continue
         contrib = torch.einsum("gsik,gskn->gsin", vblk[g0:g1], brows)
-        add_rows_in_order(acc, stripe[g0:g1].reshape(-1), contrib.reshape(-1, 8, n))
+        add_rows_in_order(acc, rows, contrib.reshape(-1, 8, n))
+    if precise:
+        return compensated_epilogue(alpha, acc.view(m_padded, n), comp.view(m_padded, n),
+                                    beta if with_c else None, c_padded if with_c else None)
     out = acc.view(m_padded, n) * f32(alpha)
     if with_c:
         out = out + c_padded * f32(beta)
@@ -105,6 +167,7 @@ def spmm_block_padded(
     ranges: Tuple[torch.Tensor, torch.Tensor],
     tile_n: Optional[int] = None,
     with_c: bool = True,
+    precise: int = 0,
 ) -> torch.Tensor:
     """``alpha * A @ B + beta * C`` on padded operands; returns the padded
     (m_padded, n) result.
@@ -113,15 +176,18 @@ def spmm_block_padded(
     :func:`~sextans_tpu_torch.ops.launch.group_ranges`, on the same device.
     ``tile_n`` is the kernel's columns per CUDA block (default
     :func:`block_tile_n`). ``with_c=False`` drops the C read; ``c_padded``
-    then gives the shape only. The TPU's ``n_acc``/``chunk_unroll`` hints
-    have no counterpart here.
+    then gives the shape only. ``precise`` is ``SpmmConfig.precise`` (0, 1
+    or 2); at 1 and 2 each cell keeps one compensated pair where the TPU
+    kept ``n_acc`` of them. The TPU's ``n_acc``/``chunk_unroll`` hints have
+    no counterpart here.
     """
+    precise = int(precise)
     kw = dict(tile_m=tile_m, window_k=window_k, block_k=block_k,
               group_blocks=group_blocks)
     if vals.device.type == "cpu":
         return spmm_block_padded_ref(
             vals, qrow, bcol, group_mtile, group_kwin, b_padded, c_padded,
-            alpha, beta, with_c=with_c, **kw,
+            alpha, beta, with_c=with_c, precise=precise, **kw,
         )
     if vals.device.type != "cuda":
         raise ValueError(f"spmm_block runs on cpu or cuda, not {vals.device}")
@@ -130,11 +196,14 @@ def spmm_block_padded(
         vals_shape_per_group=(8, group_blocks * block_k), tile_m=tile_m,
         window_k=window_k, group_blocks=group_blocks, with_c=with_c,
     )
-    tile_n = tile_n or block_tile_n(tile_m, n)
-    if not 1 <= tile_n <= 128 or 4 * tile_m * tile_n > SMEM_LIMIT:
-        raise ValueError(
-            f"tile_n={tile_n} must be in [1, 128] with a tile_m x tile_n f32 "
-            f"accumulator ({4 * tile_m * tile_n} bytes) within {SMEM_LIMIT}"
+    if precise not in (0, 1, 2):
+        raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
+    tile_n = tile_n or block_tile_n(tile_m, n, precise)
+    smem = _cell_bytes(precise) * tile_m * tile_n
+    if not 1 <= tile_n <= 128 or smem > SMEM_LIMIT:
+        raise SharedMemoryError(
+            f"tile_n={tile_n} must be in [1, 128] with a tile_m x tile_n "
+            f"accumulator ({smem} bytes at precise={precise}) within {SMEM_LIMIT}"
         )
     out = torch.empty((m_padded, n), dtype=torch.float32, device=vals.device)
     lib = build_kernels()
@@ -145,7 +214,7 @@ def spmm_block_padded(
             b_padded.data_ptr(), c_padded.data_ptr() if with_c else None,
             out.data_ptr(), n_mtiles, n, tile_m, window_k, block_k,
             group_blocks, tile_n, float(alpha), float(beta), int(with_c),
-            stream_of(vals.device),
+            precise, stream_of(vals.device),
         )
     check_launch(lib, "spmm_block", err)
     spmm_block_padded.launches += 1

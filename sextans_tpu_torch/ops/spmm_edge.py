@@ -4,6 +4,8 @@
 ``spmm_edge_padded`` (kernel K4): on a CUDA tensor it launches the
 hand-written kernel in ``csrc/spmm_edge.cu``; on a CPU tensor it runs the
 plain PyTorch version ``spmm_edge_padded_ref``. Any other device raises.
+Both take ``precise`` (``SpmmConfig.precise``): 1 and 2 run the TPU
+kernel's compensated levels, with ``ops/df32.py`` in the plain version.
 """
 
 from __future__ import annotations
@@ -13,6 +15,12 @@ from typing import Tuple
 import torch
 
 from sextans_tpu_torch.format.pack_edge import COL_SHIFT, PAD_BIT, ROW_END, ROW_SHIFT
+from sextans_tpu_torch.ops.df32 import (
+    acc_step,
+    add_rows_compensated,
+    compensated_epilogue,
+    two_prod,
+)
 from sextans_tpu_torch.ops.launch import (
     COL_MASK,
     add_rows_in_order,
@@ -27,8 +35,11 @@ from sextans_tpu_torch.runtime.build import build_kernels, check_launch
 __all__ = ["spmm_edge_padded", "spmm_edge_padded_ref"]
 
 # Bytes of one temporary (the edge products) per chunk of chunks of the plain
-# version: at cant_like N = 512 an unchunked gather would be ~8 GB.
+# version: at cant_like N = 512 an unchunked gather would be ~8 GB. Precise
+# mode, whose steps cost launches per chunk, holds ~8 such temporaries in
+# 1 GB.
 _REF_CHUNK_BYTES = 256 << 20
+_REF_PRECISE_CHUNK_BYTES = 1 << 30
 
 
 def spmm_edge_padded_ref(
@@ -46,6 +57,7 @@ def spmm_edge_padded_ref(
     edge_chunk: int,
     masked: bool = False,
     with_c: bool = True,
+    precise: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version, rounding as the kernel does: decode the meta
     words into (row, B row) indices; sum each row run (the edges up to and
@@ -54,11 +66,18 @@ def spmm_edge_padded_ref(
     then ``fma(alpha, acc, beta * C)``. With ``masked`` a pad slot is
     skipped; without it, it adds ``0 * B``, which changes a sum only where B
     is not finite. Works in chunks of chunks so that its temporaries stay
-    bounded."""
+    bounded.
+
+    With ``precise`` each run is a compensated pair: per edge the product
+    (level 2 with its ``two_prod`` error) goes in by ``acc_step``; each
+    flush is an ``acc_step`` of the run's sum into its row's pair, in pack
+    order, and then adds the run's compensation; the epilogue is the
+    compensated one."""
     nc, E = vals.shape[0], edge_chunk
     m_padded, n = c_padded.shape
     device = vals.device
     acc = torch.zeros((m_padded, n), dtype=torch.float32, device=device)
+    comp = torch.zeros_like(acc) if precise else None
     w = meta.view(nc, E).long()
     row = chunk_mtile[:nc].long()[:, None] * tile_m + (w >> ROW_SHIFT)
     brow = chunk_kwin.long()[:, None] * window_k + ((w >> COL_SHIFT) & COL_MASK)
@@ -72,7 +91,10 @@ def spmm_edge_padded_ref(
     # B rows whose 0 * B is not 0: only they make an unmasked pad count
     nonfinite = ~torch.isfinite(b_padded).all(dim=1)
     v = vals.view(nc, E)
-    step = max(1, _REF_CHUNK_BYTES // (4 * E * n))
+    if precise:
+        step = max(1, _REF_PRECISE_CHUNK_BYTES // (8 * 4 * E * n))
+    else:
+        step = max(1, _REF_CHUNK_BYTES // (4 * E * n))
     for g0 in range(0, nc, step):
         g1 = min(nc, g0 + step)
         e_stop, e_real = stop[g0:g1].reshape(-1), real[g0:g1].reshape(-1)
@@ -83,19 +105,38 @@ def spmm_edge_padded_ref(
         pos = torch.arange(run.numel(), device=device)
         pos = pos - pos[first][run]  # place of each edge in its run
         regs = torch.zeros((int(e_stop.sum()), n), dtype=torch.float32, device=device)
-        # the runs' p-th real edges, for p = 0, 1, ...: one multiply-add each
+        regc = torch.zeros_like(regs) if precise else None
+        # the runs' p-th real edges, for p = 0, 1, ...: one step each
         edges = torch.nonzero(e_real).squeeze(1)
         edges = edges[torch.argsort(pos[edges], stable=True)]
         counts = torch.bincount(pos[edges]).tolist() if edges.numel() else []
         for sel in torch.split(edges, counts):
             r = run[sel]
-            regs[r] = fma_f32(e_v[sel, None], b_padded[e_b[sel]], regs[r])
+            if not precise:
+                regs[r] = fma_f32(e_v[sel, None], b_padded[e_b[sel]], regs[r])
+                continue
+            vb = (e_v[sel, None], b_padded[e_b[sel]])
+            p, pe = two_prod(*vb) if precise >= 2 else (vb[0] * vb[1], None)
+            regs[r], regc[r] = acc_step(regs[r], regc[r], p, pe)
         if not masked:
+            # an unmasked pad adds 0 * B (and, precise, its error 0 * B - p):
+            # a register starts at +0 and never turns -0, so that changes
+            # nothing unless B is not finite, and then makes the run NaN
             hit = ~e_real & nonfinite[e_b]
             if bool(hit.any()):
-                regs.index_put_((run[hit],), 0.0 * b_padded[e_b[hit]], accumulate=True)
+                for r in (regs, regc) if precise else (regs,):
+                    r.index_put_((run[hit],), 0.0 * b_padded[e_b[hit]], accumulate=True)
         flush = end[g0:g1].reshape(-1)[e_stop]
-        add_rows_in_order(acc, row[g0:g1].reshape(-1)[e_stop][flush], regs[flush])
+        rows = row[g0:g1].reshape(-1)[e_stop][flush]
+        if precise:
+            # acc_step(acc, comp, reg), then comp + regc: subtracting -regc
+            # is the same add, to the bit
+            add_rows_compensated(acc, comp, rows, regs[flush], -regc[flush])
+        else:
+            add_rows_in_order(acc, rows, regs[flush])
+    if precise:
+        return compensated_epilogue(alpha, acc, comp, beta if with_c else None,
+                                    c_padded if with_c else None)
     if not with_c:
         return acc * f32(alpha)
     return fma_f32(torch.full_like(acc, f32(alpha)), acc, c_padded * f32(beta))
@@ -133,6 +174,7 @@ def spmm_edge_padded(
     ranges: Tuple[torch.Tensor, torch.Tensor],
     masked: bool = False,
     with_c: bool = True,
+    precise: int = 0,
 ) -> torch.Tensor:
     """``alpha * A @ B + beta * C`` on padded operands; returns the padded
     (m_padded, n) result.
@@ -142,28 +184,35 @@ def spmm_edge_padded(
     on the same device; ``masked`` is ``SpmmConfig.edge_masked``;
     ``with_c=False`` drops the C read and ``c_padded`` then gives the shape
     only. The kernel walks edges one by one, so ``edge_lanes`` needs no
-    argument: it changes only where the pack puts its pads.
+    argument: it changes only where the pack puts its pads. ``precise`` is
+    ``SpmmConfig.precise`` (0, 1 or 2); at 1 and 2 the kernel keeps the
+    compensation in a second (m_padded, n) buffer allocated per call.
     """
+    precise = int(precise)
     kw = dict(tile_m=tile_m, window_k=window_k, edge_chunk=edge_chunk,
               with_c=with_c)
     if vals.device.type == "cpu":
         return spmm_edge_padded_ref(
             vals, meta, chunk_mtile, chunk_kwin, b_padded, c_padded, alpha,
-            beta, masked=masked, **kw,
+            beta, masked=masked, precise=precise, **kw,
         )
     if vals.device.type != "cuda":
         raise ValueError(f"spmm_edge runs on cpu or cuda, not {vals.device}")
+    if precise not in (0, 1, 2):
+        raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
     m_padded, n, n_mtiles = _check_edge_operands(
         vals, meta, chunk_mtile, chunk_kwin, b_padded, c_padded, ranges, **kw)
     out = torch.empty((m_padded, n), dtype=torch.float32, device=vals.device)
+    comp = torch.empty_like(out) if precise else None
     lib = build_kernels()
     with torch.cuda.device(vals.device):
         err = lib.spmm_edge_launch(
             vals.data_ptr(), meta.data_ptr(), chunk_kwin.data_ptr(),
             ranges[0].data_ptr(), ranges[1].data_ptr(), b_padded.data_ptr(),
             c_padded.data_ptr() if with_c else None, out.data_ptr(),
-            n_mtiles, n, tile_m, window_k, edge_chunk, float(alpha),
-            float(beta), int(with_c), int(masked), stream_of(vals.device),
+            comp.data_ptr() if precise else None, n_mtiles, n, tile_m,
+            window_k, edge_chunk, float(alpha), float(beta), int(with_c),
+            int(masked), precise, stream_of(vals.device),
         )
     check_launch(lib, "spmm_edge", err)
     spmm_edge_padded.launches += 1

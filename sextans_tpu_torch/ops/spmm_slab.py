@@ -6,7 +6,10 @@
 its hand-written kernel in ``csrc/spmm_slab.cu``; on a CPU tensor both run
 the one plain PyTorch version, ``spmm_slab_padded_ref``. Any other device
 raises. Both kernels return C in the (M, N) layout: the TPU's transposed-C
-route has no counterpart on the card.
+route has no counterpart on the card. ``precise`` 1 and 2 (one level here,
+as in the TPU slab kernels) compensate the sum of a block's contraction
+every 8 terms (where the TPU stepped once per block visit) and the
+epilogue, with ``ops/df32.py`` in the plain version.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Tuple
 
 import torch
 
+from sextans_tpu_torch.ops.df32 import add_rows_compensated, compensated_epilogue
 from sextans_tpu_torch.ops.launch import (
     add_rows_in_order,
     check_operands,
@@ -29,8 +33,9 @@ __all__ = ["spmm_slab_padded", "spmm_slab_skinny_padded", "spmm_slab_padded_ref"
 MSLAB = 128
 SKINNY_MAX_N = 32
 
-# See spmm_block._REF_CHUNK_BYTES.
+# See spmm_block._REF_CHUNK_BYTES and _REF_PRECISE_CHUNK_BYTES.
 _REF_CHUNK_BYTES = 256 << 20
+_REF_PRECISE_CHUNK_BYTES = 1 << 30
 
 
 def spmm_slab_padded_ref(
@@ -49,28 +54,47 @@ def spmm_slab_padded_ref(
     block_k: int,
     group_blocks: int,
     with_c: bool = True,
+    precise: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version: ``einsum`` of each (bk, 128) slab with its
     gathered bk B rows, the (128, n) products added into their 128-row slabs
-    in pack order, then ``alpha * acc + beta * C``. Works in chunks of
-    groups. Contractions are full f32 (see
-    :func:`~sextans_tpu_torch.ops.launch.no_tf32`)."""
+    in pack order, then ``alpha * acc + beta * C``. With ``precise`` each
+    block's contraction is cut into bk / 8 contractions of 8 terms, each
+    goes in by one Neumaier step in pack order, and the epilogue is the
+    compensated one. Works in chunks of groups. Contractions are full f32
+    (see :func:`~sextans_tpu_torch.ops.launch.no_tf32`)."""
     no_tf32()
     ng = vals.shape[0]
     G, bk = group_blocks, block_k
     m_padded, n = c_padded.shape
     device = vals.device
     acc = torch.zeros((m_padded // MSLAB, MSLAB, n), dtype=torch.float32, device=device)
+    comp = torch.zeros_like(acc) if precise else None
     vblk = vals.view(ng, G, bk, MSLAB)
     slab = group_mtile[:ng].long()[:, None] * (tile_m // MSLAB) + qm.long()
     col0 = group_kwin.long()[:, None] * window_k + bcol.long()
     jj = torch.arange(bk, device=device)
-    step = max(1, _REF_CHUNK_BYTES // (4 * G * (bk + MSLAB) * n))
+    if precise:  # sub contractions a block, ~8 f32-sized temporaries each
+        sub = max(1, bk // 8)
+        step = max(1, _REF_PRECISE_CHUNK_BYTES // (4 * G * (bk + 8 * MSLAB * sub) * n))
+    else:
+        step = max(1, _REF_CHUNK_BYTES // (4 * G * (bk + MSLAB) * n))
     for g0 in range(0, ng, step):
         g1 = min(ng, g0 + step)
+        gc = g1 - g0
         brows = b_padded[col0[g0:g1, :, None] + jj]  # (gc, G, bk, n)
-        contrib = torch.einsum("gskm,gskn->gsmn", vblk[g0:g1], brows)
-        add_rows_in_order(acc, slab[g0:g1].reshape(-1), contrib.reshape(-1, MSLAB, n))
+        if precise:
+            contrib = torch.einsum("gsukm,gsukn->gsumn",
+                                   vblk[g0:g1].reshape(gc, G, sub, bk // sub, MSLAB),
+                                   brows.view(gc, G, sub, bk // sub, n))  # (gc, G, sub, 128, n)
+            rows = slab[g0:g1, :, None].expand(gc, G, sub).reshape(-1)
+            add_rows_compensated(acc, comp, rows, contrib.reshape(-1, MSLAB, n))
+        else:
+            contrib = torch.einsum("gskm,gskn->gsmn", vblk[g0:g1], brows)
+            add_rows_in_order(acc, slab[g0:g1].reshape(-1), contrib.reshape(-1, MSLAB, n))
+    if precise:
+        return compensated_epilogue(alpha, acc.view(m_padded, n), comp.view(m_padded, n),
+                                    beta if with_c else None, c_padded if with_c else None)
     out = acc.view(m_padded, n) * f32(alpha)
     if with_c:
         out = out + c_padded * f32(beta)
@@ -79,7 +103,7 @@ def spmm_slab_padded_ref(
 
 def _launch(entry: str, vals, qm, bcol, group_mtile, group_kwin, b_padded,
             c_padded, alpha, beta, *, tile_m, window_k, block_k, group_blocks,
-            ranges, with_c):
+            ranges, with_c, precise):
     m_padded, n, n_mtiles = check_operands(
         vals, qm, bcol, group_mtile, group_kwin, b_padded, c_padded, ranges,
         vals_shape_per_group=(group_blocks * block_k, MSLAB), tile_m=tile_m,
@@ -87,6 +111,8 @@ def _launch(entry: str, vals, qm, bcol, group_mtile, group_kwin, b_padded,
     )
     if tile_m % MSLAB or block_k % 8:
         raise ValueError("the slab format needs tile_m % 128 == 0 and block_k % 8 == 0")
+    if precise not in (0, 1, 2):
+        raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
     if entry == "spmm_slab_skinny_launch" and n > SKINNY_MAX_N:
         raise ValueError(f"spmm_slab_skinny takes n <= {SKINNY_MAX_N}, got {n}")
     out = torch.empty((m_padded, n), dtype=torch.float32, device=vals.device)
@@ -97,7 +123,7 @@ def _launch(entry: str, vals, qm, bcol, group_mtile, group_kwin, b_padded,
             group_kwin.data_ptr(), ranges[0].data_ptr(), ranges[1].data_ptr(),
             b_padded.data_ptr(), c_padded.data_ptr() if with_c else None,
             out.data_ptr(), n_mtiles, n, tile_m, window_k, block_k,
-            group_blocks, float(alpha), float(beta), int(with_c),
+            group_blocks, float(alpha), float(beta), int(with_c), precise,
             stream_of(vals.device),
         )
     check_launch(lib, entry, err)
@@ -121,13 +147,14 @@ def spmm_slab_padded(
     group_blocks: int,
     ranges: Tuple[torch.Tensor, torch.Tensor],
     with_c: bool = True,
+    precise: int = 0,
 ) -> torch.Tensor:
     """``alpha * A @ B + beta * C`` on padded operands, any n; returns the
-    padded (m_padded, n) result. ``ranges`` and ``with_c`` are as in
-    :func:`~sextans_tpu_torch.ops.spmm_block.spmm_block_padded`; the kernel
-    takes 64 columns per CUDA block."""
+    padded (m_padded, n) result. ``ranges``, ``with_c`` and ``precise`` are
+    as in :func:`~sextans_tpu_torch.ops.spmm_block.spmm_block_padded`; the
+    kernel takes 64 columns per CUDA block."""
     kw = dict(tile_m=tile_m, window_k=window_k, block_k=block_k,
-              group_blocks=group_blocks, with_c=with_c)
+              group_blocks=group_blocks, with_c=with_c, precise=int(precise))
     if vals.device.type == "cpu":
         return spmm_slab_padded_ref(
             vals, qm, bcol, group_mtile, group_kwin, b_padded, c_padded,
@@ -160,11 +187,12 @@ def spmm_slab_skinny_padded(
     group_blocks: int,
     ranges: Tuple[torch.Tensor, torch.Tensor],
     with_c: bool = True,
+    precise: int = 0,
 ) -> torch.Tensor:
     """The same product for n <= 32, with all n columns in one CUDA block
     per 128-row slab; returns the padded (m_padded, n) result."""
     kw = dict(tile_m=tile_m, window_k=window_k, block_k=block_k,
-              group_blocks=group_blocks, with_c=with_c)
+              group_blocks=group_blocks, with_c=with_c, precise=int(precise))
     if vals.device.type == "cpu":
         if b_padded.shape[1] > SKINNY_MAX_N:
             raise ValueError(f"spmm_slab_skinny takes n <= {SKINNY_MAX_N}")

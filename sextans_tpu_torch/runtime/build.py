@@ -41,21 +41,26 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # vals qrow bcol group_kwin tile_ptr tile_groups b c out
     # n_mtiles n tile_m window_k block_k group_blocks tile_n
-    # alpha beta with_c stream
-    "spmm_block_launch": [_P] * 9 + [_I] * 7 + [_F, _F, _I, _P],
+    # alpha beta with_c precise stream
+    "spmm_block_launch": [_P] * 9 + [_I] * 7 + [_F, _F, _I, _I, _P],
     # vals qm bcol group_kwin tile_ptr tile_groups b c out
     # n_mtiles n tile_m window_k block_k group_blocks
-    # alpha beta with_c stream
-    "spmm_slab_launch": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
-    "spmm_slab_skinny_launch": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
-    # vals meta chunk_kwin tile_ptr tile_chunks b c out
-    # n_mtiles n tile_m window_k edge_chunk alpha beta with_c masked stream
-    "spmm_edge_launch": [_P] * 8 + [_I] * 5 + [_F, _F, _I, _I, _P],
+    # alpha beta with_c precise stream
+    "spmm_slab_launch": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _I, _P],
+    "spmm_slab_skinny_launch": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _I, _P],
+    # vals meta chunk_kwin tile_ptr tile_chunks b c out comp
+    # n_mtiles n tile_m window_k edge_chunk alpha beta with_c masked precise
+    # stream
+    "spmm_edge_launch": [_P] * 9 + [_I] * 5 + [_F, _F, _I, _I, _I, _P],
     # vals cols b c out m_padded r_slots n alpha beta with_c vec stream
     "spmm_ell_launch": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _I, _P],
     # dvals offsets b c out m k n n_diags alpha beta with_c [vec] stream
     "spmm_dia_launch": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _I, _P],
     "spmm_dia_skinny_launch": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _P],
+    # a b s e p pe count stream
+    "df32_probe_pairs": [_P] * 6 + [_I, _P],
+    # v b out terms width stream
+    "df32_probe_chain": [_P] * 3 + [_I, _I, _P],
     "sx_error_string": [_I],
 }
 

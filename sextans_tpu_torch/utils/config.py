@@ -42,7 +42,9 @@ class SpmmConfig:
     * ``n_acc``, ``chunk_unroll`` — TPU scheduling hints, kept so that configs
       are interchangeable; the CUDA kernels ignore them.
     * ``precise`` — compensated accumulation (0 off, 1 Neumaier + df32
-      epilogue, 2 full error-free inner chain). Only 0 runs in this package.
+      epilogue, 2 full error-free inner chain). The block, slab and edge
+      kernels run 1 and 2 (the slab kernels run 2 as 1, as on the TPU); the
+      ELL engine and the hybrid plan raise for them.
     * ``edge_chunk`` — edges per chunk of the edge format (format/pack_edge.py).
     * ``edge_lanes`` — the edge pack pads each row run to a multiple of it
       (the TPU kernel's independent registers); the CUDA edge kernel walks

@@ -7,7 +7,9 @@ no JAX, so on a machine without it run it as::
 
 Tolerance: ``max|kernel - plain| <= 4 * spacing(f32(max|plain|))``; both sum
 the same f32 products in pack order and differ in the rounding of each
-block's product and of the epilogue.
+block's product and of the epilogue. In precise mode the block and edge
+kernels equal their plain versions to the bit: both take the same roundings
+in the same order (``ops/df32.py``, ``csrc/df32.cuh``).
 """
 
 import numpy as np
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 import sextans_tpu_torch as tx
+from sextans_tpu_torch.ops import df32
 from sextans_tpu_torch.ops.spmm_block import spmm_block_padded, spmm_block_padded_ref
 from sextans_tpu_torch.ops.spmm_dia import spmm_dia, spmm_dia_ref, spmm_dia_skinny
 from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded, spmm_edge_padded_ref
@@ -48,7 +51,7 @@ def _matrix(kind):
     return tx.COOMatrix.random(1030, 777, 12000, seed=3, banded=True, bandwidth=90)
 
 
-def _check(kernel, plain, cuda, packed, n, with_c, **extra):
+def _check(kernel, plain, cuda, packed, n, with_c, precise=0, **extra):
     pl = tx.plan(packed, n, "mxu" if hasattr(packed, "qm") else "pallas", device=cuda)
     rng = np.random.default_rng(n)
     b = pl.pad_b(rng.standard_normal((packed.k, n)).astype(np.float32))
@@ -57,7 +60,7 @@ def _check(kernel, plain, cuda, packed, n, with_c, **extra):
         c = torch.zeros(1, device=cuda).expand(packed.m_padded, n)
     cfg = packed.config
     kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k, block_k=cfg.block_k,
-              group_blocks=cfg.group_blocks, with_c=with_c)
+              group_blocks=cfg.group_blocks, with_c=with_c, precise=precise)
     before = kernel.launches
     got = kernel(*pl.arrays, b, c, ALPHA, BETA, ranges=pl.ranges, **kw, **extra)
     want = plain(*pl.arrays, b, c, ALPHA, BETA, **kw)
@@ -65,6 +68,8 @@ def _check(kernel, plain, cuda, packed, n, with_c, **extra):
     assert kernel.launches == before + 1
     assert got.shape == want.shape == (packed.m_padded, n) and got.device == cuda
     assert torch.isfinite(got).all()
+    if precise and kernel is spmm_block_padded:
+        assert torch.equal(got, want)
     tol = 4 * np.spacing(np.float32(want.abs().max().item()))
     assert (got - want).abs().max().item() <= tol
 
@@ -106,7 +111,8 @@ def _hub_matrix():
     return tx.COOMatrix((1030, 777), rows, cols, vals)
 
 
-def _check_new(kernel, plain, cuda, packed, backend, n, with_c, nonfinite_b=False):
+def _check_new(kernel, plain, cuda, packed, backend, n, with_c, nonfinite_b=False,
+               precise=0):
     pl = tx.plan(packed, n, backend, device=cuda)
     rng = np.random.default_rng(n)
     b_host = rng.standard_normal((packed.k, n)).astype(np.float32)
@@ -118,8 +124,8 @@ def _check_new(kernel, plain, cuda, packed, backend, n, with_c, nonfinite_b=Fals
         c = torch.zeros(1, device=cuda).expand(packed.m_padded, n)
     cfg = packed.config
     if backend == "edge":
-        kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k,
-                  edge_chunk=cfg.edge_chunk, masked=cfg.edge_masked, with_c=with_c)
+        kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k, edge_chunk=cfg.edge_chunk,
+                  masked=cfg.edge_masked, with_c=with_c, precise=precise)
         extra = dict(ranges=pl.ranges)
     else:
         kw, extra = dict(m_base=packed.m_base, with_c=with_c), {}
@@ -130,6 +136,8 @@ def _check_new(kernel, plain, cuda, packed, backend, n, with_c, nonfinite_b=Fals
     assert kernel.launches == before + 1
     assert got.shape == want.shape == (packed.m_padded, n) and got.device == cuda
     assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    if precise:
+        assert torch.equal(got, want)
     tol = 4 * np.spacing(np.float32(want.abs().max().item()))
     assert (got - want).abs().max().item() <= tol
 
@@ -348,3 +356,126 @@ def test_dia_wrappers_check_operands(cuda):
             kernel(dv, offs, b, c[:, :8], 1.0, 0.0)
         with pytest.raises(ValueError, match="c must have shape"):
             kernel(dv, offs, b, c[:-1], 1.0, 0.0, with_c=False)
+
+
+# ---- precise levels (SpmmConfig.precise = 1, 2) ----
+
+@pytest.mark.parametrize("precise", [1, 2])
+@pytest.mark.parametrize("kind", ["banded", "empty_mtiles"])
+@pytest.mark.parametrize("n,bk,tile_n", [(13, 8, None), (64, 8, None), (200, 32, 8)])
+def test_block_kernel_precise_equals_plain(cuda, kind, n, bk, tile_n, precise):
+    cfg = tx.SpmmConfig(tile_m=256, window_k=256, block_k=bk,
+                        group_blocks=max(32, 128 // bk), precise=precise)
+    _check(spmm_block_padded, spmm_block_padded_ref, cuda,
+           tx.pack(_matrix(kind), cfg), n, with_c=n != 13, precise=precise, tile_n=tile_n)
+
+
+@pytest.mark.parametrize("precise", [1, 2])
+@pytest.mark.parametrize("kind", ["banded", "empty_mtiles"])
+@pytest.mark.parametrize("n", [33, 130])
+def test_slab_kernel_precise_matches_plain(cuda, kind, n, precise):
+    cfg = tx.SpmmConfig(tile_m=512, window_k=512, block_k=8, group_blocks=4, precise=precise)
+    _check(spmm_slab_padded, spmm_slab_padded_ref, cuda,
+           tx.pack_mxu(_matrix(kind), cfg), n, with_c=n != 33, precise=precise)
+
+
+@pytest.mark.parametrize("precise", [1, 2])
+@pytest.mark.parametrize("kind", ["banded", "empty_mtiles"])
+@pytest.mark.parametrize("n", [8, 21])
+def test_slab_skinny_kernel_precise_matches_plain(cuda, kind, n, precise):
+    cfg = tx.SpmmConfig(tile_m=256, window_k=256, block_k=16, group_blocks=8, precise=precise)
+    _check(spmm_slab_skinny_padded, spmm_slab_padded_ref, cuda,
+           tx.pack_mxu(_matrix(kind), cfg), n, with_c=n != 8, precise=precise)
+
+
+@pytest.mark.parametrize("precise", [1, 2])
+@pytest.mark.parametrize("kind", ["banded", "empty_mtiles"])
+@pytest.mark.parametrize("n", [13, 64])
+def test_edge_kernel_precise_equals_plain(cuda, kind, n, precise):
+    cfg = tx.SpmmConfig(tile_m=256, window_k=256, edge_chunk=136, edge_lanes=4,
+                        precise=precise)
+    _check_new(spmm_edge_padded, spmm_edge_padded_ref, cuda,
+               tx.pack_edge(_matrix(kind), cfg), "edge", n, with_c=n != 13, precise=precise)
+
+
+@pytest.mark.parametrize("precise", [1, 2])
+def test_edge_kernel_precise_masked_pads_with_nonfinite_b(cuda, precise):
+    coo = _matrix("banded")
+    keep = coo.cols != 0
+    coo = tx.COOMatrix(coo.shape, coo.rows[keep], coo.cols[keep], coo.vals[keep])
+    cfg = tx.SpmmConfig(tile_m=128, window_k=512, edge_chunk=64, edge_lanes=4,
+                        edge_masked=True, precise=precise)
+    _check_new(spmm_edge_padded, spmm_edge_padded_ref, cuda, tx.pack_edge(coo, cfg),
+               "edge", 40, with_c=True, nonfinite_b=True, precise=precise)
+
+
+@pytest.mark.parametrize("precise", [1, 2])
+def test_edge_kernel_precise_unmasked_pads_with_nonfinite_b(cuda, precise):
+    coo = _matrix("banded")
+    keep = coo.cols != 0
+    coo = tx.COOMatrix(coo.shape, coo.rows[keep], coo.cols[keep], coo.vals[keep])
+    cfg = tx.SpmmConfig(tile_m=128, window_k=512, edge_chunk=64, edge_lanes=4,
+                        precise=precise)
+    packed = tx.pack_edge(coo, cfg)
+    pl = tx.plan(packed, 40, "edge", device=cuda)
+    rng = np.random.default_rng(3)
+    b_host = rng.standard_normal((packed.k, 40)).astype(np.float32)
+    b_host[0] = np.inf  # read only by pad slots: A has no column 0
+    b, c = pl.pad_b(b_host), pl.pad_c(rng.standard_normal((packed.m, 40)).astype(np.float32))
+    kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k, edge_chunk=cfg.edge_chunk,
+              masked=False, precise=precise)
+    got = spmm_edge_padded(*pl.arrays, b, c, ALPHA, BETA, ranges=pl.ranges, **kw)
+    want = spmm_edge_padded_ref(*pl.arrays, b, c, ALPHA, BETA, **kw)
+    torch.cuda.synchronize()
+    assert not torch.isfinite(want).all()
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+def test_eft_probe_twin_on_card(cuda):
+    a, b, v, bb = df32.probe_inputs(0)
+    pairs_before, chain_before = df32.eft_probe_pairs.launches, df32.eft_probe_chain.launches
+    ta, tb = torch.as_tensor(a, device=cuda), torch.as_tensor(b, device=cuda)
+    tv, tbb = torch.as_tensor(v, device=cuda), torch.as_tensor(bb, device=cuda)
+    pairs = df32.eft_probe_pairs(ta, tb)
+    chain = df32.eft_probe_chain(tv, tbb)
+    torch.cuda.synchronize()
+    assert df32.eft_probe_pairs.launches == pairs_before + 1
+    assert df32.eft_probe_chain.launches == chain_before + 1
+    for got, want in zip(pairs + (chain,),
+                         df32.eft_probe_pairs_ref(ta, tb) + (df32.eft_probe_chain_ref(tv, tbb),)):
+        assert torch.equal(got, want)
+    report = df32.probe_report(a, b, v, bb, [t.cpu().numpy() for t in pairs], chain.cpu().numpy())
+    assert report["two_sum_violations"] == report["two_prod_violations"] == 0
+    assert report["add_mismatches"] == report["mul_mismatches"] == 0
+    assert report["chain_above_floor"] == 0 and report["chain_excess"] <= 0.0
+
+
+@pytest.mark.parametrize("precise", [1, 2])
+@pytest.mark.parametrize("backend,n", [("pallas", 16), ("mxu", 16), ("mxu", 96), ("edge", 96)])
+def test_precise_plan_on_card_launches_its_kernel(cuda, backend, n, precise):
+    coo = _matrix("banded")
+    cfg = tx.SpmmConfig(tile_m=256, window_k=256, block_k=8, group_blocks=16,
+                        precise=precise)
+    packer = {"pallas": tx.pack, "mxu": tx.pack_mxu, "edge": tx.pack_edge}[backend]
+    kernel = {"pallas": spmm_block_padded, "edge": spmm_edge_padded,
+              "mxu": spmm_slab_skinny_padded if n <= 32 else spmm_slab_padded}[backend]
+    packed = packer(coo, cfg)
+    rng = np.random.default_rng(1)
+    b = rng.standard_normal((coo.shape[1], n)).astype(np.float32)
+    c = rng.standard_normal((coo.shape[0], n)).astype(np.float32)
+    before = kernel.launches
+    got = tx.plan(packed, n, backend, device=cuda)(b, ALPHA, BETA, c)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and got.device == cuda
+    got = got.cpu()
+    on_cpu = tx.plan(packed, n, backend, device="cpu")(b, ALPHA, BETA, c)
+    exact = tx.golden_spmm_exact(tx.CSRMatrix.from_coo(coo), b, ALPHA, BETA, c)
+    ulp = np.spacing(np.float32(np.abs(exact).max()))
+    err = np.abs(got.numpy().astype(np.float64) - exact).max() / ulp
+    if backend == "mxu":
+        assert err <= 1.5
+        assert (got - on_cpu).abs().max().item() <= 4 * ulp
+    else:
+        assert err <= (1.0 if precise == 1 else 0.5001)
+        assert torch.equal(got, on_cpu)

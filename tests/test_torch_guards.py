@@ -74,20 +74,25 @@ def test_failed_compile_raises_and_leaves_no_library(monkeypatch, tmp_path):
 def test_build_flags_target_hopper_and_hash_sources():
     assert "arch=compute_90a,code=sm_90a" in " ".join(build.NVCC_FLAGS)
     assert {p.name for p in build._sources()} == {
-        "spmm_block.cu", "spmm_slab.cu", "spmm_edge.cu", "spmm_ell.cu", "spmm_dia.cu"}
+        "spmm_block.cu", "spmm_block_precise1.cu", "spmm_block_precise2.cu",
+        "spmm_slab.cu", "spmm_edge.cu", "spmm_ell.cu", "spmm_dia.cu", "df32_probe.cu"}
     assert build._source_hash() == build._source_hash()
+    # the headers are hashed with the sources, so editing one rebuilds
+    for header in ("df32.cuh", "spmm_block.cuh"):
+        assert (build.CSRC_DIR / header).is_file()
     # every pointer and the stream are c_void_p, so none is cut to 32 bits
     pointers = {"spmm_block_launch": 9, "spmm_slab_launch": 9,
-                "spmm_slab_skinny_launch": 9, "spmm_edge_launch": 8,
-                "spmm_ell_launch": 5, "spmm_dia_launch": 5, "spmm_dia_skinny_launch": 5}
-    launches = [name for name in build._SIGNATURES if name.endswith("_launch")]
-    assert sorted(launches) == sorted(pointers)
-    for name in launches:
+                "spmm_slab_skinny_launch": 9, "spmm_edge_launch": 9,
+                "spmm_ell_launch": 5, "spmm_dia_launch": 5, "spmm_dia_skinny_launch": 5,
+                "df32_probe_pairs": 6, "df32_probe_chain": 3}
+    entries = [name for name in build._SIGNATURES if name != "sx_error_string"]
+    assert sorted(entries) == sorted(pointers)
+    for name in entries:
         argtypes = build._SIGNATURES[name]
         p = pointers[name]
         assert argtypes[:p] == [ctypes.c_void_p] * p and argtypes[-1] is ctypes.c_void_p
         assert ctypes.c_void_p not in argtypes[p:-1]
-        assert argtypes.count(ctypes.c_float) == 2
+        assert argtypes.count(ctypes.c_float) == (2 if name.endswith("_launch") else 0)
 
 
 def test_each_source_is_compiled_by_its_own_nvcc(monkeypatch, tmp_path):
@@ -147,17 +152,20 @@ def test_cuda_device_has_no_cpu_fallback():
 
 
 @pytest.mark.parametrize("precise", [1, 2])
-@pytest.mark.parametrize("fmt", ["block", "slab", "edge", "ell"])
+@pytest.mark.parametrize("fmt", ["ell"])
 def test_precise_raises_not_implemented(precise, fmt):
+    """The ELL engine's precise mode is the next slice; the block, slab and
+    edge paths run precise (tests/test_torch_precise.py)."""
     coo = tx.COOMatrix.random(200, 200, 900, seed=precise)
     cfg = tx.SpmmConfig(tile_m=128, window_k=128, precise=precise)
-    packer = {"block": tx.pack, "slab": tx.pack_mxu, "edge": tx.pack_edge,
-              "ell": tx.pack_ell}[fmt]
+    packer = {"ell": tx.pack_ell}[fmt]
     packed = packer(coo, cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
         tx.plan(packed, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tx.spmm(packed, np.ones((200, 16), np.float32), device="cpu")
+    with pytest.raises(NotImplementedError, match="'ell'"):
+        tx.plan(packed, 16, "ell", device="cpu")
 
 
 def test_smoke_bound_and_no_card_refusal(capsys):

@@ -280,7 +280,12 @@ def test_cli_prints_success(mtx_file, backend, capsys):
 
 
 def test_cli_rejects_options_not_ported(mtx_file, capsys):
-    for flag in ("--autotune", "--precise"):
-        with pytest.raises(SystemExit):
-            cli_main([str(mtx_file), "8", flag, "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        cli_main([str(mtx_file), "8", "--autotune", "--device", "cpu"])
     capsys.readouterr()
+    # precise runs on pallas, mxu and edge; the ELL engine's is not ported
+    rc = cli_main([str(mtx_file), "8", "--precise", "--backend", "ell_pallas",
+                   "--device", "cpu"])
+    captured = capsys.readouterr()
+    assert rc == 2 and "ROADMAP.md queue 1 item 6" in captured.err
+    assert "Success!" not in captured.out
