@@ -21,8 +21,8 @@ tapa::round_up<8> (src/sextans-host.cpp:51). The device defaults to
 ``--hybrid`` splits A at N (``split_structure``), prints the split, and runs
 ``HybridSpmmPlan`` with the residue on ``--backend``'s format and kernel.
 ``--precise`` sets ``SpmmConfig.precise`` to 1 (compensated accumulation,
-as ``python -m sextans_tpu --precise``); where a path does not run it yet
-(``ell``, ``ell_pallas``, ``--hybrid``) the CLI prints why and exits 2.
+as ``python -m sextans_tpu --precise``) on every backend, and with
+``--hybrid`` runs ``HybridSpmmPlan(precise=1)``; ``xla`` ignores it.
 """
 
 from __future__ import annotations
@@ -79,7 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--precise",
         action="store_true",
         help="compensated accumulation and double-float epilogue "
-        "(SpmmConfig.precise=1): within ~1 ulp of the float64 oracle",
+        "(SpmmConfig.precise=1) on every backend (xla ignores it) and with "
+        "--hybrid: within ~1 ulp of the float64 oracle",
     )
     return p
 
@@ -129,15 +130,11 @@ def main(argv=None) -> int:
             f"done ({t_pack * 1e3:.1f} msec): {s.blocks} blocks, "
             f"fill {s.block_fill:.3f}, {s.groups} groups, group fill {s.group_fill:.3f}"
         )
-    try:
-        if args.hybrid:
-            pl = HybridSpmmPlan(split, n, residue_config=cfg, backend=args.backend,
-                                precise=cfg.precise, device=args.device)
-        else:
-            pl = make_plan(packed, n, backend=args.backend, device=args.device)
-    except NotImplementedError as err:  # a precise level this path does not run yet
-        print(f"sextans_tpu_torch: {err}", file=sys.stderr)
-        return 2
+    if args.hybrid:
+        pl = HybridSpmmPlan(split, n, residue_config=cfg, backend=args.backend,
+                            precise=cfg.precise, device=args.device)
+    else:
+        pl = make_plan(packed, n, backend=args.backend, device=args.device)
 
     print("Run spmm on cpu...", flush=True)
     csr = CSRMatrix.from_coo(coo)

@@ -71,4 +71,32 @@ __device__ __forceinline__ float compensated_epilogue(float alpha, float total, 
   return __fadd_rn(s, __fadd_rn(__fadd_rn(err, qe), se));
 }
 
+// One compensated term of a gather kernel's sum (K5, K6, K7): the exact
+// product v * x, then the Neumaier step with its error, lane by lane.
+__device__ __forceinline__ void mul_acc_step(float v, float x, float& acc, float& comp) {
+  float p, pe;
+  two_prod(v, x, p, pe);
+  acc_step(acc, comp, p, pe);
+}
+__device__ __forceinline__ void mul_acc_step(float v, float4 x, float4& acc, float4& comp) {
+  mul_acc_step(v, x.x, acc.x, comp.x);
+  mul_acc_step(v, x.y, acc.y, comp.y);
+  mul_acc_step(v, x.z, acc.z, comp.z);
+  mul_acc_step(v, x.w, acc.w, comp.w);
+}
+
+// The compensated epilogue with C (with_c) or without it, lane by lane.
+__device__ __forceinline__ float epilogue(float total, float comp, float cin, float alpha,
+                                          float beta, bool with_c) {
+  return with_c ? compensated_epilogue(alpha, total, comp, beta, cin)
+                : compensated_epilogue(alpha, total, comp);
+}
+__device__ __forceinline__ float4 epilogue(float4 total, float4 comp, float4 cin, float alpha,
+                                           float beta, bool with_c) {
+  return make_float4(epilogue(total.x, comp.x, cin.x, alpha, beta, with_c),
+                     epilogue(total.y, comp.y, cin.y, alpha, beta, with_c),
+                     epilogue(total.z, comp.z, cin.z, alpha, beta, with_c),
+                     epilogue(total.w, comp.w, cin.w, alpha, beta, with_c));
+}
+
 }  // namespace sx_df32

@@ -23,6 +23,17 @@
 // Arithmetic: IEEE f32 FFMA (__fmaf_rn), no TF32; the plain versions
 // (ops/spmm_dia.py) take the same roundings in the same order.
 //
+// Precise mode (PRECISE = 1; the TPU kernels' one `precise` branch, which
+// SpmmConfig.precise 1 and 2 both reach): per diagonal, in the same order,
+// the exact product two_prod(dvals[d, i], B[i + off, j]) and one Neumaier
+// step into (acc, comp) (df32.cuh; spmm_dia_pallas.py:90-99 and 264-271).
+// The TPU starts from (p, -pe) on the first diagonal, which is the step
+// from (0, 0). Then the compensated epilogue (:103-110, :275-282). A row
+// outside [0, k) reads 0, whose product is (0, 0). spmm_dia keeps a
+// `comp` beside each of its RT rows of `acc` (for sm_90a, `ptxas -v`: 137
+// registers a thread at VEC = 4 against 88 in plain mode, no spill). Every
+// level is an `if constexpr`, so the plain-mode code is what it was.
+//
 // spmm_dia (N > 32): a block of up to 128 threads covers RT = 8 consecutive
 // rows and 128 * VEC columns; a thread owns VEC columns (16-byte loads when
 // N % 4 == 0 and the operands are 16-byte aligned) of its RT rows and keeps
@@ -47,6 +58,8 @@
 // offsets only.
 
 #include <cuda_runtime.h>
+
+#include "df32.cuh"
 
 namespace {
 
@@ -88,7 +101,7 @@ __device__ __forceinline__ T b_row(const T* __restrict__ bv, long long row, int 
   return x;
 }
 
-template <int VEC>
+template <int VEC, int PRECISE>
 __global__ void spmm_dia_kernel(
     const float* __restrict__ dvals,  // (D, m)
     const int* __restrict__ offsets,  // (D,), ascending
@@ -103,9 +116,9 @@ __global__ void spmm_dia_kernel(
   const long long row0 = (long long)blockIdx.x * kRows;
   const T* bv = reinterpret_cast<const T*>(b);
 
-  T acc[kRows], win[kRows];
+  T acc[kRows], comp[kRows], win[kRows];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = T{};
+  for (int r = 0; r < kRows; ++r) acc[r] = comp[r] = T{};
   int prev = 0;
   for (int d = 0; d < n_diags; ++d) {
     const int off = __ldg(offsets + d);
@@ -120,8 +133,14 @@ __global__ void spmm_dia_kernel(
     prev = off;
     const float* dv = dvals + (size_t)d * m;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (row0 + r < m) acc[r] = mul_add(__ldg(dv + row0 + r), win[r], acc[r]);
+    for (int r = 0; r < kRows; ++r) {
+      if (row0 + r >= m) continue;
+      if constexpr (PRECISE) {
+        sx_df32::mul_acc_step(__ldg(dv + row0 + r), win[r], acc[r], comp[r]);
+      } else {
+        acc[r] = mul_add(__ldg(dv + row0 + r), win[r], acc[r]);
+      }
+    }
   }
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -129,10 +148,15 @@ __global__ void spmm_dia_kernel(
     const size_t o = (size_t)(row0 + r) * nv + cv;
     T s = acc[r];
     if (with_c) s = __ldg(reinterpret_cast<const T*>(c) + o);
-    reinterpret_cast<T*>(out)[o] = epi(acc[r], s, alpha, beta, with_c);
+    if constexpr (PRECISE) {
+      reinterpret_cast<T*>(out)[o] = sx_df32::epilogue(acc[r], comp[r], s, alpha, beta, with_c);
+    } else {
+      reinterpret_cast<T*>(out)[o] = epi(acc[r], s, alpha, beta, with_c);
+    }
   }
 }
 
+template <int PRECISE>
 __global__ void spmm_dia_skinny_kernel(
     const float* __restrict__ dvals,  // (D, m)
     const int* __restrict__ offsets,  // (D,), ascending
@@ -144,41 +168,67 @@ __global__ void spmm_dia_skinny_kernel(
   if (idx >= (size_t)m * n) return;
   const long long row = (long long)(idx / n);
   const int col = (int)(idx - (size_t)row * n);
-  float acc = 0.f;
+  float acc = 0.f, comp = 0.f;
   for (int d = 0; d < n_diags; ++d) {
     const float x = b_row(b, row + __ldg(offsets + d), k, (size_t)n, col);
-    acc = __fmaf_rn(__ldg(dvals + (size_t)d * m + row), x, acc);
+    if constexpr (PRECISE) {
+      sx_df32::mul_acc_step(__ldg(dvals + (size_t)d * m + row), x, acc, comp);
+    } else {
+      acc = __fmaf_rn(__ldg(dvals + (size_t)d * m + row), x, acc);
+    }
   }
-  out[idx] = epi(acc, with_c ? __ldg(c + idx) : 0.f, alpha, beta, with_c);
+  const float s = with_c ? __ldg(c + idx) : 0.f;
+  if constexpr (PRECISE) {
+    out[idx] = sx_df32::epilogue(acc, comp, s, alpha, beta, with_c);
+  } else {
+    out[idx] = epi(acc, s, alpha, beta, with_c);
+  }
+}
+
+template <int VEC, int PRECISE>
+cudaError_t launch_wide(const float* dvals, const int* offsets, const float* b, const float* c,
+                        float* out, int m, int k, int n, int n_diags, float alpha, float beta,
+                        int with_c, cudaStream_t stream) {
+  const int nv = n / VEC;
+  const int threads = nv >= 128 ? 128 : (nv + 31) / 32 * 32;
+  const dim3 grid((m + kRows - 1) / kRows, (nv + threads - 1) / threads);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  spmm_dia_kernel<VEC, PRECISE><<<grid, threads, 0, stream>>>(
+      dvals, offsets, b, c, out, m, k, n, n_diags, alpha, beta, with_c);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+#define SX_ARGS                                                                 \
+  (const float*)dvals, (const int*)offsets, (const float*)b, (const float*)c, \
+      (float*)out, m, k, n, n_diags, alpha, beta, with_c
+
 extern "C" int spmm_dia_launch(
     const void* dvals, const void* offsets, const void* b, const void* c, void* out,
-    int m, int k, int n, int n_diags, float alpha, float beta, int with_c, int vec,
-    void* stream) {
-  if (vec != 1 && vec != 4) return cudaErrorInvalidValue;
-  const int nv = n / vec;
-  const int threads = nv >= 128 ? 128 : (nv + 31) / 32 * 32;
-  const dim3 grid((m + kRows - 1) / kRows, (nv + threads - 1) / threads);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
-  auto kernel = vec == 4 ? spmm_dia_kernel<4> : spmm_dia_kernel<1>;
-  kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)dvals, (const int*)offsets, (const float*)b, (const float*)c,
-      (float*)out, m, k, n, n_diags, alpha, beta, with_c);
-  return cudaGetLastError();
+    int m, int k, int n, int n_diags, float alpha, float beta, int with_c, int precise,
+    int vec, void* stream) {
+  if (precise != 0 && precise != 1) return cudaErrorInvalidValue;
+  switch (vec * 2 + precise) {
+    case 2: return launch_wide<1, 0>(SX_ARGS, (cudaStream_t)stream);
+    case 3: return launch_wide<1, 1>(SX_ARGS, (cudaStream_t)stream);
+    case 8: return launch_wide<4, 0>(SX_ARGS, (cudaStream_t)stream);
+    case 9: return launch_wide<4, 1>(SX_ARGS, (cudaStream_t)stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int spmm_dia_skinny_launch(
     const void* dvals, const void* offsets, const void* b, const void* c, void* out,
-    int m, int k, int n, int n_diags, float alpha, float beta, int with_c,
+    int m, int k, int n, int n_diags, float alpha, float beta, int with_c, int precise,
     void* stream) {
+  if (precise != 0 && precise != 1) return cudaErrorInvalidValue;
   const int threads = 256;
   const size_t blocks = ((size_t)m * n + threads - 1) / threads;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  spmm_dia_skinny_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)dvals, (const int*)offsets, (const float*)b, (const float*)c,
-      (float*)out, m, k, n, n_diags, alpha, beta, with_c);
+  auto kernel = precise ? spmm_dia_skinny_kernel<1> : spmm_dia_skinny_kernel<0>;
+  kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(SX_ARGS);
   return cudaGetLastError();
 }
+
+#undef SX_ARGS

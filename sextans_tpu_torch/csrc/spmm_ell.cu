@@ -25,6 +25,16 @@
 // this kernel, in PyTorch (ops/spmm_ell.py), as the JAX package runs it
 // after its kernel.
 //
+// Precise mode (PRECISE = 1; SpmmConfig.precise 1 and 2 are one computation
+// here, as the TPU kernel's one `precise` branch): a compensation `comp`
+// beside each accumulator, and per slot whose value is not 0 the exact
+// product two_prod(vals[i, r], B[cols[i, r], c]) and one Neumaier step
+// (df32.cuh, the TPU kernel's spmm_ell_pallas.py:121-128); then the
+// compensated epilogue with or without C (:134-142). A value-0 slot adds
+// (0, 0) on the TPU, so selecting it out keeps the same sum. The hub fold
+// then runs in f64 (ops/spmm_ell.py). Every level is an `if constexpr`, so
+// the plain-mode code is what it was.
+//
 // Thread map: lanes = the power of two >= ceil(N / VEC), at most 32; a warp
 // holds 32 / lanes rows, so a skinny N still fills the warp. Every thread
 // reads its row's R (col, val) pairs (broadcast within the row's group, from
@@ -40,6 +50,8 @@
 // of warps).
 
 #include <cuda_runtime.h>
+
+#include "df32.cuh"
 
 namespace {
 
@@ -71,7 +83,7 @@ __device__ __forceinline__ float4 epi(float4 a, float4 s, float alpha, float bet
                      epi(a.z, s.z, alpha, beta, with_c), epi(a.w, s.w, alpha, beta, with_c));
 }
 
-template <int VEC>
+template <int VEC, int PRECISE>
 __global__ void spmm_ell_kernel(
     const float* __restrict__ vals,   // (m_padded, R)
     const int* __restrict__ cols,     // (m_padded, R)
@@ -91,20 +103,31 @@ __global__ void spmm_ell_kernel(
   const size_t nv = (size_t)n / VEC;  // row length in VEC units
   const T* bv = reinterpret_cast<const T*>(b);
   for (size_t cv = lane; cv < nv; cv += lanes) {
-    T acc{};  // zero
+    T acc{}, comp{};  // zero
 #pragma unroll 4
     for (int r = 0; r < r_slots; ++r) {
       const float v = __ldg(vrow + r);
-      if (v != 0.f) acc = mul_add(v, __ldg(bv + (size_t)__ldg(crow + r) * nv + cv), acc);
+      if (v != 0.f) {
+        const T x = __ldg(bv + (size_t)__ldg(crow + r) * nv + cv);
+        if constexpr (PRECISE) {
+          sx_df32::mul_acc_step(v, x, acc, comp);
+        } else {
+          acc = mul_add(v, x, acc);
+        }
+      }
     }
     const size_t o = row * nv + cv;
     T s = acc;
     if (with_c) s = __ldg(reinterpret_cast<const T*>(c) + o);
-    reinterpret_cast<T*>(out)[o] = epi(acc, s, alpha, beta, with_c);
+    if constexpr (PRECISE) {
+      reinterpret_cast<T*>(out)[o] = sx_df32::epilogue(acc, comp, s, alpha, beta, with_c);
+    } else {
+      reinterpret_cast<T*>(out)[o] = epi(acc, s, alpha, beta, with_c);
+    }
   }
 }
 
-template <int VEC>
+template <int VEC, int PRECISE>
 cudaError_t launch(const float* vals, const int* cols, const float* b, const float* c,
                    float* out, int m_padded, int r_slots, int n, float alpha, float beta,
                    int with_c, cudaStream_t stream) {
@@ -115,7 +138,7 @@ cudaError_t launch(const float* vals, const int* cols, const float* b, const flo
   const size_t total = (size_t)m_padded << lanes_log2;
   const size_t blocks = (total + threads - 1) / threads;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  spmm_ell_kernel<VEC><<<(unsigned)blocks, threads, 0, stream>>>(
+  spmm_ell_kernel<VEC, PRECISE><<<(unsigned)blocks, threads, 0, stream>>>(
       vals, cols, b, c, out, m_padded, r_slots, n, lanes_log2, alpha, beta, with_c);
   return cudaGetLastError();
 }
@@ -125,14 +148,17 @@ cudaError_t launch(const float* vals, const int* cols, const float* b, const flo
 extern "C" int spmm_ell_launch(
     const void* vals, const void* cols, const void* b, const void* c, void* out,
     int m_padded, int r_slots, int n, float alpha, float beta, int with_c,
-    int vec, void* stream) {
+    int precise, int vec, void* stream) {
 #define SX_ARGS                                                          \
   (const float*)vals, (const int*)cols, (const float*)b, (const float*)c, \
       (float*)out, m_padded, r_slots, n, alpha, beta, with_c,            \
       (cudaStream_t)stream
-  switch (vec) {
-    case 1: return launch<1>(SX_ARGS);
-    case 4: return launch<4>(SX_ARGS);
+  if (precise != 0 && precise != 1) return cudaErrorInvalidValue;
+  switch (vec * 2 + precise) {
+    case 2: return launch<1, 0>(SX_ARGS);
+    case 3: return launch<1, 1>(SX_ARGS);
+    case 8: return launch<4, 0>(SX_ARGS);
+    case 9: return launch<4, 1>(SX_ARGS);
     default: return cudaErrorInvalidValue;
   }
 #undef SX_ARGS

@@ -28,7 +28,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from sextans_tpu_torch.ops.launch import f32, fma_f32, need, stream_of
+from sextans_tpu_torch.ops.launch import f32, need, stream_of
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
 
 __all__ = [
@@ -56,9 +56,12 @@ def two_sum(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
 
 def two_prod(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact product: ``p = fl(a * b)`` and ``p + e == a * b`` (no
-    underflow)."""
+    underflow). ``e`` is ``fma(a, b, -p)``, taken as ``a * b - p`` in f64:
+    the product of two f32 values is exact there, and so is its difference
+    from ``p`` (at most 24 significant bits), so the one rounding to f32 is
+    the FMA's (``fma_f32`` gives the same bits in more passes)."""
     p = a * b
-    return p, fma_f32(a, b, -p)
+    return p, (a.double() * b.double() - p.double()).float()
 
 
 def acc_step(acc, comp, x, xerr=None):

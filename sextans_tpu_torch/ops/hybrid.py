@@ -18,7 +18,11 @@ into the same arrays (held array-identical by ``tests/test_torch_hybrid.py``):
 ``HybridSpmmPlan`` computes one step in the JAX package's order: the DIA
 epilogue ``alpha * diag + beta * C`` (or ``beta * C``), then
 ``+ alpha * head``, then the hub rows, and the partial result goes to the
-residue's plan as its C with beta = 1.
+residue's plan as its C with beta = 1. With ``precise`` 1 or 2 it runs the
+JAX package's precise composition instead: each part on its own at
+alpha = 1 (the residue's kernel and the DIA kernel compensated), then
+``beta * C`` and ``alpha`` times each part combined with error-free
+transforms and rounded once per element.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from sextans_tpu_torch.format.pack import pack
 from sextans_tpu_torch.format.pack_edge import pack_edge
 from sextans_tpu_torch.format.pack_ell import pack_ell
 from sextans_tpu_torch.format.pack_mxu import pack_mxu
+from sextans_tpu_torch.ops.df32 import two_prod, two_sum
 from sextans_tpu_torch.ops.launch import check_split, f32, no_tf32
 from sextans_tpu_torch.ops.plan import (
     BACKEND_FORMATS,
@@ -350,6 +355,14 @@ class HybridSpmmPlan:
     residue's format with ``choose_backend`` from TPU cycle models; that
     choice is not ported (ROADMAP.md queue 1 item 12), so a non-empty residue
     without ``residue_fmt`` or a concrete ``backend`` raises ``ValueError``.
+
+    ``precise`` 1 or 2 is the JAX package's precise composition: the
+    residue is packed at that level (where its config has none) and run
+    with no C at alpha = 1; the DIA part runs compensated (K6 or K7, or
+    their plain version for ``dia_backend="xla"``) at alpha = 1; the head
+    and hub-row matmuls stay plain f32, as in the JAX package; and
+    ``beta * C`` and ``alpha`` times each part are summed with
+    ``two_prod``/``two_sum``, their errors carried beside, and rounded once.
     """
 
     def __init__(
@@ -364,11 +377,8 @@ class HybridSpmmPlan:
         precise: int = 0,
         device,
     ):
-        if int(precise) != 0:
-            raise NotImplementedError(
-                "precise accumulation (precise=1/2) is not ported yet: "
-                "ROADMAP.md queue 1 item 6"
-            )
+        if int(precise) not in (0, 1, 2):
+            raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
         if n < 1:
             raise ValueError(f"N must be positive, got {n}")
         if backend not in BACKENDS:
@@ -383,6 +393,7 @@ class HybridSpmmPlan:
         self.split = split
         self.m, self.k = split.m, split.k
         self.n = n
+        self.precise = int(precise)
         self.device = resolve_device(device)
         if dia_backend == "auto":
             dia_backend = "pallas" if self.device.type == "cuda" else "xla"
@@ -400,7 +411,10 @@ class HybridSpmmPlan:
                     "residue_fmt nor a backend names its format; the JAX package's "
                     "choice (choose_backend) is not ported: ROADMAP.md queue 1 item 12"
                 )
-            packed = packer(split.residue, residue_config or SpmmConfig())
+            cfg = residue_config or SpmmConfig()
+            if self.precise and not cfg.precise:
+                cfg = cfg.with_(precise=self.precise)
+            packed = packer(split.residue, cfg)
             self.residue_plan = SpmmPlan(packed, n, backend, device=self.device)
 
         def put(a, dtype):
@@ -441,6 +455,8 @@ class HybridSpmmPlan:
 
     def _step(self, b, c, alpha, beta) -> torch.Tensor:
         """One hybrid step; ``c`` None is the no-C path (beta = 0)."""
+        if self.precise:
+            return self._precise_step(b, c, alpha, beta)
         with_c = c is not None
         if self._dia is not None:
             c_in = c if with_c else torch.zeros(1, device=self.device).expand(self.m, self.n)
@@ -459,6 +475,47 @@ class HybridSpmmPlan:
         if self.residue_plan is not None:
             acc = self.residue_plan(b, alpha, 1.0, acc)
         return acc
+
+    def _precise_step(self, b, c, alpha, beta) -> torch.Tensor:
+        """The precise step, in the JAX package's order (its hybrid.py,
+        ``one_step`` of the precise branch): ``acc, resid = two_prod(beta,
+        C)``, then for the DIA, head, hub-row and residue parts in turn
+        ``p, pe = two_prod(alpha, part)``, ``acc, e = two_sum(acc, p)`` and
+        ``resid += pe + e``; returns ``acc + resid``. Every op is a separate
+        elementwise PyTorch op, rounded once: nothing here may fuse a
+        multiply into an add (``addcmul``, ``add(alpha=)``), or ``two_sum``
+        breaks."""
+        a = torch.tensor(f32(alpha), dtype=torch.float32, device=self.device)
+        if c is None:
+            acc = torch.zeros((self.m, self.n), dtype=torch.float32, device=self.device)
+            resid = torch.zeros_like(acc)
+        else:
+            acc, resid = two_prod(torch.tensor(f32(beta), dtype=torch.float32,
+                                               device=self.device), c)
+
+        def add(part):
+            nonlocal acc, resid
+            p, pe = two_prod(a, part)
+            acc, e = two_sum(acc, p)
+            resid = resid + (pe + e)
+
+        if self._dia is not None:
+            shape = torch.zeros(1, device=self.device).expand(self.m, self.n)
+            add(self._dia(self._dvals, self._offsets, b, shape, 1.0, 0.0, with_c=False,
+                          precise=1))
+        if self._head is not None or self._hrows is not None:
+            no_tf32()
+        if self._head is not None:
+            add(torch.matmul(self._head, b[self._head_cols]))
+        if self._hrows is not None:
+            # head rows are unique: set their sums, add their errors
+            p, pe = two_prod(a, torch.matmul(self._hrows, b))
+            s, e = two_sum(acc[self._hrows_idx], p)
+            acc = acc.index_copy(0, self._hrows_idx, s)
+            resid = resid.index_add(0, self._hrows_idx, pe + e)
+        if self.residue_plan is not None:
+            add(self.residue_plan(b, 1.0))
+        return acc + resid
 
     def __call__(self, b, alpha=1.0, beta=0.0, c=None) -> torch.Tensor:
         b, c = self._operands(b, beta, c)

@@ -22,8 +22,8 @@ Backends keep the JAX package's names so that flags read the same:
 
 ``device`` is explicit. On a CUDA device the plan launches the kernels; on
 the CPU the same calls run their plain versions. ``SpmmConfig.precise`` (1
-or 2) runs the compensated levels of the block, slab and edge kernels; the
-ELL engine's precise mode is not ported yet and raises.
+or 2) runs the compensated levels of the block, slab, edge and ELL kernels
+and the f64 ``ell`` engine; ``xla`` ignores it.
 """
 
 from __future__ import annotations
@@ -127,10 +127,10 @@ def _runner(packed, backend: str, n: int, ranges):
     """The padded-operand function of ``backend``, with its static
     arguments bound: ``run(*arrays, b_p, c_p, alpha, beta, with_c=...)``."""
     cfg = packed.config
+    precise = int(cfg.precise)
     if backend in ("ell", "ell_pallas"):
         fn = spmm_ell_padded_ref if backend == "ell" else spmm_ell_gather_padded
-        return functools.partial(fn, m_base=packed.m_base)
-    precise = int(cfg.precise)
+        return functools.partial(fn, m_base=packed.m_base, precise=precise)
     if backend == "edge":
         return functools.partial(
             spmm_edge_padded, tile_m=cfg.tile_m, window_k=cfg.window_k,
@@ -168,11 +168,6 @@ class SpmmPlan:
             raise ValueError(
                 f"backend {backend!r} does not match packed format "
                 f"{type(packed).__name__}"
-            )
-        if int(packed.config.precise) != 0 and backend in ("ell", "ell_pallas"):
-            raise NotImplementedError(
-                f"precise accumulation (SpmmConfig.precise=1/2) of the ELL engine "
-                f"(backend {backend!r}) is not ported yet: ROADMAP.md queue 1 item 6"
             )
         if n < 1:
             raise ValueError(f"N must be positive, got {n}")

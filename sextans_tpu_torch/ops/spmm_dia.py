@@ -13,6 +13,11 @@ the (D,) offsets as an int32 tensor beside it, and B and C as they are,
 ``pad_lo = max(0, -min(offsets))`` zero rows on top and zero rows below it,
 K7 on B and C transposed; here a row of B outside [0, K) reads as 0, which is
 what those zero rows held, so no padded or transposed copy is made.
+
+``precise`` 1 or 2 runs the compensated variant of both kernels (the JAX
+kernels have one ``precise`` flag, so both levels are one computation):
+per diagonal the exact product ``two_prod`` and a Neumaier step, then the
+compensated epilogue (``ops/df32.py``, ``csrc/df32.cuh``).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from sextans_tpu_torch.ops.df32 import acc_step, compensated_epilogue, two_prod
 from sextans_tpu_torch.ops.launch import f32, fma_f32, need, stream_of
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
 
@@ -38,12 +44,14 @@ def spmm_dia_ref(
     beta: float,
     *,
     with_c: bool = True,
+    precise: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of both kernels, rounding as they do: for each
     row, one fused multiply-add per diagonal in offset order from zero,
     ``dvals[d, i] * B[i + offsets[d]]`` with B zero-padded above and below,
-    then ``fma(alpha, acc, beta * C)``. Works in row steps, so that no
-    (M, N) temporary is made per diagonal."""
+    then ``fma(alpha, acc, beta * C)``; in precise mode ``two_prod`` and a
+    Neumaier step per diagonal and the compensated epilogue. Works in row
+    steps, so that no (M, N) temporary is made per diagonal."""
     n_diags, m = dvals.shape
     k, n = b.shape
     offs = [int(o) for o in offsets.tolist()]
@@ -51,14 +59,24 @@ def spmm_dia_ref(
     pad_hi = max(0, max(offs, default=0) + m - k)
     b_p = F.pad(b, (0, 0, pad_lo, pad_hi))
     acc = torch.empty((m, n), dtype=torch.float32, device=dvals.device)
+    comp = torch.empty_like(acc) if precise else None
     step = max(1, _REF_CHUNK_BYTES // (8 * n))
     for r0 in range(0, m, step):
         r1 = min(m, r0 + step)
         a = torch.zeros((r1 - r0, n), dtype=torch.float32, device=dvals.device)
+        cm = torch.zeros_like(a) if precise else None
         for d, off in enumerate(offs):
             lo = r0 + off + pad_lo
-            a = fma_f32(dvals[d, r0:r1, None], b_p[lo:lo + r1 - r0], a)
+            dv, x = dvals[d, r0:r1, None], b_p[lo:lo + r1 - r0]
+            if precise:
+                a, cm = acc_step(a, cm, *two_prod(dv, x))
+            else:
+                a = fma_f32(dv, x, a)
         acc[r0:r1] = a
+        if precise:
+            comp[r0:r1] = cm
+    if precise:
+        return compensated_epilogue(alpha, acc, comp, *((beta, c) if with_c else ()))
     if not with_c:
         return acc * f32(alpha)
     return fma_f32(torch.full_like(acc, f32(alpha)), acc, c * f32(beta))
@@ -85,7 +103,9 @@ def _check_dia_operands(dvals, offsets, b, c, *, with_c):
     return n_diags, m, k, n
 
 
-def _launch(name, dvals, offsets, b, c, alpha, beta, *, with_c, wide):
+def _launch(name, dvals, offsets, b, c, alpha, beta, *, with_c, precise, wide):
+    if int(precise) not in (0, 1, 2):
+        raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
     if dvals.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {dvals.device}")
     n_diags, m, k, n = _check_dia_operands(dvals, offsets, b, c, with_c=with_c)
@@ -93,7 +113,7 @@ def _launch(name, dvals, offsets, b, c, alpha, beta, *, with_c, wide):
     lib = build_kernels()
     args = (dvals.data_ptr(), offsets.data_ptr(), b.data_ptr(),
             c.data_ptr() if with_c else None, out.data_ptr(), m, k, n, n_diags,
-            float(alpha), float(beta), int(with_c))
+            float(alpha), float(beta), int(with_c), int(bool(precise)))
     with torch.cuda.device(dvals.device):
         if wide:
             dense = (b, c) if with_c else (b,)
@@ -114,14 +134,16 @@ def spmm_dia(
     beta: float,
     *,
     with_c: bool = True,
+    precise: int = 0,
 ) -> torch.Tensor:
     """``alpha * A_dia @ B + beta * C`` with the wide-N kernel; returns the
     (M, N) result. ``with_c=False`` drops the C read and ``c`` then gives the
-    shape only."""
+    shape only; ``precise`` 1 or 2 runs the compensated variant."""
     if dvals.device.type == "cpu":
-        return spmm_dia_ref(dvals, offsets, b, c, alpha, beta, with_c=with_c)
+        return spmm_dia_ref(dvals, offsets, b, c, alpha, beta, with_c=with_c,
+                            precise=precise)
     out = _launch("spmm_dia", dvals, offsets, b, c, alpha, beta, with_c=with_c,
-                  wide=True)
+                  precise=precise, wide=True)
     spmm_dia.launches += 1
     return out
 
@@ -135,14 +157,16 @@ def spmm_dia_skinny(
     beta: float,
     *,
     with_c: bool = True,
+    precise: int = 0,
 ) -> torch.Tensor:
     """The same function as :func:`spmm_dia` with the skinny-N kernel (one
     thread per output cell, consecutive threads on consecutive cells of the
     row-major C); correct at any N, chosen for N <= 32."""
     if dvals.device.type == "cpu":
-        return spmm_dia_ref(dvals, offsets, b, c, alpha, beta, with_c=with_c)
+        return spmm_dia_ref(dvals, offsets, b, c, alpha, beta, with_c=with_c,
+                            precise=precise)
     out = _launch("spmm_dia_skinny", dvals, offsets, b, c, alpha, beta, with_c=with_c,
-                  wide=False)
+                  precise=precise, wide=False)
     spmm_dia_skinny.launches += 1
     return out
 

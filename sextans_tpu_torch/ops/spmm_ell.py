@@ -17,12 +17,21 @@ rows in PyTorch; on a CPU tensor it runs the plain PyTorch version
   ``alpha``/``beta`` to every padded row, virtual rows included, and then
   folds ``out[m_base + j] - beta * C[m_base + j]`` into ``fold_rows[j]``,
   which stays exact when C is the live carry of ``SpmmPlan.repeat``.
+
+``precise`` (``SpmmConfig.precise``; 1 and 2 are one computation here, as
+in the JAX package, whose ELL engines take one ``precise`` flag): ``ell``
+sums, folds and applies ``alpha``/``beta`` in f64 and rounds once;
+``ell_pallas`` runs K5's compensated slots and epilogue (``ops/df32.py``)
+and then the hub fold in f64, rounding once. The JAX package folds in f64
+only under ``jax.enable_x64`` and in f32 otherwise; PyTorch always has f64,
+so the port always takes the f64 fold.
 """
 
 from __future__ import annotations
 
 import torch
 
+from sextans_tpu_torch.ops.df32 import acc_step, compensated_epilogue, two_prod
 from sextans_tpu_torch.ops.launch import add_rows_in_order, f32, fma_f32, need, stream_of
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
 
@@ -32,8 +41,8 @@ __all__ = ["spmm_ell_gather_padded", "spmm_ell_gather_padded_ref", "spmm_ell_pad
 _REF_CHUNK_BYTES = 256 << 20
 
 
-def _row_steps(m_padded: int, n: int):
-    step = max(1, _REF_CHUNK_BYTES // (4 * n))
+def _row_steps(m_padded: int, n: int, itemsize: int = 4):
+    step = max(1, _REF_CHUNK_BYTES // (itemsize * n))
     return ((r0, min(m_padded, r0 + step)) for r0 in range(0, m_padded, step))
 
 
@@ -48,36 +57,47 @@ def spmm_ell_padded_ref(
     *,
     m_base: int,
     with_c: bool = True,
+    precise: int = 0,
 ) -> torch.Tensor:
     """Plain gather engine (backend ``"ell"``): ``AB[i] = sum_r vals[i, r] *
     B[cols[i, r]]`` in slot order, pads multiplied; the virtual rows folded
-    into ``AB`` (duplicates in order); then ``alpha * AB + beta * C``."""
+    into ``AB`` (duplicates in order); then ``alpha * AB + beta * C``. In
+    precise mode every step runs in f64 and the result rounds once to f32."""
     m_padded, r_slots = vals.shape
     n = b_padded.shape[1]
-    ab = torch.empty((m_padded, n), dtype=torch.float32, device=vals.device)
-    for r0, r1 in _row_steps(m_padded, n):
-        v, cl = vals[r0:r1], cols[r0:r1].long()
-        acc = v[:, 0, None] * b_padded[cl[:, 0]]
+    dt = torch.float64 if precise else torch.float32
+    ab = torch.empty((m_padded, n), dtype=dt, device=vals.device)
+    for r0, r1 in _row_steps(m_padded, n, ab.element_size()):
+        v, cl = vals[r0:r1].to(dt), cols[r0:r1].long()
+        acc = v[:, 0, None] * b_padded[cl[:, 0]].to(dt)
         for r in range(1, r_slots):
-            acc = acc + v[:, r, None] * b_padded[cl[:, r]]
+            acc = acc + v[:, r, None] * b_padded[cl[:, r]].to(dt)
         ab[r0:r1] = acc
     n_virt = fold_rows.shape[0]
     if n_virt:
         add_rows_in_order(ab, fold_rows.long(), ab[m_base:m_base + n_virt].clone())
     out = ab * f32(alpha)
-    return out + c_padded * f32(beta) if with_c else out
+    if with_c:
+        out = out + c_padded.to(dt) * f32(beta)
+    return out.float()
 
 
-def _fold(out, fold_rows, c_padded, beta, *, m_base, with_c):
+def _fold(out, fold_rows, c_padded, beta, *, m_base, with_c, precise=0):
     """``out[fold_rows[j]] += out[m_base + j] - beta * C[m_base + j]`` (the
-    beta term only with C), in place, duplicates in order."""
+    beta term only with C), duplicates in order: in place in f32, or in
+    precise mode in f64 with one rounding to f32 at the end."""
     n_virt = fold_rows.shape[0]
     if not n_virt:
         return out
+    if precise:
+        out = out.double()
     virt = out[m_base:m_base + n_virt]
-    add = virt - c_padded[m_base:m_base + n_virt] * f32(beta) if with_c else virt.clone()
+    if with_c:
+        add = virt - c_padded[m_base:m_base + n_virt].to(out.dtype) * f32(beta)
+    else:
+        add = virt.clone()
     add_rows_in_order(out, fold_rows.long(), add)
-    return out
+    return out.float()
 
 
 def spmm_ell_gather_padded_ref(
@@ -91,25 +111,42 @@ def spmm_ell_gather_padded_ref(
     *,
     m_base: int,
     with_c: bool = True,
+    precise: int = 0,
 ) -> torch.Tensor:
     """Plain version of K5 (backend ``"ell_pallas"`` on the CPU), rounding as
     the kernel does: one fused multiply-add per slot in slot order from zero,
     value-0 slots selected out; ``fma(alpha, acc, beta * C)`` on every padded
-    row; then the hub fold that strips the virtual rows' ``beta * C`` term."""
+    row; then the hub fold that strips the virtual rows' ``beta * C`` term.
+    In precise mode each slot is ``two_prod`` and a Neumaier step, the
+    epilogue is ``compensated_epilogue`` and the fold runs in f64."""
     m_padded, r_slots = vals.shape
     n = b_padded.shape[1]
     acc = torch.zeros((m_padded, n), dtype=torch.float32, device=vals.device)
+    comp = torch.zeros_like(acc) if precise else None
     for r0, r1 in _row_steps(m_padded, n):
         v, cl = vals[r0:r1, :, None], cols[r0:r1].long()
         a = acc[r0:r1]
+        cm = comp[r0:r1] if precise else None
         for r in range(r_slots):
-            a = torch.where(v[:, r] != 0, fma_f32(v[:, r], b_padded[cl[:, r]], a), a)
+            live = v[:, r] != 0
+            x = b_padded[cl[:, r]]
+            if precise:
+                t, e = acc_step(a, cm, *two_prod(v[:, r], x))
+                a, cm = torch.where(live, t, a), torch.where(live, e, cm)
+            else:
+                a = torch.where(live, fma_f32(v[:, r], x, a), a)
         acc[r0:r1] = a
-    if with_c:
+        if precise:
+            comp[r0:r1] = cm
+    cin = (beta, c_padded) if with_c else ()
+    if precise:
+        out = compensated_epilogue(alpha, acc, comp, *cin)
+    elif with_c:
         out = fma_f32(torch.full_like(acc, f32(alpha)), acc, c_padded * f32(beta))
     else:
         out = acc * f32(alpha)
-    return _fold(out, fold_rows, c_padded, beta, m_base=m_base, with_c=with_c)
+    return _fold(out, fold_rows, c_padded, beta, m_base=m_base, with_c=with_c,
+                 precise=precise)
 
 
 def spmm_ell_gather_padded(
@@ -123,12 +160,16 @@ def spmm_ell_gather_padded(
     *,
     m_base: int,
     with_c: bool = True,
+    precise: int = 0,
 ) -> torch.Tensor:
     """``alpha * A @ B + beta * C`` on padded operands, any n; returns the
     padded (m_padded, n) result, virtual rows included and already folded
     into their real rows. ``with_c=False`` drops the C read and ``c_padded``
-    then gives the shape only."""
-    kw = dict(m_base=m_base, with_c=with_c)
+    then gives the shape only. ``precise`` 1 or 2 runs the compensated
+    kernel (one variant for both) and the f64 fold."""
+    kw = dict(m_base=m_base, with_c=with_c, precise=int(precise))
+    if int(precise) not in (0, 1, 2):
+        raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
     if vals.device.type == "cpu":
         return spmm_ell_gather_padded_ref(
             vals, cols, fold_rows, b_padded, c_padded, alpha, beta, **kw)
@@ -157,8 +198,8 @@ def spmm_ell_gather_padded(
         err = lib.spmm_ell_launch(
             vals.data_ptr(), cols.data_ptr(), b_padded.data_ptr(),
             c_padded.data_ptr() if with_c else None, out.data_ptr(),
-            m_padded, r_slots, n, float(alpha), float(beta), int(with_c), vec,
-            stream_of(device),
+            m_padded, r_slots, n, float(alpha), float(beta), int(with_c),
+            int(bool(precise)), vec, stream_of(device),
         )
     check_launch(lib, "spmm_ell", err)
     spmm_ell_gather_padded.launches += 1

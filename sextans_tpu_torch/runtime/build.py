@@ -52,11 +52,11 @@ _SIGNATURES = {
     # n_mtiles n tile_m window_k edge_chunk alpha beta with_c masked precise
     # stream
     "spmm_edge_launch": [_P] * 9 + [_I] * 5 + [_F, _F, _I, _I, _I, _P],
-    # vals cols b c out m_padded r_slots n alpha beta with_c vec stream
-    "spmm_ell_launch": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _I, _P],
-    # dvals offsets b c out m k n n_diags alpha beta with_c [vec] stream
-    "spmm_dia_launch": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _I, _P],
-    "spmm_dia_skinny_launch": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _P],
+    # vals cols b c out m_padded r_slots n alpha beta with_c precise vec stream
+    "spmm_ell_launch": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _I, _I, _P],
+    # dvals offsets b c out m k n n_diags alpha beta with_c precise [vec] stream
+    "spmm_dia_launch": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _I, _I, _P],
+    "spmm_dia_skinny_launch": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _I, _P],
     # a b s e p pe count stream
     "df32_probe_pairs": [_P] * 6 + [_I, _P],
     # v b out terms width stream

@@ -42,9 +42,10 @@ class SpmmConfig:
     * ``n_acc``, ``chunk_unroll`` — TPU scheduling hints, kept so that configs
       are interchangeable; the CUDA kernels ignore them.
     * ``precise`` — compensated accumulation (0 off, 1 Neumaier + df32
-      epilogue, 2 full error-free inner chain). The block, slab and edge
-      kernels run 1 and 2 (the slab kernels run 2 as 1, as on the TPU); the
-      ELL engine and the hybrid plan raise for them.
+      epilogue, 2 full error-free inner chain). The block and edge kernels
+      run 1 and 2; the slab, ELL and DIA kernels and the ``ell`` engine (f64)
+      run 2 as 1, as on the TPU; ``HybridSpmmPlan`` takes its own
+      ``precise``.
     * ``edge_chunk`` — edges per chunk of the edge format (format/pack_edge.py).
     * ``edge_lanes`` — the edge pack pads each row run to a multiple of it
       (the TPU kernel's independent registers); the CUDA edge kernel walks

@@ -7,9 +7,9 @@ no JAX, so on a machine without it run it as::
 
 Tolerance: ``max|kernel - plain| <= 4 * spacing(f32(max|plain|))``; both sum
 the same f32 products in pack order and differ in the rounding of each
-block's product and of the epilogue. In precise mode the block and edge
-kernels equal their plain versions to the bit: both take the same roundings
-in the same order (``ops/df32.py``, ``csrc/df32.cuh``).
+block's product and of the epilogue. In precise mode the block, edge, ELL
+and DIA kernels equal their plain versions to the bit: both take the same
+roundings in the same order (``ops/df32.py``, ``csrc/df32.cuh``).
 """
 
 import numpy as np
@@ -128,7 +128,7 @@ def _check_new(kernel, plain, cuda, packed, backend, n, with_c, nonfinite_b=Fals
                   masked=cfg.edge_masked, with_c=with_c, precise=precise)
         extra = dict(ranges=pl.ranges)
     else:
-        kw, extra = dict(m_base=packed.m_base, with_c=with_c), {}
+        kw, extra = dict(m_base=packed.m_base, with_c=with_c, precise=precise), {}
     before = kernel.launches
     got = kernel(*pl.arrays, b, c, ALPHA, BETA, **kw, **extra)
     want = plain(*pl.arrays, b, c, ALPHA, BETA, **kw)
@@ -267,7 +267,7 @@ def _dia_split(kind):
                                            rng.standard_normal(rows.size)), n=64)
 
 
-def _check_dia(kernel, cuda, split, n, with_c, misaligned=False):
+def _check_dia(kernel, cuda, split, n, with_c, misaligned=False, precise=0):
     rng = np.random.default_rng(n)
     dv = torch.as_tensor(split.diag_vals, device=cuda)
     offs = torch.as_tensor(split.diag_offsets.astype(np.int32), device=cuda)
@@ -280,12 +280,14 @@ def _check_dia(kernel, cuda, split, n, with_c, misaligned=False):
     if not with_c:
         c = torch.zeros(1, device=cuda).expand(split.m, n)
     before = kernel.launches
-    got = kernel(dv, offs, b, c, ALPHA, BETA, with_c=with_c)
-    want = spmm_dia_ref(dv, offs, b, c, ALPHA, BETA, with_c=with_c)
+    got = kernel(dv, offs, b, c, ALPHA, BETA, with_c=with_c, precise=precise)
+    want = spmm_dia_ref(dv, offs, b, c, ALPHA, BETA, with_c=with_c, precise=precise)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert got.shape == want.shape == (split.m, n) and got.device == cuda
     assert torch.isfinite(got).all()
+    if precise:
+        assert torch.equal(got, want)
     tol = 4 * np.spacing(np.float32(want.abs().max().item()))
     assert (got - want).abs().max().item() <= tol
 
@@ -479,3 +481,106 @@ def test_precise_plan_on_card_launches_its_kernel(cuda, backend, n, precise):
     else:
         assert err <= (1.0 if precise == 1 else 0.5001)
         assert torch.equal(got, on_cpu)
+
+
+# ---- precise ELL, DIA and hybrid ----
+
+@pytest.mark.parametrize("precise", [1, 2])
+@pytest.mark.parametrize("kind", ["banded", "hub_rows"])
+@pytest.mark.parametrize("n", [1, 13, 64, 200])
+def test_ell_kernel_precise_equals_plain(cuda, kind, n, precise):
+    coo = _hub_matrix() if kind == "hub_rows" else _matrix(kind)
+    packed = tx.pack_ell(coo, tx.SpmmConfig(tile_m=64, precise=precise), slots_per_row=8)
+    _check_new(spmm_ell_gather_padded, spmm_ell_gather_padded_ref, cuda, packed,
+               "ell_pallas", n, with_c=n != 13, precise=precise)
+
+
+@pytest.mark.parametrize("n", [13, 64])
+def test_ell_kernel_precise_selects_out_pads_with_nonfinite_b(cuda, n):
+    coo = _matrix("banded")
+    keep = coo.cols != 0
+    coo = tx.COOMatrix(coo.shape, coo.rows[keep], coo.cols[keep], coo.vals[keep])
+    _check_new(spmm_ell_gather_padded, spmm_ell_gather_padded_ref, cuda,
+               tx.pack_ell(coo, tx.SpmmConfig(tile_m=64, precise=1), slots_per_row=32),
+               "ell_pallas", n, with_c=True, nonfinite_b=True, precise=1)
+
+
+@pytest.mark.parametrize("kind", ["stencil", "band", "rect"])
+@pytest.mark.parametrize("n", [33, 64, 130, 512])
+def test_dia_kernel_precise_equals_plain(cuda, kind, n):
+    _check_dia(spmm_dia, cuda, _dia_split(kind), n, with_c=n != 64, precise=1)
+
+
+@pytest.mark.parametrize("kind", ["stencil", "band", "rect"])
+@pytest.mark.parametrize("n", [1, 13, 16, 32])
+def test_dia_skinny_kernel_precise_equals_plain(cuda, kind, n):
+    _check_dia(spmm_dia_skinny, cuda, _dia_split(kind), n, with_c=n != 13, precise=1)
+
+
+@pytest.mark.parametrize("kernel", [spmm_dia, spmm_dia_skinny])
+def test_dia_kernels_precise_take_misaligned_b(cuda, kernel):
+    _check_dia(kernel, cuda, _dia_split("band"), 64, with_c=True, misaligned=True, precise=1)
+
+
+@pytest.mark.parametrize("precise", [1, 2])
+@pytest.mark.parametrize("backend,n", [("ell_pallas", 16), ("ell_pallas", 96), ("ell", 96)])
+def test_precise_ell_plan_on_card_launches_its_kernel(cuda, backend, n, precise):
+    coo = _hub_matrix()
+    packed = tx.pack_ell(coo, tx.SpmmConfig(tile_m=64, precise=precise), slots_per_row=8)
+    rng = np.random.default_rng(1)
+    b = rng.standard_normal((coo.shape[1], n)).astype(np.float32)
+    c = rng.standard_normal((coo.shape[0], n)).astype(np.float32)
+    before = spmm_ell_gather_padded.launches
+    got = tx.plan(packed, n, backend, device=cuda)(b, ALPHA, BETA, c)
+    torch.cuda.synchronize()
+    assert spmm_ell_gather_padded.launches == before + (backend == "ell_pallas")
+    assert got.device == cuda
+    got = got.cpu()
+    exact = tx.golden_spmm_exact(tx.CSRMatrix.from_coo(coo), b, ALPHA, BETA, c)
+    ulp = np.spacing(np.float32(np.abs(exact).max()))
+    bar = 1.0 if backend == "ell_pallas" else 0.5001
+    assert np.abs(got.numpy().astype(np.float64) - exact).max() <= bar * ulp
+    if backend == "ell_pallas":
+        on_cpu = tx.plan(packed, n, backend, device="cpu")(b, ALPHA, BETA, c)
+        assert torch.equal(got, on_cpu)
+
+
+@pytest.mark.parametrize("precise", [1, 2])
+@pytest.mark.parametrize("n,backend", [(16, "pallas"), (64, "pallas"), (64, "ell_pallas")])
+def test_precise_hybrid_plan_on_card_launches_its_kernels(cuda, n, backend, precise):
+    # a circuit band with 3,000 scattered nonzeros: every part of the split
+    base = circuit_like(3000, seed=2)
+    rng = np.random.default_rng(4)
+    lin, keep = np.unique(np.concatenate([base.rows, rng.integers(0, 3000, 3000)]) * 3000
+                          + np.concatenate([base.cols, rng.integers(0, 3000, 3000)]),
+                          return_index=True)
+    vals = np.concatenate([base.vals, rng.standard_normal(3000).astype(np.float32)])[keep]
+    coo = tx.COOMatrix((3000, 3000), (lin // 3000).astype(np.int32),
+                       (lin % 3000).astype(np.int32), vals)
+    split = tx.split_structure(coo, n=n, min_head_cols=1, min_head_rows=1)
+    assert split.diag_offsets.size and split.head_rows.size and split.residue.nnz
+    cfg = tx.SpmmConfig(tile_m=256, window_k=256, block_k=8, group_blocks=16)
+    rng = np.random.default_rng(1)
+    b = rng.standard_normal((3000, n)).astype(np.float32)
+    c = rng.standard_normal((3000, n)).astype(np.float32)
+    on_card = tx.HybridSpmmPlan(split, n, residue_config=cfg, backend=backend,
+                                precise=precise, device=cuda)
+    on_cpu = tx.HybridSpmmPlan(split, n, residue_config=cfg, backend=backend,
+                               precise=precise, device="cpu")
+    dia = spmm_dia_skinny if n <= 32 else spmm_dia
+    residue = spmm_block_padded if backend == "pallas" else spmm_ell_gather_padded
+    before = (dia.launches, residue.launches)
+    got = on_card(b, ALPHA, BETA, c)
+    torch.cuda.synchronize()
+    assert (dia.launches, residue.launches) == (before[0] + 1, before[1] + 1)
+    assert got.device == cuda
+    got = got.cpu().numpy()
+    exact = tx.golden_spmm_exact(tx.CSRMatrix.from_coo(coo), b, ALPHA, BETA, c)
+    # the head and hub-row matmuls (cuBLAS here, MKL on the CPU) sum in
+    # another order: 4 ulp of max|C|, the plain hybrid's bar
+    tol = 4 * np.spacing(np.float32(np.abs(exact).max()))
+    assert tx.verify(exact, got).passed
+    assert np.abs(got.astype(np.float64) - exact).max() <= tol
+    assert np.abs(got - on_cpu(b, ALPHA, BETA, c).numpy()).max() <= tol
+    chained = on_card.repeat(b, ALPHA, BETA, c, times=2)
+    assert torch.equal(chained, on_card(b, ALPHA, BETA, on_card(b, ALPHA, BETA, c)))

@@ -154,18 +154,29 @@ def test_cuda_device_has_no_cpu_fallback():
 @pytest.mark.parametrize("precise", [1, 2])
 @pytest.mark.parametrize("fmt", ["ell"])
 def test_precise_raises_not_implemented(precise, fmt):
-    """The ELL engine's precise mode is the next slice; the block, slab and
-    edge paths run precise (tests/test_torch_precise.py)."""
+    """Precise mode of the ELL engine was the last one refused (the name
+    this test kept from then, so its cases stay one history); it now runs
+    through ``plan`` and ``spmm`` (``ell_pallas``: 1.0 ulp of max|C|, its
+    virtual rows round to f32 before the f64 fold) and ``plan(..., "ell")``
+    (f64 throughout: 0.5001 ulp) on the CPU, and a level outside 0-2 still
+    raises."""
     coo = tx.COOMatrix.random(200, 200, 900, seed=precise)
     cfg = tx.SpmmConfig(tile_m=128, window_k=128, precise=precise)
     packer = {"ell": tx.pack_ell}[fmt]
     packed = packer(coo, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
-        tx.plan(packed, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tx.spmm(packed, np.ones((200, 16), np.float32), device="cpu")
-    with pytest.raises(NotImplementedError, match="'ell'"):
-        tx.plan(packed, 16, "ell", device="cpu")
+    rng = np.random.default_rng(precise)
+    b = rng.standard_normal((200, 16)).astype(np.float32)
+    exact = tx.golden_spmm_exact(tx.CSRMatrix.from_coo(coo), b, 1.0, 0.0, None)
+    ulp = np.spacing(np.float32(np.abs(exact).max()))
+    auto = tx.plan(packed, 16, device="cpu")
+    assert auto.backend == "ell_pallas"
+    runs = {1.0: (auto(b), tx.spmm(packed, b, device="cpu")),
+            0.5001: (tx.plan(packed, 16, "ell", device="cpu")(b),)}
+    for bar, gots in runs.items():
+        for got in gots:
+            assert np.abs(got.numpy().astype(np.float64) - exact).max() <= bar * ulp
+    with pytest.raises(ValueError, match="precise"):
+        tx.SpmmConfig(precise=3)
 
 
 def test_smoke_bound_and_no_card_refusal(capsys):

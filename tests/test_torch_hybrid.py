@@ -415,8 +415,8 @@ def test_hybrid_plan_rejects_bad_operands():
 @pytest.mark.parametrize(
     "kw,err,match",
     [
-        (dict(precise=1), NotImplementedError, "queue 1 item 6"),
-        (dict(precise=2, residue_fmt="vpu"), NotImplementedError, "queue 1 item 6"),
+        (dict(precise=1), ValueError, "queue 1 item 12"),
+        (dict(precise=3, residue_fmt="vpu"), ValueError, "precise must be"),
         (dict(), ValueError, "queue 1 item 12"),
         (dict(residue_fmt="csr"), ValueError, "residue_fmt"),
         (dict(backend="tpu"), ValueError, "unknown backend"),
@@ -427,6 +427,22 @@ def test_hybrid_plan_rejects_bad_operands():
 def test_hybrid_plan_rejects_bad_options(kw, err, match):
     with pytest.raises(err, match=match):
         tx.HybridSpmmPlan(_mixed_split(), 16, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("precise,fmt", [(2, "vpu"), (1, "ell")])
+def test_hybrid_precise_plan_builds(precise, fmt):
+    """A precise plan packs its residue at its own level and runs; the
+    precise composition is tested in tests/test_torch_precise_hybrid.py."""
+    pl = tx.HybridSpmmPlan(_mixed_split(), 16, residue_fmt=fmt, precise=precise,
+                           device="cpu")
+    assert pl.precise == precise
+    assert pl.residue_plan.packed.config.precise == precise
+    b, c = _operands(600, 600, 16)
+    got = pl(b, ALPHA, BETA, c).numpy()
+    ref_coo = _mixed()[0]
+    exact = golden_spmm_exact(RefCSR.from_coo(ref_coo), b, ALPHA, BETA, c)
+    assert tx.verify(exact, got).passed
+    assert np.abs(got - exact).max() <= _tol(exact)
 
 
 def test_empty_residue_needs_no_backend_and_backend_picks_format():
