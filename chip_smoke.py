@@ -75,6 +75,22 @@ Phases (each prints its lines; any failure exits non-zero):
    against their plain version at these shapes, timed beside the same
    kernel in plain mode; and each path beside phases 4-5's plain ulp and
    ``time_repeat``.
+10. The gather probes (the twins of the TPU probes P1,
+   ``benchmarks/scratch/dma_gather_probe.py``, and P2,
+   ``benchmarks/scratch/ell_issue_probe.py``): P1 in its ``direct`` and
+   ``async`` (256 rows per CTA) staging modes at its own inputs (seed 0, K =
+   4096, N = 256, R = 4, M = 512) and P2 in its ``skip`` and ``select``
+   variants at its own (K = 4096, N = 512, R = 4, M = 2048, 30 % value-0
+   slots), each to the bit against its plain version, under the probe's
+   bar of 1e-4 against einsum and within 4 ulp of max|out| of f64; P2 again
+   with B[0] = NaN, every row whose nonzero slots avoid row 0 unchanged.
+   Then each at K = 400,000, M = 262,144, N = 512, R = 4 (P2 with 30 %
+   value-0 slots), made on the card: to the bit against its plain version,
+   timed beside it and ``embedding_bag`` (timed only) in turns, with the
+   bound max(2 * live slots * N / 67 TFLOP/s, (8 * M * R + 4 * N * U + 4 * M
+   * N) / 3.35 TB/s), U the distinct rows of B the live slots touch. The
+   sweeps run in their own processes (``python3 -m
+   sextans_tpu_torch.probes.dma_gather``, ``... .ell_issue``).
 
 Timings. Beside each kernel of phases 2 and 4: its plain version's time, the
 library call ``torch.sparse.addmm(C, A_csr, B, beta, alpha)`` on the same
@@ -83,9 +99,11 @@ max(2 * nnz * N / 67 TFLOP/s, bytes / 3.35 TB/s), bytes = 8 per nonzero + B
 + C in + C out, each once; for the DIA kernels the dense DIA work,
 max(2 * D * M * N / 67 TFLOP/s, (4 * D * M + B + C in + C out) / 3.35 TB/s),
 with the library call on the diagonal part as CSR. The three are sampled
-in turns plain, kernel, library, library, kernel, plain, ``ROUNDS`` times
-(2 on the full-size shapes and in phases 8 and 9, whose precise kernels are
-also sampled in plain mode); each sample is CUDA events over a few launches,
+in turns plain, kernel, library, library, kernel, plain, ``ROUNDS`` (3)
+times (2 on the full-size shapes and in phases 8 and 9, whose precise
+kernels are also sampled in plain mode) by ``abba_ms``
+(``sextans_tpu_torch/utils/timing.py``, which also times phase 10 and the
+probes' sweeps); each sample is CUDA events over a few launches,
 the plain version's over one; the median is printed. On the full-size
 shapes and in phases 8 and 9 the plain version is timed once instead, on
 the call that is compared with its kernel.
@@ -98,13 +116,13 @@ calls' host-clock time. Each hybrid run of phase 5 prints the same for its
 split (seconds, bytes of every part on the card), with the DIA kernel and
 the residue's kernel apart in the profile.
 
-Every run of phases 3, 4, 5, 7, 8 and 9 is one path: the launch counters are
+Every run of phases 3, 4, 5, 7, 8, 9 and 10 is one path: the launch counters are
 set to 0 just before it and read just after, and its kernels must have
 launched. Nothing failing is passed over: a kernel that does not build or
 launch raises, and nothing falls back to a plain version or the CPU.
 The last two lines are a JSON object with one entry per kernel (its phase-2
 row at the first N; a precise variant's phase-8 or phase-9 row, named
-``<kernel>_precise<level>``; the probe's two kernels) and
+``<kernel>_precise<level>``; the probes' kernels) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -132,9 +150,6 @@ DIA_PRECISE_BAR = 1.0  # hybrid with the DIA part alone (laplace3d_64)
 HYBRID_PRECISE_BAR = 2.0  # hybrid with all four parts (synthetic4704), and <= plain mode
 # the kernels with one precise variant for levels 1 and 2
 PRECISE1 = ("spmm_ell_precise1", "spmm_dia_precise1", "spmm_dia_skinny_precise1")
-PEAK_F32_FLOPS = 67e12  # one H100 SXM, f32 outside the tensor cores
-PEAK_HBM_BYTES = 3.35e12
-ROUNDS = 3
 
 
 def fail(msg: str):
@@ -143,6 +158,8 @@ def fail(msg: str):
 
 def bound(nnz: int, m: int, k: int, n: int):
     """Least milliseconds of C = alpha * A @ B + beta * C, and its limit."""
+    from sextans_tpu_torch.utils.timing import PEAK_F32_FLOPS, PEAK_HBM_BYTES
+
     flop_ms = 2.0 * nnz * n / PEAK_F32_FLOPS * 1e3
     byte_ms = (8.0 * nnz + 4.0 * k * n + 8.0 * m * n) / PEAK_HBM_BYTES * 1e3
     return max(flop_ms, byte_ms), "operations" if flop_ms > byte_ms else "bytes"
@@ -150,60 +167,11 @@ def bound(nnz: int, m: int, k: int, n: int):
 
 def dia_bound(n_diags: int, m: int, k: int, n: int):
     """Least milliseconds of the DIA kernels' dense work, and its limit."""
+    from sextans_tpu_torch.utils.timing import PEAK_F32_FLOPS, PEAK_HBM_BYTES
+
     flop_ms = 2.0 * n_diags * m * n / PEAK_F32_FLOPS * 1e3
     byte_ms = (4.0 * n_diags * m + 4.0 * k * n + 8.0 * m * n) / PEAK_HBM_BYTES * 1e3
     return max(flop_ms, byte_ms), "operations" if flop_ms > byte_ms else "bytes"
-
-
-def event_ms(fn, iters: int, warm: bool = True) -> float:
-    """Mean device milliseconds of ``fn()`` over ``iters`` launches, after a
-    warm-up launch if ``warm``, bracketed by CUDA events."""
-    import torch
-
-    if warm:
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def abba_ms(fns: dict, iters: int, rounds: int = ROUNDS) -> dict:
-    """Median of ``event_ms`` for each of ``fns``, sampled in turns: their
-    order, then the reverse (plain, kernel, library, library, kernel, plain
-    for those three), ``rounds`` times, over ``iters`` launches a sample.
-    "plain" (called once by the caller just before) takes one launch a
-    sample and no warm-up."""
-    samples = {name: [] for name in fns}
-    order = list(fns)
-    for _ in range(rounds):
-        for name in order + order[::-1]:
-            if name != "plain":
-                samples[name].append(event_ms(fns[name], iters))
-            else:
-                samples[name].append(event_ms(fns[name], 1, warm=False))
-    return {name: statistics.median(s) for name, s in samples.items()}
-
-
-def timed_once(fn):
-    """``fn()`` and its device milliseconds, one call bracketed by CUDA
-    events: how a slow plain version is timed, on the call that is compared
-    with its kernel."""
-    import torch
-
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    end.synchronize()
-    return out, start.elapsed_time(end)
 
 
 def kernel_calls(pl, n, precise=None):
@@ -302,6 +270,120 @@ def profile(pl, b_dev, c_dev, kernel_names, calls: int = 20) -> str:
             f"{other_us / 1e3 / calls:.4f} ms, idle {100 * idle:.1f} %")
 
 
+GATHER_PROBES = ("dma_gather_direct", "dma_gather_async", "ell_issue_skip", "ell_issue_select")
+# phase 10's timing shape: the TPU probes' sweep (dma_gather_probe.py:148-153)
+# at one N and R; P2 with its correctness share of value-0 slots
+GATHER_K, GATHER_M, GATHER_N, GATHER_R, GATHER_ZEROS = 400_000, 262_144, 512, 4, 0.3
+
+
+def gather_probes(kernels: dict, launches: dict) -> None:
+    """Phase 10: P1's twin in both staging modes and P2's in both variants
+    at the TPU probes' own inputs (seed 0), each run one path with its
+    counter set to 0 just before and read just after; then each timed at one
+    sweep shape beside its plain version, ``embedding_bag`` and the bound.
+    Adds each kernel's row to ``kernels`` and its launches to ``launches``."""
+    import numpy as np
+    import torch
+
+    from sextans_tpu_torch.probes import (
+        dma_gather,
+        ell_issue,
+        gather_bound,
+        library_gather,
+        sweep_operands,
+    )
+    from sextans_tpu_torch.utils.timing import abba_ms, timed_once
+
+    def run(name, cols, vals, b, checked=True):
+        if name.startswith("dma_gather"):
+            return dma_gather.gather_spmm(cols, vals, b, staging=name.rsplit("_", 1)[1],
+                                          checked=checked)
+        return ell_issue.ell_issue(vals, cols, b, variant=name.rsplit("_", 1)[1],
+                                   checked=checked)
+
+    def plain(name, cols, vals, b):
+        if name.startswith("dma_gather"):
+            return dma_gather.gather_spmm_ref(cols, vals, b)
+        return ell_issue.ell_issue_ref(vals, cols, b)
+
+    wrappers = {"dma_gather": dma_gather.gather_spmm, "ell_issue": ell_issue.ell_issue}
+    inputs = {"dma_gather": dma_gather.probe_inputs(0), "ell_issue": ell_issue.probe_inputs(0)}
+    errs = {}
+    for name in GATHER_PROBES:
+        probe = name.rsplit("_", 1)[0]
+        b, cols, vals = inputs[probe]
+        t_cols, t_vals, t_b = (torch.as_tensor(x, device="cuda") for x in (cols, vals, b))
+        live = vals != 0
+        rows = np.where(live[..., None], b[np.where(live, cols, 0)], 0)
+        einsum = np.einsum("mr,mrn->mn", vals, rows)
+        exact = np.einsum("mr,mrn->mn", vals.astype(np.float64), rows.astype(np.float64))
+        wrappers[probe].launches = 0
+        got = run(name, t_cols, t_vals, t_b)
+        if probe == "ell_issue":  # again with a NaN in the row that the pads load
+            t_nan = t_b.clone()
+            t_nan[0] = float("nan")
+            got_nan = run(name, t_cols, t_vals, t_nan)
+        torch.cuda.synchronize()
+        count = wrappers[probe].launches
+        want = plain(name, t_cols, t_vals, t_b)
+        out = got.cpu().numpy()
+        err = (got - want).abs().max().item()
+        err_einsum = float(np.abs(out - einsum).max())
+        ulp = float(np.abs(out - exact).max()) / float(np.spacing(np.float32(np.abs(out).max())))
+        ok = (count > 0 and torch.equal(got, want) and bool(np.isfinite(out).all())
+              and err_einsum < 1e-4 and ulp <= ULP_BAR)
+        note = ""
+        if probe == "ell_issue":
+            hit = torch.as_tensor((live & (cols == 0)).any(axis=1), device="cuda")
+            kept = torch.equal(got_nan[~hit], got[~hit])
+            ok = ok and kept
+            note = (f"; B[0] = NaN: {int(hit.sum().item())} rows meet it in a nonzero slot, "
+                    f"the other {int((~hit).sum().item())} finite and unchanged {kept}")
+        print(f"phase 10: {name} at the probe's inputs (K={b.shape[0]} N={b.shape[1]} "
+              f"R={cols.shape[1]} M={cols.shape[0]}, {100 * (~live).mean():.1f} % value-0 "
+              f"slots): kernel - plain {err:.3e} (to the bit), vs einsum {err_einsum:.3e} "
+              f"(bar 1e-4), vs f64 {ulp:.4f} ulp of max|out| (bar {ULP_BAR:g}){note}; "
+              f"launches {count} {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"phase 10: {name} at the probe's inputs")
+        launches[name] = count
+        errs[name] = err
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b = torch.randn((GATHER_K, GATHER_N), generator=gen, device="cuda")
+    operands = {"dma_gather": sweep_operands(gen, GATHER_K, GATHER_M, GATHER_R),
+                "ell_issue": sweep_operands(gen, GATHER_K, GATHER_M, GATHER_R,
+                                            zero_share=GATHER_ZEROS)}
+    for name in GATHER_PROBES:
+        probe = name.rsplit("_", 1)[0]
+        cols, vals = operands[probe]
+        got = run(name, cols, vals, b, checked=False)
+        want, plain_ms = timed_once(lambda: plain(name, cols, vals, b))
+        err = (got - want).abs().max().item()
+        equal = torch.equal(got, want)
+        del got, want
+        if not equal:
+            fail(f"phase 10: {name} differs from its plain version by {err:.3e}")
+        # the columns were made in range above: time the kernel, not the scan
+        ms = {"plain": plain_ms, **abba_ms(
+            {"kernel": lambda: run(name, cols, vals, b, checked=False),
+             "library": lambda: library_gather(cols, vals, b)}, iters=5)}
+        bound_ms, bound_by = gather_bound(cols, GATHER_N,
+                                          live=None if probe == "dma_gather" else vals != 0)
+        kernels[name] = dict(max_abs_err=max(err, errs[name]), ms=ms["kernel"],
+                             plain_ms=ms["plain"], bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=ms["library"])
+        slots = GATHER_M * GATHER_R
+        print(f"phase 10: {name} K={GATHER_K} M={GATHER_M} N={GATHER_N} R={GATHER_R}"
+              f"{'' if probe == 'dma_gather' else f' ({GATHER_ZEROS:g} value-0)'}: kernel - "
+              f"plain 0 (to the bit); kernel {ms['kernel']:.4f} ms ({slots / ms['kernel'] / 1e3:.1f}"
+              f" M rows/s, {4 * GATHER_N * slots / ms['kernel'] / 1e6:.1f} GB/s gathered) "
+              f"plain {ms['plain']:.4f} ms embedding_bag {ms['library']:.4f} ms bound "
+              f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+    del b, operands
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -324,7 +406,14 @@ def main() -> int:
     from sextans_tpu_torch.runtime.build import build_kernels
     from sextans_tpu_torch.ops.spmm_slab import SKINNY_MAX_N
     from sextans_tpu_torch.utils.matrices import circuit_like, fem_like, stencil_3d
-    from sextans_tpu_torch.utils.timing import time_repeat
+    from sextans_tpu_torch.utils.timing import (
+        PEAK_F32_FLOPS,
+        PEAK_HBM_BYTES,
+        ROUNDS,
+        abba_ms,
+        time_repeat,
+        timed_once,
+    )
 
     def at() -> str:
         return f"(at {time.perf_counter() - t_start:.1f} s)"
@@ -851,6 +940,12 @@ def main() -> int:
                       f"against {t0_ * 1e3:.4f} ms (phases 4-5), x{t1_ / t0_:.2f}", flush=True)
         del scircuit, laplace
 
+    # ---- phase 10: the gather probes (P1's and P2's twins) ----
+    t10 = time.perf_counter()
+    print(f"phase 10: the gather probes {at()}", flush=True)
+    gather_probes(kernels, launches)
+    print(f"phase 10: done in {time.perf_counter() - t10:.1f} s {at()}", flush=True)
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     probe_src = "benchmarks/scratch/mosaic_eft_probe.py"
     sources = {
@@ -876,6 +971,10 @@ def main() -> int:
         sources[variant] = sources[variant.removesuffix("_precise1")]
     sources["df32_probe_pairs"] = ("sextans_tpu_torch/csrc/df32_probe.cu", f"{probe_src}:21")
     sources["df32_probe_chain"] = ("sextans_tpu_torch/csrc/df32_probe.cu", f"{probe_src}:39")
+    for name in GATHER_PROBES:
+        sources[name] = ("sextans_tpu_torch/csrc/gather_probe.cu",
+                         "benchmarks/scratch/dma_gather_probe.py:37" if name.startswith("dma")
+                         else "benchmarks/scratch/ell_issue_probe.py:24")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **kernels[name]}

@@ -59,7 +59,7 @@ __all__ = ["HybridSplit", "split_structure", "HybridSpmmPlan", "SPLIT_VERSION",
 # (sextans_tpu/utils/autotune.py: BYTES_PER_CYCLE, EDGE_CYCLES_FIXED,
 # EDGE_CYCLES_PER_128LANES), kept at their values so that both packages split
 # every matrix identically. They say nothing about the H100; recalibrating
-# them for it is ROADMAP.md queue 1 item 12.
+# them for it is ROADMAP.md queue 1 item 6.
 BYTES_PER_CYCLE = 850.0
 EDGE_CYCLES_FIXED = 6.0
 EDGE_CYCLES_PER_128LANES = 20.0
@@ -349,12 +349,13 @@ class HybridSpmmPlan:
 
     The residue is packed by ``RESIDUE_FORMATS[residue_fmt]`` (``vpu``,
     ``mxu``, ``edge``, ``ell``) or, without ``residue_fmt``, by the packer of
-    ``backend`` (``ops/plan.py:BACKEND_FORMATS``), with ``residue_config``
-    (default ``SpmmConfig()``), and run by ``SpmmPlan(packed, n, backend)``.
-    An empty residue is skipped and needs neither. The JAX package picks the
-    residue's format with ``choose_backend`` from TPU cycle models; that
-    choice is not ported (ROADMAP.md queue 1 item 12), so a non-empty residue
-    without ``residue_fmt`` or a concrete ``backend`` raises ``ValueError``.
+    ``backend`` (``ops/plan.py:BACKEND_FORMATS``), with ``residue_config``,
+    and run by ``SpmmPlan(packed, n, backend)``. An empty residue is skipped
+    and needs none of the three. The JAX package picks the residue's format
+    and config with ``choose_backend`` from TPU cycle models; that choice is
+    not ported (ROADMAP.md queue 1 item 6), so a non-empty residue without
+    ``residue_fmt`` or a concrete ``backend``, or without ``residue_config``,
+    raises ``ValueError``.
 
     ``precise`` 1 or 2 is the JAX package's precise composition: the
     residue is packed at that level (where its config has none) and run
@@ -409,9 +410,15 @@ class HybridSpmmPlan:
                 raise ValueError(
                     f"the residue holds {split.residue.nnz} nonzeros and neither "
                     "residue_fmt nor a backend names its format; the JAX package's "
-                    "choice (choose_backend) is not ported: ROADMAP.md queue 1 item 12"
+                    "choice (choose_backend) is not ported: ROADMAP.md queue 1 item 6"
                 )
-            cfg = residue_config or SpmmConfig()
+            if residue_config is None:
+                raise ValueError(
+                    f"the residue holds {split.residue.nnz} nonzeros and no "
+                    "residue_config is given; the JAX package packs it with the config "
+                    "of choose_backend, which is not ported: ROADMAP.md queue 1 item 6"
+                )
+            cfg = residue_config
             if self.precise and not cfg.precise:
                 cfg = cfg.with_(precise=self.precise)
             packed = packer(split.residue, cfg)

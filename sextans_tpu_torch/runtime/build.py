@@ -61,6 +61,10 @@ _SIGNATURES = {
     "df32_probe_pairs": [_P] * 6 + [_I, _P],
     # v b out terms width stream
     "df32_probe_chain": [_P] * 3 + [_I, _I, _P],
+    # cols vals b out m r_slots n staging vec block group stream
+    "dma_gather_launch": [_P] * 4 + [_I] * 7 + [_P],
+    # vals cols b out m r_slots n variant vec stream
+    "ell_issue_launch": [_P] * 4 + [_I] * 5 + [_P],
     "sx_error_string": [_I],
 }
 

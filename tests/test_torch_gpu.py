@@ -9,7 +9,8 @@ Tolerance: ``max|kernel - plain| <= 4 * spacing(f32(max|plain|))``; both sum
 the same f32 products in pack order and differ in the rounding of each
 block's product and of the epilogue. In precise mode the block, edge, ELL
 and DIA kernels equal their plain versions to the bit: both take the same
-roundings in the same order (``ops/df32.py``, ``csrc/df32.cuh``).
+roundings in the same order (``ops/df32.py``, ``csrc/df32.cuh``); so do the
+gather probes' kernels (``csrc/gather_probe.cu``) in every mode.
 """
 
 import numpy as np
@@ -22,11 +23,13 @@ from sextans_tpu_torch.ops.spmm_block import spmm_block_padded, spmm_block_padde
 from sextans_tpu_torch.ops.spmm_dia import spmm_dia, spmm_dia_ref, spmm_dia_skinny
 from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded, spmm_edge_padded_ref
 from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded, spmm_ell_gather_padded_ref
+from sextans_tpu_torch.ops.launch import SharedMemoryError
 from sextans_tpu_torch.ops.spmm_slab import (
     spmm_slab_padded,
     spmm_slab_padded_ref,
     spmm_slab_skinny_padded,
 )
+from sextans_tpu_torch.probes import dma_gather, ell_issue
 from sextans_tpu_torch.utils.matrices import circuit_like, stencil_3d
 
 pytestmark = pytest.mark.gpu
@@ -584,3 +587,81 @@ def test_precise_hybrid_plan_on_card_launches_its_kernels(cuda, n, backend, prec
     assert np.abs(got - on_cpu(b, ALPHA, BETA, c).numpy()).max() <= tol
     chained = on_card.repeat(b, ALPHA, BETA, c, times=2)
     assert torch.equal(chained, on_card(b, ALPHA, BETA, on_card(b, ALPHA, BETA, c)))
+
+
+# ---- the gather probes, P1's and P2's twins ----
+
+# (k, m, r, n): chip_smoke.py's P1 and P2 shapes, a ragged N on 16-byte loads
+# (100: 25 float4 over 32 lanes), a skinny N (16: 4 lanes a row) and the
+# scalar path (99)
+GATHER_SHAPES = [(4096, 512, 4, 256), (4096, 2048, 4, 512), (1000, 777, 3, 100),
+                 (1000, 300, 5, 16), (1000, 301, 2, 99)]
+
+
+def _gather_operands(cuda, k, m, r, n, zero_share=0.0):
+    b, cols, vals = ell_issue.probe_inputs(0, k=k, n=n, r=r, m=m, zero_share=zero_share)
+    return [torch.as_tensor(x, device=cuda) for x in (cols, vals, b)]
+
+
+@pytest.mark.parametrize("k,m,r,n,staging,block", [
+    (*shape, "direct", 256) for shape in GATHER_SHAPES] + [
+    (*shape, "async", block) for shape in GATHER_SHAPES if shape[3] % 4 == 0
+    for block in (256, 1024)])
+def test_dma_gather_kernel_equals_plain(cuda, k, m, r, n, staging, block):
+    cols, vals, b = _gather_operands(cuda, k, m, r, n)
+    before = dma_gather.gather_spmm.launches
+    got = dma_gather.gather_spmm(cols, vals, b, staging=staging, block=block)
+    torch.cuda.synchronize()
+    assert dma_gather.gather_spmm.launches == before + 1
+    assert torch.equal(got, dma_gather.gather_spmm_ref(cols, vals, b))
+
+
+@pytest.mark.parametrize("variant", ell_issue.VARIANTS)
+@pytest.mark.parametrize("k,m,r,n", GATHER_SHAPES)
+def test_ell_issue_kernel_equals_plain_and_keeps_pads_out(cuda, k, m, r, n, variant):
+    cols, vals, b = _gather_operands(cuda, k, m, r, n, zero_share=0.3)
+    cols[(vals == 0) & (torch.arange(m, device=cuda)[:, None] % 2 == 0)] = 0
+    vals[3, 0], cols[3, 0] = 0.5, 0  # a nonzero slot on row 0
+    want = ell_issue.ell_issue_ref(vals, cols, b)
+    before = ell_issue.ell_issue.launches
+    assert torch.equal(ell_issue.ell_issue(vals, cols, b, variant=variant), want)
+    b[0] = float("nan")
+    got = ell_issue.ell_issue(vals, cols, b, variant=variant)
+    torch.cuda.synchronize()
+    assert ell_issue.ell_issue.launches == before + 2
+    hit = ((cols == 0) & (vals != 0)).any(dim=1)
+    assert bool(hit[3]) and bool(((cols == 0) & (vals == 0)).any())
+    assert torch.equal(~torch.isfinite(got).all(dim=1), hit)
+    assert torch.equal(got[~hit], want[~hit])  # unchanged where B[0] is not met
+
+
+def test_dma_gather_async_refuses_what_it_cannot_copy(cuda):
+    cols, vals, b = _gather_operands(cuda, 1000, 64, 3, 99)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        dma_gather.gather_spmm(cols, vals, b, staging="async")
+    # a B 4 bytes off 16-byte alignment: async refuses, direct takes 4-byte loads
+    cols, vals, b = _gather_operands(cuda, 1000, 64, 3, 100)
+    shifted = torch.empty(b.numel() + 1, device=cuda)[1:].view(b.shape)
+    shifted.copy_(b)
+    assert shifted.data_ptr() % 16
+    before = dma_gather.gather_spmm.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dma_gather.gather_spmm(cols, vals, shifted, staging="async")
+    got = dma_gather.gather_spmm(cols, vals, shifted)
+    torch.cuda.synchronize()
+    assert dma_gather.gather_spmm.launches == before + 1
+    assert torch.equal(got, dma_gather.gather_spmm_ref(cols, vals, b))
+    with pytest.raises(SharedMemoryError):
+        dma_gather.gather_spmm(*_gather_operands(cuda, 16, 4, 8, 4096), staging="async")
+
+
+def test_gather_probes_check_columns_on_the_card(cuda):
+    cols, vals, b = _gather_operands(cuda, 1000, 64, 3, 16)
+    cols[7, 1] = 1000
+    vals[7, 1] = 1.0
+    with pytest.raises(ValueError, match="outside"):
+        dma_gather.gather_spmm(cols, vals, b)
+    with pytest.raises(ValueError, match="outside"):
+        ell_issue.ell_issue(vals, cols, b)
+    vals[7, 1] = 0.0  # a pad's column may be anything
+    assert torch.isfinite(ell_issue.ell_issue(vals, cols, b, variant="select")).all()

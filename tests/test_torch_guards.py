@@ -24,6 +24,7 @@ def test_import_loads_no_jax():
     code = (
         "import sys, sextans_tpu_torch, sextans_tpu_torch.cli, sextans_tpu_torch.ops.hybrid\n"
         "import sextans_tpu_torch.utils.timing, sextans_tpu_torch.utils.matrices\n"
+        "import sextans_tpu_torch.probes.dma_gather, sextans_tpu_torch.probes.ell_issue\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sextans_tpu', 'triton'))\n"
         "print(bad)\n"
@@ -75,7 +76,8 @@ def test_build_flags_target_hopper_and_hash_sources():
     assert "arch=compute_90a,code=sm_90a" in " ".join(build.NVCC_FLAGS)
     assert {p.name for p in build._sources()} == {
         "spmm_block.cu", "spmm_block_precise1.cu", "spmm_block_precise2.cu",
-        "spmm_slab.cu", "spmm_edge.cu", "spmm_ell.cu", "spmm_dia.cu", "df32_probe.cu"}
+        "spmm_slab.cu", "spmm_edge.cu", "spmm_ell.cu", "spmm_dia.cu", "df32_probe.cu",
+        "gather_probe.cu"}
     assert build._source_hash() == build._source_hash()
     # the headers are hashed with the sources, so editing one rebuilds
     for header in ("df32.cuh", "spmm_block.cuh"):
@@ -84,7 +86,10 @@ def test_build_flags_target_hopper_and_hash_sources():
     pointers = {"spmm_block_launch": 9, "spmm_slab_launch": 9,
                 "spmm_slab_skinny_launch": 9, "spmm_edge_launch": 9,
                 "spmm_ell_launch": 5, "spmm_dia_launch": 5, "spmm_dia_skinny_launch": 5,
-                "df32_probe_pairs": 6, "df32_probe_chain": 3}
+                "df32_probe_pairs": 6, "df32_probe_chain": 3,
+                "dma_gather_launch": 4, "ell_issue_launch": 4}
+    # alpha and beta: the SpMM kernels take both, the probes neither
+    probes = {"df32_probe_pairs", "df32_probe_chain", "dma_gather_launch", "ell_issue_launch"}
     entries = [name for name in build._SIGNATURES if name != "sx_error_string"]
     assert sorted(entries) == sorted(pointers)
     for name in entries:
@@ -92,7 +97,7 @@ def test_build_flags_target_hopper_and_hash_sources():
         p = pointers[name]
         assert argtypes[:p] == [ctypes.c_void_p] * p and argtypes[-1] is ctypes.c_void_p
         assert ctypes.c_void_p not in argtypes[p:-1]
-        assert argtypes.count(ctypes.c_float) == (2 if name.endswith("_launch") else 0)
+        assert argtypes.count(ctypes.c_float) == (0 if name in probes else 2)
 
 
 def test_each_source_is_compiled_by_its_own_nvcc(monkeypatch, tmp_path):

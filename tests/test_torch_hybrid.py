@@ -400,7 +400,8 @@ def _mixed_split(n=16):
 
 
 def test_hybrid_plan_rejects_bad_operands():
-    pl = tx.HybridSpmmPlan(_mixed_split(), 16, residue_fmt="vpu", device="cpu")
+    pl = tx.HybridSpmmPlan(_mixed_split(), 16, residue_config=tx.SpmmConfig(),
+                           residue_fmt="vpu", device="cpu")
     b, c = _operands(600, 600, 16)
     with pytest.raises(ValueError, match="B must be"):
         pl(b[:, :8], ALPHA, BETA, c)
@@ -415,13 +416,17 @@ def test_hybrid_plan_rejects_bad_operands():
 @pytest.mark.parametrize(
     "kw,err,match",
     [
-        (dict(precise=1), ValueError, "queue 1 item 12"),
+        (dict(precise=1), ValueError, "choose_backend"),
         (dict(precise=3, residue_fmt="vpu"), ValueError, "precise must be"),
-        (dict(), ValueError, "queue 1 item 12"),
+        (dict(), ValueError, "choose_backend"),
+        # a residue without its config: the JAX package takes choose_backend's
+        (dict(residue_fmt="vpu"), ValueError, "residue_config.*choose_backend"),
+        (dict(backend="pallas"), ValueError, "residue_config.*choose_backend"),
         (dict(residue_fmt="csr"), ValueError, "residue_fmt"),
         (dict(backend="tpu"), ValueError, "unknown backend"),
         (dict(residue_fmt="vpu", dia_backend="pallas_interpret"), ValueError, "dia_backend"),
-        (dict(residue_fmt="mxu", backend="edge"), ValueError, "does not match"),
+        (dict(residue_fmt="mxu", backend="edge", residue_config=tx.SpmmConfig()), ValueError,
+         "does not match"),
     ],
 )
 def test_hybrid_plan_rejects_bad_options(kw, err, match):
@@ -433,8 +438,8 @@ def test_hybrid_plan_rejects_bad_options(kw, err, match):
 def test_hybrid_precise_plan_builds(precise, fmt):
     """A precise plan packs its residue at its own level and runs; the
     precise composition is tested in tests/test_torch_precise_hybrid.py."""
-    pl = tx.HybridSpmmPlan(_mixed_split(), 16, residue_fmt=fmt, precise=precise,
-                           device="cpu")
+    pl = tx.HybridSpmmPlan(_mixed_split(), 16, residue_config=tx.SpmmConfig(),
+                           residue_fmt=fmt, precise=precise, device="cpu")
     assert pl.precise == precise
     assert pl.residue_plan.packed.config.precise == precise
     b, c = _operands(600, 600, 16)
@@ -449,7 +454,8 @@ def test_empty_residue_needs_no_backend_and_backend_picks_format():
     _, _, split = _splits("stencil", 16)
     assert split.residue.nnz == 0
     assert tx.HybridSpmmPlan(split, 16, device="cpu").residue_plan is None
-    pl = tx.HybridSpmmPlan(_mixed_split(), 16, backend="edge", device="cpu")
+    pl = tx.HybridSpmmPlan(_mixed_split(), 16, residue_config=tx.SpmmConfig(),
+                           backend="edge", device="cpu")
     assert isinstance(pl.residue_plan.packed, tx.PackedSpMatrixEdge)
 
 
@@ -470,7 +476,8 @@ def test_split_checked_before_upload(field, value, match):
     with pytest.raises(ValueError, match=match):
         check_split(split)
     with pytest.raises(ValueError, match=match):
-        tx.HybridSpmmPlan(split, 16, residue_fmt="vpu", device="cpu")
+        tx.HybridSpmmPlan(split, 16, residue_config=tx.SpmmConfig(), residue_fmt="vpu",
+                          device="cpu")
 
 
 # ---- the CLI ----
