@@ -10,17 +10,21 @@ extern template cudaError_t launch_level<2>(int, const Args&);
 }  // namespace sx_block
 
 extern "C" int spmm_block_launch(
-    const void* vals, const void* qrow, const void* bcol,
-    const void* group_kwin, const void* tile_ptr, const void* tile_groups,
-    const void* b, const void* c, void* out, int n_mtiles, int n, int tile_m,
-    int window_k, int block_k, int group_blocks, int tile_n, float alpha,
-    float beta, int with_c, int precise, void* stream) {
+    const void* vals, const void* bcol, const void* group_kwin,
+    const void* stripe_ptr, const void* visits, const void* b, const void* c,
+    void* out, int n_stripes, int n, int window_k, int block_k,
+    int group_blocks, float alpha, float beta, int with_c, int precise,
+    int lanes, int vec, int threads, int grid_x, int grid_y, int smem,
+    void* stream) {
+  const int cpt = lanes == 16 ? 1 : 4;
+  if ((lanes != 16 && lanes != 32) || grid_x != n_stripes ||
+      (long long)grid_y * lanes * cpt < n)
+    return cudaErrorInvalidValue;
   const sx_block::Args a{
-      (const float*)vals, (const int*)qrow, (const int*)bcol,
-      (const int*)group_kwin, (const int*)tile_ptr, (const int*)tile_groups,
-      (const float*)b, (const float*)c, (float*)out, n_mtiles, n, tile_m,
-      window_k, group_blocks, tile_n, alpha, beta, with_c,
-      (cudaStream_t)stream};
+      (const float*)vals, (const int*)bcol, (const int*)group_kwin,
+      (const int*)stripe_ptr, (const int*)visits, (const float*)b,
+      (const float*)c, (float*)out, n, window_k, group_blocks, alpha, beta,
+      with_c, lanes, vec, threads, grid_x, grid_y, smem, (cudaStream_t)stream};
   switch (precise) {
     case 0: return sx_block::launch_level<0>(block_k, a);
     case 1: return sx_block::launch_level<1>(block_k, a);

@@ -1,60 +1,58 @@
 // spmm_edge: C = alpha * A @ B + beta * C over the edge-stream pack
-// (format/pack_edge.py), one warp per (M-tile, 32-column chunk).
+// (format/pack_edge.py), row-parallel: each output row gets its own threads.
 //
 // Replaces: sextans_tpu/ops/spmm_edge_pallas.py, spmm_edge_padded / _kernel
 // (the Pallas TPU kernel K4). On the TPU the chunks of an M-tile ran in order
 // along a sequential grid axis and the accumulator lived in VMEM across grid
-// steps. Here each warp walks its M-tile's chunk range itself, taken from a
-// host scan of chunk_mtile (tile_ptr / tile_chunks, uploaded once with the
-// plan), so the padding-only chunks that the packer appends for empty M-tiles
-// need no special case.
+// steps. That order matters only among the runs that flush into one row, so
+// here a host scan at upload (ops/launch.py:row_runs) lists each padded
+// output row's runs in pack order, as slot ranges [start, stop] inside one
+// chunk, and each row is summed by its own threads, in registers.
 //
-// Per edge, decoded from its meta word w (pack_edge.py):
-//   row = w >> 17, col = (w >> 2) & 0x7FFF, row_end = w & 2, pad = w & 1;
+// Per edge of a run, decoded from its meta word w (pack_edge.py):
+//   col = (w >> 2) & 0x7FFF, pad = w & 1;
 //   reg = fma(v, B[kw * window_k + col, c], reg)
-//   if row_end: acc[row, c] += reg; reg = 0
-// then the epilogue fma(alpha, acc, beta * C), or alpha * acc without C.
-// Arithmetic: IEEE f32 FFMA (__fmaf_rn), one rounding per edge where the TPU
-// kernel rounds its product and its sum apart; no TF32. The plain version
-// (ops/spmm_edge.py) takes every rounding of this list in the same order.
-// The edges are walked one by one in pack order, so edge_lanes (which only
-// pads row runs to a multiple of L for the TPU's L registers) changes
-// nothing: a pad adds 0 * B[window row 0] (MASKED == false, as the TPU does;
-// NaN for non-finite B) or nothing at all (MASKED == true, edge_masked). A
-// run that straddles a chunk boundary flushes twice: the packer forces
-// row_end on each chunk's last slot, and the flush adds, never stores.
+// and at the run's end (its row_end slot) acc += reg; then the epilogue
+// fma(alpha, acc, beta * C), or alpha * acc without C. Arithmetic: IEEE f32
+// FFMA (__fmaf_rn), one rounding per edge where the TPU kernel rounds its
+// product and its sum apart; no TF32. The plain version (ops/spmm_edge.py)
+// takes every rounding of this list in the same order. The edges are walked
+// one by one in pack order, so edge_lanes (which only pads row runs to a
+// multiple of L for the TPU's L registers) changes nothing: a pad adds
+// 0 * B[window row 0] (MASKED == false, as the TPU does; NaN for non-finite
+// B) or nothing at all (MASKED == true, edge_masked). A run that straddles a
+// chunk boundary is two runs: the packer forces row_end on each chunk's last
+// slot. Slots after a chunk's last row_end (the all-padding chunks of empty
+// M-tiles) are in no run, as the TPU kernel drops their register.
 //
-// Thread map: lane l of a warp owns column blockIdx.y * blockDim.x + warp * 32
-// + l of the M-tile for the whole kernel, so no two threads touch one cell
-// and there are no atomics. Its accumulator column lives in the output
-// itself (zeroed first, read-modify-written at each flush, overwritten by the
-// epilogue): no shared memory, so up to 64 warps fit on an SM. The warp loads
-// 32 (meta, val) pairs at a time, coalesced, and broadcasts them with
-// __shfl_sync; it then issues the 32 B-row loads before the 32 multiply-adds,
-// so that each lane has 32 independent loads in flight.
+// Thread map (ops/spmm_edge.py:edge_launch): a thread owns one row at four
+// consecutive columns, reads B as 16-byte loads where N % 4 == 0 (VEC), and
+// LANES threads share the row: 4 at N <= 16 (a warp covers 8 rows), 32
+// above (a warp covers 128 columns of one row). The lanes of a row load a
+// run's (meta, val) pairs coalesced, one batch of at least 16 ahead, and
+// share them with __shfl_sync within the row's lane group; each lane then
+// issues 16 B-row loads before their multiply-adds. The run register, the
+// row accumulator and, at the precise levels, their compensations are
+// registers: no zeroing pass, no read-modify-write of device memory, one
+// store per cell.
 //
-// What bounds it on the H100: bytes. The product needs 2 * nnz * N flops and
-// at least 8 * nnz + 4 * (K + 2M) * N bytes of device memory traffic: at
-// cant_like N = 512 that is 0.124 ms at 3.35 TB/s against 0.058 ms of f32
-// work at 67 TFLOP/s. The kernel is far from that bound: each edge gathers
-// one B row of the warp's 32 columns (128 bytes) from L1/L2, and each warp
-// walks its M-tile's edges one after another, so the design's answer is
-// latency hiding (32 loads in flight per lane, no shared memory so that many
-// warps fit on an SM). With one warp per (M-tile, 32 columns), a skinny N
-// leaves most SMs idle (synthetic4704 at N = 16: 10 warps for 132 SMs).
+// What bounds it on the H100: the B-row gather and its latency. The product
+// needs 2 * nnz * N flops and at least 8 * nnz + 4 * (K + 2M) * N bytes of
+// device-memory traffic: at cant_like N = 512 that is 0.124 ms at 3.35 TB/s
+// against 0.058 ms of f32 work at 67 TFLOP/s. Each edge gathers a 16-byte
+// piece of one B row per lane (512 bytes a warp at N = 512, 64 bytes a row
+// at N = 16) from L2 or device memory; the rows of a warp differ in length,
+// so a warp runs as long as its longest row.
 //
 // Precise levels (PRECISE, SpmmConfig.precise; spmm_edge_pallas.py:87-182),
-// with the error-free transforms of df32.cuh. The lane's register becomes a
-// pair (reg, regc): per edge, the product p = fl(v * B) (level 2: two_prod,
-// p and its error pe) goes in by acc_step(reg, regc, p[, pe]) in place of
-// the FMA. At row_end the register goes into the persistent pair by
-// acc_step(acc, comp, reg), then comp += regc, and both registers are reset
-// by assignment. The epilogue is compensated_epilogue, one final rounding.
-// comp is a second output-shaped buffer in device memory (the wrapper
-// allocates it), owned cell by cell by the same lane as the accumulator. A
-// masked pad adds nothing, its error included; an unmasked pad adds
-// 0 * B[window row] and its error, as on the TPU. The TPU's L lane pairs
-// summed at the flush become one pair here (its edges one by one).
+// with the error-free transforms of df32.cuh. The register becomes a pair
+// (reg, regc): per edge, the product p = fl(v * B) (level 2: two_prod, p and
+// its error pe) goes in by acc_step(reg, regc, p[, pe]) in place of the FMA.
+// At a run's end the register goes into the row's pair by acc_step(acc,
+// comp, reg), then comp += regc. The epilogue is compensated_epilogue, one
+// final rounding. A masked pad adds nothing, its error included; an unmasked
+// pad adds 0 * B[window row] and its error, as on the TPU. The TPU's L lane
+// pairs summed at the flush become one pair here (its edges one by one).
 
 #include <cuda_runtime.h>
 
@@ -62,132 +60,194 @@
 
 namespace {
 
-constexpr int kRowShift = 17;
 constexpr int kColShift = 2;
-constexpr unsigned kColMask = (1u << (kRowShift - kColShift)) - 1;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kColMask = (1u << 15) - 1;
+constexpr int kSub = 16;  // B-row loads a lane issues before their FMAs
 
-template <bool MASKED, int PRECISE>
-__global__ void spmm_edge_kernel(
+// The lane-group mask of a lane: LANES consecutive lanes share a row.
+template <int LANES>
+__device__ __forceinline__ unsigned group_mask(int lane) {
+  if constexpr (LANES == 32) return 0xffffffffu;
+  else return ((1u << LANES) - 1) << (lane & ~(LANES - 1));
+}
+
+// Four consecutive columns of one B row; columns at or past n read as 0.
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const float* p, int col, int n) {
+  if constexpr (VEC) {
+    return col < n ? __ldg(reinterpret_cast<const float4*>(p)) : make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    return make_float4(col < n ? __ldg(p) : 0.f, col + 1 < n ? __ldg(p + 1) : 0.f,
+                       col + 2 < n ? __ldg(p + 2) : 0.f, col + 3 < n ? __ldg(p + 3) : 0.f);
+  }
+}
+
+__device__ __forceinline__ float& at(float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// The plain kernel at N > 16 is held to 85 registers, so that three CTAs of
+// 256 threads share an SM: more rows in flight beat more loads per row
+// there (on cant_like at N = 512). The other maps keep what they use.
+template <bool MASKED, int PRECISE, int LANES, bool VEC>
+__global__ void __launch_bounds__(256, LANES == 32 && PRECISE == 0 ? 3 : 1) spmm_edge_kernel(
     const float* __restrict__ vals,        // (chunks, E)
     const int* __restrict__ meta,          // (chunks, E)
     const int* __restrict__ chunk_kwin,    // (chunks,)
-    const int* __restrict__ tile_ptr,      // (n_mtiles + 1,)
-    const int* __restrict__ tile_chunks,   // (chunks,)
+    const int* __restrict__ row_ptr,       // (m_padded + 1,)
+    const int* __restrict__ run_start,     // (runs,)
+    const int* __restrict__ run_stop,      // (runs,)
     const float* __restrict__ b,           // (k_padded, n)
     const float* __restrict__ c,           // (m_padded, n) or null
     float* __restrict__ out,               // (m_padded, n)
-    float* __restrict__ comp,              // (m_padded, n) if PRECISE, else null
-    int n, int tile_m, int window_k, int edge_chunk, float alpha, float beta,
+    int m_padded, int n, int window_k, int edge_chunk, float alpha, float beta,
     int with_c) {
-  const int mt = blockIdx.x;
+  // (meta, val) pairs a lane loads per batch, so that a batch holds at
+  // least 16 slots
+  constexpr int kPairs = LANES >= 16 ? 1 : 16 / LANES;
+  constexpr int kBatch = LANES * kPairs;
   const int lane = threadIdx.x & 31;
-  const int col = blockIdx.y * blockDim.x + threadIdx.x;
-  if (col - lane >= n) return;  // the whole warp is past the last column
-  const bool live = col < n;    // ragged last warp: lanes still shuffle
-  float* acc = out + (size_t)mt * tile_m * n + col;
-  float* cmp = PRECISE ? comp + (size_t)mt * tile_m * n + col : nullptr;
+  const int gl = lane & (LANES - 1);
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / LANES;
+  if (row >= m_padded) return;  // the row's whole lane group leaves
+  const unsigned mask = group_mask<LANES>(lane);
+  const int col = (blockIdx.y * LANES + gl) * 4;
+  const bool live = col < n;
 
-  if (live)
-    for (int r = 0; r < tile_m; ++r) {
-      acc[(size_t)r * n] = 0.f;
-      if constexpr (PRECISE != 0) cmp[(size_t)r * n] = 0.f;
-    }
-
-  const int p1 = tile_ptr[mt + 1];
-  for (int p = tile_ptr[mt]; p < p1; ++p) {
-    const int g = tile_chunks[p];
-    const float* bwin = b + (size_t)chunk_kwin[g] * window_k * n + col;
-    const int* mg = meta + (size_t)g * edge_chunk;
-    const float* vg = vals + (size_t)g * edge_chunk;
-    float reg = 0.f, regc = 0.f;
-    for (int e0 = 0; e0 < edge_chunk; e0 += 32) {
-      const int cnt = min(32, edge_chunk - e0);
-      unsigned my_w = 0;
-      float my_v = 0.f;
-      if (lane < cnt) {
-        my_w = (unsigned)__ldg(mg + e0 + lane);
-        my_v = __ldg(vg + e0 + lane);
-      }
-      unsigned w[32];
-      float bv[32];
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 comp = acc;
+  const int q1 = row_ptr[row + 1];
+  for (int q = row_ptr[row]; q < q1; ++q) {
+    const int s0 = run_start[q];
+    const int s1 = run_stop[q] + 1;
+    const float* bwin = b + (size_t)chunk_kwin[s0 / edge_chunk] * window_k * n + col;
+    float4 reg = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 regc = reg;
+    // the batch's (meta, val) pairs, loaded one batch ahead
+    unsigned next_w[kPairs];
+    float next_v[kPairs];
+    auto load_pairs = [&](int e0) {
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        w[j] = __shfl_sync(kFull, my_w, j);
-        bv[j] = 0.f;
-        if (live && j < cnt && !(MASKED && (w[j] & 1u)))
-          bv[j] = __ldg(bwin + (size_t)((w[j] >> kColShift) & kColMask) * n);
+      for (int k = 0; k < kPairs; ++k) {
+        const int e = e0 + k * LANES + gl;
+        next_w[k] = e < s1 ? (unsigned)__ldg(meta + e) : 0u;
+        next_v[k] = e < s1 ? __ldg(vals + e) : 0.f;
       }
+    };
+    load_pairs(s0);
+    for (int e0 = s0; e0 < s1; e0 += kBatch) {
+      const int cnt = min(kBatch, s1 - e0);
+      unsigned my_w[kPairs];
+      float my_v[kPairs];
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const float v = __shfl_sync(kFull, my_v, j);
-        if (j < cnt) {
-          if (!(MASKED && (w[j] & 1u))) {
+      for (int k = 0; k < kPairs; ++k) {
+        my_w[k] = next_w[k];
+        my_v[k] = next_v[k];
+      }
+      if (e0 + kBatch < s1) load_pairs(e0 + kBatch);
+#pragma unroll
+      for (int j0 = 0; j0 < kBatch; j0 += kSub) {
+        if (j0 >= cnt) break;
+        unsigned w[kSub];
+        float4 bv[kSub];
+#pragma unroll
+        for (int jj = 0; jj < kSub; ++jj) {
+          const int j = j0 + jj;
+          w[jj] = __shfl_sync(mask, my_w[j / LANES], j % LANES, LANES);
+          bv[jj] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (live && j < cnt && !(MASKED && (w[jj] & 1u)))
+            bv[jj] = load4<VEC>(bwin + (size_t)((w[jj] >> kColShift) & kColMask) * n, col, n);
+        }
+#pragma unroll
+        for (int jj = 0; jj < kSub; ++jj) {
+          const int j = j0 + jj;
+          const float v = __shfl_sync(mask, my_v[j / LANES], j % LANES, LANES);
+          if (j >= cnt || (MASKED && (w[jj] & 1u))) continue;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float x = at(bv[jj], k);
             if constexpr (PRECISE == 0) {
-              reg = __fmaf_rn(v, bv[j], reg);
+              at(reg, k) = __fmaf_rn(v, x, at(reg, k));
             } else if constexpr (PRECISE == 1) {
-              sx_df32::acc_step(reg, regc, __fmul_rn(v, bv[j]));
+              sx_df32::acc_step(at(reg, k), at(regc, k), __fmul_rn(v, x));
             } else {
               float p, pe;
-              sx_df32::two_prod(v, bv[j], p, pe);
-              sx_df32::acc_step(reg, regc, p, pe);
+              sx_df32::two_prod(v, x, p, pe);
+              sx_df32::acc_step(at(reg, k), at(regc, k), p, pe);
             }
-          }
-          if (w[j] & 2u) {
-            if (live) {
-              const size_t off = (size_t)(w[j] >> kRowShift) * n;
-              if constexpr (PRECISE == 0) {
-                acc[off] = __fadd_rn(acc[off], reg);
-              } else {
-                sx_df32::acc_step(acc[off], cmp[off], reg);
-                cmp[off] = __fadd_rn(cmp[off], regc);
-              }
-            }
-            reg = 0.f;
-            regc = 0.f;
           }
         }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if constexpr (PRECISE == 0) {
+        at(acc, k) = __fadd_rn(at(acc, k), at(reg, k));
+      } else {
+        sx_df32::acc_step(at(acc, k), at(comp, k), at(reg, k));
+        at(comp, k) = __fadd_rn(at(comp, k), at(regc, k));
       }
     }
   }
 
   if (!live) return;
-  const size_t row0 = (size_t)mt * tile_m;
-  for (int r = 0; r < tile_m; ++r) {
-    const size_t idx = (row0 + r) * n + col;
-    const float a = out[idx];
+  const size_t base = (size_t)row * n + col;
+  float4 cin = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (with_c) cin = load4<VEC>(c + base, col, n);
+  float4 res;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float a = at(acc, k);
     if constexpr (PRECISE == 0)
-      out[idx] = with_c ? __fmaf_rn(alpha, a, __fmul_rn(beta, c[idx])) : __fmul_rn(alpha, a);
+      at(res, k) = with_c ? __fmaf_rn(alpha, a, __fmul_rn(beta, at(cin, k))) : __fmul_rn(alpha, a);
     else
-      out[idx] = with_c ? sx_df32::compensated_epilogue(alpha, a, comp[idx], beta, c[idx])
-                        : sx_df32::compensated_epilogue(alpha, a, comp[idx]);
+      at(res, k) = sx_df32::epilogue(a, at(comp, k), at(cin, k), alpha, beta, with_c);
+  }
+  if constexpr (VEC) {
+    *reinterpret_cast<float4*>(out + base) = res;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (col + k < n) out[base + k] = at(res, k);
   }
 }
 
+template <bool MASKED, int PRECISE, int LANES>
+auto pick_vec(int vec) {
+  return vec ? spmm_edge_kernel<MASKED, PRECISE, LANES, true>
+             : spmm_edge_kernel<MASKED, PRECISE, LANES, false>;
+}
+
+template <bool MASKED, int PRECISE>
+auto pick_lanes(int lanes, int vec) {
+  return lanes == 4 ? pick_vec<MASKED, PRECISE, 4>(vec) : pick_vec<MASKED, PRECISE, 32>(vec);
+}
+
 template <bool MASKED>
-auto pick(int precise) {
-  return precise == 0   ? spmm_edge_kernel<MASKED, 0>
-         : precise == 1 ? spmm_edge_kernel<MASKED, 1>
-                        : spmm_edge_kernel<MASKED, 2>;
+auto pick(int precise, int lanes, int vec) {
+  return precise == 0   ? pick_lanes<MASKED, 0>(lanes, vec)
+         : precise == 1 ? pick_lanes<MASKED, 1>(lanes, vec)
+                        : pick_lanes<MASKED, 2>(lanes, vec);
 }
 
 }  // namespace
 
 extern "C" int spmm_edge_launch(
     const void* vals, const void* meta, const void* chunk_kwin,
-    const void* tile_ptr, const void* tile_chunks, const void* b,
-    const void* c, void* out, void* comp, int n_mtiles, int n, int tile_m,
-    int window_k, int edge_chunk, float alpha, float beta, int with_c,
-    int masked, int precise, void* stream) {
-  if (precise < 0 || precise > 2 || (precise && comp == nullptr))
+    const void* row_ptr, const void* run_start, const void* run_stop,
+    const void* b, const void* c, void* out, int m_padded, int n, int window_k,
+    int edge_chunk, float alpha, float beta, int with_c, int masked,
+    int precise, int lanes, int vec, int threads, int grid_x, int grid_y,
+    void* stream) {
+  if (precise < 0 || precise > 2 || (lanes != 4 && lanes != 32) || threads % 32 ||
+      (long long)grid_x * (threads / lanes) < m_padded ||
+      (long long)grid_y * lanes * 4 < n)
     return cudaErrorInvalidValue;
-  const int threads = n >= 128 ? 128 : (n + 31) / 32 * 32;
-  const dim3 grid(n_mtiles, (n + threads - 1) / threads);
-  auto kernel = masked ? pick<true>(precise) : pick<false>(precise);
-  kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  auto kernel = masked ? pick<true>(precise, lanes, vec) : pick<false>(precise, lanes, vec);
+  kernel<<<dim3(grid_x, grid_y), threads, 0, (cudaStream_t)stream>>>(
       (const float*)vals, (const int*)meta, (const int*)chunk_kwin,
-      (const int*)tile_ptr, (const int*)tile_chunks, (const float*)b,
-      (const float*)c, (float*)out, (float*)comp, n, tile_m, window_k,
+      (const int*)row_ptr, (const int*)run_start, (const int*)run_stop,
+      (const float*)b, (const float*)c, (float*)out, m_padded, n, window_k,
       edge_chunk, alpha, beta, with_c);
   return cudaGetLastError();
 }

@@ -1,21 +1,23 @@
-"""What the kernel wrappers share: the host scan of a pack's group steering,
+"""What the kernel wrappers share: the host scans of a pack's steering,
 bounds checks of the packs before upload, operand checks before a launch,
 and the f32 rule of the plain versions."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from sextans_tpu_torch.format.pack_edge import COL_SHIFT, ROW_SHIFT
+from sextans_tpu_torch.format.pack_edge import COL_SHIFT, PAD_BIT, ROW_END, ROW_SHIFT
 
 __all__ = [
     "SMEM_LIMIT",
     "SharedMemoryError",
     "COL_MASK",
     "group_ranges",
+    "stripe_visits",
+    "row_runs",
     "check_pack_indices",
     "check_edge_pack",
     "check_ell_pack",
@@ -23,6 +25,8 @@ __all__ = [
     "need",
     "check_dense",
     "check_operands",
+    "check_csr",
+    "Launch",
     "no_tf32",
     "add_rows_in_order",
     "fma_f32",
@@ -50,13 +54,111 @@ def group_ranges(group_mtile: np.ndarray, n_mtiles: int) -> Tuple[np.ndarray, np
     ``group_mtile[:ng]`` (the sentinel excluded) and assumes no order: the
     packers append the groups of empty M-tiles after all real groups.
     """
-    mt = np.asarray(group_mtile, dtype=np.int64)[:-1]
-    if mt.size and (mt.min() < 0 or mt.max() >= n_mtiles):
-        raise ValueError(f"group_mtile holds an M-tile outside [0, {n_mtiles})")
+    mt = _check_owner_tiles(np.asarray(group_mtile)[:-1], n_mtiles, "group_mtile")
     tile_groups = np.argsort(mt, kind="stable").astype(np.int32)
-    tile_ptr = np.zeros(n_mtiles + 1, dtype=np.int32)
-    np.cumsum(np.bincount(mt, minlength=n_mtiles), out=tile_ptr[1:])
-    return tile_ptr, tile_groups
+    return _csr_ptr(mt, n_mtiles), tile_groups
+
+
+def _csr_ptr(owner: np.ndarray, n_owners: int) -> np.ndarray:
+    """The int32 offsets of a CSR list whose items belong to ``owner``."""
+    ptr = np.zeros(n_owners + 1, dtype=np.int32)
+    np.cumsum(np.bincount(owner, minlength=n_owners), out=ptr[1:])
+    return ptr
+
+
+def _check_owner_tiles(tiles: np.ndarray, n_mtiles: int, what: str) -> np.ndarray:
+    tiles = np.asarray(tiles, dtype=np.int64)
+    if tiles.size and (tiles.min() < 0 or tiles.max() >= n_mtiles):
+        raise ValueError(f"{what} holds an M-tile outside [0, {n_mtiles})")
+    return tiles
+
+
+def _check_int32(count: int, what: str) -> None:
+    if count > np.iinfo(np.int32).max:
+        raise ValueError(f"{what}: {count} flat indices do not fit in int32")
+
+
+def stripe_visits(packed) -> Tuple[np.ndarray, np.ndarray]:
+    """Each 8-row stripe's block visits, in pack order, for the block kernel.
+
+    Returns the CSR pair ``(stripe_ptr, visits)``: the visits of global
+    stripe ``s = group_mtile * tile_m / 8 + qrow`` are the flat block
+    indices ``g * G + i`` in ``visits[stripe_ptr[s]:stripe_ptr[s+1]]``,
+    ascending, which is the order in which the pack adds them (the groups of
+    an M-tile in group order, then the blocks of a group).
+
+    Of the visits whose 8 x block_k values are all zero (the pack's pad
+    blocks: qrow 0, bcol 0), one per distinct (stripe, K-window, bcol) is
+    kept, the first; the rest are dropped. That leaves every sum as it was
+    to the bit. A zero block adds ``contrib = +-0`` where its B rows are
+    finite, and NaN where one is not. An accumulator starts at +0 and is
+    never -0 in round-to-nearest (``a + b`` is -0 only if both are), so
+    adding +-0 leaves it unchanged; NaN sticks, and the kept visit reads
+    the same B rows as the dropped ones. The same holds for ``acc_step`` at
+    both precise levels: its error term is then +0, and ``comp`` (also
+    never -0) is unchanged by subtracting +-0.
+    """
+    cfg = packed.config
+    ng, G, bk = packed.n_groups, cfg.group_blocks, cfg.block_k
+    stripes_per_tile = cfg.tile_m // 8
+    n_stripes = packed.n_mtiles * stripes_per_tile
+    _check_int32(ng * G, "stripe_visits")
+    tiles = _check_owner_tiles(packed.group_mtile[:ng], packed.n_mtiles, "group_mtile")
+    stripe = (tiles[:, None] * stripes_per_tile + packed.qrow).reshape(-1)
+    keep = (packed.vals.reshape(ng, 8, G, bk) != 0).any(axis=(1, 3)).reshape(-1)
+    zero = np.flatnonzero(~keep)
+    if zero.size:
+        kwin = packed.group_kwin.astype(np.int64)[zero // G]
+        key = (stripe[zero] * packed.n_kwins + kwin) * cfg.window_k + packed.bcol.reshape(-1)[zero]
+        _, first = np.unique(key, return_index=True)
+        keep[zero[first]] = True
+    kept = np.flatnonzero(keep)
+    order = np.argsort(stripe[kept], kind="stable")
+    return _csr_ptr(stripe[kept], n_stripes), kept[order].astype(np.int32)
+
+
+def row_runs(packed) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Each padded output row's runs, in pack order, for the edge kernel.
+
+    A run is the stretch of slots ``[start, stop]`` (flat indices into the
+    (chunks, 1, E) arrays) that one register sums before it flushes into a
+    row: it ends at a ``row_end`` slot, including the flush the packer
+    forces on a chunk's last slot, and starts after the previous run's end
+    or at its chunk's first slot, so it never crosses a chunk. Its row is
+    its M-tile's first row plus the row field of its ``row_end`` slot. Pads
+    inside a run stay in it. Slots after a chunk's last ``row_end`` (the
+    all-padding chunks of empty M-tiles) flush nowhere and are not listed.
+
+    A run of pads alone (the tail of a job's last chunk, up to a chunk long,
+    which the packer's forced flush adds into the tile's row 0) is cut to
+    its last slot. That leaves every sum as it was to the bit: every pad
+    reads column 0 of its chunk's K-window and adds ``0 * B`` of that row
+    (unmasked) or nothing (masked), so the run's register stays +0 for a
+    finite row and turns NaN for another, however many pads it holds; the
+    same at both precise levels, where the product's error is +-0 too.
+
+    Returns the CSR triple ``(row_ptr, run_start, run_stop)``: row ``r``'s
+    runs are ``row_ptr[r]:row_ptr[r+1]``, in ascending slot order, which is
+    the order in which the pack flushes them.
+    """
+    cfg = packed.config
+    nc, E = packed.n_chunks, cfg.edge_chunk
+    m_padded = packed.n_mtiles * cfg.tile_m
+    _check_int32(nc * E, "row_runs")
+    tiles = _check_owner_tiles(packed.chunk_mtile[:nc], packed.n_mtiles, "chunk_mtile")
+    w = np.ascontiguousarray(packed.meta).reshape(-1).view(np.uint32)
+    stop = np.flatnonzero(w & ROW_END)
+    chunk = stop // E
+    after_prev = np.empty_like(stop)
+    after_prev[:1] = 0
+    after_prev[1:] = stop[:-1] + 1
+    start = np.maximum(after_prev, chunk * E)
+    reals = np.concatenate([[0], np.cumsum((w & PAD_BIT) == 0)])
+    start = np.where(reals[stop + 1] > reals[start], start, stop)
+    row = tiles[chunk] * cfg.tile_m + (w[stop] >> ROW_SHIFT).astype(np.int64)
+    order = np.argsort(row, kind="stable")
+    return (_csr_ptr(row, m_padded), start[order].astype(np.int32),
+            stop[order].astype(np.int32))
 
 
 def check_pack_indices(packed, idx: np.ndarray, idx_limit: int) -> None:
@@ -81,7 +183,7 @@ def check_pack_indices(packed, idx: np.ndarray, idx_limit: int) -> None:
 def check_edge_pack(packed) -> None:
     """Bounds of an edge pack's meta words and chunk steering, checked once
     on the host before upload: the edge kernel trusts them for its
-    addresses. ``chunk_mtile`` is checked by :func:`group_ranges`."""
+    addresses. ``chunk_mtile`` is checked by :func:`row_runs`."""
     cfg = packed.config
     nc, E = packed.n_chunks, cfg.edge_chunk
     if packed.vals.shape != (nc, 1, E) or packed.meta.shape != (nc, 1, E):
@@ -182,12 +284,13 @@ def check_dense(
 
 
 def check_operands(
-    vals, idx, bcol, group_mtile, group_kwin, b_padded, c_padded, ranges,
+    vals, idx, bcol, group_mtile, group_kwin, b_padded, c_padded,
     *, vals_shape_per_group: Tuple[int, int], tile_m: int, window_k: int,
     group_blocks: int, with_c: bool,
-) -> Tuple[int, int, int]:
-    """Check every operand of a block or slab launch; returns
-    ``(m_padded, n, n_mtiles)``. ``c_padded`` is as in :func:`check_dense`.
+) -> Tuple[int, int]:
+    """Check the pack and dense operands of a block or slab launch; returns
+    ``(m_padded, n)``. ``c_padded`` is as in :func:`check_dense`. Each
+    wrapper checks its own ``ranges``.
     """
     device = vals.device
     ng = vals.shape[0]
@@ -199,13 +302,36 @@ def check_operands(
     need(group_kwin, "group_kwin", torch.int32, (ng,), device)
     m_padded, n = check_dense(b_padded, c_padded, tile_m=tile_m,
                               window_k=window_k, with_c=with_c, device=device)
-    n_mtiles = m_padded // tile_m
-    tile_ptr, tile_groups = ranges
-    need(tile_ptr, "tile_ptr", torch.int32, (n_mtiles + 1,), device)
-    need(tile_groups, "tile_groups", torch.int32, (ng,), device)
     if vals.data_ptr() % 16:
         raise ValueError("vals must be 16-byte aligned")
-    return m_padded, n, n_mtiles
+    return m_padded, n
+
+
+class Launch(NamedTuple):
+    """A thread map of the row-parallel kernels (K3, K4): a lane group of
+    ``lanes`` threads works on one owner (a stripe or a row), each thread
+    over ``cols`` consecutive columns; ``threads`` per CTA; ``grid`` = (CTAs
+    along the owners, CTAs along N); ``smem`` bytes of shared memory a
+    CTA."""
+
+    lanes: int
+    cols: int
+    threads: int
+    grid: Tuple[int, int]
+    smem: int = 0
+
+
+def check_csr(ptr: torch.Tensor, items: Sequence[torch.Tensor], names: Sequence[str],
+              n_owners: int, device) -> int:
+    """Check a CSR list of a host scan (``group_ranges``, ``stripe_visits``,
+    ``row_runs``) as a launch takes it: int32 offsets for ``n_owners``, then
+    1-D int32 item arrays of one length. Returns that length."""
+    need(ptr, names[0], torch.int32, (n_owners + 1,), device)
+    if items[0].dim() != 1:
+        raise ValueError(f"{names[1]} must be 1-D, got shape {tuple(items[0].shape)}")
+    for t, name in zip(items, names[1:]):
+        need(t, name, torch.int32, (items[0].shape[0],), device)
+    return items[0].shape[0]
 
 
 def no_tf32() -> None:

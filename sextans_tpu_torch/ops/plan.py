@@ -1,10 +1,10 @@
 """SpmmPlan: a reusable, device-resident execution plan for one packed matrix.
 
 The PyTorch counterpart of ``sextans_tpu.ops.plan.SpmmPlan``: the packed
-arrays (and, for the block, slab and edge formats, the per-M-tile group
-ranges) are uploaded once (memoized on the packed object per device); each
-call pads B to ``k_padded`` and C to ``m_padded``, runs one kernel and slices
-the result. N is not padded: the kernels mask a ragged last column chunk.
+arrays (and, for the block, slab and edge formats, the host scan that their
+kernel walks) are uploaded once (memoized on the packed object per device);
+each call pads B to ``k_padded`` and C to ``m_padded``, runs one kernel and
+slices the result. N is not padded: the kernels mask a ragged last column chunk.
 
 Backends keep the JAX package's names so that flags read the same:
 
@@ -43,6 +43,8 @@ from sextans_tpu_torch.ops.launch import (
     check_ell_pack,
     check_pack_indices,
     group_ranges,
+    row_runs,
+    stripe_visits,
 )
 from sextans_tpu_torch.ops.spmm_block import spmm_block_padded, spmm_block_padded_ref
 from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded
@@ -92,8 +94,10 @@ def _put(a, dtype, device):
 
 def _upload(packed, device: torch.device):
     """Device copies of the packed arrays and, except for the ELL format, the
-    group ranges, made once per device and kept on the packed object.
-    Returns ``(arrays, ranges)``; ``ranges`` is None for the ELL format."""
+    host scan its kernel walks (``stripe_visits`` for the block format,
+    ``row_runs`` for the edge format, ``group_ranges`` for the slab format),
+    made once per device and kept on the packed object. Returns ``(arrays,
+    ranges)``; ``ranges`` is None for the ELL format."""
     cache = packed.__dict__.setdefault("_dev_cache", {})
     key = str(device)
     if key in cache:
@@ -105,21 +109,22 @@ def _upload(packed, device: torch.device):
                   _put(packed.fold_rows, np.int32, device))
         cache[key] = (arrays, None)
         return cache[key]
+    is_slab = isinstance(packed, PackedSpMatrixMXU)
     if isinstance(packed, PackedSpMatrixEdge):
         check_edge_pack(packed)
         named = ((packed.vals, np.float32), (packed.meta, np.int32),
                  (packed.chunk_mtile, np.int32), (packed.chunk_kwin, np.int32))
     else:
-        is_slab = isinstance(packed, PackedSpMatrixMXU)
         idx = packed.qm if is_slab else packed.qrow
         check_pack_indices(packed, idx, packed.config.tile_m // (MSLAB if is_slab else 8))
         named = ((packed.vals, np.float32), (idx, np.int32),
                  (packed.bcol, np.int32), (packed.group_mtile, np.int32),
                  (packed.group_kwin, np.int32))
-    tile_ptr, tile_groups = group_ranges(packed.group_mtile, packed.n_mtiles)
+    ranges = (row_runs(packed) if isinstance(packed, PackedSpMatrixEdge)
+              else group_ranges(packed.group_mtile, packed.n_mtiles) if is_slab
+              else stripe_visits(packed))
     arrays = tuple(_put(a, dtype, device) for a, dtype in named)
-    ranges = (_put(tile_ptr, np.int32, device), _put(tile_groups, np.int32, device))
-    cache[key] = (arrays, ranges)
+    cache[key] = (arrays, tuple(_put(r, np.int32, device) for r in ranges))
     return cache[key]
 
 

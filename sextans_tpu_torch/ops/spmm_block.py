@@ -11,7 +11,7 @@ kernel's compensated levels, with ``ops/df32.py`` in the plain version.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -23,8 +23,10 @@ from sextans_tpu_torch.ops.df32 import (
 )
 from sextans_tpu_torch.ops.launch import (
     SMEM_LIMIT,
+    Launch,
     SharedMemoryError,
     add_rows_in_order,
+    check_csr,
     check_operands,
     f32,
     fma_f32,
@@ -32,9 +34,8 @@ from sextans_tpu_torch.ops.launch import (
     stream_of,
 )
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
-from sextans_tpu_torch.utils.config import round_up
 
-__all__ = ["spmm_block_padded", "spmm_block_padded_ref", "block_tile_n"]
+__all__ = ["spmm_block_padded", "spmm_block_padded_ref", "block_launch"]
 
 # Bytes of temporaries (gathered B rows + products) one chunk of groups of the
 # plain version may hold: keeps it near 1 GB even on a cant-sized pack.
@@ -43,26 +44,26 @@ _REF_CHUNK_BYTES = 256 << 20
 _REF_PRECISE_CHUNK_BYTES = 1 << 30
 
 
-def _cell_bytes(precise: int) -> int:
-    """Shared memory per accumulator cell: the f32 sum, and in precise mode
-    its f32 compensation beside it."""
-    return 8 if precise else 4
+# The block kernel's CTA (csrc/spmm_block.cuh: kThreads, kStage).
+_CTA_THREADS = 128
+_STAGED_VISITS = 256
 
 
-def block_tile_n(tile_m: int, n: int, precise: int = 0) -> int:
-    """Columns per CUDA block: up to 64, no wider than N needs, and with the
-    tile_m x tile_n accumulator (and its compensation array in precise mode)
-    inside the shared-memory limit; raises :class:`SharedMemoryError` when
-    not even 8 columns fit."""
-    cell = _cell_bytes(precise)
-    t = min(64, round_up(n, 8), SMEM_LIMIT // (cell * tile_m) // 8 * 8)
-    if t < 8:
-        raise SharedMemoryError(
-            f"tile_m={tile_m} leaves no room for an 8-column accumulator of "
-            f"{cell} bytes per cell (precise={int(precise)}) in {SMEM_LIMIT} "
-            "bytes of shared memory"
-        )
-    return t
+def block_launch(n: int, n_stripes: int, precise: int = 0) -> Launch:
+    """The block kernel's thread map and grid (``csrc/spmm_block.cuh``): one
+    CTA of 128 threads per (stripe, column chunk), in lane groups that each
+    take one visit of the stripe a round, a thread over all 8 rows at
+    ``cols`` consecutive columns. N <= 16: groups of 16 lanes of one column
+    (a 16-column chunk, 8 visits a round), so synthetic4704's 640 stripes
+    make 640 CTAs for the H100's 132 SMs. Wider: groups of 32 lanes of four
+    columns (16-byte B loads; 128 columns, 4 visits a round), so that each
+    B element of a visit is loaded once per CTA. Shared memory holds two
+    rounds of block sums (with their errors at level 2) and 256 staged
+    visits."""
+    lanes, cols = (16, 1) if n <= 16 else (32, 4)
+    sums = 2 * _CTA_THREADS * 8 * cols * (2 if int(precise) == 2 else 1)
+    return Launch(lanes, cols, _CTA_THREADS, (n_stripes, -(-n // (lanes * cols))),
+                  4 * sums + 8 * _STAGED_VISITS)
 
 
 def _block_contrib(vb: torch.Tensor, brows: torch.Tensor, precise: int):
@@ -165,21 +166,20 @@ def spmm_block_padded(
     block_k: int,
     group_blocks: int,
     ranges: Tuple[torch.Tensor, torch.Tensor],
-    tile_n: Optional[int] = None,
     with_c: bool = True,
     precise: int = 0,
 ) -> torch.Tensor:
     """``alpha * A @ B + beta * C`` on padded operands; returns the padded
     (m_padded, n) result.
 
-    ``ranges`` is ``(tile_ptr, tile_groups)`` from
-    :func:`~sextans_tpu_torch.ops.launch.group_ranges`, on the same device.
-    ``tile_n`` is the kernel's columns per CUDA block (default
-    :func:`block_tile_n`). ``with_c=False`` drops the C read; ``c_padded``
-    then gives the shape only. ``precise`` is ``SpmmConfig.precise`` (0, 1
-    or 2); at 1 and 2 each cell keeps one compensated pair where the TPU
-    kept ``n_acc`` of them. The TPU's ``n_acc``/``chunk_unroll`` hints have
-    no counterpart here.
+    ``ranges`` is ``(stripe_ptr, visits)`` from
+    :func:`~sextans_tpu_torch.ops.launch.stripe_visits`, on the same device:
+    the kernel walks each stripe's own visits (:func:`block_launch`), and
+    reads ``qrow`` and ``group_mtile`` only through them. ``with_c=False``
+    drops the C read; ``c_padded`` then gives the shape only. ``precise`` is
+    ``SpmmConfig.precise`` (0, 1 or 2); at 1 and 2 each cell keeps one
+    compensated pair where the TPU kept ``n_acc`` of them. The TPU's
+    ``n_acc``/``chunk_unroll`` hints have no counterpart here.
     """
     precise = int(precise)
     kw = dict(tile_m=tile_m, window_k=window_k, block_k=block_k,
@@ -191,30 +191,31 @@ def spmm_block_padded(
         )
     if vals.device.type != "cuda":
         raise ValueError(f"spmm_block runs on cpu or cuda, not {vals.device}")
-    m_padded, n, n_mtiles = check_operands(
-        vals, qrow, bcol, group_mtile, group_kwin, b_padded, c_padded, ranges,
+    m_padded, n = check_operands(
+        vals, qrow, bcol, group_mtile, group_kwin, b_padded, c_padded,
         vals_shape_per_group=(8, group_blocks * block_k), tile_m=tile_m,
         window_k=window_k, group_blocks=group_blocks, with_c=with_c,
     )
+    n_stripes = m_padded // 8
+    check_csr(ranges[0], ranges[1:], ("stripe_ptr", "visits"), n_stripes, vals.device)
     if precise not in (0, 1, 2):
         raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
-    tile_n = tile_n or block_tile_n(tile_m, n, precise)
-    smem = _cell_bytes(precise) * tile_m * tile_n
-    if not 1 <= tile_n <= 128 or smem > SMEM_LIMIT:
-        raise SharedMemoryError(
-            f"tile_n={tile_n} must be in [1, 128] with a tile_m x tile_n "
-            f"accumulator ({smem} bytes at precise={precise}) within {SMEM_LIMIT}"
-        )
     out = torch.empty((m_padded, n), dtype=torch.float32, device=vals.device)
+    dense = (b_padded, out, c_padded) if with_c else (b_padded, out)
+    vec = int(n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in dense))
+    go = block_launch(n, n_stripes, precise)
+    if go.smem > SMEM_LIMIT:
+        raise SharedMemoryError(f"spmm_block needs {go.smem} bytes of shared memory a CTA, "
+                                f"over {SMEM_LIMIT}")
     lib = build_kernels()
     with torch.cuda.device(vals.device):
         err = lib.spmm_block_launch(
-            vals.data_ptr(), qrow.data_ptr(), bcol.data_ptr(),
-            group_kwin.data_ptr(), ranges[0].data_ptr(), ranges[1].data_ptr(),
-            b_padded.data_ptr(), c_padded.data_ptr() if with_c else None,
-            out.data_ptr(), n_mtiles, n, tile_m, window_k, block_k,
-            group_blocks, tile_n, float(alpha), float(beta), int(with_c),
-            precise, stream_of(vals.device),
+            vals.data_ptr(), bcol.data_ptr(), group_kwin.data_ptr(),
+            ranges[0].data_ptr(), ranges[1].data_ptr(), b_padded.data_ptr(),
+            c_padded.data_ptr() if with_c else None, out.data_ptr(), n_stripes,
+            n, window_k, block_k, group_blocks, float(alpha), float(beta),
+            int(with_c), precise, go.lanes, vec, go.threads, *go.grid, go.smem,
+            stream_of(vals.device),
         )
     check_launch(lib, "spmm_block", err)
     spmm_block_padded.launches += 1

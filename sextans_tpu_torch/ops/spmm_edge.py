@@ -23,7 +23,9 @@ from sextans_tpu_torch.ops.df32 import (
 )
 from sextans_tpu_torch.ops.launch import (
     COL_MASK,
+    Launch,
     add_rows_in_order,
+    check_csr,
     check_dense,
     f32,
     fma_f32,
@@ -32,7 +34,7 @@ from sextans_tpu_torch.ops.launch import (
 )
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
 
-__all__ = ["spmm_edge_padded", "spmm_edge_padded_ref"]
+__all__ = ["spmm_edge_padded", "spmm_edge_padded_ref", "edge_launch"]
 
 # Bytes of one temporary (the edge products) per chunk of chunks of the plain
 # version: at cant_like N = 512 an unchunked gather would be ~8 GB. Precise
@@ -142,6 +144,17 @@ def spmm_edge_padded_ref(
     return fma_f32(torch.full_like(acc, f32(alpha)), acc, c_padded * f32(beta))
 
 
+def edge_launch(n: int, m_padded: int) -> Launch:
+    """The edge kernel's thread map and grid (``csrc/spmm_edge.cu``): a
+    thread owns one output row at four consecutive columns (16-byte B
+    loads), and ``lanes`` threads share the row. N <= 16: 4 lanes a row, so
+    a warp covers 8 rows, two warps a CTA (synthetic4704's 5,120 rows make
+    320 CTAs for the H100's 132 SMs). Wider: a warp a row over 128 columns,
+    8 rows a CTA, one CTA column per 128 columns of N."""
+    lanes, threads = (4, 64) if n <= 16 else (32, 256)
+    return Launch(lanes, 4, threads, (-(-m_padded // (threads // lanes)), -(-n // (lanes * 4))))
+
+
 def _check_edge_operands(vals, meta, chunk_mtile, chunk_kwin, b_padded, c_padded,
                          ranges, *, tile_m, window_k, edge_chunk, with_c):
     device = vals.device
@@ -152,10 +165,8 @@ def _check_edge_operands(vals, meta, chunk_mtile, chunk_kwin, b_padded, c_padded
     need(chunk_kwin, "chunk_kwin", torch.int32, (nc,), device)
     m_padded, n = check_dense(b_padded, c_padded, tile_m=tile_m,
                               window_k=window_k, with_c=with_c, device=device)
-    n_mtiles = m_padded // tile_m
-    need(ranges[0], "tile_ptr", torch.int32, (n_mtiles + 1,), device)
-    need(ranges[1], "tile_chunks", torch.int32, (nc,), device)
-    return m_padded, n, n_mtiles
+    check_csr(ranges[0], ranges[1:], ("row_ptr", "run_start", "run_stop"), m_padded, device)
+    return m_padded, n
 
 
 def spmm_edge_padded(
@@ -171,7 +182,7 @@ def spmm_edge_padded(
     tile_m: int,
     window_k: int,
     edge_chunk: int,
-    ranges: Tuple[torch.Tensor, torch.Tensor],
+    ranges: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
     masked: bool = False,
     with_c: bool = True,
     precise: int = 0,
@@ -179,14 +190,15 @@ def spmm_edge_padded(
     """``alpha * A @ B + beta * C`` on padded operands; returns the padded
     (m_padded, n) result.
 
-    ``ranges`` is ``(tile_ptr, tile_chunks)`` from
-    :func:`~sextans_tpu_torch.ops.launch.group_ranges` over ``chunk_mtile``,
-    on the same device; ``masked`` is ``SpmmConfig.edge_masked``;
-    ``with_c=False`` drops the C read and ``c_padded`` then gives the shape
-    only. The kernel walks edges one by one, so ``edge_lanes`` needs no
-    argument: it changes only where the pack puts its pads. ``precise`` is
-    ``SpmmConfig.precise`` (0, 1 or 2); at 1 and 2 the kernel keeps the
-    compensation in a second (m_padded, n) buffer allocated per call.
+    ``ranges`` is ``(row_ptr, run_start, run_stop)`` from
+    :func:`~sextans_tpu_torch.ops.launch.row_runs`, on the same device: the
+    kernel walks each row's own runs (:func:`edge_launch`). ``masked`` is
+    ``SpmmConfig.edge_masked``; ``with_c=False`` drops the C read and
+    ``c_padded`` then gives the shape only. The kernel walks a run's edges
+    one by one, so ``edge_lanes`` needs no argument: it changes only where
+    the pack puts its pads. ``precise`` is ``SpmmConfig.precise`` (0, 1 or
+    2); at 1 and 2 each row's compensation stays in registers beside its
+    sum.
     """
     precise = int(precise)
     kw = dict(tile_m=tile_m, window_k=window_k, edge_chunk=edge_chunk,
@@ -200,19 +212,21 @@ def spmm_edge_padded(
         raise ValueError(f"spmm_edge runs on cpu or cuda, not {vals.device}")
     if precise not in (0, 1, 2):
         raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
-    m_padded, n, n_mtiles = _check_edge_operands(
+    m_padded, n = _check_edge_operands(
         vals, meta, chunk_mtile, chunk_kwin, b_padded, c_padded, ranges, **kw)
     out = torch.empty((m_padded, n), dtype=torch.float32, device=vals.device)
-    comp = torch.empty_like(out) if precise else None
+    dense = (b_padded, out, c_padded) if with_c else (b_padded, out)
+    vec = int(n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in dense))
+    go = edge_launch(n, m_padded)
     lib = build_kernels()
     with torch.cuda.device(vals.device):
         err = lib.spmm_edge_launch(
             vals.data_ptr(), meta.data_ptr(), chunk_kwin.data_ptr(),
-            ranges[0].data_ptr(), ranges[1].data_ptr(), b_padded.data_ptr(),
-            c_padded.data_ptr() if with_c else None, out.data_ptr(),
-            comp.data_ptr() if precise else None, n_mtiles, n, tile_m,
+            *(r.data_ptr() for r in ranges), b_padded.data_ptr(),
+            c_padded.data_ptr() if with_c else None, out.data_ptr(), m_padded, n,
             window_k, edge_chunk, float(alpha), float(beta), int(with_c),
-            int(masked), precise, stream_of(vals.device),
+            int(masked), precise, go.lanes, vec, go.threads, *go.grid,
+            stream_of(vals.device),
         )
     check_launch(lib, "spmm_edge", err)
     spmm_edge_padded.launches += 1

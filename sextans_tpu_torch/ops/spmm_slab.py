@@ -21,6 +21,7 @@ import torch
 from sextans_tpu_torch.ops.df32 import add_rows_compensated, compensated_epilogue
 from sextans_tpu_torch.ops.launch import (
     add_rows_in_order,
+    check_csr,
     check_operands,
     f32,
     no_tf32,
@@ -104,11 +105,15 @@ def spmm_slab_padded_ref(
 def _launch(entry: str, vals, qm, bcol, group_mtile, group_kwin, b_padded,
             c_padded, alpha, beta, *, tile_m, window_k, block_k, group_blocks,
             ranges, with_c, precise):
-    m_padded, n, n_mtiles = check_operands(
-        vals, qm, bcol, group_mtile, group_kwin, b_padded, c_padded, ranges,
+    m_padded, n = check_operands(
+        vals, qm, bcol, group_mtile, group_kwin, b_padded, c_padded,
         vals_shape_per_group=(group_blocks * block_k, MSLAB), tile_m=tile_m,
         window_k=window_k, group_blocks=group_blocks, with_c=with_c,
     )
+    n_mtiles = m_padded // tile_m
+    if check_csr(ranges[0], ranges[1:], ("tile_ptr", "tile_groups"), n_mtiles,
+                 vals.device) != vals.shape[0]:
+        raise ValueError(f"tile_groups must list the {vals.shape[0]} groups")
     if tile_m % MSLAB or block_k % 8:
         raise ValueError("the slab format needs tile_m % 128 == 0 and block_k % 8 == 0")
     if precise not in (0, 1, 2):

@@ -39,19 +39,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # Every C entry point returns cudaGetLastError() after its launch.
 _SIGNATURES = {
-    # vals qrow bcol group_kwin tile_ptr tile_groups b c out
-    # n_mtiles n tile_m window_k block_k group_blocks tile_n
-    # alpha beta with_c precise stream
-    "spmm_block_launch": [_P] * 9 + [_I] * 7 + [_F, _F, _I, _I, _P],
+    # vals bcol group_kwin stripe_ptr visits b c out
+    # n_stripes n window_k block_k group_blocks alpha beta
+    # with_c precise lanes vec threads grid_x grid_y smem stream
+    "spmm_block_launch": [_P] * 8 + [_I] * 5 + [_F, _F] + [_I] * 8 + [_P],
     # vals qm bcol group_kwin tile_ptr tile_groups b c out
     # n_mtiles n tile_m window_k block_k group_blocks
     # alpha beta with_c precise stream
     "spmm_slab_launch": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _I, _P],
     "spmm_slab_skinny_launch": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _I, _P],
-    # vals meta chunk_kwin tile_ptr tile_chunks b c out comp
-    # n_mtiles n tile_m window_k edge_chunk alpha beta with_c masked precise
-    # stream
-    "spmm_edge_launch": [_P] * 9 + [_I] * 5 + [_F, _F, _I, _I, _I, _P],
+    # vals meta chunk_kwin row_ptr run_start run_stop b c out
+    # m_padded n window_k edge_chunk alpha beta
+    # with_c masked precise lanes vec threads grid_x grid_y stream
+    "spmm_edge_launch": [_P] * 9 + [_I] * 4 + [_F, _F] + [_I] * 8 + [_P],
     # vals cols b c out m_padded r_slots n alpha beta with_c precise vec stream
     "spmm_ell_launch": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _I, _I, _P],
     # dvals offsets b c out m k n n_diags alpha beta with_c precise [vec] stream

@@ -8,6 +8,13 @@ port's ``edge`` backend (on CPU tensors, the plain version
 spacing(f32(max|C_f64|))``, with both passing ``verify`` against the f64
 oracle: both sides sum the same f32 products per row run and add the runs in
 pack order, with and without fused multiply-adds.
+
+The edge kernel's host scan (``row_runs``) is checked on the same packs:
+every real slot in one run, runs inside one chunk and ending on
+``row_end``, in pack order within their row, every flush kept, runs of pads
+alone cut to one slot and non-flushing tails left out; and a plain walk over its lists, the kernel's loop vectorised by run
+and slot rank with ``fma_f32``, gives ``spmm_edge_padded_ref``'s bits at
+every precise level, with non-finite B where the pads read.
 """
 
 import numpy as np
@@ -22,8 +29,14 @@ from sextans_tpu.ops.golden import golden_spmm_exact
 from sextans_tpu.ops.plan import SpmmPlan as RefPlan
 from sextans_tpu.utils.config import SpmmConfig as RefConfig
 from sextans_tpu_torch.format.convert import from_reference
-from sextans_tpu_torch.ops.launch import check_edge_pack, group_ranges
-from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded, spmm_edge_padded_ref
+from sextans_tpu_torch.format.pack_edge import COL_SHIFT, PAD_BIT, ROW_END, ROW_SHIFT
+from sextans_tpu_torch.ops.df32 import acc_step, compensated_epilogue, two_prod
+from sextans_tpu_torch.ops.launch import COL_MASK, check_edge_pack, fma_f32, row_runs
+from sextans_tpu_torch.ops.spmm_edge import (
+    edge_launch,
+    spmm_edge_padded,
+    spmm_edge_padded_ref,
+)
 
 ALPHA, BETA = 0.85, -2.06
 CFG = dict(tile_m=64, window_k=64, edge_chunk=32)
@@ -178,8 +191,7 @@ def test_edge_wrapper_runs_plain_version_on_cpu():
     via = spmm_edge_padded(*pl.arrays, b_p, c_p, ALPHA, BETA, ranges=pl.ranges, **kw)
     ref = spmm_edge_padded_ref(*pl.arrays, b_p, c_p, ALPHA, BETA, **kw)
     assert torch.equal(via, ref)
-    tile_ptr, tile_chunks = group_ranges(port.chunk_mtile, port.n_mtiles)
-    assert [t.tolist() for t in pl.ranges] == [tile_ptr.tolist(), tile_chunks.tolist()]
+    assert [t.tolist() for t in pl.ranges] == [a.tolist() for a in row_runs(port)]
     meta = torch.empty((1, 1, 8), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         spmm_edge_padded(meta, meta, meta, meta, meta, meta, 1.0, 0.0,
@@ -204,3 +216,125 @@ def test_edge_pack_bounds_checked_before_upload(field, mutate, match):
         check_edge_pack(port)
     with pytest.raises(ValueError, match=match):
         tx.SpmmPlan(port, 8, "edge", device="cpu")
+
+
+SCAN_CASES = [("random", 1, False), ("dense_rows", 4, False), ("dense_rows", 1, True),
+              ("empty_mtiles", 2, False), ("empty_mtiles", 4, True)]
+
+
+@pytest.mark.parametrize("matrix,lanes,masked", SCAN_CASES)
+def test_row_runs_cover_every_real_slot_in_pack_order(matrix, lanes, masked):
+    _, port = _packs(MATRICES[matrix](), edge_lanes=lanes, edge_masked=masked)
+    E, tm = CFG["edge_chunk"], CFG["tile_m"]
+    ptr, start, stop = row_runs(port)
+    assert ptr.dtype == start.dtype == stop.dtype == np.int32
+    assert ptr.size == port.m_padded + 1 and ptr[-1] == start.size == stop.size
+    w = port.meta.reshape(-1).view(np.uint32)
+    assert np.all(start <= stop) and np.array_equal(start // E, stop // E)  # one chunk
+    assert np.all(w[stop] & ROW_END)
+    owner = np.repeat(np.arange(port.m_padded), np.diff(ptr))
+    chunk_row = port.chunk_mtile[stop // E].astype(np.int64) * tm
+    assert np.array_equal(chunk_row + (w[stop] >> ROW_SHIFT), owner)
+    for r in np.flatnonzero(np.diff(ptr) > 1):  # pack order: ascending slots
+        assert np.all(start[ptr[r] + 1:ptr[r + 1]] > stop[ptr[r]:ptr[r + 1] - 1])
+    covered = np.zeros(w.size, int)
+    for a, z in zip(start, stop):
+        covered[a:z + 1] += 1
+    assert covered.max() == 1
+    inside = np.zeros(w.size, bool)  # no row_end inside a run but its last slot
+    for a, z in zip(start, stop):
+        inside[a:z] = True
+    assert not np.any(w[inside] & ROW_END)
+    real = (w & PAD_BIT) == 0
+    assert np.all(covered[real] == 1) and np.all(~real[covered == 0])
+    # every flush is kept: the runs' ends are the row_end slots, in order
+    assert np.array_equal(np.sort(stop), np.flatnonzero(w & ROW_END))
+    # a run holds a real slot or is one pad; each run starts right after
+    # the previous row_end of its chunk, or is cut to its last slot
+    reals = np.array([real[a:z + 1].any() for a, z in zip(start, stop)])
+    assert np.all(start[~reals] == stop[~reals])
+    ends = np.sort(stop)
+    prev = {z: (ends[i - 1] + 1 if i and ends[i - 1] // E == z // E else z // E * E)
+            for i, z in enumerate(ends)}
+    assert all(a == prev[z] for a, z in zip(start[reals], stop[reals]))
+    assert all(not real[prev[z]:z + 1].any() for z in stop[~reals])
+    assert (~reals).any()  # each job's pad tail, cut to one slot
+    if matrix == "empty_mtiles":  # the all-padding chunks flush nowhere
+        assert covered.reshape(-1, E)[-1].sum() == 0
+
+
+def _walk_rows(port, ranges, b_p, c_p, alpha, beta, masked, precise):
+    """The edge kernel's loop over its lists, vectorised: each row's q-th
+    run in one step, its t-th slot in one sub-step (``fma_f32``, or the
+    product into ``acc_step`` at the precise levels), the flush, then the
+    kernel's epilogue."""
+    E, wk = CFG["edge_chunk"], CFG["window_k"]
+    ptr, start, stop = ranges
+    counts = np.diff(ptr)
+    w = port.meta.reshape(-1).view(np.uint32)
+    v = torch.from_numpy(port.vals.reshape(-1))
+    brow = port.chunk_kwin.astype(np.int64)[np.arange(w.size) // E] * wk + (
+        (w >> COL_SHIFT) & COL_MASK)
+    pad = (w & PAD_BIT) != 0
+    acc = torch.zeros((port.m_padded, b_p.shape[1]))
+    comp = torch.zeros_like(acc)
+    for q in range(counts.max(initial=0)):
+        rows = np.flatnonzero(counts > q)
+        s0, s1 = start[ptr[rows] + q], stop[ptr[rows] + q]
+        reg = torch.zeros((rows.size, b_p.shape[1]))
+        regc = torch.zeros_like(reg)
+        for t in range(int((s1 - s0).max()) + 1):
+            slot = s0 + t
+            sel = np.flatnonzero((slot <= s1) & ~(masked & pad[np.minimum(slot, w.size - 1)]))
+            slot = slot[sel]
+            x, b = v[slot][:, None], b_p[brow[slot]]
+            if precise == 0:
+                reg[sel] = fma_f32(x, b, reg[sel])
+                continue
+            p, pe = two_prod(x, b) if precise == 2 else (x * b, None)
+            reg[sel], regc[sel] = acc_step(reg[sel], regc[sel], p, pe)
+        if precise == 0:
+            acc[rows] = acc[rows] + reg
+        else:
+            acc[rows], comp[rows] = acc_step(acc[rows], comp[rows], reg)
+            comp[rows] = comp[rows] + regc
+    if precise:
+        return compensated_epilogue(alpha, acc, comp, beta, c_p)
+    return fma_f32(torch.full_like(acc, np.float32(alpha)), acc, c_p * np.float32(beta))
+
+
+@pytest.mark.parametrize("precise", [0, 1, 2])
+@pytest.mark.parametrize("matrix,lanes,masked", SCAN_CASES)
+@pytest.mark.parametrize("poison", [None, np.nan, np.inf])
+def test_row_walk_gives_the_plain_versions_bits(matrix, lanes, masked, precise, poison):
+    coo = MATRICES[matrix]()
+    _, port = _packs(coo, edge_lanes=lanes, edge_masked=masked)
+    b, c = _operands(*coo.shape, 16, seed=7)
+    pl = tx.plan(port, 16, "edge", device="cpu")
+    b_p, c_p = pl.pad_b(b), pl.pad_c(c)
+    if poison is not None:  # the row of each K-window that the pads read
+        b_p[::CFG["window_k"]] = float(poison)
+    kw = dict(tile_m=CFG["tile_m"], window_k=CFG["window_k"], edge_chunk=CFG["edge_chunk"],
+              masked=masked, precise=precise)
+    want = spmm_edge_padded_ref(*pl.arrays, b_p, c_p, ALPHA, BETA, **kw)
+    got = _walk_rows(port, row_runs(port), b_p, c_p, ALPHA, BETA, masked, precise)
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    if poison is not None and not masked and lanes > 1:
+        assert not torch.isfinite(want).all()  # an unmasked pad met the poison
+
+
+def test_edge_launch_spreads_over_the_card():
+    # synthetic4704 pads to 5,120 rows: N = 16 gives 4 lanes a row, 8 rows a
+    # warp, 320 CTAs of two warps for the H100's 132 SMs
+    go = edge_launch(16, 5120)
+    assert (go.lanes, go.cols, go.threads, go.grid, go.smem) == (4, 4, 64, (320, 1), 0)
+    assert edge_launch(1, 5120) == go and edge_launch(13, 5120) == go
+    # N = 512: a warp a row over 128 columns, 8 rows a CTA, 4 column chunks
+    go = edge_launch(512, 5120)
+    assert (go.lanes, go.cols, go.threads, go.grid) == (32, 4, 256, (640, 4))
+    assert edge_launch(200, 62464).grid == (7808, 2)  # cant_like's rows
+    for n in (1, 13, 16, 17, 64, 200, 512, 4099):
+        go = edge_launch(n, 64)
+        assert go.grid[0] * go.threads // go.lanes >= 64
+        assert go.grid[1] * go.lanes * go.cols >= n > (go.grid[1] - 1) * go.lanes * go.cols

@@ -23,7 +23,7 @@ from sextans_tpu_torch.ops.spmm_block import spmm_block_padded, spmm_block_padde
 from sextans_tpu_torch.ops.spmm_dia import spmm_dia, spmm_dia_ref, spmm_dia_skinny
 from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded, spmm_edge_padded_ref
 from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded, spmm_ell_gather_padded_ref
-from sextans_tpu_torch.ops.launch import SharedMemoryError
+from sextans_tpu_torch.ops.launch import SharedMemoryError, group_ranges
 from sextans_tpu_torch.ops.spmm_slab import (
     spmm_slab_padded,
     spmm_slab_padded_ref,
@@ -45,19 +45,32 @@ def cuda():
 
 
 def _matrix(kind):
-    if kind == "empty_mtiles":
+    if kind in ("empty_mtiles", "nonfinite_pads"):
         rng = np.random.default_rng(4)
         rows = rng.integers(0, 100, 3000)
         cols = rng.integers(0, 900, 3000)
         vals = rng.standard_normal(3000).astype(np.float32)
         return tx.COOMatrix((1100, 900), rows, cols, vals)
+    if kind == "long_stripe":
+        # rows 8-15 dense over 2,600 columns: that stripe (row) has 10-40
+        # times the visits (slots) of the median one
+        k = 2600
+        base = tx.COOMatrix.random(1030, k, 5000, seed=3, banded=True, bandwidth=90)
+        rows = np.concatenate([base.rows, np.repeat(np.arange(8, 16), k)])
+        cols = np.concatenate([base.cols, np.tile(np.arange(k), 8)])
+        vals = np.concatenate([base.vals, np.random.default_rng(2).standard_normal(8 * k)
+                               .astype(np.float32)])
+        lin, keep = np.unique(rows.astype(np.int64) * k + cols, return_index=True)
+        return tx.COOMatrix((1030, k), lin // k, lin % k, vals[keep])
     return tx.COOMatrix.random(1030, 777, 12000, seed=3, banded=True, bandwidth=90)
 
 
-def _check(kernel, plain, cuda, packed, n, with_c, precise=0, **extra):
+def _check(kernel, plain, cuda, packed, n, with_c, precise=0, poison=None):
     pl = tx.plan(packed, n, "mxu" if hasattr(packed, "qm") else "pallas", device=cuda)
     rng = np.random.default_rng(n)
     b = pl.pad_b(rng.standard_normal((packed.k, n)).astype(np.float32))
+    if poison is not None:  # row 0 of every K-window: the rows pad blocks read
+        b[::packed.config.window_k] = poison
     c = pl.pad_c(rng.standard_normal((packed.m, n)).astype(np.float32))
     if not with_c:
         c = torch.zeros(1, device=cuda).expand(packed.m_padded, n)
@@ -65,26 +78,32 @@ def _check(kernel, plain, cuda, packed, n, with_c, precise=0, **extra):
     kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k, block_k=cfg.block_k,
               group_blocks=cfg.group_blocks, with_c=with_c, precise=precise)
     before = kernel.launches
-    got = kernel(*pl.arrays, b, c, ALPHA, BETA, ranges=pl.ranges, **kw, **extra)
+    got = kernel(*pl.arrays, b, c, ALPHA, BETA, ranges=pl.ranges, **kw)
     want = plain(*pl.arrays, b, c, ALPHA, BETA, **kw)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert got.shape == want.shape == (packed.m_padded, n) and got.device == cuda
-    assert torch.isfinite(got).all()
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), finite)
+    assert bool(finite.all()) == (poison is None)
     if precise and kernel is spmm_block_padded:
-        assert torch.equal(got, want)
-    tol = 4 * np.spacing(np.float32(want.abs().max().item()))
-    assert (got - want).abs().max().item() <= tol
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    tol = 4 * np.spacing(np.float32(want[finite].abs().max().item()))
+    assert (got[finite] - want[finite]).abs().max().item() <= tol
 
 
-@pytest.mark.parametrize("kind", ["banded", "empty_mtiles"])
-@pytest.mark.parametrize("n", [1, 13, 64, 200])
-@pytest.mark.parametrize("bk,tile_n", [(8, None), (1, 32), (32, 8)])
-def test_block_kernel_matches_plain(cuda, kind, n, bk, tile_n):
+BLOCK_KINDS = ["banded", "empty_mtiles", "long_stripe", "nonfinite_pads"]
+
+
+@pytest.mark.parametrize("kind", BLOCK_KINDS)
+@pytest.mark.parametrize("n", [1, 13, 16, 64, 200, 512])
+@pytest.mark.parametrize("bk", [8, 1, 32])
+def test_block_kernel_matches_plain(cuda, kind, n, bk):
     cfg = tx.SpmmConfig(tile_m=256, window_k=256, block_k=bk,
                         group_blocks=max(32, 128 // bk))
     _check(spmm_block_padded, spmm_block_padded_ref, cuda,
-           tx.pack(_matrix(kind), cfg), n, with_c=n != 13, tile_n=tile_n)
+           tx.pack(_matrix(kind), cfg), n, with_c=n != 13,
+           poison=float("inf") if kind == "nonfinite_pads" else None)
 
 
 @pytest.mark.parametrize("kind", ["banded", "empty_mtiles"])
@@ -145,8 +164,8 @@ def _check_new(kernel, plain, cuda, packed, backend, n, with_c, nonfinite_b=Fals
     assert (got - want).abs().max().item() <= tol
 
 
-@pytest.mark.parametrize("kind", ["banded", "empty_mtiles"])
-@pytest.mark.parametrize("n", [1, 13, 64, 200])
+@pytest.mark.parametrize("kind", ["banded", "empty_mtiles", "long_stripe"])
+@pytest.mark.parametrize("n", [1, 13, 16, 64, 200, 512])
 @pytest.mark.parametrize("lanes", [1, 4])
 def test_edge_kernel_matches_plain(cuda, kind, n, lanes):
     cfg = tx.SpmmConfig(tile_m=256, window_k=256, edge_chunk=136, edge_lanes=lanes)
@@ -247,8 +266,11 @@ def test_wrappers_check_operands(cuda):
         spmm_block_padded(*pl.arrays, b.t().contiguous().t(), c, 1.0, 0.0, **kw)
     with pytest.raises(ValueError, match="expected cuda"):
         spmm_block_padded(*pl.arrays, b.cpu(), c, 1.0, 0.0, **kw)
-    with pytest.raises(ValueError, match="tile_n"):
-        spmm_block_padded(*pl.arrays, b, c, 1.0, 0.0, tile_n=256, **kw)
+    # the kernel walks per-stripe visit lists, not per-M-tile group ranges
+    tile_ranges = tuple(torch.as_tensor(a, device=cuda)
+                        for a in group_ranges(packed.group_mtile, packed.n_mtiles))
+    with pytest.raises(ValueError, match="stripe_ptr"):
+        spmm_block_padded(*pl.arrays, b, c, 1.0, 0.0, **{**kw, "ranges": tile_ranges})
     with pytest.raises(ValueError, match="multiple of tile_m"):
         spmm_block_padded(*pl.arrays, b, c[:-8], 1.0, 0.0, **kw)
     with pytest.raises(ValueError, match="c_padded must have shape"):
@@ -366,13 +388,14 @@ def test_dia_wrappers_check_operands(cuda):
 # ---- precise levels (SpmmConfig.precise = 1, 2) ----
 
 @pytest.mark.parametrize("precise", [1, 2])
-@pytest.mark.parametrize("kind", ["banded", "empty_mtiles"])
-@pytest.mark.parametrize("n,bk,tile_n", [(13, 8, None), (64, 8, None), (200, 32, 8)])
-def test_block_kernel_precise_equals_plain(cuda, kind, n, bk, tile_n, precise):
+@pytest.mark.parametrize("kind", BLOCK_KINDS)
+@pytest.mark.parametrize("n,bk", [(1, 8), (13, 8), (16, 4), (64, 8), (200, 32), (512, 8)])
+def test_block_kernel_precise_equals_plain(cuda, kind, n, bk, precise):
     cfg = tx.SpmmConfig(tile_m=256, window_k=256, block_k=bk,
                         group_blocks=max(32, 128 // bk), precise=precise)
     _check(spmm_block_padded, spmm_block_padded_ref, cuda,
-           tx.pack(_matrix(kind), cfg), n, with_c=n != 13, precise=precise, tile_n=tile_n)
+           tx.pack(_matrix(kind), cfg), n, with_c=n != 13, precise=precise,
+           poison=float("nan") if kind == "nonfinite_pads" else None)
 
 
 @pytest.mark.parametrize("precise", [1, 2])
@@ -394,8 +417,8 @@ def test_slab_skinny_kernel_precise_matches_plain(cuda, kind, n, precise):
 
 
 @pytest.mark.parametrize("precise", [1, 2])
-@pytest.mark.parametrize("kind", ["banded", "empty_mtiles"])
-@pytest.mark.parametrize("n", [13, 64])
+@pytest.mark.parametrize("kind", ["banded", "empty_mtiles", "long_stripe"])
+@pytest.mark.parametrize("n", [1, 13, 16, 64, 200, 512])
 def test_edge_kernel_precise_equals_plain(cuda, kind, n, precise):
     cfg = tx.SpmmConfig(tile_m=256, window_k=256, edge_chunk=136, edge_lanes=4,
                         precise=precise)

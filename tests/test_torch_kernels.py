@@ -8,6 +8,11 @@ The same packed A (packed by ``sextans_tpu`` and carried over with
 * ``spmm_slab_padded_ref`` vs ``spmm_mxu_padded(interpret=True)`` and, at
   n <= 32, the ``mxu_interpret`` plan's transposed-C route.
 
+The block kernel's host scan (``stripe_visits``) is checked on the same
+packs: every real visit listed once, in pack order within its stripe; and a
+plain walk over its lists, the kernel's loop vectorised by visit rank, gives
+the precise plain version's bits, with non-finite B where pad blocks read.
+
 Tolerance: ``max|port - jax| <= 4 * spacing(f32(max|C_f64|))``, with both
 passing ``verify`` against the f64 oracle: both sides are f32 sums of the
 same products, taken in a different association. On CPU tensors the kernel
@@ -31,9 +36,11 @@ from sextans_tpu.ops.spmm_xla import spmm_xla_padded
 from sextans_tpu.utils.config import SpmmConfig as RefConfig
 from sextans_tpu.utils.verify import verify
 from sextans_tpu_torch.format.convert import from_reference
-from sextans_tpu_torch.ops.launch import group_ranges
+from sextans_tpu_torch.ops.df32 import acc_step, compensated_epilogue
+from sextans_tpu_torch.ops.launch import SMEM_LIMIT, group_ranges, stripe_visits
 from sextans_tpu_torch.ops.spmm_block import (
-    block_tile_n,
+    _block_contrib,
+    block_launch,
     spmm_block_padded,
     spmm_block_padded_ref,
 )
@@ -109,7 +116,7 @@ def test_block_ref_matches_pallas_and_xla(m, k, n, nnz, bk, with_c):
     xla = spmm_xla_padded(*jargs, jb, jc, al, be, **_kw(cfg))
     tb = torch.from_numpy(b_p[:, :n].copy())
     tc = torch.from_numpy(c_p[:, :n].copy())
-    ranges = tuple(torch.from_numpy(a) for a in group_ranges(ref.group_mtile, ref.n_mtiles))
+    ranges = tuple(torch.from_numpy(a) for a in stripe_visits(port))
     got = spmm_block_padded_ref(*_torch_args(port), tb, tc, ALPHA, beta,
                                 with_c=with_c, **_kw(cfg)).numpy()
     # the wrapper runs the plain version on CPU tensors
@@ -195,14 +202,119 @@ def test_group_ranges_scan_any_order():
         group_ranges(np.array([0, 5, -1], dtype=np.int32), 5)
 
 
-def test_block_tile_n_fits_shared_memory():
-    assert block_tile_n(512, 512) == 64  # 128 KB accumulator
-    assert block_tile_n(512, 16) == 16
-    assert block_tile_n(512, 3) == 8
-    assert block_tile_n(4864, 512) == 8
-    assert 4 * 1024 * block_tile_n(1024, 512) <= 232448
-    with pytest.raises(ValueError, match="shared memory"):
-        block_tile_n(8192, 512)
+def test_block_launch_spreads_over_the_card():
+    # synthetic4704 pads to 5,120 rows, 640 stripes: N = 16 gives a CTA per
+    # stripe, 640 for the H100's 132 SMs, 8 visits a round of 16 lanes each
+    go = block_launch(16, 640)
+    assert (go.lanes, go.cols, go.threads, go.grid) == (16, 1, 128, (640, 1))
+    assert block_launch(1, 640) == go and block_launch(13, 640) == go
+    # N = 512: 4 visits a round of a warp over 128 columns (16-byte loads)
+    go = block_launch(512, 640)
+    assert (go.lanes, go.cols, go.threads, go.grid) == (32, 4, 128, (640, 4))
+    assert block_launch(200, 7808).grid == (7808, 2)  # cant_like's stripes
+    assert block_launch(17, 3).grid == (3, 1)
+    for n in (1, 13, 16, 17, 64, 200, 512, 4099):
+        go = block_launch(n, 77)
+        assert go.grid[0] == 77
+        assert go.grid[1] * go.lanes * go.cols >= n > (go.grid[1] - 1) * go.lanes * go.cols
+    # two rounds of block sums (and their errors at level 2), 256 staged
+    # visits: far inside the limit, so no map is ever refused
+    assert [block_launch(512, 9, p).smem for p in (0, 1, 2)] == [34816, 34816, 67584]
+    assert [block_launch(16, 9, p).smem for p in (0, 2)] == [10240, 18432]
+    assert max(block_launch(n, 9, 2).smem for n in (1, 512)) < SMEM_LIMIT
+
+
+def _block_port(seed, bk=8, empty_tile=False):
+    m, k, nnz = 200, 300, 1500
+    coo = RefCOO.random(m, k, nnz, seed=seed, banded=True, bandwidth=60)
+    if empty_tile:  # rows 64-127 empty: M-tile 1 gets a group of pad blocks
+        keep = (coo.rows < 64) | (coo.rows >= 128)
+        coo = RefCOO(coo.shape, coo.rows[keep], coo.cols[keep], coo.vals[keep])
+    cfg = RefConfig(tile_m=64, window_k=128, block_k=bk, group_blocks=128 // bk)
+    return from_reference(ref_pack(coo, cfg, impl="numpy"))
+
+
+def _flat_stripes(port):
+    cfg = port.config
+    tiles = port.group_mtile[:-1].astype(np.int64)
+    return (tiles[:, None] * (cfg.tile_m // 8) + port.qrow).reshape(-1)
+
+
+@pytest.mark.parametrize("bk,empty_tile", [(8, False), (4, False), (8, True)])
+def test_stripe_visits_list_every_real_visit_in_pack_order(bk, empty_tile):
+    port = _block_port(7, bk, empty_tile)
+    cfg, G = port.config, port.config.group_blocks
+    ptr, visits = stripe_visits(port)
+    assert ptr.dtype == visits.dtype == np.int32
+    assert ptr[0] == 0 and ptr[-1] == visits.size and np.all(np.diff(ptr) >= 0)
+    assert ptr.size == port.m_padded // 8 + 1
+    stripe = _flat_stripes(port)
+    owner = np.repeat(np.arange(ptr.size - 1), np.diff(ptr))
+    assert np.array_equal(stripe[visits], owner)
+    for s in range(ptr.size - 1):  # ascending flat index = pack order
+        assert np.all(np.diff(visits[ptr[s]:ptr[s + 1]]) > 0)
+    real = (port.vals.reshape(-1, 8, G, bk) != 0).any(axis=(1, 3)).reshape(-1)
+    listed = np.zeros(real.size, bool)
+    listed[visits] = True
+    assert np.array_equal(listed[real], np.ones(real.sum(), bool))
+    # of the all-zero visits, the first of each (stripe, K-window, bcol)
+    zero = np.flatnonzero(~real)
+    key = np.stack([stripe[zero], port.group_kwin[zero // G], port.bcol.reshape(-1)[zero]], 1)
+    _, first = np.unique(key, axis=0, return_index=True)
+    assert np.array_equal(np.flatnonzero(listed[zero]), np.sort(first))
+    pads = int((~real).sum())
+    assert pads > len(first) and visits.size == real.sum() + len(first)
+    if empty_tile:
+        assert set(stripe[zero[first]]) >= {8}  # the empty tile's stripe 0
+
+
+def _walk_stripes(port, ranges, b_p, c_p, alpha, beta, precise):
+    """The block kernel's loop over its lists, vectorised by visit rank:
+    each stripe's r-th visit in one step, its block sum by
+    ``_block_contrib``, one ``acc_step``, then the compensated epilogue."""
+    cfg = port.config
+    G, bk = cfg.group_blocks, cfg.block_k
+    ptr, visits = ranges
+    counts = np.diff(ptr)
+    n = b_p.shape[1]
+    acc = torch.zeros((counts.size, 8, n))
+    comp = torch.zeros_like(acc)
+    vblk = torch.from_numpy(port.vals).view(-1, 8, G, bk).permute(0, 2, 1, 3).reshape(-1, 8, bk)
+    brow = (port.group_kwin.astype(np.int64)[:, None] * cfg.window_k + port.bcol).reshape(-1)
+    for rank in range(counts.max(initial=0)):
+        s = np.flatnonzero(counts > rank)
+        v = visits[ptr[s] + rank]
+        rows = torch.from_numpy(brow[v][:, None] + np.arange(bk))
+        contrib, cerr = _block_contrib(vblk[v][None], b_p[rows][None], precise)
+        acc[s], comp[s] = acc_step(acc[s], comp[s], contrib[0],
+                                   None if cerr is None else cerr[0])
+    return compensated_epilogue(alpha, acc.view(-1, n), comp.view(-1, n), beta, c_p)
+
+
+@pytest.mark.parametrize("precise", [1, 2])
+@pytest.mark.parametrize("bk,empty_tile,poison", [
+    (8, False, None), (4, True, None), (8, True, np.nan), (8, True, np.inf),
+    (4, False, -np.inf)])
+def test_stripe_walk_gives_the_precise_plain_versions_bits(precise, bk, empty_tile, poison):
+    port = _block_port(11, bk, empty_tile)
+    cfg = port.config
+    rng = np.random.default_rng(3)
+    n = 24
+    b_p = torch.from_numpy(rng.standard_normal((port.k_padded, n)).astype(np.float32))
+    c_p = torch.from_numpy(rng.standard_normal((port.m_padded, n)).astype(np.float32))
+    if poison is not None:  # the rows that every K-window's pad blocks read
+        b_p[::cfg.window_k] = float(poison)
+    ranges = stripe_visits(port)
+    want = spmm_block_padded_ref(*_torch_args(port), b_p, c_p, ALPHA, BETA,
+                                 precise=precise, **_kw(cfg))
+    got = _walk_stripes(port, ranges, b_p, c_p, ALPHA, BETA, precise)
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    if poison is not None:
+        assert not torch.isfinite(want).all()
+        # the dropped pad visits read the same rows: the NaN rows are the
+        # kept ones' stripes and the real blocks' that read row 0 of a window
+        assert torch.isfinite(want).any()
 
 
 @pytest.mark.parametrize("fn", [spmm_block_padded, spmm_slab_padded,

@@ -24,7 +24,7 @@ from sextans_tpu.ops import df32 as ref_df32
 from sextans_tpu_torch.cli import main as cli_main
 from sextans_tpu_torch.ops import df32
 from sextans_tpu_torch.ops.launch import SMEM_LIMIT, SharedMemoryError, fma_f32
-from sextans_tpu_torch.ops.spmm_block import block_tile_n
+from sextans_tpu_torch.ops.spmm_block import block_launch
 
 ALPHA, BETA = 0.85, -2.06
 
@@ -261,14 +261,26 @@ def test_xla_backend_ignores_precise(matrix):
 
 
 def test_precise_shared_memory_guard():
-    assert block_tile_n(512, 512) == 64
-    assert block_tile_n(512, 512, precise=1) == 56  # 8 bytes a cell
-    assert block_tile_n(2048, 512, precise=2) == 8
-    assert block_tile_n(4096, 512) == 8
-    with pytest.raises(SharedMemoryError, match="precise=1"):
-        block_tile_n(4096, 512, precise=1)
+    # K3 keeps each cell's sum and compensation in registers: no shared
+    # memory at any level, so a tile_m of 4096 at precise=1, whose 8 bytes a
+    # cell the per-tile accumulator of the earlier design could not hold,
+    # plans and runs; the launch depends on N and the stripe count alone
     assert 8 * 4096 * 8 > SMEM_LIMIT >= 4 * 4096 * 8
     assert issubclass(SharedMemoryError, ValueError)
+    coo = tx.COOMatrix.random(4200, 300, 4000, seed=5, banded=True, bandwidth=80)
+    rng = np.random.default_rng(5)
+    b = rng.standard_normal((300, 24)).astype(np.float32)
+    c = rng.standard_normal((4200, 24)).astype(np.float32)
+    exact = tx.golden_spmm_exact(tx.CSRMatrix.from_coo(coo), b, ALPHA, BETA, c)
+    ulp = np.spacing(np.float32(np.abs(exact).max()))
+    for level in (1, 2):
+        cfg = tx.SpmmConfig(tile_m=4096, window_k=128, block_k=8, group_blocks=16,
+                            precise=level)
+        pl = tx.plan(tx.pack(coo, cfg), 24, "pallas", device="cpu")
+        assert pl.ranges[0].numel() == 2 * 4096 // 8 + 1  # one list per stripe
+        got = pl(b, ALPHA, BETA, c).numpy().astype(np.float64)
+        assert np.abs(got - exact).max() <= (1.0 if level == 1 else 0.5001) * ulp
+    assert block_launch(24, 1024, precise=1).grid == (1024, 1)  # a CTA a stripe
 
 
 @pytest.fixture(scope="module")
