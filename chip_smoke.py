@@ -18,17 +18,21 @@ Phases (each prints its lines; any failure exits non-zero):
    ``edge_lanes=4``, at N = 16, ELL gather kernel (K5) at N = 512 and 16, and
    the DIA kernels over the diagonal part of its hybrid split (256
    diagonals): K6 at N = 512, K7 at N = 16.
-   Tolerance: K4 to the bit; K3 within spacing(f32(max |plain|)) (its plain
-   version contracts each block with a matmul); the others 4 * that.
-   K3's and K4's rows also print their thread map and grid.
+   Tolerance: K4 and K6 to the bit; K3 within
+   spacing(f32(max |plain|)) (its plain version contracts each block with a
+   matmul); the others 4 * that. K3's and K4's rows also print their thread
+   map and grid; K2's its grid (two CTAs a slab), threads, stages and shared
+   memory a CTA, and how many slabs hold blocks; K6's its run plan (runs of
+   diagonals, their widest span), tiles, threads and shared memory a CTA.
 3. The main path end to end: write_mtx -> read_mtx -> the backend's packer
    -> plan(device="cuda") -> verify against golden_spmm, and max-abs against
    golden_spmm_exact in ulp of max|C| (bar: 4 ulp), for pallas, mxu, edge
    and ell_pallas at N = 512 and 16; alpha 0.85, beta -2.06, B and C from
    numpy seed 0.
 4. The same at full size: cant_like (fem_like(62451, dofs=3, neighbors=21,
-   seed=2), 3,781,404 nnz) at N = 512 through all four backends, and each
-   kernel against its plain version there as in phase 2.
+   seed=2), 3,781,404 nnz) at N = 512 through all four backends, and at N =
+   16 through mxu (K2, on the N = 512 run's pack), and each kernel against
+   its plain version there as in phase 2.
 5. The hybrid path: split_structure(coo, n=N) -> HybridSpmmPlan(device=
    "cuda", residue on ``pallas``) -> verify, on synthetic4704 at N = 512
    (K6) and 16 (K7), both with head columns, hub rows and a residue; and at
@@ -39,7 +43,8 @@ Phases (each prints its lines; any failure exits non-zero):
    dot products of ~850 terms in 170,998 columns; the worst element's row
    is printed, and whether it is a hub row. On those two, the DIA kernel is
    also held against its plain version and timed beside it and the library
-   call on the diagonal part, as in phase 2.
+   call on the diagonal part, as in phase 2. Each run at N > 32 prints K6's
+   run plan (``dia_runs``: seconds, bytes, runs).
 6. ``python -m sextans_tpu_torch <mtx> 16 --backend B`` for B in mxu, edge
    and ell_pallas, and ``--hybrid --backend pallas``, and with ``--precise``
    for B in pallas, mxu, edge and ell_pallas and with ``--hybrid --backend
@@ -112,7 +117,8 @@ the call that is compared with its kernel.
 Each path of phases 3
 and 4 prints its pack (seconds, bytes on the card, slots and the share that
 holds a nonzero), the host scan its kernel walks (``stripe_visits`` for
-pallas, ``row_runs`` for edge: seconds, bytes and its longest list),
+pallas, ``row_runs`` for edge, ``slab_visits`` for mxu at N <= 32:
+seconds, bytes and its longest list),
 ``time_repeat`` (median of 3) and GFLOPS = 2 * N * (nnz + M) / t, and a ``torch.profiler`` breakdown of 20 plan calls: device
 time in the kernel, in every other device op, and the idle share of the
 calls' host-clock time. Each hybrid run of phase 5 prints the same for its
@@ -401,14 +407,26 @@ def main() -> int:
     import sextans_tpu_torch as sx
     from sextans_tpu_torch.ops import df32
     from sextans_tpu_torch.ops.plan import BACKEND_FORMATS
-    from sextans_tpu_torch.ops.launch import row_runs, stripe_visits
+    from sextans_tpu_torch.ops.launch import dia_runs, row_runs, slab_visits, stripe_visits
     from sextans_tpu_torch.ops.spmm_block import block_launch, spmm_block_padded
-    from sextans_tpu_torch.ops.spmm_dia import spmm_dia, spmm_dia_ref, spmm_dia_skinny
+    from sextans_tpu_torch.ops.spmm_dia import (
+        DIA_SPAN_MAX,
+        dia_launch,
+        dia_plan,
+        spmm_dia,
+        spmm_dia_ref,
+        spmm_dia_skinny,
+    )
     from sextans_tpu_torch.ops.spmm_edge import edge_launch, spmm_edge_padded
     from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded
-    from sextans_tpu_torch.ops.spmm_slab import spmm_slab_padded, spmm_slab_skinny_padded
+    from sextans_tpu_torch.ops.spmm_slab import (
+        SKINNY_MAX_N,
+        SKINNY_STAGES,
+        slab_skinny_launch,
+        spmm_slab_padded,
+        spmm_slab_skinny_padded,
+    )
     from sextans_tpu_torch.runtime.build import build_kernels
-    from sextans_tpu_torch.ops.spmm_slab import SKINNY_MAX_N
     from sextans_tpu_torch.utils.matrices import circuit_like, fem_like, stencil_3d
     from sextans_tpu_torch.utils.timing import (
         PEAK_F32_FLOPS,
@@ -488,6 +506,13 @@ def main() -> int:
                   else edge_launch(n, pl.packed.m_padded))
             grid = (f" [{go.lanes} lanes x {go.cols} columns an owner, {go.threads} threads "
                     f"a CTA, grid {go.grid[0]} x {go.grid[1]} = {go.grid[0] * go.grid[1]} CTAs]")
+        elif name == "spmm_slab_skinny":
+            go = slab_skinny_launch(n, pl.packed.m_padded // 128, pl.packed.config.block_k)
+            blocks = np.diff(pl.ranges[0].cpu().numpy())
+            grid = (f" [grid {go.grid[0]} CTAs (half a slab each; {int((blocks > 0).sum())} of "
+                    f"{blocks.size} slabs hold blocks, at most {int(blocks.max(initial=0))}), "
+                    f"{go.threads} threads a CTA, {SKINNY_STAGES} stages, {go.smem} bytes of "
+                    f"shared memory a CTA]")
         print(f"{tag}: {name} ({pl.backend}, precise={pl.packed.config.precise}) N={n}{grid}: "
               f"max_abs_err vs plain {err:.3e} (tol {tol:.3e}) kernel {ms['kernel']:.4f} ms"
               f"{mode0} plain {ms['plain']:.4f} ms "
@@ -519,21 +544,34 @@ def main() -> int:
 
     def check_dia(tag, split, n, iters, rounds=ROUNDS, slow_plain=False, precise=0):
         """Hold the DIA kernel of N against its plain version on the card (to
-        the bit at a precise level) and time both beside the library call on
-        the diagonal part and the bound of the DIA work; at a precise level,
-        also beside the same kernel in plain mode."""
-        kernel = spmm_dia_skinny if n <= SKINNY_MAX_N else spmm_dia
-        name = kernel.__name__
+        the bit for K6, and for K7 at a precise level) and time both beside
+        the library call on the diagonal part and the bound of the DIA work;
+        at a precise level, also beside the same kernel in plain mode."""
+        wide = n > SKINNY_MAX_N
+        name = "spmm_dia" if wide else "spmm_dia_skinny"
         m, k = split.m, split.k
         dv = torch.as_tensor(split.diag_vals, device="cuda")
         offs = torch.as_tensor(split.diag_offsets.astype(np.int32), device="cuda")
         b, c = (torch.as_tensor(x, device="cuda") for x in operands(m, k, n))
+        grid = ""
+        if wide:  # K6 walks its run plan, made once as HybridSpmmPlan makes it
+            runs = dia_plan(split.diag_offsets, "cuda")
+            offs = runs.offsets
+            go = dia_launch(n, m, runs, 4 if n % 4 == 0 else 1)
+            grid = (f" [{runs.ptr.numel() - 1} runs (span <= {runs.span}, <= {runs.length} "
+                    f"diagonals), tiles of 64 rows x {go.lanes * go.cols} columns: grid "
+                    f"{go.grid[0]} CTAs of {go.threads} threads, {go.smem} bytes of shared "
+                    f"memory a CTA]")
+            kernel = functools.partial(spmm_dia, runs=runs)
+        else:
+            kernel = spmm_dia_skinny
         got = kernel(dv, offs, b, c, ALPHA, BETA, precise=precise)
         want, plain_ms = timed_once(
             lambda: spmm_dia_ref(dv, offs, b, c, ALPHA, BETA, precise=precise))
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        tol = 0.0 if precise else ULP_BAR * float(np.spacing(np.float32(want.abs().max().item())))
+        tol = (0.0 if precise or wide
+               else ULP_BAR * float(np.spacing(np.float32(want.abs().max().item()))))
         ok = bool(torch.isfinite(got).all().item()) and err <= tol
         del got, want
         d_idx, rows = np.nonzero(split.diag_vals)
@@ -553,7 +591,7 @@ def main() -> int:
         mode0 = (f" (plain mode {ms['mode0']:.4f} ms, x{ms['kernel'] / ms['mode0']:.2f})"
                  if precise else "")
         print(f"{tag}: {name} precise={precise} N={n} D={n_diags} ({diag_coo.nnz} nnz on the "
-              f"diagonals): max_abs_err vs plain {err:.3e} (tol {tol:.3e}) kernel "
+              f"diagonals){grid}: max_abs_err vs plain {err:.3e} (tol {tol:.3e}) kernel "
               f"{ms['kernel']:.4f} ms{mode0} plain {ms['plain']:.4f} ms torch.sparse.addmm "
               f"{ms['library']:.4f} ms bound {bound_ms:.5f} ms ({bound_by}) "
               f"{'ok' if ok else 'MISMATCH'} {at()}", flush=True)
@@ -609,12 +647,13 @@ def main() -> int:
         out["rest"] = err.max().item() / unit
         return out
 
-    def drive(tag, coo, backend, n, times, cfg=None, bar=ULP_BAR, tally=None):
+    def drive(tag, coo, backend, n, times, cfg=None, bar=ULP_BAR, tally=None, packed=None):
         b, c, ref, exact = golden(tag.split()[-1], coo, n)
         cfg = cfg or (slab_cfg if backend == "mxu" else block_cfg)
         tally = launches if tally is None else tally
         t0 = time.perf_counter()
-        packed = BACKEND_FORMATS[backend][0](coo, cfg)
+        reused = packed is not None  # an earlier run's pack of the same matrix
+        packed = packed if reused else BACKEND_FORMATS[backend][0](coo, cfg)
         t_pack = time.perf_counter() - t0
         for fn in counted.values():
             fn.launches = 0
@@ -622,19 +661,22 @@ def main() -> int:
         pl = sx.plan(packed, n, backend, device="cuda")
         t_plan = time.perf_counter() - t0
         scan, scan_note = {"pallas": stripe_visits, "edge": row_runs}.get(backend), ""
+        if backend == "mxu" and n <= SKINNY_MAX_N:
+            scan = slab_visits
         if scan is not None:  # the scan alone, again (the plan memoises its upload)
             t0 = time.perf_counter()
             lists = scan(packed)
             t_scan = time.perf_counter() - t0
-            # the longest list: the most visits of one stripe, slots of one row
+            # the longest list: the most visits of one stripe, slots of one
+            # row, blocks of one slab
             owner = np.repeat(np.arange(lists[0].size - 1), np.diff(lists[0]))
-            work = (np.ones(owner.size) if backend == "pallas"
-                    else lists[2] - lists[1] + 1.0)
+            work = lists[2] - lists[1] + 1.0 if backend == "edge" else np.ones(owner.size)
             longest = int(np.bincount(owner, weights=work).max(initial=0))
+            unit, items = {"pallas": ("stripe", "visits"), "edge": ("row", "slots"),
+                           "mxu": ("slab", "blocks")}[backend]
             scan_note = (f"; {scan.__name__} {t_scan:.4f} s, "
                          f"{sum(r.nbytes for r in pl.ranges) / 1e6:.3f} MB, longest "
-                         f"{'stripe' if backend == 'pallas' else 'row'} {longest} "
-                         f"{'visits' if backend == 'pallas' else 'slots'}")
+                         f"{unit} {longest} {items}")
         got_dev = pl(b, ALPHA, BETA, c)
         res = sx.verify(ref, got_dev.cpu().numpy())  # the host gate, before any timing
         b_dev = torch.as_tensor(b, device=pl.device)
@@ -664,7 +706,8 @@ def main() -> int:
               f"({res.mismatch_percent:.2f}% mismatches) max_abs_vs_f64 "
               f"{max_abs:.3e} = {ulp:.4f} ulp of max|C| (bar {bar:g}), {above} of "
               f"{got_dev.numel()} elements above their f32 floor; kernel {t * 1e3:.4f} ms "
-              f"GFLOPS {sx.gflops(coo.nnz, m, n, t):.1f}; pack {t_pack:.3f} s "
+              f"GFLOPS {sx.gflops(coo.nnz, m, n, t):.1f}; pack "
+              f"{'reused' if reused else f'{t_pack:.3f} s'} "
               f"{pack_mb:.2f} MB on the card, {packed.stats.slots} slots "
               f"({100 * packed.stats.block_fill:.1f} % filled, {shape}); plan with upload "
               f"{t_plan:.4f} s{scan_note}; {traced}; "
@@ -694,6 +737,14 @@ def main() -> int:
             pl, b_dev, c_dev, _ = drive("phase 4 cant_like", cant, backend, 512, times=10)
             check_kernel("phase 4 cant_like", cant, pl, b_dev, c_dev, iters=1, rounds=2,
                          slow_plain=True)
+            if backend == "mxu":  # K2 at full width, on the same pack
+                packed = pl.packed
+                del pl, b_dev, c_dev
+                pl, b_dev, c_dev, _ = drive("phase 4 cant_like", cant, "mxu", 16, times=10,
+                                            packed=packed)
+                check_kernel("phase 4 cant_like", cant, pl, b_dev, c_dev, iters=1, rounds=2,
+                             slow_plain=True)
+                del packed
             del pl, b_dev, c_dev
             torch.cuda.empty_cache()
 
@@ -714,6 +765,12 @@ def main() -> int:
                 fn.launches = 0
             pl = sx.HybridSpmmPlan(split, n, residue_config=block_cfg, backend="pallas",
                                    precise=precise, device="cuda")
+            runs_note = ""
+            if pl._runs is not None:  # K6's run plan, made again alone
+                t0 = time.perf_counter()
+                ptr = dia_runs(split.diag_offsets, DIA_SPAN_MAX)
+                runs_note = (f"; dia_runs {time.perf_counter() - t0:.5f} s, {ptr.nbytes} bytes, "
+                             f"{ptr.size - 1} runs (span <= {pl._runs.span})")
             got_dev = pl(b, ALPHA, BETA, c)
             res = sx.verify(ref, got_dev.cpu().numpy())  # the host gate, before any timing
             b_dev = torch.as_tensor(b, device=pl.device)
@@ -740,7 +797,7 @@ def main() -> int:
             mb = pl.nbytes / 1e6
             print(f"{tag}: hybrid precise={precise} N={n} {coo.shape[0]}x{coo.shape[1]} "
                   f"nnz={coo.nnz} {split.summary()} in {t_split:.3f} s, {mb:.2f} MB on the "
-                  f"card; verify {'Success!' if res.passed else 'Failed.'} "
+                  f"card{runs_note}; verify {'Success!' if res.passed else 'Failed.'} "
                   f"({res.mismatch_percent:.2f}% mismatches) max_abs_vs_f64 "
                   f"{acc['max_abs']:.3e} = {ulp:.4f} ulp of max|C| ({rest:.4f} outside the hub "
                   f"rows), {above} of {got_dev.numel()} elements above their f32 floor (bar {bar:g}"

@@ -10,10 +10,13 @@
 // slices, and K7 ran on B^T and C^T so that M rode the 128 lanes. The caller
 // padded B with pad_lo = max(0, -min(offsets)) zero rows above and enough
 // zero rows below for every read. None of that carries over: a thread reads
-// B row i + off straight from device memory, and a row outside [0, k) reads
-// as 0, which is what the zero padding held, so B needs no padded copy and
-// no offset is trusted for an address. dvals is one (D, m) array for both
-// kernels; B and C stay (k, n) and (m, n), row-major.
+// B row i + off straight from device memory (K7) or from a window of B
+// staged in shared memory (K6), and a row outside [0, k) reads as 0, which
+// is what the zero padding held, so B needs no padded copy and no offset is
+// trusted for an address (K6's run plan, which sizes its shared memory, is
+// held to the offsets on the host where it is made: ops/spmm_dia.py,
+// DiaRuns). dvals is one (D, m) array for both kernels; B and C stay
+// (k, n) and (m, n), row-major.
 //
 // Per output cell (i, j), for d = 0 .. D-1 in ascending offset order (the
 // order the TPU kernel's clusters give):
@@ -30,18 +33,44 @@
 // The TPU starts from (p, -pe) on the first diagonal, which is the step
 // from (0, 0). Then the compensated epilogue (:103-110, :275-282). A row
 // outside [0, k) reads 0, whose product is (0, 0). spmm_dia keeps a
-// `comp` beside each of its RT rows of `acc` (for sm_90a, `ptxas -v`: 137
-// registers a thread at VEC = 4 against 88 in plain mode, no spill). Every
-// level is an `if constexpr`, so the plain-mode code is what it was.
+// `comp` beside each of its 8 rows of `acc`. Every level is an
+// `if constexpr`, so the plain-mode code is what it was.
 //
-// spmm_dia (N > 32): a block of up to 128 threads covers RT = 8 consecutive
-// rows and 128 * VEC columns; a thread owns VEC columns (16-byte loads when
-// N % 4 == 0 and the operands are 16-byte aligned) of its RT rows and keeps
-// RT accumulators and an RT-row window of B in registers. Row i + off of B
-// for the window's slot r is row i + 1 + (off - 1) for slot r - 1, so when
-// the next offset is the last plus one (the bands of stencil and circuit
-// matrices) the window shifts by one row and loads one new B row instead of
-// RT. The offset is the same for the whole block, so the branch is uniform.
+// spmm_dia (N > 32): a CTA owns a tile of kTileRows = 64 rows and TN =
+// 16 * VEC columns (64 at VEC = 4: N % 4 == 0 and 16-byte aligned B and C;
+// 16 at VEC = 1). The host cuts the ascending offsets into runs whose span
+// (last offset minus first) is at most 64 (ops/launch.py:dia_runs,
+// ops/spmm_dia.py:dia_plan). For each run in order the CTA stages, with
+// cp.async (16-byte copies of B at VEC = 4, 4-byte otherwise and for
+// dvals), the run's window of B, rows row0 + off_first .. row0 + 63 +
+// off_last of its TN columns, the run's dvals tile (length x 64) and its
+// offsets in shared memory; a row outside [0, k) is written as zeros, so
+// the inner loop has no bounds test. Then each thread, over 8 consecutive
+// rows and VEC columns of the tile (16 lanes across the columns, 8 row
+// groups: 128 threads), steps x = 0 .. span over the window: its row r at
+// step x is window row r0 + x + r, so a step needs one new row. Steps go in
+// groups of 8 whose 8 new rows are read together into registers (15 rows
+// of the window held, every index static once the group is unrolled), and
+// a step whose offset is one of the run's diagonals (a uniform test) adds
+// that diagonal: two float4 of dvals from shared memory, read one diagonal
+// ahead, and 8 * VEC FFMA. A run of consecutive offsets (scircuit_like's
+// -60..60, two runs) reads one B row a diagonal; a gapped one reads
+// span + 1 rows for its diagonals. The accumulators stay in registers across runs, and
+// each thread's C rows are prefetched into L2 at the start. The CTAs of one
+// row tile are adjacent in the grid, so the dvals tile and the window's
+// overlap with the next row tile come from L2.
+// Shared memory a CTA: 4 * ((64 + span + 8) * TN + length * 65) bytes, span
+// and length those of the plan's widest and longest run (a group reads up
+// to 7 rows past a window): 51,716 at VEC = 4 and the run limit (span 64,
+// length 65), so that four CTAs share an SM and some stage their windows
+// while others compute. The CTAs of a wave stage, compute and write in
+// step, so with two CTAs an SM those phases add up: on an H100 a run limit
+// of 160 with two CTAs an SM, and a persistent CTA that stages its next job
+// in a second stage while it computes (one CTA an SM), both measured slower
+// on scircuit_like than this limit with four, though its two runs (-60..4,
+// 5..60) stage 128 + 119 rows of B a tile where one run staged 184. A
+// plan that needs more
+// than a CTA may hold is refused before launch (SharedMemoryError).
 //
 // spmm_dia_skinny (N <= 32): a row is at most 128 bytes, so consecutive
 // threads walk the flattened (row, column) index of the row-major B and C:
@@ -51,19 +80,30 @@
 // What bounds it on the H100: the least traffic is dvals once, B once and C
 // in and out, 4 * (D * M + K * N + 2 * M * N) bytes, against 2 * D * M * N
 // flops; at scircuit_like N = 512 (D = 121, M = 170,998) that is 0.34 ms at
-// 3.35 TB/s against 0.32 ms at 67 TFLOP/s. Without a shared-memory window a
-// B row is read once per diagonal that touches it, from L1 or L2 (121 times
-// on scircuit_like, 350 MB of B at N = 512, 7x the L2), so the kernel is
-// bound by that re-reading; the register window cuts it for consecutive
-// offsets only.
+// 3.35 TB/s against 0.32 ms at 67 TFLOP/s. K6 stages B (64 + span) / 64
+// times a run from L2 (3.9 times on scircuit_like's two runs) and dvals
+// once per column tile;
+// from shared memory, a diagonal costs a thread one float4 of B and two of
+// dvals for 32 FFMA (VEC = 4). `tools/kernel_times.py --pace` splits its
+// time on an H100 (PERF.md): plans cut by hand into more runs give each
+// run's staging, one diagonal alone the epilogue, and the rest is the
+// steps, which run well below the FFMA peak; the CTAs of a wave stage,
+// compute and write in step, so the phases add up where more CTAs an SM
+// let them overlap. Gapped offsets (synthetic4704: 256 offsets in
+// -288..300, nine runs) read 589 B rows for 256 diagonals and stage
+// 64 + span rows a run.
 
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
 #include "df32.cuh"
 
 namespace {
 
-constexpr int kRows = 8;  // RT: rows per thread of spmm_dia
+constexpr int kTileRows = 64;  // rows of a spmm_dia tile
+constexpr int kRows = 8;       // rows a thread
+constexpr int kLanes = 16;     // threads across a tile's columns: TN = kLanes * VEC
+constexpr int kThreads = kLanes * kTileRows / kRows;  // 128
 
 template <int VEC>
 struct Vec;
@@ -101,51 +141,132 @@ __device__ __forceinline__ T b_row(const T* __restrict__ bv, long long row, int 
   return x;
 }
 
+// Row `row` of a window of TN = kLanes * VEC columns, at this lane.
+template <typename T>
+__device__ __forceinline__ T win_at(const float* win, int row, int lane) {
+  return reinterpret_cast<const T*>(win + row * kLanes * (int)(sizeof(T) / 4))[lane];
+}
+
+// Plain mode is held to 128 registers a thread, so that four CTAs share an
+// SM; precise mode needs more (it would spill), and gets two.
 template <int VEC, int PRECISE>
-__global__ void spmm_dia_kernel(
+__global__ void __launch_bounds__(kThreads, PRECISE ? 2 : 4) spmm_dia_kernel(
     const float* __restrict__ dvals,  // (D, m)
     const int* __restrict__ offsets,  // (D,), ascending
+    const int* __restrict__ run_ptr,  // (n_runs + 1,)
     const float* __restrict__ b,      // (k, n)
     const float* __restrict__ c,      // (m, n) or null
     float* __restrict__ out,          // (m, n)
-    int m, int k, int n, int n_diags, float alpha, float beta, int with_c) {
+    int m, int k, int n, int n_runs, int span, int length, float alpha, float beta,
+    int with_c) {
   using T = typename Vec<VEC>::T;
-  const size_t nv = (size_t)n / VEC;
-  const int cv = blockIdx.y * blockDim.x + threadIdx.x;
-  if ((size_t)cv >= nv) return;
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const T* bv = reinterpret_cast<const T*>(b);
+  constexpr int TN = kLanes * VEC;
+  extern __shared__ float4 smem4[];
+  float* win = reinterpret_cast<float*>(smem4);    // (64 + span + 8, TN)
+  float* dvs = win + (kTileRows + span + kRows) * TN;  // (length, 64)
+  int* rels = reinterpret_cast<int*>(dvs + length * kTileRows);  // (length,)
+  const int n_ctiles = (n + TN - 1) / TN;
+  const long long row0 = (long long)(blockIdx.x / n_ctiles) * kTileRows;
+  const int col0 = (blockIdx.x % n_ctiles) * TN;
+  const int tid = threadIdx.x;
+  const int lane = tid % kLanes;
+  const int r0 = (tid / kLanes) * kRows;  // the thread's first row in the tile
 
-  T acc[kRows], comp[kRows], win[kRows];
+  const size_t nv = (size_t)n / VEC;
+  const int cv = col0 / VEC + lane;
+  if (with_c && (size_t)cv < nv) {  // the epilogue's C, on its way to L2 meanwhile
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (row0 + r0 + r < m)
+        asm volatile("prefetch.L2 [%0];" ::"l"(reinterpret_cast<const T*>(c) +
+                                                       (size_t)(row0 + r0 + r) * nv + cv));
+  }
+  T acc[kRows], comp[kRows];  // comp is read only when PRECISE
 #pragma unroll
   for (int r = 0; r < kRows; ++r) acc[r] = comp[r] = T{};
-  int prev = 0;
-  for (int d = 0; d < n_diags; ++d) {
-    const int off = __ldg(offsets + d);
-    if (d > 0 && off == prev + 1) {
-#pragma unroll
-      for (int r = 0; r < kRows - 1; ++r) win[r] = win[r + 1];
-      win[kRows - 1] = b_row(bv, row0 + kRows - 1 + off, k, nv, cv);
+  for (int run = 0; run < n_runs; ++run) {
+    const int d0 = run_ptr[run], len = run_ptr[run + 1] - d0;
+    const int off0 = __ldg(offsets + d0);
+    const int last = __ldg(offsets + d0 + len - 1) - off0;  // the run's span
+    __syncthreads();  // the previous run's window and dvals are no longer read
+    if constexpr (VEC == 4) {
+      for (int e = tid; e < (kTileRows + last) * kLanes; e += kThreads) {
+        const int i = e / kLanes, col = col0 + (e % kLanes) * 4;
+        const long long row = row0 + off0 + i;
+        float* dst = win + i * TN + (e % kLanes) * 4;
+        if (row >= 0 && row < k && col < n)
+          sx_async::cp_async16(dst, b + row * n + col);
+        else
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     } else {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) win[r] = b_row(bv, row0 + r + off, k, nv, cv);
-    }
-    prev = off;
-    const float* dv = dvals + (size_t)d * m;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (row0 + r >= m) continue;
-      if constexpr (PRECISE) {
-        sx_df32::mul_acc_step(__ldg(dv + row0 + r), win[r], acc[r], comp[r]);
-      } else {
-        acc[r] = mul_add(__ldg(dv + row0 + r), win[r], acc[r]);
+      for (int e = tid; e < (kTileRows + last) * TN; e += kThreads) {
+        const int i = e / TN, col = col0 + e % TN;
+        const long long row = row0 + off0 + i;
+        if (row >= 0 && row < k && col < n)
+          sx_async::cp_async4(win + e, b + row * n + col);
+        else
+          win[e] = 0.f;
       }
     }
+    for (int e = tid; e < len * kTileRows; e += kThreads) {
+      const long long row = row0 + e % kTileRows;
+      if (row < m)
+        sx_async::cp_async4(dvs + e, dvals + (size_t)(d0 + e / kTileRows) * m + row);
+      else
+        dvs[e] = 0.f;
+    }
+    for (int e = tid; e < len; e += kThreads) rels[e] = __ldg(offsets + d0 + e) - off0;
+    sx_async::cp_async_wait_all();
+    __syncthreads();
+
+    // Steps x = 0 .. last over the run's window: the thread's row r at step
+    // x is window row r0 + x + r. Steps go in groups of 8; R[i] holds window
+    // row r0 + x0 + i, i < 15: R[0..6] carried from the last group, R[7..14]
+    // read together at the group's start, so every index is static once the
+    // steps are unrolled. A step whose offset is a diagonal's (x ==
+    // rels[dd], a uniform test) adds that diagonal; the next diagonal's
+    // dvals and offset are read before its FFMA.
+    T R[2 * kRows - 1];
+#pragma unroll
+    for (int i = 0; i < kRows - 1; ++i) R[i] = win_at<T>(win, r0 + i, lane);
+    int dd = 0, next = 0;  // rels[0] == 0
+    float4 v0 = reinterpret_cast<const float4*>(dvs + r0)[0];
+    float4 v1 = reinterpret_cast<const float4*>(dvs + r0)[1];
+    for (int x0 = 0; x0 <= last; x0 += kRows) {
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) R[kRows - 1 + u] = win_at<T>(win, r0 + x0 + kRows - 1 + u, lane);
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        if (x0 + u != next) continue;  // also past the run's last step
+        const float v[kRows] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+        if (++dd < len) {
+          const float4* dv = reinterpret_cast<const float4*>(dvs + dd * kTileRows + r0);
+          v0 = dv[0];
+          v1 = dv[1];
+          next = rels[dd];
+        } else {
+          next = -1;
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          if constexpr (PRECISE) {
+            sx_df32::mul_acc_step(v[r], R[u + r], acc[r], comp[r]);
+          } else {
+            acc[r] = mul_add(v[r], R[u + r], acc[r]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRows - 1; ++i) R[i] = R[kRows + i];
+    }
   }
+  if ((size_t)cv >= nv) return;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    if (row0 + r >= m) break;
-    const size_t o = (size_t)(row0 + r) * nv + cv;
+    const long long row = row0 + r0 + r;
+    if (row >= m) break;
+    const size_t o = (size_t)row * nv + cv;
     T s = acc[r];
     if (with_c) s = __ldg(reinterpret_cast<const T*>(c) + o);
     if constexpr (PRECISE) {
@@ -186,37 +307,55 @@ __global__ void spmm_dia_skinny_kernel(
 }
 
 template <int VEC, int PRECISE>
-cudaError_t launch_wide(const float* dvals, const int* offsets, const float* b, const float* c,
-                        float* out, int m, int k, int n, int n_diags, float alpha, float beta,
-                        int with_c, cudaStream_t stream) {
-  const int nv = n / VEC;
-  const int threads = nv >= 128 ? 128 : (nv + 31) / 32 * 32;
-  const dim3 grid((m + kRows - 1) / kRows, (nv + threads - 1) / threads);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
-  spmm_dia_kernel<VEC, PRECISE><<<grid, threads, 0, stream>>>(
-      dvals, offsets, b, c, out, m, k, n, n_diags, alpha, beta, with_c);
+cudaError_t launch_wide(const float* dvals, const int* offsets, const int* run_ptr,
+                        const float* b, const float* c, float* out, int m, int k, int n,
+                        int n_runs, int span, int length, float alpha, float beta, int with_c,
+                        int threads, int grid, int smem, cudaStream_t stream) {
+  // the wrapper's map (ops/spmm_dia.py:dia_launch) must be this kernel's
+  constexpr int TN = kLanes * VEC;
+  const long long tiles =
+      (long long)((m + kTileRows - 1) / kTileRows) * ((n + TN - 1) / TN);
+  if (threads != kThreads || tiles != grid || span < 0 || length < 0 ||
+      (long long)smem !=
+          4LL * ((kTileRows + span + kRows) * TN + (long long)length * (kTileRows + 1)))
+    return cudaErrorInvalidValue;
+  auto kernel = spmm_dia_kernel<VEC, PRECISE>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, smem, stream>>>(dvals, offsets, run_ptr, b, c, out, m, k, n, n_runs,
+                                           span, length, alpha, beta, with_c);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+extern "C" int spmm_dia_launch(
+    const void* dvals, const void* offsets, const void* run_ptr, const void* b, const void* c,
+    void* out, int m, int k, int n, int n_runs, float alpha, float beta, int with_c,
+    int precise, int vec, int span, int length, int threads, int grid, int smem,
+    void* stream) {
+  if (precise != 0 && precise != 1) return cudaErrorInvalidValue;
+#define SX_WIDE(V, P)                                                                    \
+  launch_wide<V, P>((const float*)dvals, (const int*)offsets, (const int*)run_ptr,        \
+                    (const float*)b, (const float*)c, (float*)out, m, k, n, n_runs, span, \
+                    length, alpha, beta, with_c, threads, grid, smem, (cudaStream_t)stream)
+  switch (vec * 2 + precise) {
+    case 2: return SX_WIDE(1, 0);
+    case 3: return SX_WIDE(1, 1);
+    case 8: return SX_WIDE(4, 0);
+    case 9: return SX_WIDE(4, 1);
+    default: return cudaErrorInvalidValue;
+  }
+#undef SX_WIDE
+}
+
 #define SX_ARGS                                                                 \
   (const float*)dvals, (const int*)offsets, (const float*)b, (const float*)c, \
       (float*)out, m, k, n, n_diags, alpha, beta, with_c
-
-extern "C" int spmm_dia_launch(
-    const void* dvals, const void* offsets, const void* b, const void* c, void* out,
-    int m, int k, int n, int n_diags, float alpha, float beta, int with_c, int precise,
-    int vec, void* stream) {
-  if (precise != 0 && precise != 1) return cudaErrorInvalidValue;
-  switch (vec * 2 + precise) {
-    case 2: return launch_wide<1, 0>(SX_ARGS, (cudaStream_t)stream);
-    case 3: return launch_wide<1, 1>(SX_ARGS, (cudaStream_t)stream);
-    case 8: return launch_wide<4, 0>(SX_ARGS, (cudaStream_t)stream);
-    case 9: return launch_wide<4, 1>(SX_ARGS, (cudaStream_t)stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 extern "C" int spmm_dia_skinny_launch(
     const void* dvals, const void* offsets, const void* b, const void* c, void* out,

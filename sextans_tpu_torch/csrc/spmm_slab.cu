@@ -5,10 +5,12 @@
 // (K1) with spmm_slab_launch, and spmm_mxu_ct_padded / _kernel_ct (K2) with
 // spmm_slab_skinny_launch. On the TPU one grid step contracted a block on the
 // matrix unit into a (tile_m/128, 128, tile_n) VMEM accumulator carried
-// across the M-tile's groups. Here one CUDA block owns one 128-row slab of
-// one M-tile (and one N-chunk for K1): it walks the M-tile's group range from
-// the host scan of group_mtile (tile_ptr / tile_groups) and takes only the
+// across the M-tile's groups. Here K1 gives one CUDA block one 128-row slab
+// of one M-tile and one N-chunk: it walks the M-tile's group range from the
+// host scan of group_mtile (tile_ptr / tile_groups) and takes only the
 // blocks whose qm is its slab; the blocks it skips cost two index reads.
+// K2 gives one CUDA block half a slab and visits only the slab's own blocks
+// (the host scan slab_visits), streamed through shared memory (below).
 // A slab that gets no block still writes beta * C.
 //
 // Layout: vals[g, i*bk + kk, mm] = A[slab row mm, window col bcol + kk], so a
@@ -25,9 +27,7 @@
 // banded FEM matrix) most of the 2 * bk * 128 * n flops of a block multiply
 // zeros, so K1 is bound by FFMA issue on padded work (SIMT f32 at best
 // ~67 TFLOP/s, no tensor cores yet) and by staging each bk x 128 vals block
-// through shared memory once per N-chunk. K2 (n <= 32) reads vals straight
-// from global memory, coalesced along the 128 rows; it is bound by the vals
-// stream, since each value feeds only n flops.
+// through shared memory once per N-chunk. K2 (n <= 32): see its kernel.
 //
 // Precise mode (PRECISE, SpmmConfig.precise >= 1; spmm_mxu_pallas.py:89-98,
 // 113-121 for K1, :339-344, :356-363 for K2): one compensation register
@@ -43,6 +43,7 @@
 
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
 #include "df32.cuh"
 
 namespace {
@@ -154,76 +155,179 @@ __global__ void __launch_bounds__(SLAB_THREADS) spmm_slab_kernel(
   }
 }
 
-// K2: all n <= 32 columns in one CUDA block of 128 * ceil(n / 8) threads;
-// thread (cg, mm) owns row mm of the slab and columns cg*8 .. cg*8+7. A warp
-// shares cg, so its B loads are one broadcast address and its vals loads
-// are 32 consecutive floats. C stays in the (M, N) layout: the TPU's
-// transposed-C trick (lane waste at skinny N) has no counterpart here.
+// K2 (n <= 32): a CTA owns half a slab, kSlabRows = 64 rows, and all n
+// columns; it visits only its slab's blocks, listed by the host scan
+// slab_visits (slab_ptr / slab_blocks, ops/launch.py) in pack order, and
+// streams them through a ring of kStages stages in dynamic shared memory:
+// a stage holds one block's (bk, 64) values and its bk B rows (bk x np
+// floats, np = n rounded up to 4). Thread t works on rows 2 rp, 2 rp + 1
+// of the CTA's 64 (rp = t / nq, one float2 of a vals row) and columns
+// 4 q .. 4 q + 3 (q = t % nq, one float4 of a B row), 32 * nq threads, nq
+// = ceil(n / 4).
+//
+// The copies complete on one mbarrier a stage. A block's values are bk runs
+// of 256 bytes (a row of the half slab), copied by every thread with 16-byte
+// cp.async, each thread arriving on the mbarrier once its copies have
+// landed (cp.async.mbarrier.arrive.noinc). Not TMA bulk copies: on an
+// H100, one bulk copy a 256-byte run made the kernel slower than these
+// 16-byte copies, the issue of 128 small copies a block, not their bytes,
+// setting its pace. Its B rows are one contiguous run of bk * n floats (B is
+// row-major and the rows are kwin0 + bcol + kk): one TMA bulk copy
+// (cp.async.bulk), issued by one thread with expect_tx, when n % 4 == 0 and
+// B is 16-byte aligned (b_bulk), which on an H100 made K2 3-4 % faster than
+// 16-byte cp.async of the same run (tools/kernel_times.py, PERF.md);
+// otherwise the run does not start on a 16-byte boundary for every block,
+// and the threads copy it with 4-byte cp.async beside the values. After a block, one __syncthreads frees its
+// stage, and the copy of the block kStages further on starts.
+//
+// What bounds it on the H100: each value feeds n flops, so the slab
+// format's bytes (values at ~5 % fill) bound it where the slabs fill the
+// card (cant_like: 299 MB of values, 0.09 ms at 3.35 TB/s); where few
+// slabs hold blocks (synthetic4704: 22 of 40), the longest slab's FFMA
+// chain: 12 blocks x 128 terms, each term 8 FFMA a thread from shared
+// memory, the block's copy landing under the previous block's chain.
+constexpr int kSlabRows = 64;  // rows a CTA: a slab takes two CTAs
+constexpr int kStages = 2;     // blocks in flight a CTA
+
 template <bool PRECISE>
-__global__ void spmm_slab_skinny_kernel(
-    const float* __restrict__ vals, const int* __restrict__ qm,
-    const int* __restrict__ bcol, const int* __restrict__ group_kwin,
-    const int* __restrict__ tile_ptr, const int* __restrict__ tile_groups,
-    const float* __restrict__ b, const float* __restrict__ c,
-    float* __restrict__ out, int n, int tile_m, int window_k, int block_k,
-    int group_blocks, float alpha, float beta, int with_c) {
-  const int nslabs = tile_m / MSLAB;
-  const int mt = blockIdx.x / nslabs;
-  const int slab = blockIdx.x % nslabs;
-  const int mm = threadIdx.x % MSLAB;
-  const int c0 = (threadIdx.x / MSLAB) * 8;
+__global__ void __launch_bounds__(256) spmm_slab_skinny_kernel(
+    const float* __restrict__ vals,        // (ng, G * bk, 128)
+    const int* __restrict__ bcol,          // (ng, G)
+    const int* __restrict__ group_kwin,    // (ng,)
+    const int* __restrict__ slab_ptr,      // (n_slabs + 1,)
+    const int* __restrict__ slab_blocks,   // (ng * G,) flat block indices
+    const float* __restrict__ b,           // (k_padded, n)
+    const float* __restrict__ c,           // (m_padded, n) or null
+    float* __restrict__ out,               // (m_padded, n)
+    int n, int window_k, int block_k, int group_blocks, float alpha, float beta,
+    int with_c, int b_bulk) {
+  extern __shared__ float4 smem4[];
+  const int np = (n + 3) & ~3;
+  const int stage = block_k * (kSlabRows + np);  // floats a stage
+  float* ring = reinterpret_cast<float*>(smem4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * stage);
+  const int slab = blockIdx.x / (MSLAB / kSlabRows);
+  const int half = blockIdx.x % (MSLAB / kSlabRows);
+  const int tid = threadIdx.x;
+  const int nq = (n + 3) / 4;
+  const int q = tid % nq, rp = tid / nq;
+  const int p0 = slab_ptr[slab];
+  const int nblk = slab_ptr[slab + 1] - p0;
 
-  float acc[8], comp[8];  // comp is read only when PRECISE
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j] = comp[j] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) sx_async::mbar_init(&full[s], blockDim.x + b_bulk);
+    sx_async::mbar_fence_init();
+  }
+  __syncthreads();
 
-  const int G = group_blocks;
-  const int p1 = tile_ptr[mt + 1];
-  for (int p = tile_ptr[mt]; p < p1; ++p) {
-    const int g = tile_groups[p];
-    const size_t kwin0 = (size_t)group_kwin[g] * window_k;
-    for (int i = 0; i < G; ++i) {
-      if (qm[(size_t)g * G + i] != slab) continue;
-      const float* vp = vals + ((size_t)g * G + i) * block_k * MSLAB + mm;
-      const float* bp = b + (kwin0 + bcol[(size_t)g * G + i]) * n + c0;
-      float cf[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) cf[j] = 0.f;
-      for (int kk = 0; kk < block_k; ++kk) {
-        const float a = vp[(size_t)kk * MSLAB];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float bv = c0 + j < n ? bp[(size_t)kk * n + j] : 0.f;
-          cf[j] = fmaf(a, bv, cf[j]);
-        }
-        if constexpr (PRECISE) {
-          if ((kk & 7) == 7) {
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              sx_df32::acc_step(acc[j], comp[j], cf[j]);
-              cf[j] = 0.f;
-            }
-          }
-        }
-      }
-      if constexpr (!PRECISE) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[j] += cf[j];
-      }
+  // Block j of the slab into stage j % kStages; every thread calls it.
+  auto issue = [&](int j) {
+    const int st = j % kStages;
+    float* vs = ring + st * stage;
+    float* bs = vs + block_k * kSlabRows;
+    const size_t blk = slab_blocks[p0 + j];
+    const float* vsrc = vals + blk * block_k * MSLAB + half * kSlabRows;
+    const float* bsrc =
+        b + ((size_t)group_kwin[blk / group_blocks] * window_k + bcol[blk]) * n;
+    if (b_bulk && tid == 0) {
+      sx_async::mbar_arrive_expect_tx(&full[st], 4u * block_k * n);
+      sx_async::bulk_copy(bs, bsrc, 4u * block_k * n, &full[st]);
     }
+    for (int e = tid; e < block_k * (kSlabRows / 4); e += blockDim.x) {
+      const int kk = e / (kSlabRows / 4), q4 = 4 * (e % (kSlabRows / 4));
+      sx_async::cp_async16(vs + kk * kSlabRows + q4, vsrc + (size_t)kk * MSLAB + q4);
+    }
+    if (!b_bulk) {
+      for (int e = tid; e < block_k * n; e += blockDim.x)
+        sx_async::cp_async4(bs + (e / n) * np + e % n, bsrc + e);
+    }
+    sx_async::cp_async_arrive(&full[st]);
+  };
+
+  for (int j = 0; j < nblk && j < kStages; ++j) issue(j);
+
+  float acc[2][4], comp[2][4];  // comp is read only when PRECISE
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) acc[r][jj] = comp[r][jj] = 0.f;
+
+  // One group of 8 terms: its values and B rows are read from shared
+  // memory first (loads are issued one group ahead, below), then the 64 FFMA.
+  auto load = [&](float2 (&a)[8], float4 (&bv)[8], const float* vs, const float* bs, int kk0) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      a[u] = *reinterpret_cast<const float2*>(vs + (kk0 + u) * kSlabRows);
+      bv[u] = *reinterpret_cast<const float4*>(bs + (kk0 + u) * np);
+    }
+  };
+  auto terms = [&](float (&cf)[2][4], const float2 (&a)[8], const float4 (&bv)[8]) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const float av[2] = {a[u].x, a[u].y};
+      const float bb[4] = {bv[u].x, bv[u].y, bv[u].z, bv[u].w};
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) cf[r][jj] = fmaf(av[r], bb[jj], cf[r][jj]);
+    }
+    if constexpr (PRECISE) {  // block_k % 8 == 0: every term is stepped in
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          sx_df32::acc_step(acc[r][jj], comp[r][jj], cf[r][jj]);
+          cf[r][jj] = 0.f;
+        }
+    }
+  };
+
+  for (int j = 0; j < nblk; ++j) {
+    const int st = j % kStages;
+    sx_async::mbar_wait(&full[st], (j / kStages) & 1);
+    const float* vs = ring + st * stage + 2 * rp;
+    const float* bs = ring + st * stage + block_k * kSlabRows + 4 * q;
+    float cf[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) cf[r][jj] = 0.f;
+    float2 a0[8], a1[8];
+    float4 b0[8], b1[8];
+    load(a0, b0, vs, bs, 0);
+    for (int kk0 = 0; kk0 < block_k; kk0 += 16) {  // kk0 and kk0 + 8, ping-pong
+      if (kk0 + 8 < block_k) load(a1, b1, vs, bs, kk0 + 8);
+      terms(cf, a0, b0);
+      if (kk0 + 8 >= block_k) break;
+      if (kk0 + 16 < block_k) load(a0, b0, vs, bs, kk0 + 16);
+      terms(cf, a1, b1);
+    }
+    if constexpr (!PRECISE) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[r][jj] += cf[r][jj];
+    }
+    __syncthreads();  // every thread is done with stage st
+    if (j + kStages < nblk) issue(j + kStages);
   }
 
-  const size_t row = (size_t)mt * tile_m + slab * MSLAB + mm;
+  const size_t row = (size_t)slab * MSLAB + half * kSlabRows + 2 * rp;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (c0 + j < n) {
-      const size_t idx = row * n + c0 + j;
-      if constexpr (PRECISE)
-        out[idx] = with_c
-            ? sx_df32::compensated_epilogue(alpha, acc[j], comp[j], beta, c[idx])
-            : sx_df32::compensated_epilogue(alpha, acc[j], comp[j]);
-      else
-        out[idx] = with_c ? alpha * acc[j] + beta * c[idx] : alpha * acc[j];
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int col = 4 * q + jj;
+      if (col < n) {
+        const size_t idx = (row + r) * n + col;
+        if constexpr (PRECISE)
+          out[idx] = with_c
+              ? sx_df32::compensated_epilogue(alpha, acc[r][jj], comp[r][jj], beta, c[idx])
+              : sx_df32::compensated_epilogue(alpha, acc[r][jj], comp[r][jj]);
+        else  // the contraction nvcc gave the parent kernel, written out
+          out[idx] = with_c ? __fmaf_rn(alpha, acc[r][jj], __fmul_rn(beta, c[idx]))
+                            : __fmul_rn(alpha, acc[r][jj]);
+      }
     }
   }
 }
@@ -252,18 +356,27 @@ extern "C" int spmm_slab_launch(
 }
 
 extern "C" int spmm_slab_skinny_launch(
-    const void* vals, const void* qm, const void* bcol, const void* group_kwin,
-    const void* tile_ptr, const void* tile_groups, const void* b,
-    const void* c, void* out, int n_mtiles, int n, int tile_m, int window_k,
-    int block_k, int group_blocks, float alpha, float beta, int with_c,
-    int precise, void* stream) {
+    const void* vals, const void* bcol, const void* group_kwin, const void* slab_ptr,
+    const void* slab_blocks, const void* b, const void* c, void* out, int n_slabs, int n,
+    int window_k, int block_k, int group_blocks, float alpha, float beta, int with_c,
+    int precise, int b_bulk, int threads, int grid, int smem, void* stream) {
   if (precise < 0 || precise > 2) return cudaErrorInvalidValue;
+  // the wrapper's map (ops/spmm_slab.py:slab_skinny_launch) must be this kernel's
+  const int np = (n + 3) & ~3;
+  const size_t need = (size_t)kStages * (4 * (size_t)block_k * (kSlabRows + np) + 8);
+  if (n < 1 || n > 32 || threads != 32 * ((n + 3) / 4) ||
+      grid != n_slabs * (MSLAB / kSlabRows) || (size_t)smem != need)
+    return cudaErrorInvalidValue;
   auto kernel = precise ? spmm_slab_skinny_kernel<true> : spmm_slab_skinny_kernel<false>;
-  const int threads = MSLAB * ((n + 7) / 8);
-  kernel<<<n_mtiles * (tile_m / MSLAB), threads, 0, (cudaStream_t)stream>>>(
-      (const float*)vals, (const int*)qm, (const int*)bcol,
-      (const int*)group_kwin, (const int*)tile_ptr, (const int*)tile_groups,
-      (const float*)b, (const float*)c, (float*)out, n, tile_m, window_k,
-      block_k, group_blocks, alpha, beta, with_c);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)vals, (const int*)bcol, (const int*)group_kwin, (const int*)slab_ptr,
+      (const int*)slab_blocks, (const float*)b, (const float*)c, (float*)out, n, window_k,
+      block_k, group_blocks, alpha, beta, with_c, b_bulk);
   return cudaGetLastError();
 }

@@ -48,7 +48,7 @@ from sextans_tpu_torch.ops.plan import (
     dense_operand,
     resolve_device,
 )
-from sextans_tpu_torch.ops.spmm_dia import spmm_dia, spmm_dia_ref, spmm_dia_skinny
+from sextans_tpu_torch.ops.spmm_dia import dia_plan, spmm_dia, spmm_dia_ref, spmm_dia_skinny
 from sextans_tpu_torch.ops.spmm_slab import SKINNY_MAX_N
 from sextans_tpu_torch.utils.config import SpmmConfig
 
@@ -427,12 +427,17 @@ class HybridSpmmPlan:
         def put(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(self.device)
 
-        self._dvals = self._offsets = self._dia = None
+        self._dvals = self._offsets = self._dia = self._runs = None
+        self._dia_kw = {}
         if split.diag_offsets.size:
             self._dvals = put(split.diag_vals, np.float32)
             self._offsets = put(split.diag_offsets, np.int32)
             self._dia = (spmm_dia_ref if dia_backend == "xla"
                          else spmm_dia_skinny if n <= SKINNY_MAX_N else spmm_dia)
+            if self._dia is spmm_dia:  # K6 walks the offsets in runs, planned once
+                self._runs = dia_plan(split.diag_offsets, self.device)
+                self._offsets = self._runs.offsets
+                self._dia_kw = {"runs": self._runs}
         self._head = self._head_cols = None
         if split.head_cols.size:
             self._head = put(split.head_dense, np.float32)
@@ -447,7 +452,7 @@ class HybridSpmmPlan:
         """Bytes the plan keeps on its device: the split's dense parts and
         the residue's pack."""
         parts = [self._dvals, self._offsets, self._head, self._head_cols, self._hrows,
-                 self._hrows_idx]
+                 self._hrows_idx, self._runs and self._runs.ptr]
         if self.residue_plan is not None:
             parts += [*self.residue_plan.arrays, *(self.residue_plan.ranges or ())]
         return sum(t.nbytes for t in parts if t is not None)
@@ -467,7 +472,8 @@ class HybridSpmmPlan:
         with_c = c is not None
         if self._dia is not None:
             c_in = c if with_c else torch.zeros(1, device=self.device).expand(self.m, self.n)
-            acc = self._dia(self._dvals, self._offsets, b, c_in, alpha, beta, with_c=with_c)
+            acc = self._dia(self._dvals, self._offsets, b, c_in, alpha, beta, with_c=with_c,
+                            **self._dia_kw)
         elif with_c:
             acc = c * f32(beta)
         else:
@@ -509,7 +515,7 @@ class HybridSpmmPlan:
         if self._dia is not None:
             shape = torch.zeros(1, device=self.device).expand(self.m, self.n)
             add(self._dia(self._dvals, self._offsets, b, shape, 1.0, 0.0, with_c=False,
-                          precise=1))
+                          precise=1, **self._dia_kw))
         if self._head is not None or self._hrows is not None:
             no_tf32()
         if self._head is not None:

@@ -10,13 +10,16 @@ import numpy as np
 import torch
 
 from sextans_tpu_torch.format.pack_edge import COL_SHIFT, PAD_BIT, ROW_END, ROW_SHIFT
+from sextans_tpu_torch.format.pack_mxu import MSLAB
 
 __all__ = [
     "SMEM_LIMIT",
     "SharedMemoryError",
     "COL_MASK",
     "group_ranges",
+    "slab_visits",
     "stripe_visits",
+    "dia_runs",
     "row_runs",
     "check_pack_indices",
     "check_edge_pack",
@@ -57,6 +60,52 @@ def group_ranges(group_mtile: np.ndarray, n_mtiles: int) -> Tuple[np.ndarray, np
     mt = _check_owner_tiles(np.asarray(group_mtile)[:-1], n_mtiles, "group_mtile")
     tile_groups = np.argsort(mt, kind="stable").astype(np.int32)
     return _csr_ptr(mt, n_mtiles), tile_groups
+
+
+def slab_visits(packed) -> Tuple[np.ndarray, np.ndarray]:
+    """Each 128-row slab's blocks, in pack order, for the skinny slab kernel.
+
+    Returns the CSR pair ``(slab_ptr, slab_blocks)``: the blocks of global
+    slab ``s = group_mtile * tile_m / 128 + qm`` are the flat block indices
+    ``g * G + i`` in ``slab_blocks[slab_ptr[s]:slab_ptr[s+1]]``, ascending,
+    which is the order in which the pack adds them (the groups of an M-tile
+    in group order, as :func:`group_ranges` lists them, then the blocks of
+    a group). Every block is listed, the pad blocks (qm 0, bcol 0, all
+    values zero) too: the kernel adds ``0 * B`` for them as the pack does,
+    so a non-finite B row that a pad reads still reaches its slab.
+    """
+    cfg = packed.config
+    ng, G = packed.n_groups, cfg.group_blocks
+    per_tile = cfg.tile_m // MSLAB
+    _check_int32(ng * G, "slab_visits")
+    tiles = _check_owner_tiles(packed.group_mtile[:ng], packed.n_mtiles, "group_mtile")
+    qm = np.asarray(packed.qm, dtype=np.int64)
+    if qm.size and (qm.min() < 0 or qm.max() >= per_tile):
+        raise ValueError(f"qm holds a slab outside [0, {per_tile})")
+    slab = (tiles[:, None] * per_tile + qm).reshape(-1)
+    order = np.argsort(slab, kind="stable")
+    return _csr_ptr(slab, packed.n_mtiles * per_tile), order.astype(np.int32)
+
+
+def dia_runs(offsets, span_max: int) -> np.ndarray:
+    """The DIA kernel's runs of diagonals, from a host scan of the offsets.
+
+    Cuts the strictly ascending ``offsets``, in order, into runs of
+    consecutive diagonals whose span (last offset minus first) is at most
+    ``span_max``, each run as long as that allows (the greedy cut, which
+    gives the fewest runs). Returns ``run_ptr`` (int32, runs + 1): run ``r``
+    holds diagonals ``run_ptr[r]:run_ptr[r+1]``. Walking the runs in order
+    walks every diagonal once, in ascending offset order.
+    """
+    offs = np.asarray(offsets, dtype=np.int64)
+    if offs.ndim != 1 or np.any(np.diff(offs) <= 0):
+        raise ValueError("offsets must be 1-D and ascend strictly")
+    if span_max < 0:
+        raise ValueError(f"span_max must be >= 0, got {span_max}")
+    starts = [0] if offs.size else []
+    while starts and starts[-1] < offs.size:
+        starts.append(int(np.searchsorted(offs, offs[starts[-1]] + span_max, side="right")))
+    return np.array(starts or [0], dtype=np.int32)
 
 
 def _csr_ptr(owner: np.ndarray, n_owners: int) -> np.ndarray:

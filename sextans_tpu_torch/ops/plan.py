@@ -2,7 +2,8 @@
 
 The PyTorch counterpart of ``sextans_tpu.ops.plan.SpmmPlan``: the packed
 arrays (and, for the block, slab and edge formats, the host scan that their
-kernel walks) are uploaded once (memoized on the packed object per device);
+kernel walks) are uploaded once (memoized on the packed object per device
+and, for the scans, per kernel);
 each call pads B to ``k_padded`` and C to ``m_padded``, runs one kernel and
 slices the result. N is not padded: the kernels mask a ragged last column chunk.
 
@@ -44,6 +45,7 @@ from sextans_tpu_torch.ops.launch import (
     check_pack_indices,
     group_ranges,
     row_runs,
+    slab_visits,
     stripe_visits,
 )
 from sextans_tpu_torch.ops.spmm_block import spmm_block_padded, spmm_block_padded_ref
@@ -92,40 +94,52 @@ def _put(a, dtype, device):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
 
-def _upload(packed, device: torch.device):
+def _scan(packed, n: int):
+    """The host scan that the kernel of ``packed`` at N walks: ``row_runs``
+    for the edge format, ``stripe_visits`` for the block format, and for the
+    slab format ``slab_visits`` (K2, N <= 32) or ``group_ranges`` (K1)."""
+    if isinstance(packed, PackedSpMatrixEdge):
+        return row_runs
+    if not isinstance(packed, PackedSpMatrixMXU):
+        return stripe_visits
+    return slab_visits if n <= SKINNY_MAX_N else _tile_groups
+
+
+def _tile_groups(packed):
+    return group_ranges(packed.group_mtile, packed.n_mtiles)
+
+
+def _upload(packed, device: torch.device, n: int):
     """Device copies of the packed arrays and, except for the ELL format, the
-    host scan its kernel walks (``stripe_visits`` for the block format,
-    ``row_runs`` for the edge format, ``group_ranges`` for the slab format),
-    made once per device and kept on the packed object. Returns ``(arrays,
-    ranges)``; ``ranges`` is None for the ELL format."""
+    host scan its kernel at N walks (:func:`_scan`), each made once per
+    device (the scan once per kernel) and kept on the packed object. Returns
+    ``(arrays, ranges)``; ``ranges`` is None for the ELL format."""
     cache = packed.__dict__.setdefault("_dev_cache", {})
     key = str(device)
-    if key in cache:
-        return cache[key]
+    if key not in cache:
+        if isinstance(packed, PackedSpMatrixELL):
+            check_ell_pack(packed)
+            named = ((packed.vals, np.float32), (packed.cols, np.int32),
+                     (packed.fold_rows, np.int32))
+        elif isinstance(packed, PackedSpMatrixEdge):
+            check_edge_pack(packed)
+            named = ((packed.vals, np.float32), (packed.meta, np.int32),
+                     (packed.chunk_mtile, np.int32), (packed.chunk_kwin, np.int32))
+        else:
+            is_slab = isinstance(packed, PackedSpMatrixMXU)
+            idx = packed.qm if is_slab else packed.qrow
+            check_pack_indices(packed, idx, packed.config.tile_m // (MSLAB if is_slab else 8))
+            named = ((packed.vals, np.float32), (idx, np.int32),
+                     (packed.bcol, np.int32), (packed.group_mtile, np.int32),
+                     (packed.group_kwin, np.int32))
+        cache[key] = tuple(_put(a, dtype, device) for a, dtype in named)
     if isinstance(packed, PackedSpMatrixELL):
-        check_ell_pack(packed)
-        arrays = (_put(packed.vals, np.float32, device),
-                  _put(packed.cols, np.int32, device),
-                  _put(packed.fold_rows, np.int32, device))
-        cache[key] = (arrays, None)
-        return cache[key]
-    is_slab = isinstance(packed, PackedSpMatrixMXU)
-    if isinstance(packed, PackedSpMatrixEdge):
-        check_edge_pack(packed)
-        named = ((packed.vals, np.float32), (packed.meta, np.int32),
-                 (packed.chunk_mtile, np.int32), (packed.chunk_kwin, np.int32))
-    else:
-        idx = packed.qm if is_slab else packed.qrow
-        check_pack_indices(packed, idx, packed.config.tile_m // (MSLAB if is_slab else 8))
-        named = ((packed.vals, np.float32), (idx, np.int32),
-                 (packed.bcol, np.int32), (packed.group_mtile, np.int32),
-                 (packed.group_kwin, np.int32))
-    ranges = (row_runs(packed) if isinstance(packed, PackedSpMatrixEdge)
-              else group_ranges(packed.group_mtile, packed.n_mtiles) if is_slab
-              else stripe_visits(packed))
-    arrays = tuple(_put(a, dtype, device) for a, dtype in named)
-    cache[key] = (arrays, tuple(_put(r, np.int32, device) for r in ranges))
-    return cache[key]
+        return cache[key], None
+    scan = _scan(packed, n)
+    scan_key = (key, scan.__name__)
+    if scan_key not in cache:
+        cache[scan_key] = tuple(_put(r, np.int32, device) for r in scan(packed))
+    return cache[key], cache[scan_key]
 
 
 def _runner(packed, backend: str, n: int, ranges):
@@ -181,7 +195,7 @@ class SpmmPlan:
         self.m, self.k = packed.shape
         self.n = n
         self.device = resolve_device(device)
-        self.arrays, self.ranges = _upload(packed, self.device)
+        self.arrays, self.ranges = _upload(packed, self.device, n)
         self._run = _runner(packed, backend, n, self.ranges)
 
         def as_index(p):

@@ -14,6 +14,12 @@ the (D,) offsets as an int32 tensor beside it, and B and C as they are,
 K7 on B and C transposed; here a row of B outside [0, K) reads as 0, which is
 what those zero rows held, so no padded or transposed copy is made.
 
+K6 takes its diagonals in runs (:func:`dia_plan`, from the host scan
+:func:`~sextans_tpu_torch.ops.launch.dia_runs` of the offsets, made once
+where the split is uploaded, with the offsets it holds on the device): a
+run's window of B and its ``dvals`` are staged in shared memory per 64-row
+tile (:func:`dia_launch`).
+
 ``precise`` 1 or 2 runs the compensated variant of both kernels (the JAX
 kernels have one ``precise`` flag, so both levels are one computation):
 per diagonal the exact product ``two_prod`` and a Neumaier step, then the
@@ -22,14 +28,108 @@ compensated epilogue (``ops/df32.py``, ``csrc/df32.cuh``).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from sextans_tpu_torch.ops.df32 import acc_step, compensated_epilogue, two_prod
-from sextans_tpu_torch.ops.launch import f32, fma_f32, need, stream_of
+from sextans_tpu_torch.ops.launch import (
+    SMEM_LIMIT,
+    Launch,
+    SharedMemoryError,
+    dia_runs,
+    f32,
+    fma_f32,
+    need,
+    stream_of,
+)
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
+from sextans_tpu_torch.utils.config import cdiv
 
-__all__ = ["spmm_dia", "spmm_dia_skinny", "spmm_dia_ref"]
+__all__ = ["spmm_dia", "spmm_dia_skinny", "spmm_dia_ref", "DiaRuns", "dia_plan",
+           "dia_launch", "DIA_SPAN_MAX"]
+
+# K6's tile (csrc/spmm_dia.cu: kTileRows, kLanes, kThreads): 64 rows by 16
+# lanes of VEC columns, 128 threads of 8 rows each
+DIA_TILE_ROWS = 64
+DIA_LANES = 16
+DIA_THREADS = 128
+# The widest run of diagonals a window covers: at VEC = 4 a CTA then holds
+# (64 + 64 + 8) * 64 * 4 bytes of B and at most 65 * 65 * 4 of dvals and
+# offsets, 51,716 bytes, so four CTAs fit on an SM.
+DIA_SPAN_MAX = 64
+
+
+@dataclass(frozen=True)
+class DiaRuns:
+    """K6's run plan of one set of offsets, on their device: ``offsets``
+    (D,) int32, ascending; run ``r`` holds diagonals ``ptr[r]:ptr[r+1]``;
+    ``span`` bounds each run's last offset minus its first and ``length``
+    its number of diagonals, which size the kernel's shared memory. Made by
+    :func:`dia_plan`; one built by hand is held to its offsets here (a copy
+    of both to the host), so that no plan the kernel is given stages past
+    the memory it sized. :func:`spmm_dia` takes only the offsets tensor its
+    plan holds."""
+
+    offsets: torch.Tensor
+    ptr: torch.Tensor
+    span: int
+    length: int
+
+    def __post_init__(self):
+        if self.offsets.dim() != 1 or self.ptr.dim() != 1 or self.ptr.numel() < 1:
+            raise ValueError("DiaRuns takes 1-D offsets and a 1-D ptr of at least one entry")
+        offs = self.offsets.cpu().numpy().astype(np.int64)
+        ptr = self.ptr.cpu().numpy().astype(np.int64)
+        if np.any(np.diff(offs) <= 0):
+            raise ValueError("DiaRuns: the offsets must ascend strictly")
+        if ptr[0] != 0 or ptr[-1] != offs.size or np.any(np.diff(ptr) < 1):
+            raise ValueError(f"DiaRuns: ptr must cut the {offs.size} diagonals into non-empty "
+                             "runs, in order")
+        if offs.size:
+            span = int((offs[ptr[1:] - 1] - offs[ptr[:-1]]).max())
+            length = int(np.diff(ptr).max())
+            if span > self.span or length > self.length:
+                raise ValueError(f"DiaRuns: a run spans {span} and one holds {length} "
+                                 f"diagonals, beyond span {self.span} and length {self.length}")
+
+
+def dia_plan(offsets, device) -> DiaRuns:
+    """The run plan of the ascending ``offsets`` (a host array), with the
+    offsets uploaded to ``device`` as int32:
+    :func:`~sextans_tpu_torch.ops.launch.dia_runs` at the run limit
+    ``DIA_SPAN_MAX``."""
+    offs = np.asarray(offsets, dtype=np.int64)
+    ptr = dia_runs(offs, DIA_SPAN_MAX)
+    first, last = ptr[:-1], ptr[1:] - 1
+    span = int((offs[last] - offs[first]).max(initial=0))
+    length = int(np.diff(ptr).max(initial=0))
+    return DiaRuns(torch.from_numpy(offs.astype(np.int32)).to(device),
+                   torch.from_numpy(ptr).to(device), span, length)
+
+
+def dia_launch(n: int, m: int, runs: DiaRuns, vec: int) -> Launch:
+    """K6's thread map and grid (``csrc/spmm_dia.cu``): one CTA of 128
+    threads per (64-row tile, 16 * ``vec`` columns), the column tiles of a
+    row tile adjacent; a thread over 8 rows and ``vec`` columns; shared
+    memory for the widest run's window of B, (64 + span) rows of the tile's
+    columns and 8 rows of slack, and the longest run's dvals, length x 64,
+    and offsets. Raises
+    :class:`SharedMemoryError` where that exceeds a CTA's."""
+    tn = DIA_LANES * vec
+    smem = 4 * ((DIA_TILE_ROWS + runs.span + 8) * tn + runs.length * (DIA_TILE_ROWS + 1))
+    if smem > SMEM_LIMIT:
+        raise SharedMemoryError(
+            f"spmm_dia: a run of span {runs.span} and {runs.length} diagonals needs "
+            f"{smem} bytes of shared memory at {tn} columns, more than the "
+            f"{SMEM_LIMIT} of a CTA (dia_plan cuts runs at span {DIA_SPAN_MAX})")
+    tiles = cdiv(m, DIA_TILE_ROWS) * cdiv(n, tn)
+    if tiles >= 2**31:
+        raise ValueError(f"spmm_dia: {tiles} tiles exceed the grid")
+    return Launch(DIA_LANES, vec, DIA_THREADS, (tiles, 1), smem)
 
 # Bytes of one (rows, n) f64 temporary per row step of the plain version.
 _REF_CHUNK_BYTES = 256 << 20
@@ -103,24 +203,36 @@ def _check_dia_operands(dvals, offsets, b, c, *, with_c):
     return n_diags, m, k, n
 
 
-def _launch(name, dvals, offsets, b, c, alpha, beta, *, with_c, precise, wide):
+def _launch(name, dvals, offsets, b, c, alpha, beta, *, with_c, precise, runs=None):
     if int(precise) not in (0, 1, 2):
         raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
     if dvals.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {dvals.device}")
     n_diags, m, k, n = _check_dia_operands(dvals, offsets, b, c, with_c=with_c)
+    if name == "spmm_dia":
+        if runs is None:
+            raise ValueError("spmm_dia needs runs=dia_plan(offsets, device) on a CUDA device, "
+                             "and runs.offsets as its offsets")
+        if runs.offsets is not offsets:
+            raise ValueError("spmm_dia takes the offsets its run plan holds: pass runs.offsets")
+        n_runs = runs.ptr.shape[0] - 1
+        need(runs.ptr, "runs.ptr", torch.int32, (n_runs + 1,), dvals.device)
+        dense = (b, c) if with_c else (b,)
+        vec = 4 if n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in dense) else 1
+        go = dia_launch(n, m, runs, vec)
     out = torch.empty((m, n), dtype=torch.float32, device=dvals.device)
     lib = build_kernels()
-    args = (dvals.data_ptr(), offsets.data_ptr(), b.data_ptr(),
-            c.data_ptr() if with_c else None, out.data_ptr(), m, k, n, n_diags,
-            float(alpha), float(beta), int(with_c), int(bool(precise)))
+    args = (dvals.data_ptr(), offsets.data_ptr())
+    dense_args = (b.data_ptr(), c.data_ptr() if with_c else None, out.data_ptr(), m, k, n)
+    mode = (float(alpha), float(beta), int(with_c), int(bool(precise)))
     with torch.cuda.device(dvals.device):
-        if wide:
-            dense = (b, c) if with_c else (b,)
-            vec = 4 if n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in dense) else 1
-            err = lib.spmm_dia_launch(*args, vec, stream_of(dvals.device))
+        if name == "spmm_dia":
+            err = lib.spmm_dia_launch(*args, runs.ptr.data_ptr(), *dense_args, n_runs, *mode,
+                                      vec, runs.span, runs.length, go.threads, go.grid[0],
+                                      go.smem, stream_of(dvals.device))
         else:
-            err = lib.spmm_dia_skinny_launch(*args, stream_of(dvals.device))
+            err = lib.spmm_dia_skinny_launch(*args, *dense_args, n_diags, *mode,
+                                             stream_of(dvals.device))
     check_launch(lib, name, err)
     return out
 
@@ -133,17 +245,22 @@ def spmm_dia(
     alpha: float,
     beta: float,
     *,
+    runs: Optional[DiaRuns] = None,
     with_c: bool = True,
     precise: int = 0,
 ) -> torch.Tensor:
     """``alpha * A_dia @ B + beta * C`` with the wide-N kernel; returns the
-    (M, N) result. ``with_c=False`` drops the C read and ``c`` then gives the
-    shape only; ``precise`` 1 or 2 runs the compensated variant."""
+    (M, N) result. On a CUDA device ``runs`` is the run plan of the same
+    offsets, and ``offsets`` is ``runs.offsets`` (:func:`dia_plan`; any
+    cut of them into runs gives the same bits); the plain version on the
+    CPU does not read ``runs``. ``with_c=False`` drops
+    the C read and ``c`` then gives the shape only; ``precise`` 1 or 2 runs
+    the compensated variant."""
     if dvals.device.type == "cpu":
         return spmm_dia_ref(dvals, offsets, b, c, alpha, beta, with_c=with_c,
                             precise=precise)
     out = _launch("spmm_dia", dvals, offsets, b, c, alpha, beta, with_c=with_c,
-                  precise=precise, wide=True)
+                  precise=precise, runs=runs)
     spmm_dia.launches += 1
     return out
 
@@ -166,7 +283,7 @@ def spmm_dia_skinny(
         return spmm_dia_ref(dvals, offsets, b, c, alpha, beta, with_c=with_c,
                             precise=precise)
     out = _launch("spmm_dia_skinny", dvals, offsets, b, c, alpha, beta, with_c=with_c,
-                  precise=precise, wide=False)
+                  precise=precise)
     spmm_dia_skinny.launches += 1
     return out
 

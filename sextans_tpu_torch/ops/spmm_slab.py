@@ -5,7 +5,10 @@
 ``spmm_mxu_ct_padded`` (kernel K2, n <= 32). On a CUDA tensor each launches
 its hand-written kernel in ``csrc/spmm_slab.cu``; on a CPU tensor both run
 the one plain PyTorch version, ``spmm_slab_padded_ref``. Any other device
-raises. Both kernels return C in the (M, N) layout: the TPU's transposed-C
+raises. K1 walks its M-tile's groups (``ranges`` from
+:func:`~sextans_tpu_torch.ops.launch.group_ranges`); K2 walks its slab's
+blocks (``ranges`` from :func:`~sextans_tpu_torch.ops.launch.slab_visits`),
+streamed through shared memory (:func:`slab_skinny_launch`). Both kernels return C in the (M, N) layout: the TPU's transposed-C
 route has no counterpart on the card. ``precise`` 1 and 2 (one level here,
 as in the TPU slab kernels) compensate the sum of a block's contraction
 every 8 terms (where the TPU stepped once per block visit) and the
@@ -20,6 +23,9 @@ import torch
 
 from sextans_tpu_torch.ops.df32 import add_rows_compensated, compensated_epilogue
 from sextans_tpu_torch.ops.launch import (
+    SMEM_LIMIT,
+    Launch,
+    SharedMemoryError,
     add_rows_in_order,
     check_csr,
     check_operands,
@@ -28,11 +34,37 @@ from sextans_tpu_torch.ops.launch import (
     stream_of,
 )
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
+from sextans_tpu_torch.utils.config import cdiv, round_up
 
-__all__ = ["spmm_slab_padded", "spmm_slab_skinny_padded", "spmm_slab_padded_ref"]
+__all__ = ["spmm_slab_padded", "spmm_slab_skinny_padded", "spmm_slab_padded_ref",
+           "slab_skinny_launch"]
 
 MSLAB = 128
 SKINNY_MAX_N = 32
+# K2's CTA (csrc/spmm_slab.cu: kSlabRows, kStages): half a slab, and a ring
+# of two blocks in shared memory
+SKINNY_ROWS = 64
+SKINNY_STAGES = 2
+
+
+def slab_skinny_launch(n: int, n_slabs: int, block_k: int) -> Launch:
+    """K2's thread map and grid (``csrc/spmm_slab.cu``): one CTA per half
+    slab (64 rows), 32 * ceil(n / 4) threads, each over 2 rows and 4
+    columns (``lanes`` = 32 row pairs a column quad, ``cols`` = 4); a ring
+    of two stages in shared memory, each one block's (bk, 64) values and bk
+    B rows of n floats rounded up to 4, beside one 8-byte mbarrier a
+    stage. Raises :class:`SharedMemoryError` where the ring does
+    not fit in a CTA (never at a config's block_k <= 128: 96 KB at N =
+    32)."""
+    if not 1 <= n <= SKINNY_MAX_N:
+        raise ValueError(f"spmm_slab_skinny takes 1 <= n <= {SKINNY_MAX_N}, got {n}")
+    smem = SKINNY_STAGES * (4 * block_k * (SKINNY_ROWS + round_up(n, 4)) + 8)
+    if smem > SMEM_LIMIT:
+        raise SharedMemoryError(
+            f"spmm_slab_skinny: {SKINNY_STAGES} stages of block_k={block_k} blocks at "
+            f"N={n} need {smem} bytes of shared memory, more than the {SMEM_LIMIT} of a CTA")
+    return Launch(SKINNY_ROWS // 2, 4, 32 * cdiv(n, 4),
+                  (n_slabs * (MSLAB // SKINNY_ROWS), 1), smem)
 
 # See spmm_block._REF_CHUNK_BYTES and _REF_PRECISE_CHUNK_BYTES.
 _REF_CHUNK_BYTES = 256 << 20
@@ -110,27 +142,42 @@ def _launch(entry: str, vals, qm, bcol, group_mtile, group_kwin, b_padded,
         vals_shape_per_group=(group_blocks * block_k, MSLAB), tile_m=tile_m,
         window_k=window_k, group_blocks=group_blocks, with_c=with_c,
     )
-    n_mtiles = m_padded // tile_m
-    if check_csr(ranges[0], ranges[1:], ("tile_ptr", "tile_groups"), n_mtiles,
-                 vals.device) != vals.shape[0]:
-        raise ValueError(f"tile_groups must list the {vals.shape[0]} groups")
     if tile_m % MSLAB or block_k % 8:
         raise ValueError("the slab format needs tile_m % 128 == 0 and block_k % 8 == 0")
     if precise not in (0, 1, 2):
         raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
-    if entry == "spmm_slab_skinny_launch" and n > SKINNY_MAX_N:
-        raise ValueError(f"spmm_slab_skinny takes n <= {SKINNY_MAX_N}, got {n}")
+    skinny = entry == "spmm_slab_skinny_launch"
+    if skinny:  # every block once, under its slab
+        n_slabs = m_padded // MSLAB
+        if check_csr(ranges[0], ranges[1:], ("slab_ptr", "slab_blocks"), n_slabs,
+                     vals.device) != vals.shape[0] * group_blocks:
+            raise ValueError(f"slab_blocks must list the {vals.shape[0] * group_blocks} blocks")
+        go = slab_skinny_launch(n, n_slabs, block_k)
+    else:
+        n_mtiles = m_padded // tile_m
+        if check_csr(ranges[0], ranges[1:], ("tile_ptr", "tile_groups"), n_mtiles,
+                     vals.device) != vals.shape[0]:
+            raise ValueError(f"tile_groups must list the {vals.shape[0]} groups")
     out = torch.empty((m_padded, n), dtype=torch.float32, device=vals.device)
     lib = build_kernels()
+    c_ptr = c_padded.data_ptr() if with_c else None
     with torch.cuda.device(vals.device):
-        err = getattr(lib, entry)(
-            vals.data_ptr(), qm.data_ptr(), bcol.data_ptr(),
-            group_kwin.data_ptr(), ranges[0].data_ptr(), ranges[1].data_ptr(),
-            b_padded.data_ptr(), c_padded.data_ptr() if with_c else None,
-            out.data_ptr(), n_mtiles, n, tile_m, window_k, block_k,
-            group_blocks, float(alpha), float(beta), int(with_c), precise,
-            stream_of(vals.device),
-        )
+        if skinny:
+            b_bulk = n % 4 == 0 and b_padded.data_ptr() % 16 == 0
+            err = lib.spmm_slab_skinny_launch(
+                vals.data_ptr(), bcol.data_ptr(), group_kwin.data_ptr(),
+                ranges[0].data_ptr(), ranges[1].data_ptr(), b_padded.data_ptr(), c_ptr,
+                out.data_ptr(), n_slabs, n, window_k, block_k, group_blocks, float(alpha),
+                float(beta), int(with_c), precise, int(b_bulk), go.threads, go.grid[0],
+                go.smem, stream_of(vals.device))
+        else:
+            err = lib.spmm_slab_launch(
+                vals.data_ptr(), qm.data_ptr(), bcol.data_ptr(),
+                group_kwin.data_ptr(), ranges[0].data_ptr(), ranges[1].data_ptr(),
+                b_padded.data_ptr(), c_ptr, out.data_ptr(), m_padded // tile_m, n, tile_m,
+                window_k, block_k, group_blocks, float(alpha), float(beta), int(with_c),
+                precise, stream_of(vals.device),
+            )
     check_launch(lib, entry, err)
     return out
 
@@ -195,7 +242,9 @@ def spmm_slab_skinny_padded(
     precise: int = 0,
 ) -> torch.Tensor:
     """The same product for n <= 32, with all n columns in one CUDA block
-    per 128-row slab; returns the padded (m_padded, n) result."""
+    per half slab, over the slab's blocks (``ranges`` =
+    :func:`~sextans_tpu_torch.ops.launch.slab_visits`); returns the padded
+    (m_padded, n) result."""
     kw = dict(tile_m=tile_m, window_k=window_k, block_k=block_k,
               group_blocks=group_blocks, with_c=with_c, precise=int(precise))
     if vals.device.type == "cpu":

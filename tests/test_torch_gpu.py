@@ -10,7 +10,8 @@ the same f32 products in pack order and differ in the rounding of each
 block's product and of the epilogue. In precise mode the block, edge, ELL
 and DIA kernels equal their plain versions to the bit: both take the same
 roundings in the same order (``ops/df32.py``, ``csrc/df32.cuh``); so do the
-gather probes' kernels (``csrc/gather_probe.cu``) in every mode.
+wide DIA kernel (K6) and the gather probes' kernels
+(``csrc/gather_probe.cu``) in every mode.
 """
 
 import numpy as np
@@ -20,11 +21,18 @@ import torch
 import sextans_tpu_torch as tx
 from sextans_tpu_torch.ops import df32
 from sextans_tpu_torch.ops.spmm_block import spmm_block_padded, spmm_block_padded_ref
-from sextans_tpu_torch.ops.spmm_dia import spmm_dia, spmm_dia_ref, spmm_dia_skinny
+from sextans_tpu_torch.ops.spmm_dia import (
+    DiaRuns,
+    dia_plan,
+    spmm_dia,
+    spmm_dia_ref,
+    spmm_dia_skinny,
+)
 from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded, spmm_edge_padded_ref
 from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded, spmm_ell_gather_padded_ref
-from sextans_tpu_torch.ops.launch import SharedMemoryError, group_ranges
+from sextans_tpu_torch.ops.launch import SharedMemoryError, dia_runs, group_ranges, slab_visits
 from sextans_tpu_torch.ops.spmm_slab import (
+    SKINNY_STAGES,
     spmm_slab_padded,
     spmm_slab_padded_ref,
     spmm_slab_skinny_padded,
@@ -292,11 +300,23 @@ def _dia_split(kind):
                                            rng.standard_normal(rows.size)), n=64)
 
 
-def _check_dia(kernel, cuda, split, n, with_c, misaligned=False, precise=0):
+def _runs_cut_at(offsets, cuda, cut):
+    """A run plan of ``offsets`` built by hand, with runs of span at most
+    ``cut`` (dia_plan cuts at DIA_SPAN_MAX)."""
+    offs = np.asarray(offsets, dtype=np.int64)
+    ptr = dia_runs(offs, cut)
+    return DiaRuns(torch.from_numpy(offs.astype(np.int32)).to(cuda), torch.from_numpy(ptr).to(cuda),
+                   int((offs[ptr[1:] - 1] - offs[ptr[:-1]]).max()), int(np.diff(ptr).max()))
+
+
+def _check_dia(kernel, cuda, split, n, with_c, misaligned=False, precise=0,
+               cut=None, poison=None):
     rng = np.random.default_rng(n)
     dv = torch.as_tensor(split.diag_vals, device=cuda)
     offs = torch.as_tensor(split.diag_offsets.astype(np.int32), device=cuda)
     b = torch.as_tensor(rng.standard_normal((split.k, n)).astype(np.float32), device=cuda)
+    if poison is not None:
+        b[poison] = float("nan")
     if misaligned:  # B one float past a 16-byte boundary: 4-byte loads
         buf = torch.empty(b.numel() + 1, device=cuda)
         buf[1:] = b.reshape(-1)
@@ -304,17 +324,25 @@ def _check_dia(kernel, cuda, split, n, with_c, misaligned=False, precise=0):
     c = torch.as_tensor(rng.standard_normal((split.m, n)).astype(np.float32), device=cuda)
     if not with_c:
         c = torch.zeros(1, device=cuda).expand(split.m, n)
+    kw = dict(with_c=with_c, precise=precise)
+    runs = {}
+    if kernel is spmm_dia:  # K6 takes the offsets its plan holds
+        runs["runs"] = (dia_plan(split.diag_offsets, cuda) if cut is None
+                        else _runs_cut_at(split.diag_offsets, cuda, cut))
+        offs = runs["runs"].offsets
     before = kernel.launches
-    got = kernel(dv, offs, b, c, ALPHA, BETA, with_c=with_c, precise=precise)
-    want = spmm_dia_ref(dv, offs, b, c, ALPHA, BETA, with_c=with_c, precise=precise)
+    got = kernel(dv, offs, b, c, ALPHA, BETA, **runs, **kw)
+    want = spmm_dia_ref(dv, offs, b, c, ALPHA, BETA, **kw)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert got.shape == want.shape == (split.m, n) and got.device == cuda
-    assert torch.isfinite(got).all()
-    if precise:
-        assert torch.equal(got, want)
-    tol = 4 * np.spacing(np.float32(want.abs().max().item()))
-    assert (got - want).abs().max().item() <= tol
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), finite)
+    assert bool(finite.all()) == (poison is None)
+    if precise or kernel is spmm_dia:
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    tol = 4 * np.spacing(np.float32(want[finite].abs().max().item()))
+    assert (got[finite] - want[finite]).abs().max().item() <= tol
 
 
 @pytest.mark.parametrize("kind", ["stencil", "band", "rect"])
@@ -688,3 +716,132 @@ def test_gather_probes_check_columns_on_the_card(cuda):
         ell_issue.ell_issue(vals, cols, b)
     vals[7, 1] = 0.0  # a pad's column may be anything
     assert torch.isfinite(ell_issue.ell_issue(vals, cols, b, variant="select")).all()
+
+
+# ---- K2 streams its slab's blocks through shared memory; K6 stages a
+# window of B per row tile and run of diagonals ----
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("bk", [32, 128])
+@pytest.mark.parametrize("kind", ["long_stripe", "empty_mtiles"])
+@pytest.mark.parametrize("n", [1, 7, 9, 32])
+def test_slab_skinny_kernel_streams_long_slabs(cuda, kind, n, bk, precise):
+    cfg = tx.SpmmConfig(tile_m=256, window_k=512, block_k=bk, group_blocks=4,
+                        precise=precise)
+    packed = tx.pack_mxu(_matrix(kind), cfg)
+    # some slab holds more blocks than the ring has stages
+    assert np.diff(slab_visits(packed)[0]).max() > SKINNY_STAGES
+    _check(spmm_slab_skinny_padded, spmm_slab_padded_ref, cuda, packed, n,
+           with_c=n != 7, precise=precise)
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("n", [9, 16])
+def test_slab_skinny_kernel_pads_meet_nonfinite_b(cuda, n, precise):
+    cfg = tx.SpmmConfig(tile_m=256, window_k=256, block_k=16, group_blocks=8,
+                        precise=precise)
+    packed = tx.pack_mxu(_matrix("empty_mtiles"), cfg)
+    blocks = packed.vals.reshape(packed.n_groups * cfg.group_blocks, -1)
+    assert (np.abs(blocks).max(axis=1) == 0).any()  # pad blocks, read B[window start]
+    _check(spmm_slab_skinny_padded, spmm_slab_padded_ref, cuda, packed, n, with_c=True,
+           precise=precise, poison=float("nan"))
+
+
+@pytest.mark.parametrize("n", [4, 16])
+def test_slab_skinny_kernel_takes_misaligned_b(cuda, n):
+    cfg = tx.SpmmConfig(tile_m=256, window_k=512, block_k=32, group_blocks=4)
+    packed = tx.pack_mxu(_matrix("banded"), cfg)
+    pl = tx.plan(packed, n, "mxu", device=cuda)
+    rng = np.random.default_rng(n)
+    b = pl.pad_b(rng.standard_normal((packed.k, n)).astype(np.float32))
+    c = pl.pad_c(rng.standard_normal((packed.m, n)).astype(np.float32))
+    shifted = torch.empty(b.numel() + 1, device=cuda)[1:].view(b.shape)
+    shifted.copy_(b)
+    assert shifted.data_ptr() % 16  # 4-byte copies of B instead of one bulk copy
+    kw = dict(tile_m=256, window_k=512, block_k=32, group_blocks=4, ranges=pl.ranges)
+    got = spmm_slab_skinny_padded(*pl.arrays, shifted, c, ALPHA, BETA, **kw)
+    want = spmm_slab_skinny_padded(*pl.arrays, b, c, ALPHA, BETA, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_slab_skinny_refuses_a_ring_that_does_not_fit(cuda):
+    bk = 512  # beyond a config's block_k <= 128: two stages need 393 KB at N = 32
+    i32 = dict(dtype=torch.int32, device=cuda)
+    vals = torch.zeros((1, bk, 128), device=cuda)
+    idx = torch.zeros((1, 1), **i32)
+    ranges = (torch.tensor([0, 1], **i32), torch.zeros(1, **i32))
+    b, c = torch.ones((bk, 32), device=cuda), torch.ones((128, 32), device=cuda)
+    before = spmm_slab_skinny_padded.launches
+    with pytest.raises(SharedMemoryError, match="shared memory"):
+        spmm_slab_skinny_padded(vals, idx, idx, torch.tensor([0, -1], **i32),
+                                torch.zeros(1, **i32), b, c, 1.0, 0.0, tile_m=128,
+                                window_k=bk, block_k=bk, group_blocks=1, ranges=ranges)
+    assert spmm_slab_skinny_padded.launches == before
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("cut", [0, 3, None])
+@pytest.mark.parametrize("kind", ["band", "rect"])
+@pytest.mark.parametrize("n", [37, 64])
+def test_dia_kernel_runs_and_ragged_tiles_to_the_bit(cuda, kind, n, cut, precise):
+    split = _dia_split(kind)
+    assert split.m % 64  # the last row tile is ragged
+    # band: offsets -60..60 run off both ends of B, two runs under dia_plan;
+    # rect: 256 offsets in -438..758, many. A plan cut finer by hand (runs
+    # of span 0 or 3) gives the same bits.
+    if cut is None:
+        assert dia_plan(split.diag_offsets, cuda).ptr.numel() - 1 >= 2
+    _check_dia(spmm_dia, cuda, split, n, with_c=n == 37, precise=precise, cut=cut)
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("n", [37, 64])
+def test_dia_kernel_multiplies_stored_zeros_with_nonfinite_b(cuda, n, precise):
+    split = _dia_split("band")
+    row = split.k // 2
+    rows = row - split.diag_offsets
+    inside = (rows >= 0) & (rows < split.m)
+    # a stored zero of some diagonal reads B[row]: 0 * NaN gives NaN there
+    assert (split.diag_vals[np.flatnonzero(inside), rows[inside]] == 0).any()
+    _check_dia(spmm_dia, cuda, split, n, with_c=True, precise=precise, poison=row)
+
+
+def test_dia_kernel_refuses_a_window_that_does_not_fit(cuda):
+    m = k = 3000
+    rng = np.random.default_rng(0)
+    offsets = np.array([-1200, 1200])
+    dv = torch.as_tensor(rng.standard_normal((2, m)).astype(np.float32), device=cuda)
+    offs = torch.as_tensor(offsets.astype(np.int32), device=cuda)
+    b = torch.ones((k, 64), device=cuda)
+    c = torch.ones((m, 64), device=cuda)
+    before = spmm_dia.launches
+    by_hand = DiaRuns(offs, torch.tensor([0, 2], dtype=torch.int32, device=cuda), 2400, 2)
+    with pytest.raises(SharedMemoryError, match="shared memory"):
+        spmm_dia(dv, offs, b, c, 1.0, 0.0, runs=by_hand)
+    assert spmm_dia.launches == before
+    runs = dia_plan(offsets, cuda)  # two runs of one diagonal each
+    assert runs.ptr.tolist() == [0, 1, 2] and (runs.span, runs.length) == (0, 1)
+    got = spmm_dia(dv, runs.offsets, b, c, ALPHA, BETA, runs=runs)
+    assert torch.equal(got, spmm_dia_ref(dv, offs, b, c, ALPHA, BETA))
+    with pytest.raises(ValueError, match="runs"):
+        spmm_dia(dv, offs, b, c, 1.0, 0.0)
+
+
+@pytest.mark.parametrize("other", ["plan", "tensor"])
+def test_dia_kernel_takes_only_the_offsets_its_plan_holds(cuda, other):
+    m = k = 3000
+    rng = np.random.default_rng(1)
+    dv = torch.as_tensor(rng.standard_normal((2, m)).astype(np.float32), device=cuda)
+    b = torch.ones((k, 64), device=cuda)
+    c = torch.ones((m, 64), device=cuda)
+    runs = dia_plan(np.array([-1200, 1200]), cuda)
+    if other == "plan":  # a plan of other offsets, whose window is far narrower
+        runs = dia_plan(np.array([0, 1]), cuda)
+        offs = torch.tensor([-1200, 1200], dtype=torch.int32, device=cuda)
+    else:  # the same values in another tensor
+        offs = runs.offsets.clone()
+    before = spmm_dia.launches
+    with pytest.raises(ValueError, match="runs.offsets"):
+        spmm_dia(dv, offs, b, c, 1.0, 0.0, runs=runs)
+    assert spmm_dia.launches == before

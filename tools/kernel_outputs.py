@@ -1,19 +1,33 @@
 #!/usr/bin/env python3
-"""Save the block (K3) and edge (K4) kernels' outputs, to compare two trees
-of the repository bit for bit on one card.
+"""Save the outputs of the kernels that have been redesigned (K2, K3, K4,
+K6), to compare two trees of the repository bit for bit on one card.
 
-    python3 tools/kernel_outputs.py save ROOT OUT
+    python3 tools/kernel_outputs.py save ROOT OUT [--full]
     python3 tools/kernel_outputs.py compare OUT_A OUT_B
 
 ``save`` imports ``sextans_tpu_torch`` from the tree at ROOT (a checkout of
-any commit since the port has K3 and K4), builds its kernels, and runs them
-at ``chip_smoke.py``'s phase-2 shapes: the banded synthetic 4704 x 4704
-matrix (104,756 nnz, seed 42); K3 over ``pack`` with the default config at
-N = 512 and 16; K4 over ``pack_edge`` with the default config at N = 512 and
-with ``edge_masked``, ``edge_lanes=4`` at N = 16. Each runs at precise
-levels 0, 1 and 2, with and without C, on the plan's own arrays and ranges,
-alpha 0.85, beta -2.06 and B, C from numpy seed 0. It writes the outputs to
-OUT (``torch.save``) and prints one line per output.
+any commit since the port has K2-K7), builds its kernels, and runs them at
+``chip_smoke.py``'s phase-2 shapes, on the banded synthetic 4704 x 4704
+matrix (104,756 nnz, seed 42):
+
+* K3 over ``pack`` with the default config at N = 512 and 16;
+* K4 over ``pack_edge`` with the default config at N = 512 and with
+  ``edge_masked``, ``edge_lanes=4`` at N = 16;
+* K2 over ``pack_mxu`` with ``bench.py``'s slab config (tile_m 1024,
+  window_k 4096, block_k 128, group_blocks 8) at N = 16 and 9 (a column
+  group that is not full);
+
+each at precise levels 0, 1 and 2, and
+
+* K6 over the diagonal part of ``split_structure(coo, n=N)`` at N = 512
+  and 37 (4-byte columns), at levels 0 and 1 (its one precise variant);
+
+each with and without C, on the plan's own arrays (``SpmmPlan`` or
+``HybridSpmmPlan``, and their host scans), alpha 0.85, beta -2.06 and B, C
+from numpy seed 0. ``--full`` adds the full-size shapes: K2 on cant_like
+(``fem_like(62451, dofs=3, neighbors=21, seed=2)``) at N = 16 and K6 on
+scircuit_like (``circuit_like(170998, seed=9)``) at N = 512. It writes the
+outputs to OUT (``torch.save``) and prints one line per output.
 
 ``compare`` prints, for every output of OUT_A, whether OUT_B holds the same
 bits, and exits 1 unless all are equal.
@@ -27,53 +41,94 @@ from pathlib import Path
 ALPHA, BETA = 0.85, -2.06
 
 
-def save(root: str, out: str) -> int:
+def save(root: str, out: str, full: bool = False) -> int:
     sys.path.insert(0, str(Path(root).resolve()))
     import numpy as np
     import torch
 
     import sextans_tpu_torch as sx
     from sextans_tpu_torch.ops.spmm_block import spmm_block_padded
+    from sextans_tpu_torch.ops.spmm_dia import spmm_dia
     from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded
+    from sextans_tpu_torch.ops.spmm_slab import spmm_slab_skinny_padded
+    from sextans_tpu_torch.utils.matrices import circuit_like, fem_like
 
     if not torch.cuda.is_available():
         print("kernel_outputs: no CUDA device", file=sys.stderr)
         return 2
     print(f"sextans_tpu_torch from {Path(sx.__file__).parent}", flush=True)
     synth = sx.COOMatrix.random(4704, 4704, 104756, seed=42, banded=True, bandwidth=300)
-    cases = [("spmm_block", sx.pack, sx.SpmmConfig(), 512),
-             ("spmm_block", sx.pack, sx.SpmmConfig(), 16),
-             ("spmm_edge", sx.pack_edge, sx.SpmmConfig(), 512),
-             ("spmm_edge", sx.pack_edge, sx.SpmmConfig(edge_masked=True, edge_lanes=4), 16)]
+    slab_cfg = sx.SpmmConfig(tile_m=1024, window_k=4096, block_k=128, group_blocks=8,
+                             chunk_unroll=2)
+    packed_cases = [("spmm_block", synth, sx.pack, sx.SpmmConfig(), 512),
+                    ("spmm_block", synth, sx.pack, sx.SpmmConfig(), 16),
+                    ("spmm_edge", synth, sx.pack_edge, sx.SpmmConfig(), 512),
+                    ("spmm_edge", synth, sx.pack_edge,
+                     sx.SpmmConfig(edge_masked=True, edge_lanes=4), 16),
+                    ("spmm_slab_skinny", synth, sx.pack_mxu, slab_cfg, 16),
+                    ("spmm_slab_skinny", synth, sx.pack_mxu, slab_cfg, 9)]
+    dia_cases = [("synthetic4704", synth, 512), ("synthetic4704", synth, 37)]
+    if full:
+        packed_cases.append(("spmm_slab_skinny", fem_like(62451, dofs=3, neighbors=21, seed=2),
+                             sx.pack_mxu, slab_cfg, 16))
+        dia_cases.append(("scircuit_like", circuit_like(170998, seed=9), 512))
+    kernels = {"spmm_block": (spmm_block_padded, "pallas"),
+               "spmm_edge": (spmm_edge_padded, "edge"),
+               "spmm_slab_skinny": (spmm_slab_skinny_padded, "mxu")}
     outs = {}
-    for name, packer, cfg, n in cases:
+
+    def keep(key, kernel, before, got):
+        torch.cuda.synchronize()
+        if kernel.launches != before + 1:
+            raise RuntimeError(f"{key}: the kernel did not launch")
+        outs[key] = got.cpu()
+        print(f"{key}: {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}",
+              flush=True)
+
+    for name, coo, packer, cfg, n in packed_cases:
         rng = np.random.default_rng(0)
-        b = rng.standard_normal((synth.shape[1], n)).astype(np.float32)
-        c = rng.standard_normal((synth.shape[0], n)).astype(np.float32)
+        b = rng.standard_normal((coo.shape[1], n)).astype(np.float32)
+        c = rng.standard_normal((coo.shape[0], n)).astype(np.float32)
+        kernel, backend = kernels[name]
+        tag = "" if coo is synth else "cant_like "
         for level in (0, 1, 2):
-            packed = packer(synth, cfg.with_(precise=level))
-            backend = "pallas" if name == "spmm_block" else "edge"
+            packed = packer(coo, cfg.with_(precise=level))
             pl = sx.plan(packed, n, backend, device="cuda")
             b_p, c_p = pl.pad_b(b), pl.pad_c(c)
-            if name == "spmm_block":
-                kernel = spmm_block_padded
-                kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k, block_k=cfg.block_k,
-                          group_blocks=cfg.group_blocks)
-            else:
-                kernel = spmm_edge_padded
+            if name == "spmm_edge":
                 kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k,
                           edge_chunk=cfg.edge_chunk, masked=cfg.edge_masked)
+            else:
+                kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k, block_k=cfg.block_k,
+                          group_blocks=cfg.group_blocks)
             for with_c in (True, False):
                 before = kernel.launches
                 got = kernel(*pl.arrays, b_p, c_p, ALPHA, BETA if with_c else 0.0,
                              ranges=pl.ranges, with_c=with_c, precise=level, **kw)
-                torch.cuda.synchronize()
-                if kernel.launches != before + 1:
-                    raise RuntimeError(f"{name} did not launch")
-                key = f"{name} N={n} precise={level} with_c={with_c}"
-                outs[key] = got.cpu()
-                print(f"{key}: {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}",
-                      flush=True)
+                keep(f"{tag}{name} N={n} precise={level} with_c={with_c}", kernel, before, got)
+            del pl, packed, b_p, c_p
+        torch.cuda.empty_cache()
+
+    for tag, coo, n in dia_cases:
+        rng = np.random.default_rng(0)
+        b = torch.as_tensor(rng.standard_normal((coo.shape[1], n)).astype(np.float32),
+                            device="cuda")
+        c = torch.as_tensor(rng.standard_normal((coo.shape[0], n)).astype(np.float32),
+                            device="cuda")
+        split = sx.split_structure(coo, n=n)
+        pl = sx.HybridSpmmPlan(split, n, residue_config=sx.SpmmConfig(), backend="pallas",
+                               device="cuda")
+        if pl._dia is not spmm_dia:
+            raise RuntimeError(f"{tag} N={n}: the plan does not run spmm_dia")
+        for level in (0, 1):
+            for with_c in (True, False):
+                before = spmm_dia.launches
+                got = spmm_dia(pl._dvals, pl._offsets, b, c, ALPHA, BETA if with_c else 0.0,
+                               with_c=with_c, precise=level, **getattr(pl, "_dia_kw", {}))
+                keep(f"{'' if coo is synth else tag + ' '}spmm_dia N={n} precise={level} "
+                     f"with_c={with_c}", spmm_dia, before, got)
+        del pl, b, c
+        torch.cuda.empty_cache()
     torch.save(outs, out)
     return 0
 
@@ -93,8 +148,8 @@ def compare(path_a: str, path_b: str) -> int:
 
 
 def main(argv) -> int:
-    if len(argv) == 3 and argv[0] == "save":
-        return save(argv[1], argv[2])
+    if len(argv) in (3, 4) and argv[0] == "save" and argv[3:] in ([], ["--full"]):
+        return save(argv[1], argv[2], full=argv[3:] == ["--full"])
     if len(argv) == 3 and argv[0] == "compare":
         return compare(argv[1], argv[2])
     print(__doc__, file=sys.stderr)
