@@ -18,12 +18,14 @@ Phases (each prints its lines; any failure exits non-zero):
    ``edge_lanes=4``, at N = 16, ELL gather kernel (K5) at N = 512 and 16, and
    the DIA kernels over the diagonal part of its hybrid split (256
    diagonals): K6 at N = 512, K7 at N = 16.
-   Tolerance: K4 and K6 to the bit; K3 within
+   Tolerance: K4, K6 and K7 to the bit; K3 within
    spacing(f32(max |plain|)) (its plain version contracts each block with a
-   matmul); the others 4 * that. K3's and K4's rows also print their thread
-   map and grid; K2's its grid (two CTAs a slab), threads, stages and shared
-   memory a CTA, and how many slabs hold blocks; K6's its run plan (runs of
-   diagonals, their widest span), tiles, threads and shared memory a CTA.
+   matmul); the others 4 * that (K1 contracts in 3xTF32 on the tensor
+   cores in plain mode). K3's and K4's rows also print their thread map and
+   grid; K2's its grid (two CTAs a slab), threads, stages and shared memory
+   a CTA, and how many slabs hold blocks; K1's the same and its contraction
+   and tile; K6's and K7's their run plan (runs of diagonals, their widest
+   span), tiles, threads and shared memory a CTA.
 3. The main path end to end: write_mtx -> read_mtx -> the backend's packer
    -> plan(device="cuda") -> verify against golden_spmm, and max-abs against
    golden_spmm_exact in ulp of max|C| (bar: 4 ulp), for pallas, mxu, edge
@@ -117,8 +119,9 @@ the call that is compared with its kernel.
 Each path of phases 3
 and 4 prints its pack (seconds, bytes on the card, slots and the share that
 holds a nonzero), the host scan its kernel walks (``stripe_visits`` for
-pallas, ``row_runs`` for edge, ``slab_visits`` for mxu at N <= 32:
-seconds, bytes and its longest list),
+pallas, ``row_runs`` for edge, ``slab_visits`` for mxu: seconds, bytes and
+its longest list), K1's operand tiles on the mxu path at N > 32 in plain
+mode (``slab_image``, made at upload: seconds on the card and bytes),
 ``time_repeat`` (median of 3) and GFLOPS = 2 * N * (nnz + M) / t, and a ``torch.profiler`` breakdown of 20 plan calls: device
 time in the kernel, in every other device op, and the idle share of the
 calls' host-clock time. Each hybrid run of phase 5 prints the same for its
@@ -194,6 +197,7 @@ def kernel_calls(pl, n, precise=None):
     )
     from sextans_tpu_torch.ops.spmm_slab import (
         SKINNY_MAX_N,
+        slab_image,
         spmm_slab_padded,
         spmm_slab_padded_ref,
         spmm_slab_skinny_padded,
@@ -217,6 +221,10 @@ def kernel_calls(pl, n, precise=None):
                                    spmm_slab_padded_ref)
         else:
             name, kernel, plain = "spmm_slab", spmm_slab_padded, spmm_slab_padded_ref
+            # K1's operand tiles, made at upload for plain mode; made here to
+            # run a precise plan's pack in plain mode too
+            extra["image"] = (pl.image if pl.image is not None or level["precise"]
+                              else slab_image(pl.arrays[0], cfg.block_k))
         kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k, block_k=cfg.block_k,
                   group_blocks=cfg.group_blocks)
     kw.update(level)
@@ -413,6 +421,7 @@ def main() -> int:
         DIA_SPAN_MAX,
         dia_launch,
         dia_plan,
+        dia_skinny_launch,
         spmm_dia,
         spmm_dia_ref,
         spmm_dia_skinny,
@@ -422,6 +431,10 @@ def main() -> int:
     from sextans_tpu_torch.ops.spmm_slab import (
         SKINNY_MAX_N,
         SKINNY_STAGES,
+        SLAB_CHUNK,
+        SLAB_STAGES,
+        slab_image,
+        slab_launch,
         slab_skinny_launch,
         spmm_slab_padded,
         spmm_slab_skinny_padded,
@@ -513,6 +526,16 @@ def main() -> int:
                     f"{blocks.size} slabs hold blocks, at most {int(blocks.max(initial=0))}), "
                     f"{go.threads} threads a CTA, {SKINNY_STAGES} stages, {go.smem} bytes of "
                     f"shared memory a CTA]")
+        elif name == "spmm_slab":
+            cfg = pl.packed.config
+            go = slab_launch(n, pl.packed.m_padded // 128, cfg.block_k, cfg.precise)
+            blocks = np.diff(pl.ranges[0].cpu().numpy())
+            grid = (f" [{'FFMA' if cfg.precise else '3xTF32 on the tensor cores'}: grid "
+                    f"{go.grid[0]} CTAs of {go.lanes} rows x {go.cols} columns "
+                    f"({int((blocks > 0).sum())} of {blocks.size} slabs hold blocks, at most "
+                    f"{int(blocks.max(initial=0))}), {go.threads} threads a CTA, {SLAB_STAGES} "
+                    f"stages of {min(SLAB_CHUNK, cfg.block_k)} terms, {go.smem} bytes of "
+                    f"shared memory a CTA]")
         print(f"{tag}: {name} ({pl.backend}, precise={pl.packed.config.precise}) N={n}{grid}: "
               f"max_abs_err vs plain {err:.3e} (tol {tol:.3e}) kernel {ms['kernel']:.4f} ms"
               f"{mode0} plain {ms['plain']:.4f} ms "
@@ -544,7 +567,7 @@ def main() -> int:
 
     def check_dia(tag, split, n, iters, rounds=ROUNDS, slow_plain=False, precise=0):
         """Hold the DIA kernel of N against its plain version on the card (to
-        the bit for K6, and for K7 at a precise level) and time both beside
+        the bit, K6 and K7 in every mode) and time both beside
         the library call on the diagonal part and the bound of the DIA work;
         at a precise level, also beside the same kernel in plain mode."""
         wide = n > SKINNY_MAX_N
@@ -553,25 +576,22 @@ def main() -> int:
         dv = torch.as_tensor(split.diag_vals, device="cuda")
         offs = torch.as_tensor(split.diag_offsets.astype(np.int32), device="cuda")
         b, c = (torch.as_tensor(x, device="cuda") for x in operands(m, k, n))
-        grid = ""
-        if wide:  # K6 walks its run plan, made once as HybridSpmmPlan makes it
-            runs = dia_plan(split.diag_offsets, "cuda")
-            offs = runs.offsets
-            go = dia_launch(n, m, runs, 4 if n % 4 == 0 else 1)
-            grid = (f" [{runs.ptr.numel() - 1} runs (span <= {runs.span}, <= {runs.length} "
-                    f"diagonals), tiles of 64 rows x {go.lanes * go.cols} columns: grid "
-                    f"{go.grid[0]} CTAs of {go.threads} threads, {go.smem} bytes of shared "
-                    f"memory a CTA]")
-            kernel = functools.partial(spmm_dia, runs=runs)
-        else:
-            kernel = spmm_dia_skinny
+        # K6 and K7 walk their run plan, made once as HybridSpmmPlan makes it
+        runs = dia_plan(split.diag_offsets, "cuda")
+        offs = runs.offsets
+        go = (dia_launch(n, m, runs, 4 if n % 4 == 0 else 1) if wide
+              else dia_skinny_launch(n, m, runs))
+        rows, cols = (64, go.lanes * go.cols) if wide else (go.lanes, n)
+        grid = (f" [{runs.ptr.numel() - 1} runs (span <= {runs.span}, <= {runs.length} "
+                f"diagonals), tiles of {rows} rows x {cols} columns: grid {go.grid[0]} CTAs "
+                f"of {go.threads} threads, {go.smem} bytes of shared memory a CTA]")
+        kernel = functools.partial(spmm_dia if wide else spmm_dia_skinny, runs=runs)
         got = kernel(dv, offs, b, c, ALPHA, BETA, precise=precise)
         want, plain_ms = timed_once(
             lambda: spmm_dia_ref(dv, offs, b, c, ALPHA, BETA, precise=precise))
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        tol = (0.0 if precise or wide
-               else ULP_BAR * float(np.spacing(np.float32(want.abs().max().item()))))
+        tol = 0.0  # K6 and K7 take the plain version's roundings in its order
         ok = bool(torch.isfinite(got).all().item()) and err <= tol
         del got, want
         d_idx, rows = np.nonzero(split.diag_vals)
@@ -660,9 +680,16 @@ def main() -> int:
         t0 = time.perf_counter()
         pl = sx.plan(packed, n, backend, device="cuda")
         t_plan = time.perf_counter() - t0
-        scan, scan_note = {"pallas": stripe_visits, "edge": row_runs}.get(backend), ""
-        if backend == "mxu" and n <= SKINNY_MAX_N:
-            scan = slab_visits
+        scan, scan_note = {"pallas": stripe_visits, "edge": row_runs,
+                           "mxu": slab_visits}.get(backend), ""
+        if pl.image is not None:  # K1's operand tiles, made once at upload, made again alone
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            image = slab_image(pl.arrays[0], cfg.block_k)
+            torch.cuda.synchronize()
+            scan_note += (f"; slab_image {time.perf_counter() - t0:.4f} s on the card, "
+                          f"{image.nbytes / 1e6:.3f} MB")
+            del image
         if scan is not None:  # the scan alone, again (the plan memoises its upload)
             t0 = time.perf_counter()
             lists = scan(packed)
@@ -674,7 +701,7 @@ def main() -> int:
             longest = int(np.bincount(owner, weights=work).max(initial=0))
             unit, items = {"pallas": ("stripe", "visits"), "edge": ("row", "slots"),
                            "mxu": ("slab", "blocks")}[backend]
-            scan_note = (f"; {scan.__name__} {t_scan:.4f} s, "
+            scan_note = (f"{scan_note}; {scan.__name__} {t_scan:.4f} s, "
                          f"{sum(r.nbytes for r in pl.ranges) / 1e6:.3f} MB, longest "
                          f"{unit} {longest} {items}")
         got_dev = pl(b, ALPHA, BETA, c)
@@ -698,7 +725,8 @@ def main() -> int:
         runs[tag.split()[-1], backend, n, int(cfg.precise)] = (ulp, t)
         m = coo.shape[0]
         ok = res.passed and ulp <= bar and acc["finite"] and tuple(got_dev.shape) == (m, n)
-        pack_mb = sum(a.nbytes for a in pl.arrays + (pl.ranges or ())) / 1e6
+        pack_mb = sum(a.nbytes for a in pl.arrays + (pl.ranges or ())
+                      + ((pl.image,) if pl.image is not None else ())) / 1e6
         shape = (f"R={packed.slots_per_row}, {packed.n_virt} virtual rows"
                  if backend in ("ell", "ell_pallas") else f"{packed.stats.groups} groups")
         print(f"{tag}: {backend} precise={cfg.precise} N={n} {coo.shape[0]}x{coo.shape[1]} "

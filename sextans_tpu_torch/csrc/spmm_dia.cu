@@ -10,13 +10,12 @@
 // slices, and K7 ran on B^T and C^T so that M rode the 128 lanes. The caller
 // padded B with pad_lo = max(0, -min(offsets)) zero rows above and enough
 // zero rows below for every read. None of that carries over: a thread reads
-// B row i + off straight from device memory (K7) or from a window of B
-// staged in shared memory (K6), and a row outside [0, k) reads as 0, which
-// is what the zero padding held, so B needs no padded copy and no offset is
-// trusted for an address (K6's run plan, which sizes its shared memory, is
-// held to the offsets on the host where it is made: ops/spmm_dia.py,
-// DiaRuns). dvals is one (D, m) array for both kernels; B and C stay
-// (k, n) and (m, n), row-major.
+// B row i + off from a window of B staged in shared memory, and a row
+// outside [0, k) is staged as 0, which is what the zero padding held, so B
+// needs no padded copy and no offset is trusted for an address (the run
+// plan, which sizes both kernels' shared memory, is held to the offsets on
+// the host where it is made: ops/spmm_dia.py, DiaRuns). dvals is one (D, m)
+// array for both kernels; B and C stay (k, n) and (m, n), row-major.
 //
 // Per output cell (i, j), for d = 0 .. D-1 in ascending offset order (the
 // order the TPU kernel's clusters give):
@@ -72,15 +71,34 @@
 // plan that needs more
 // than a CTA may hold is refused before launch (SharedMemoryError).
 //
-// spmm_dia_skinny (N <= 32): a row is at most 128 bytes, so consecutive
-// threads walk the flattened (row, column) index of the row-major B and C:
-// a warp covers 32 consecutive floats of C and, per diagonal, of B, shifted
-// by off * n. This coalesces without the TPU's transposes.
+// spmm_dia_skinny (N <= 32) walks the same run plan as spmm_dia. A CTA owns
+// a tile of `rows` rows by all n columns: 64 rows where those tiles fill the
+// card four times over (laplace3d_64: 4,096 tiles), else 16 (synthetic4704:
+// 294 tiles, where 64 would leave half the SMs idle); ops/spmm_dia.py:
+// dia_skinny_launch. Its threads take the tile's row-major (row, column)
+// cells t, t + threads, ...: one each in a 16-row tile, so that a small grid
+// still holds enough warps to hide the latency of each diagonal's two
+// shared-memory reads, and four each in a 64-row tile, whose CTAs are many;
+// a warp reads 32 consecutive floats of a window row. For each run it stages, with cp.async (16-byte copies of B
+// when n % 4 == 0 and B is 16-byte aligned, 4-byte otherwise and for
+// dvals), the run's window of B, rows row0 + off_first .. row0 + rows - 1 +
+// off_last, zeros outside [0, k), the run's dvals (length x rows) and its
+// offsets, into one of four buffers (16-row tiles) or two (64-row tiles),
+// one cp.async group a run: the next runs' copies land while this run's
+// diagonals are added. A cell adds its
+// diagonals in ascending order from its window, one FFMA (precise: two_prod
+// and a Neumaier step) each, so every output equals the plain version's to
+// the bit. Shared memory a CTA: its buffers, each of
+// (rows + span) * n + (rows + 1) * length floats rounded to 16 bytes (4 x
+// 9,552 bytes for synthetic4704's nine runs at N = 16).
 //
-// What bounds it on the H100: the least traffic is dvals once, B once and C
+// What bounds them on the H100: the least traffic is dvals once, B once and C
 // in and out, 4 * (D * M + K * N + 2 * M * N) bytes, against 2 * D * M * N
 // flops; at scircuit_like N = 512 (D = 121, M = 170,998) that is 0.34 ms at
-// 3.35 TB/s against 0.32 ms at 67 TFLOP/s. K6 stages B (64 + span) / 64
+// 3.35 TB/s against 0.32 ms at 67 TFLOP/s. K7 at N <= 32 does few flops a
+// staged byte: a run's staging (its window, from L2, rows + span rows a
+// tile) and the CTA's wait for it set its pace, which the ring hides
+// behind the earlier runs' diagonals. K6 stages B (64 + span) / 64
 // times a run from L2 (3.9 times on scircuit_like's two runs) and dvals
 // once per column tile;
 // from shared memory, a diagonal costs a thread one float4 of B and two of
@@ -130,15 +148,6 @@ __device__ __forceinline__ float4 epi(float4 a, float4 s, float alpha, float bet
                                       bool with_c) {
   return make_float4(epi(a.x, s.x, alpha, beta, with_c), epi(a.y, s.y, alpha, beta, with_c),
                      epi(a.z, s.z, alpha, beta, with_c), epi(a.w, s.w, alpha, beta, with_c));
-}
-
-// Row `row` of B, vector column `cv`; rows outside [0, k) read as zero.
-template <typename T>
-__device__ __forceinline__ T b_row(const T* __restrict__ bv, long long row, int k,
-                                   size_t nv, int cv) {
-  T x{};
-  if (row >= 0 && row < k) x = __ldg(bv + (size_t)row * nv + cv);
-  return x;
 }
 
 // Row `row` of a window of TN = kLanes * VEC columns, at this lane.
@@ -277,32 +286,130 @@ __global__ void __launch_bounds__(kThreads, PRECISE ? 2 : 4) spmm_dia_kernel(
   }
 }
 
-template <int PRECISE>
-__global__ void spmm_dia_skinny_kernel(
+// K7's tile: `rows` rows by all n <= 32 columns, its threads each over up
+// to kSkinnyCells cells (cells t, t + threads, ... of the tile's row-major
+// (row, column) index): 16 rows, a thread a cell and STAGES = 4 buffers, or
+// 64 rows, 4 cells a thread and 2 buffers; each buffer of skinny_buffer
+// floats (the widest window, the longest run's dvals and offsets).
+constexpr int kSkinnyCells = 4;
+
+__host__ __device__ inline int skinny_threads(int rows, int n) {
+  return rows == 16 ? (rows * n + 31) / 32 * 32 : 32 * ((rows * n + 127) / 128);
+}
+
+__host__ __device__ inline int skinny_buffer(int rows, int n, int span, int length) {
+  return ((rows + span) * n + length * (rows + 1) + 3) / 4 * 4;
+}
+
+template <int PRECISE, int STAGES>
+__global__ void __launch_bounds__(512) spmm_dia_skinny_kernel(
     const float* __restrict__ dvals,  // (D, m)
     const int* __restrict__ offsets,  // (D,), ascending
+    const int* __restrict__ run_ptr,  // (n_runs + 1,)
     const float* __restrict__ b,      // (k, n)
     const float* __restrict__ c,      // (m, n) or null
     float* __restrict__ out,          // (m, n)
-    int m, int k, int n, int n_diags, float alpha, float beta, int with_c) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)m * n) return;
-  const long long row = (long long)(idx / n);
-  const int col = (int)(idx - (size_t)row * n);
-  float acc = 0.f, comp = 0.f;
-  for (int d = 0; d < n_diags; ++d) {
-    const float x = b_row(b, row + __ldg(offsets + d), k, (size_t)n, col);
-    if constexpr (PRECISE) {
-      sx_df32::mul_acc_step(__ldg(dvals + (size_t)d * m + row), x, acc, comp);
+    int m, int k, int n, int n_runs, int span, int length, float alpha, float beta,
+    int with_c, int vec, int rows) {
+  extern __shared__ float4 smem4[];
+  const int buf = skinny_buffer(rows, n, span, length);
+  const long long row0 = (long long)blockIdx.x * rows;
+  const int tid = threadIdx.x, threads = blockDim.x;
+  const int cells = rows * n;
+
+  // Run `run`'s window of B rows row0 + off0 .. row0 + rows - 1 + off0 +
+  // last, zero outside [0, k), its dvals (len x rows, zero past m) and its
+  // offsets less off0, into buffer run % STAGES, as one group of cp.async
+  // copies.
+  auto stage = [&](int run) {
+    float* win = reinterpret_cast<float*>(smem4) + (run % STAGES) * buf;
+    const int d0 = run_ptr[run], len = run_ptr[run + 1] - d0;
+    const int off0 = __ldg(offsets + d0);
+    const int last = __ldg(offsets + d0 + len - 1) - off0;  // the run's span
+    float* dvs = win + (rows + last) * n;
+    int* rels = reinterpret_cast<int*>(dvs + len * rows);
+    if (vec) {
+      const int nq = n / 4;
+      for (int e = tid; e < (rows + last) * nq; e += threads) {
+        const long long r = row0 + off0 + e / nq;
+        float* dst = win + 4 * e;
+        if (r >= 0 && r < k)
+          sx_async::cp_async16(dst, b + r * n + 4 * (e % nq));
+        else
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     } else {
-      acc = __fmaf_rn(__ldg(dvals + (size_t)d * m + row), x, acc);
+      for (int e = tid; e < (rows + last) * n; e += threads) {
+        const long long r = row0 + off0 + e / n;
+        if (r >= 0 && r < k)
+          sx_async::cp_async4(win + e, b + r * n + e % n);
+        else
+          win[e] = 0.f;
+      }
     }
+    for (int e = tid; e < len * rows; e += threads) {
+      const long long r = row0 + e % rows;
+      if (r < m)
+        sx_async::cp_async4(dvs + e, dvals + (size_t)(d0 + e / rows) * m + r);
+      else
+        dvs[e] = 0.f;
+    }
+    for (int e = tid; e < len; e += threads) rels[e] = __ldg(offsets + d0 + e) - off0;
+    sx_async::cp_async_commit();
+  };
+
+  int at[kSkinnyCells], rw[kSkinnyCells];  // the cell's row * n + col, and its row
+  float acc[kSkinnyCells], comp[kSkinnyCells];  // comp is read only when PRECISE
+  const int mine = (cells + threads - 1) / threads;  // cells a thread, <= kSkinnyCells
+#pragma unroll
+  for (int u = 0; u < kSkinnyCells; ++u) {
+    at[u] = min(tid + u * threads, cells - 1);
+    rw[u] = at[u] / n;
+    acc[u] = comp[u] = 0.f;
   }
-  const float s = with_c ? __ldg(c + idx) : 0.f;
-  if constexpr (PRECISE) {
-    out[idx] = sx_df32::epilogue(acc, comp, s, alpha, beta, with_c);
-  } else {
-    out[idx] = epi(acc, s, alpha, beta, with_c);
+  for (int run = 0; run < n_runs && run < STAGES - 1; ++run) stage(run);
+  for (int run = 0; run < n_runs; ++run) {
+    // the next runs' copies land while this one's diagonals are added
+    if (run + STAGES - 1 < n_runs) {
+      stage(run + STAGES - 1);
+      sx_async::cp_async_wait<STAGES - 1>();
+    } else {
+      sx_async::cp_async_wait<0>();
+    }
+    __syncthreads();  // the run's buffer is complete, zeros and offsets too
+    const float* win = reinterpret_cast<const float*>(smem4) + (run % STAGES) * buf;
+    const int d0 = run_ptr[run], len = run_ptr[run + 1] - d0;
+    const int last = __ldg(offsets + d0 + len - 1) - __ldg(offsets + d0);
+    const float* dvs = win + (rows + last) * n;
+    const int* rels = reinterpret_cast<const int*>(dvs + len * rows);
+    for (int dd = 0; dd < len; ++dd) {  // ascending offsets, as across runs
+      const int shift = rels[dd] * n;
+#pragma unroll
+      for (int u = 0; u < kSkinnyCells; ++u) {
+        if (u >= mine) break;
+        const float v = dvs[dd * rows + rw[u]];
+        const float x = win[at[u] + shift];
+        if constexpr (PRECISE) {
+          sx_df32::mul_acc_step(v, x, acc[u], comp[u]);
+        } else {
+          acc[u] = __fmaf_rn(v, x, acc[u]);
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with the buffer before it is staged again
+  }
+#pragma unroll
+  for (int u = 0; u < kSkinnyCells; ++u) {
+    const int idx = tid + u * threads;
+    const long long r = row0 + idx / n;
+    if (idx >= cells || r >= m) continue;
+    const size_t o = (size_t)r * n + idx % n;
+    const float s = with_c ? __ldg(c + o) : 0.f;
+    if constexpr (PRECISE) {
+      out[o] = sx_df32::epilogue(acc[u], comp[u], s, alpha, beta, with_c);
+    } else {
+      out[o] = epi(acc[u], s, alpha, beta, with_c);
+    }
   }
 }
 
@@ -353,21 +460,27 @@ extern "C" int spmm_dia_launch(
 #undef SX_WIDE
 }
 
-#define SX_ARGS                                                                 \
-  (const float*)dvals, (const int*)offsets, (const float*)b, (const float*)c, \
-      (float*)out, m, k, n, n_diags, alpha, beta, with_c
-
 extern "C" int spmm_dia_skinny_launch(
-    const void* dvals, const void* offsets, const void* b, const void* c, void* out,
-    int m, int k, int n, int n_diags, float alpha, float beta, int with_c, int precise,
+    const void* dvals, const void* offsets, const void* run_ptr, const void* b, const void* c,
+    void* out, int m, int k, int n, int n_runs, float alpha, float beta, int with_c,
+    int precise, int vec, int span, int length, int rows, int threads, int grid, int smem,
     void* stream) {
   if (precise != 0 && precise != 1) return cudaErrorInvalidValue;
-  const int threads = 256;
-  const size_t blocks = ((size_t)m * n + threads - 1) / threads;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  auto kernel = precise ? spmm_dia_skinny_kernel<1> : spmm_dia_skinny_kernel<0>;
-  kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(SX_ARGS);
+  // the wrapper's map (ops/spmm_dia.py:dia_skinny_launch) must be this kernel's
+  const int stages = rows == 16 ? 4 : 2;
+  if (n < 1 || n > 32 || span < 0 || length < 0 || (vec && n % 4) ||
+      (rows != 16 && rows != 64) || threads != skinny_threads(rows, n) ||
+      grid != (m + rows - 1) / rows ||
+      (long long)smem != 4LL * stages * skinny_buffer(rows, n, span, length))
+    return cudaErrorInvalidValue;
+  auto kernel = precise ? (rows == 16 ? spmm_dia_skinny_kernel<1, 4> : spmm_dia_skinny_kernel<1, 2>)
+                        : (rows == 16 ? spmm_dia_skinny_kernel<0, 4> : spmm_dia_skinny_kernel<0, 2>);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)dvals, (const int*)offsets, (const int*)run_ptr, (const float*)b,
+      (const float*)c, (float*)out, m, k, n, n_runs, span, length, alpha, beta, with_c, vec,
+      rows);
   return cudaGetLastError();
 }
-
-#undef SX_ARGS

@@ -5,41 +5,67 @@
 // (K1) with spmm_slab_launch, and spmm_mxu_ct_padded / _kernel_ct (K2) with
 // spmm_slab_skinny_launch. On the TPU one grid step contracted a block on the
 // matrix unit into a (tile_m/128, 128, tile_n) VMEM accumulator carried
-// across the M-tile's groups. Here K1 gives one CUDA block one 128-row slab
-// of one M-tile and one N-chunk: it walks the M-tile's group range from the
-// host scan of group_mtile (tile_ptr / tile_groups) and takes only the
-// blocks whose qm is its slab; the blocks it skips cost two index reads.
-// K2 gives one CUDA block half a slab and visits only the slab's own blocks
-// (the host scan slab_visits), streamed through shared memory (below).
-// A slab that gets no block still writes beta * C.
+// across the M-tile's groups. Here both kernels visit only their slab's own
+// blocks, in pack order (the host scan slab_visits: slab_ptr / slab_blocks,
+// and slab_rows, the B row where each block's terms start), and stream them
+// through a ring in shared memory, one mbarrier a stage. A slab that gets no
+// block still writes beta * C.
 //
 // Layout: vals[g, i*bk + kk, mm] = A[slab row mm, window col bcol + kk], so a
 // block is a (bk, 128) row-major tile; the global B row of kk is
 // group_kwin[g] * window_k + bcol[g, i] + kk. Pad slots hold zeros with
 // qm = bcol = 0 and add 0 * B[window start]; they are not skipped.
 //
-// Accumulation order for both kernels: per block,
-// contrib = sum_kk vals[kk, mm] * B[row kk, col] in kk order with IEEE f32
-// FFMA (no TF32), then acc += contrib; blocks in pack order; epilogue
-// alpha * acc + beta * C (C not read when with_c == 0).
+// K1 in plain mode contracts on the tensor cores in 3xTF32 (wgmma
+// m64n64k8 .tf32 from sm_90a; plain TF32 is not used): x = hi + lo with
+// hi = tf32(x) and lo = tf32(x - hi) (cvt.rna: to nearest, ties away), and
+// each 8-term step is hi.hi + hi.lo + lo.hi, the small products first, with
+// f32 accumulation in the tensor cores (exact products; the sum of a step is
+// not rounded to nearest). For .tf32 both operands in shared memory must be
+// K-major, and neither the pack's values (M-major) nor B (N-major) is, so
+// the roles turn: the wgmma's A operand is the chunk's B rows, read from
+// shared memory into registers by each thread (the register fragment takes
+// any layout) and split there, and its B operand is the values' hi and lo
+// tiles, made K-major once at upload (ops/spmm_slab.py: slab_image) and
+// copied by one TMA bulk copy a stage. The product is C^T's tile; the
+// epilogue writes it into C's rows. Per block, each step's sum goes into
+// fresh registers f, f into the block's sum cf (round to nearest), cf into
+// acc after the block's last step; blocks in pack order; epilogue
+// fma(alpha, acc, beta * C) (alpha * acc without C). Compared with the FFMA
+// chain, a sum differs by the rounding of products and steps: on the
+// shapes chip_smoke.py runs, within 4 ulp of max|C| of the plain version
+// and closer to the f64 oracle than it; on rows of thousands of terms the
+// two differ by more, each about as far from f64 (tests/test_torch_gpu.py).
 //
-// What bounds them on the H100: at the slab format's low fill (~5 % on a
-// banded FEM matrix) most of the 2 * bk * 128 * n flops of a block multiply
-// zeros, so K1 is bound by FFMA issue on padded work (SIMT f32 at best
-// ~67 TFLOP/s, no tensor cores yet) and by staging each bk x 128 vals block
-// through shared memory once per N-chunk. K2 (n <= 32): see its kernel.
+// Its tiles: a stage holds 32 terms (a chunk) of a block, so that four fit
+// beside each other; a CTA takes a whole slab by 128 columns (two
+// warpgroups) where those CTAs still fill the card four times over, else
+// half a slab by 64 columns (one warpgroup, two CTAs an SM), so that few
+// busy slabs still spread over the card (ops/spmm_slab.py: slab_launch).
+// The column tiles of a slab are adjacent in the grid, so the 2nd and later
+// reads of a block's tiles come from L2.
 //
-// Precise mode (PRECISE, SpmmConfig.precise >= 1; spmm_mxu_pallas.py:89-98,
-// 113-121 for K1, :339-344, :356-363 for K2): one compensation register
-// beside each accumulator register (K1: 32 more per thread), a Neumaier step
-// acc_step(acc, comp, contrib) in place of acc += contrib, and
-// compensated_epilogue (df32.cuh), one final rounding. The TPU's matrix unit
-// contracts a whole block at once and steps once per block visit; here the
-// step comes after every 8 terms of a block's FFMA chain (bk / 8 steps a
-// block), so only chains of 8 terms round uncompensated. One step per visit
-// of a bk = 128 block left 1.56 ulp of max|C| on cant_like at N = 512 on an
-// H100 (SXM, 700 W), against 1.64 in plain mode. The TPU slab kernels have
-// no level-2 branch, so level 2 runs level 1.
+// What bounds K1 on the H100: at the slab format's low fill (~5 % on a
+// banded FEM matrix) most of a block's 2 * bk * 128 * n flops multiply
+// zeros. On FFMA that padded work alone needs 1.14 ms at 67 TFLOP/s on
+// cant_like at N = 512, the library's time; 3xTF32 is three tensor-core
+// products a term, 0.46 ms at 495 TFLOP/s. The tensor cores are fed from
+// shared memory, each step waited for before its sums are read (ptxas
+// serialises the wgmmas if any other instruction reads their registers
+// while they run), so the steps of one warpgroup do not overlap; the tiles
+// (hi and lo: 8 bytes a value) are read from L2 once per column tile.
+//
+// Precise mode (SpmmConfig.precise >= 1; spmm_mxu_pallas.py:89-98, 113-121
+// for K1, :339-344, :356-363 for K2) keeps the FFMA chain, for both K1 and
+// K2: per block, contrib = sum_kk vals[kk, mm] * B[row kk, col] in kk order
+// with IEEE f32 FFMA, a Neumaier step acc_step(acc, comp, contrib) after
+// every 8 terms (bk / 8 steps a block), and compensated_epilogue (df32.cuh),
+// one final rounding. The TPU's matrix unit contracts a whole block at once
+// and steps once per block visit; one step per visit of a bk = 128 block
+// left 1.56 ulp of max|C| on cant_like at N = 512 on an H100, against 1.64
+// in plain mode. 3xTF32 steps into (acc, comp) missed the slab precise bar
+// of 1.5 ulp (PERF.md). The TPU slab kernels have no level-2 branch, so
+// level 2 runs level 1. K1's FFMA kernel takes half a slab by 64 columns.
 
 #include <cuda_runtime.h>
 
@@ -49,107 +75,334 @@
 namespace {
 
 constexpr int MSLAB = 128;
-constexpr int SLAB_TN = 64;        // K1 columns per CUDA block
-constexpr int SLAB_THREADS = 256;  // K1: 16 x 16 threads, 8 rows x 4 cols each
+constexpr int kSlabRows = 64;  // rows of a half slab; K2 takes one a CTA
+constexpr int kStages = 2;     // K2: blocks in flight a CTA
+constexpr int kChunk = 32;     // K1: terms of a block a stage (block_k if fewer)
+constexpr int kStagesK1 = 4;   // K1: chunks in flight a CTA
+constexpr int kTileN = 64;     // K1: columns a warpgroup
+constexpr int kBPad = 8;       // K1: floats past a B row's columns in a stage
+constexpr int kWarpgroup = 128;
 
-template <bool PRECISE>
-__global__ void __launch_bounds__(SLAB_THREADS) spmm_slab_kernel(
-    const float* __restrict__ vals,        // (ng, G * bk, 128)
-    const int* __restrict__ qm,            // (ng, G)
-    const int* __restrict__ bcol,          // (ng, G)
-    const int* __restrict__ group_kwin,    // (ng,)
-    const int* __restrict__ tile_ptr,      // (n_mtiles + 1,)
-    const int* __restrict__ tile_groups,   // (ng,)
+// ---- K1: what both contractions share ----
+
+// The B rows of a chunk (rows of n floats from bsrc) at columns n0 .. n0 +
+// tn - 1 into a stage, row stride tn + kBPad; columns at or past n are not
+// copied (their products land in columns that are not written).
+__device__ __forceinline__ void copy_b_chunk(float* bs, const float* bsrc, int rows, int n,
+                                             int n0, int tn, int b_vec, int tid, int threads) {
+  const int stride = tn + kBPad;
+  if (b_vec) {
+    for (int e = tid; e < rows * (tn / 4); e += threads) {
+      const int kk = e / (tn / 4), q4 = 4 * (e % (tn / 4));
+      if (n0 + q4 < n) sx_async::cp_async16(bs + kk * stride + q4, bsrc + (size_t)kk * n + q4);
+    }
+  } else {
+    for (int e = tid; e < rows * tn; e += threads) {
+      const int kk = e / tn, col = e % tn;
+      if (n0 + col < n) sx_async::cp_async4(bs + kk * stride + col, bsrc + (size_t)kk * n + col);
+    }
+  }
+}
+
+// ---- K1 on the tensor cores: wgmma m64n64k8 .tf32, 3xTF32 ----
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {  // round to nearest, ties away
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The shared-memory descriptor of a K-major operand without swizzle: 8 x 16-byte
+// core matrices, the two of a k8 step `lbo` bytes apart, the 8-row groups
+// `sbo` bytes apart.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((sx_async::smem_addr(p) & 0x3FFFF) >> 4) |
+         (uint64_t)((lbo >> 4) & 0x3FFF) << 16 | (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Wait until at most N committed groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// d (+)= a . b: a the 64 x 8 tile in registers (its tf32 fragment), b the
+// 8 x 64 tile behind `desc`; d is overwritten when scale_d is 0.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// H half slabs (64 H rows) by 64 W columns a CTA, W warpgroups (blockDim.x
+// = 128 W), warpgroup wg on columns 64 wg ..; H is 1 or 2. A wait for the
+// tensor cores covers SPW steps of 8 terms, each into its own sums.
+template <int H, int SPW>
+__global__ void __launch_bounds__(2 * kWarpgroup, 1) spmm_slab_tc_kernel(
+    const float* __restrict__ image,       // slab_image: (ng * G, chunks, 2, 2, ch / 8, 512)
+    const int* __restrict__ slab_ptr,      // (n_slabs + 1,)
+    const int* __restrict__ slab_blocks,   // (ng * G,) flat block indices
+    const int* __restrict__ slab_rows,     // (ng * G,) each block's first B row
     const float* __restrict__ b,           // (k_padded, n)
     const float* __restrict__ c,           // (m_padded, n) or null
     float* __restrict__ out,               // (m_padded, n)
-    int n, int tile_m, int window_k, int block_k, int group_blocks,
-    float alpha, float beta, int with_c) {
+    int n, int block_k, float alpha, float beta, int with_c, int b_vec) {
   extern __shared__ float4 smem4[];
-  float* vs = reinterpret_cast<float*>(smem4);  // (bk, 128)
-  float* bs = vs + block_k * MSLAB;             // (bk, 64)
-  const int nslabs = tile_m / MSLAB;
-  const int mt = blockIdx.x / nslabs;
-  const int slab = blockIdx.x % nslabs;
-  const int n0 = blockIdx.y * SLAB_TN;
+  const int tn = blockDim.x / kWarpgroup * kTileN;
+  const int ch = min(kChunk, block_k), nch = block_k / ch;
+  const int half_img = 2 * kSlabRows * ch;         // floats of a half slab's chunk, hi and lo
+  const int stage = H * half_img + ch * (tn + kBPad);  // floats a stage
+  float* ring = reinterpret_cast<float*>(smem4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStagesK1 * stage);
+  const int n_ctiles = (n + tn - 1) / tn;
+  const int hs = blockIdx.x / n_ctiles;  // the CTA's first half slab
+  const int slab = hs * H / 2, half0 = hs * H % 2;
+  const int n0 = (blockIdx.x % n_ctiles) * tn;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // columns tx*4 .. tx*4+3
-  const int ty = tid / 16;  // rows ty*8 .. ty*8+7
+  const int wg = tid / kWarpgroup, w = (tid % kWarpgroup) / 32, g = (tid % 32) / 4,
+            t = tid % 4;
+  const int p0 = slab_ptr[slab];
+  const int nblk = slab_ptr[slab + 1] - p0;
+  const int items = nblk * nch;  // (block, chunk) in pack order
 
-  float acc[8][4], comp[8][4];  // comp is read only when PRECISE
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = comp[i][j] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < kStagesK1; ++s) sx_async::mbar_init(&full[s], blockDim.x + 1);
+    sx_async::mbar_fence_init();
+  }
+  __syncthreads();
 
-  const int G = group_blocks;
-  const int p1 = tile_ptr[mt + 1];
-  for (int p = tile_ptr[mt]; p < p1; ++p) {
-    const int g = tile_groups[p];
-    const size_t kwin0 = (size_t)group_kwin[g] * window_k;
-    for (int i = 0; i < G; ++i) {
-      if (qm[(size_t)g * G + i] != slab) continue;  // uniform over the block
-      const float* bsrc = b + (kwin0 + bcol[(size_t)g * G + i]) * n;
-      const float4* vsrc = reinterpret_cast<const float4*>(
-          vals + ((size_t)g * G + i) * block_k * MSLAB);
-      __syncthreads();  // the previous block's tiles are no longer read
-      for (int e = tid; e < block_k * (MSLAB / 4); e += SLAB_THREADS)
-        smem4[e] = vsrc[e];
-      for (int e = tid; e < block_k * SLAB_TN; e += SLAB_THREADS) {
-        const int kk = e / SLAB_TN, col = n0 + e % SLAB_TN;
-        bs[e] = col < n ? bsrc[(size_t)kk * n + col] : 0.f;
+  // The block of the item being issued and the next one's, read a block ahead.
+  int cur = -1, blk = 0, row = 0;
+  int nxt_blk = nblk ? slab_blocks[p0] : 0, nxt_row = nblk ? slab_rows[p0] : 0;
+  auto issue = [&](int q) {
+    if (q / nch != cur) {
+      cur = q / nch;
+      blk = nxt_blk;
+      row = nxt_row;
+      if (cur + 1 < nblk) {
+        nxt_blk = slab_blocks[p0 + cur + 1];
+        nxt_row = slab_rows[p0 + cur + 1];
       }
-      __syncthreads();
-      float cf[8][4];
+    }
+    const int cidx = q % nch;
+    float* img = ring + (q % kStagesK1) * stage;
+    uint64_t* bar = &full[q % kStagesK1];
+    if (tid == 0) {
+      const uint32_t bytes = 4u * H * half_img;
+      sx_async::mbar_arrive_expect_tx(bar, bytes);
+      sx_async::bulk_copy(img, image + (((size_t)blk * nch + cidx) * 2 + half0) * half_img,
+                          bytes, bar);
+    }
+    copy_b_chunk(img + H * half_img, b + ((size_t)row + (size_t)cidx * ch) * n + n0, ch, n, n0,
+                 tn, b_vec, tid, blockDim.x);
+    sx_async::cp_async_arrive(bar);
+  };
+  for (int q = 0; q < items && q < kStagesK1; ++q) issue(q);
+
+  float acc[H][32], cf[H][32], f[SPW][H][32];
 #pragma unroll
-      for (int r = 0; r < 8; ++r)
+  for (int h = 0; h < H; ++h)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) cf[r][j] = 0.f;
-      for (int kk = 0; kk < block_k; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(vs + kk * MSLAB + ty * 8);
-        const float4 a1 = *reinterpret_cast<const float4*>(vs + kk * MSLAB + ty * 8 + 4);
-        const float4 bv = *reinterpret_cast<const float4*>(bs + kk * SLAB_TN + tx * 4);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+    for (int i = 0; i < 32; ++i) {
+      acc[h][i] = cf[h][i] = 0.f;
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
+      for (int s = 0; s < SPW; ++s) f[s][h][i] = 0.f;
+    }
+
+  const int nks = ch / 8;
+  for (int q = 0; q < items; ++q) {
+    sx_async::mbar_wait(&full[q % kStagesK1], (q / kStagesK1) & 1);
+    const float* img = ring + (q % kStagesK1) * stage;
+    for (int ks0 = 0; ks0 < nks; ks0 += SPW) {
+      // the A fragments of the group's steps: the chunk's B rows transposed,
+      // rows are columns 64 wg + 16 w + g (+ 8), split into hi and lo
+      uint32_t hi[SPW][4], lo[SPW][4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) cf[r][j] = fmaf(a[r], bb[j], cf[r][j]);
-        if constexpr (PRECISE) {
-          if ((kk & 7) == 7) {  // block_k % 8 == 0: every term is stepped in
+      for (int s = 0; s < SPW; ++s) {
+        if (ks0 + s >= nks) break;  // a chunk of fewer than 8 SPW terms
+        const float* brow = img + H * half_img + (8 * (ks0 + s) + t) * (tn + kBPad) +
+                            kTileN * wg + 16 * w + g;
+        const float x[4] = {brow[0], brow[8], brow[4 * (tn + kBPad)],
+                            brow[4 * (tn + kBPad) + 8]};
 #pragma unroll
-            for (int r = 0; r < 8; ++r)
+        for (int i = 0; i < 4; ++i) {
+          hi[s][i] = to_tf32(x[i]);
+          lo[s][i] = to_tf32(__fsub_rn(x[i], __uint_as_float(hi[s][i])));
+        }
+      }
+      // per step and half slab the three products into f[s][h] from 0, the
+      // small ones first, then hi . hi; no other instruction touches f while
+      // the tensor cores run. Then the steps go into the block's sum cf in
+      // order.
+      wgmma_fence();
 #pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                sx_df32::acc_step(acc[r][j], comp[r][j], cf[r][j]);
-                cf[r][j] = 0.f;
-              }
+      for (int s = 0; s < SPW; ++s) {
+        if (ks0 + s < nks) {
+#pragma unroll
+          for (int h = 0; h < H; ++h) {
+            const float* vh = img + h * half_img + (ks0 + s) * 8 * kSlabRows;
+            const uint64_t dh = smem_desc(vh, 128, 256);
+            const uint64_t dl = smem_desc(vh + kSlabRows * ch, 128, 256);
+            wgmma_tf32(f[s][h], lo[s], dh, 0);
+            wgmma_tf32(f[s][h], hi[s], dl, 1);
+            wgmma_tf32(f[s][h], hi[s], dh, 1);
           }
         }
       }
-      if constexpr (!PRECISE) {
+      wgmma_commit();
+      wgmma_wait<0>();
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
+      for (int s = 0; s < SPW; ++s) {
+        if (ks0 + s < nks) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[r][j] += cf[r][j];
+          for (int h = 0; h < H; ++h)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) cf[h][i] += f[s][h][i];
+        }
+      }
+    }
+    if (q % nch == nch - 1) {  // the block's contraction goes in
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          acc[h][i] += cf[h][i];
+          cf[h][i] = 0.f;
+        }
+    }
+    __syncthreads();  // every thread and wgmma is done with the stage
+    if (q + kStagesK1 < items) issue(q + kStagesK1);
+  }
+
+  // acc[h][4 i + e] is C[row, col]: row 8 i + 2 t + e % 2 of half slab
+  // half0 + h, column 64 wg + 16 w + g + 8 (e / 2) of the tile
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = n0 + kTileN * wg + 16 * w + g + 8 * ((i % 4) / 2);
+      if (col < n) {
+        const size_t r = (size_t)slab * MSLAB + (half0 + h) * kSlabRows + 8 * (i / 4) +
+                         2 * t + i % 2;
+        const size_t idx = r * n + col;
+        out[idx] = with_c ? __fmaf_rn(alpha, acc[h][i], __fmul_rn(beta, c[idx]))
+                          : __fmul_rn(alpha, acc[h][i]);
       }
     }
   }
+}
 
-  const size_t row0 = (size_t)mt * tile_m + slab * MSLAB + ty * 8;
+// ---- K1 in precise mode, on FFMA: half a slab by 64 columns a CTA, each
+// thread over 8 rows and 4 columns ----
+
+__global__ void __launch_bounds__(kWarpgroup) spmm_slab_precise_kernel(
+    const float* __restrict__ vals,        // (ng, G * bk, 128)
+    const int* __restrict__ slab_ptr,      // (n_slabs + 1,)
+    const int* __restrict__ slab_blocks,   // (ng * G,) flat block indices
+    const int* __restrict__ slab_rows,     // (ng * G,) each block's first B row
+    const float* __restrict__ b,           // (k_padded, n)
+    const float* __restrict__ c,           // (m_padded, n) or null
+    float* __restrict__ out,               // (m_padded, n)
+    int n, int block_k, float alpha, float beta, int with_c, int b_vec) {
+  extern __shared__ float4 smem4[];
+  const int ch = min(kChunk, block_k), nch = block_k / ch;
+  const int stage = ch * (kSlabRows + kTileN + kBPad);  // floats a stage
+  float* ring = reinterpret_cast<float*>(smem4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStagesK1 * stage);
+  const int n_ctiles = (n + kTileN - 1) / kTileN;
+  const int hs = blockIdx.x / n_ctiles;
+  const int slab = hs / 2, half = hs % 2;
+  const int n0 = (blockIdx.x % n_ctiles) * kTileN;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;  // columns tx*4 .. tx*4+3
+  const int ty = tid / 16;  // rows ty*8 .. ty*8+7
+  const int p0 = slab_ptr[slab];
+  const int items = (slab_ptr[slab + 1] - p0) * nch;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStagesK1; ++s) sx_async::mbar_init(&full[s], kWarpgroup);
+    sx_async::mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto issue = [&](int q) {
+    float* vs = ring + (q % kStagesK1) * stage;
+    const size_t blk = slab_blocks[p0 + q / nch];
+    const size_t row = slab_rows[p0 + q / nch];
+    const int cidx = q % nch;
+    const float* vsrc = vals + (blk * block_k + (size_t)cidx * ch) * MSLAB + half * kSlabRows;
+    for (int e = tid; e < ch * (kSlabRows / 4); e += kWarpgroup) {
+      const int kk = e / (kSlabRows / 4), q4 = 4 * (e % (kSlabRows / 4));
+      sx_async::cp_async16(vs + kk * kSlabRows + q4, vsrc + (size_t)kk * MSLAB + q4);
+    }
+    copy_b_chunk(vs + ch * kSlabRows, b + (row + (size_t)cidx * ch) * n + n0, ch, n, n0,
+                 kTileN, b_vec, tid, kWarpgroup);
+    sx_async::cp_async_arrive(&full[q % kStagesK1]);
+  };
+  for (int q = 0; q < items && q < kStagesK1; ++q) issue(q);
+
+  float acc[8][4], comp[8][4], cf[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = comp[i][jj] = cf[i][jj] = 0.f;
+
+  for (int q = 0; q < items; ++q) {
+    sx_async::mbar_wait(&full[q % kStagesK1], (q / kStagesK1) & 1);
+    const float* vs = ring + (q % kStagesK1) * stage;
+    const float* bs = vs + ch * kSlabRows;
+    for (int kk = 0; kk < ch; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(vs + kk * kSlabRows + ty * 8);
+      const float4 a1 = *reinterpret_cast<const float4*>(vs + kk * kSlabRows + ty * 8 + 4);
+      const float4 bv = *reinterpret_cast<const float4*>(bs + kk * (kTileN + kBPad) + tx * 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) cf[r][jj] = __fmaf_rn(a[r], bb[jj], cf[r][jj]);
+      if ((kk & 7) == 7) {  // ch % 8 == 0: every term is stepped in
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            sx_df32::acc_step(acc[r][jj], comp[r][jj], cf[r][jj]);
+            cf[r][jj] = 0.f;
+          }
+      }
+    }
+    __syncthreads();  // every thread is done with the stage
+    if (q + kStagesK1 < items) issue(q + kStagesK1);
+  }
+
+  const size_t row0 = (size_t)slab * MSLAB + half * kSlabRows + ty * 8;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
+    for (int jj = 0; jj < 4; ++jj) {
+      const int col = n0 + tx * 4 + jj;
       if (col < n) {
         const size_t idx = (row0 + r) * n + col;
-        if constexpr (PRECISE)
-          out[idx] = with_c
-              ? sx_df32::compensated_epilogue(alpha, acc[r][j], comp[r][j], beta, c[idx])
-              : sx_df32::compensated_epilogue(alpha, acc[r][j], comp[r][j]);
-        else
-          out[idx] = with_c ? alpha * acc[r][j] + beta * c[idx] : alpha * acc[r][j];
+        out[idx] = with_c
+            ? sx_df32::compensated_epilogue(alpha, acc[r][jj], comp[r][jj], beta, c[idx])
+            : sx_df32::compensated_epilogue(alpha, acc[r][jj], comp[r][jj]);
       }
     }
   }
@@ -157,7 +410,8 @@ __global__ void __launch_bounds__(SLAB_THREADS) spmm_slab_kernel(
 
 // K2 (n <= 32): a CTA owns half a slab, kSlabRows = 64 rows, and all n
 // columns; it visits only its slab's blocks, listed by the host scan
-// slab_visits (slab_ptr / slab_blocks, ops/launch.py) in pack order, and
+// slab_visits (slab_ptr / slab_blocks / slab_rows, ops/launch.py) in pack
+// order, and
 // streams them through a ring of kStages stages in dynamic shared memory:
 // a stage holds one block's (bk, 64) values and its bk B rows (bk x np
 // floats, np = n rounded up to 4). Thread t works on rows 2 rp, 2 rp + 1
@@ -172,7 +426,7 @@ __global__ void __launch_bounds__(SLAB_THREADS) spmm_slab_kernel(
 // H100, one bulk copy a 256-byte run made the kernel slower than these
 // 16-byte copies, the issue of 128 small copies a block, not their bytes,
 // setting its pace. Its B rows are one contiguous run of bk * n floats (B is
-// row-major and the rows are kwin0 + bcol + kk): one TMA bulk copy
+// row-major and the rows are slab_rows[p] + kk): one TMA bulk copy
 // (cp.async.bulk), issued by one thread with expect_tx, when n % 4 == 0 and
 // B is 16-byte aligned (b_bulk), which on an H100 made K2 3-4 % faster than
 // 16-byte cp.async of the same run (tools/kernel_times.py, PERF.md);
@@ -186,21 +440,17 @@ __global__ void __launch_bounds__(SLAB_THREADS) spmm_slab_kernel(
 // slabs hold blocks (synthetic4704: 22 of 40), the longest slab's FFMA
 // chain: 12 blocks x 128 terms, each term 8 FFMA a thread from shared
 // memory, the block's copy landing under the previous block's chain.
-constexpr int kSlabRows = 64;  // rows a CTA: a slab takes two CTAs
-constexpr int kStages = 2;     // blocks in flight a CTA
 
 template <bool PRECISE>
 __global__ void __launch_bounds__(256) spmm_slab_skinny_kernel(
     const float* __restrict__ vals,        // (ng, G * bk, 128)
-    const int* __restrict__ bcol,          // (ng, G)
-    const int* __restrict__ group_kwin,    // (ng,)
     const int* __restrict__ slab_ptr,      // (n_slabs + 1,)
     const int* __restrict__ slab_blocks,   // (ng * G,) flat block indices
+    const int* __restrict__ slab_rows,     // (ng * G,) each block's first B row
     const float* __restrict__ b,           // (k_padded, n)
     const float* __restrict__ c,           // (m_padded, n) or null
     float* __restrict__ out,               // (m_padded, n)
-    int n, int window_k, int block_k, int group_blocks, float alpha, float beta,
-    int with_c, int b_bulk) {
+    int n, int block_k, float alpha, float beta, int with_c, int b_bulk) {
   extern __shared__ float4 smem4[];
   const int np = (n + 3) & ~3;
   const int stage = block_k * (kSlabRows + np);  // floats a stage
@@ -227,8 +477,7 @@ __global__ void __launch_bounds__(256) spmm_slab_skinny_kernel(
     float* bs = vs + block_k * kSlabRows;
     const size_t blk = slab_blocks[p0 + j];
     const float* vsrc = vals + blk * block_k * MSLAB + half * kSlabRows;
-    const float* bsrc =
-        b + ((size_t)group_kwin[blk / group_blocks] * window_k + bcol[blk]) * n;
+    const float* bsrc = b + (size_t)slab_rows[p0 + j] * n;
     if (b_bulk && tid == 0) {
       sx_async::mbar_arrive_expect_tx(&full[st], 4u * block_k * n);
       sx_async::bulk_copy(bs, bsrc, 4u * block_k * n, &full[st]);
@@ -335,31 +584,41 @@ __global__ void __launch_bounds__(256) spmm_slab_skinny_kernel(
 }  // namespace
 
 extern "C" int spmm_slab_launch(
-    const void* vals, const void* qm, const void* bcol, const void* group_kwin,
-    const void* tile_ptr, const void* tile_groups, const void* b,
-    const void* c, void* out, int n_mtiles, int n, int tile_m, int window_k,
-    int block_k, int group_blocks, float alpha, float beta, int with_c,
-    int precise, void* stream) {
-  if (precise < 0 || precise > 2) return cudaErrorInvalidValue;
-  auto kernel = precise ? spmm_slab_kernel<true> : spmm_slab_kernel<false>;
-  const size_t smem = (size_t)block_k * (MSLAB + SLAB_TN) * sizeof(float);
+    const void* vals, const void* image, const void* slab_ptr, const void* slab_blocks,
+    const void* slab_rows, const void* b, const void* c, void* out, int n_slabs, int n,
+    int block_k, float alpha, float beta, int with_c, int precise, int b_vec, int halves,
+    int threads, int grid, int smem, void* stream) {
+  // plain mode on the tensor cores over 1 or 2 half slabs, precise mode on FFMA
+  if (precise < 0 || precise > 2 || halves < 0 || halves > 2 || !precise != !!halves)
+    return cudaErrorInvalidValue;
+  // the wrapper's map (ops/spmm_slab.py:slab_launch) must be this kernel's
+  const int ch = block_k < kChunk ? block_k : kChunk;
+  const int wgs = threads / kWarpgroup, tn = wgs * kTileN;
+  const size_t per_stage = halves ? (size_t)halves * 2 * kSlabRows * ch + ch * (tn + kBPad)
+                                  : (size_t)ch * (kSlabRows + kTileN + kBPad);
+  const size_t need = kStagesK1 * (4 * per_stage + 8);
+  const long long ctas = (long long)n_slabs * (2 / (halves ? halves : 1)) * ((n + tn - 1) / tn);
+  if (n < 1 || block_k % 8 || threads % kWarpgroup || wgs < 1 || wgs > (halves ? 2 : 1) ||
+      grid != ctas || (size_t)smem != need)
+    return cudaErrorInvalidValue;
+  auto kernel = halves == 2   ? spmm_slab_tc_kernel<2, 1>
+                : halves == 1 ? spmm_slab_tc_kernel<1, 4>
+                              : spmm_slab_precise_kernel;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(n_mtiles * (tile_m / MSLAB), (n + SLAB_TN - 1) / SLAB_TN);
-  kernel<<<grid, SLAB_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)vals, (const int*)qm, (const int*)bcol,
-      (const int*)group_kwin, (const int*)tile_ptr, (const int*)tile_groups,
-      (const float*)b, (const float*)c, (float*)out, n, tile_m, window_k,
-      block_k, group_blocks, alpha, beta, with_c);
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)(halves ? image : vals), (const int*)slab_ptr, (const int*)slab_blocks,
+      (const int*)slab_rows, (const float*)b, (const float*)c, (float*)out, n, block_k, alpha,
+      beta, with_c, b_vec);
   return cudaGetLastError();
 }
 
 extern "C" int spmm_slab_skinny_launch(
-    const void* vals, const void* bcol, const void* group_kwin, const void* slab_ptr,
-    const void* slab_blocks, const void* b, const void* c, void* out, int n_slabs, int n,
-    int window_k, int block_k, int group_blocks, float alpha, float beta, int with_c,
-    int precise, int b_bulk, int threads, int grid, int smem, void* stream) {
+    const void* vals, const void* slab_ptr, const void* slab_blocks, const void* slab_rows,
+    const void* b, const void* c, void* out, int n_slabs, int n, int block_k, float alpha,
+    float beta, int with_c, int precise, int b_bulk, int threads, int grid, int smem,
+    void* stream) {
   if (precise < 0 || precise > 2) return cudaErrorInvalidValue;
   // the wrapper's map (ops/spmm_slab.py:slab_skinny_launch) must be this kernel's
   const int np = (n + 3) & ~3;
@@ -375,8 +634,7 @@ extern "C" int spmm_slab_skinny_launch(
                              cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
   kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)vals, (const int*)bcol, (const int*)group_kwin, (const int*)slab_ptr,
-      (const int*)slab_blocks, (const float*)b, (const float*)c, (float*)out, n, window_k,
-      block_k, group_blocks, alpha, beta, with_c, b_bulk);
+      (const float*)vals, (const int*)slab_ptr, (const int*)slab_blocks, (const int*)slab_rows,
+      (const float*)b, (const float*)c, (float*)out, n, block_k, alpha, beta, with_c, b_bulk);
   return cudaGetLastError();
 }

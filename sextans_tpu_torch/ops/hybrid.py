@@ -434,7 +434,7 @@ class HybridSpmmPlan:
             self._offsets = put(split.diag_offsets, np.int32)
             self._dia = (spmm_dia_ref if dia_backend == "xla"
                          else spmm_dia_skinny if n <= SKINNY_MAX_N else spmm_dia)
-            if self._dia is spmm_dia:  # K6 walks the offsets in runs, planned once
+            if self._dia is not spmm_dia_ref:  # K6, K7: the offsets in runs, planned once
                 self._runs = dia_plan(split.diag_offsets, self.device)
                 self._offsets = self._runs.offsets
                 self._dia_kw = {"runs": self._runs}
@@ -454,7 +454,8 @@ class HybridSpmmPlan:
         parts = [self._dvals, self._offsets, self._head, self._head_cols, self._hrows,
                  self._hrows_idx, self._runs and self._runs.ptr]
         if self.residue_plan is not None:
-            parts += [*self.residue_plan.arrays, *(self.residue_plan.ranges or ())]
+            parts += [*self.residue_plan.arrays, *(self.residue_plan.ranges or ()),
+                      self.residue_plan.image]
         return sum(t.nbytes for t in parts if t is not None)
 
     def _operands(self, b, beta, c):

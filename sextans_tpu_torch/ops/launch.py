@@ -16,7 +16,6 @@ __all__ = [
     "SMEM_LIMIT",
     "SharedMemoryError",
     "COL_MASK",
-    "group_ranges",
     "slab_visits",
     "stripe_visits",
     "dia_runs",
@@ -49,30 +48,19 @@ class SharedMemoryError(ValueError):
 COL_MASK = (1 << (ROW_SHIFT - COL_SHIFT)) - 1
 
 
-def group_ranges(group_mtile: np.ndarray, n_mtiles: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Per-M-tile group ranges for the kernels, from a host scan.
+def slab_visits(packed) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Each 128-row slab's blocks, in pack order, for the slab kernels.
 
-    Returns ``(tile_ptr, tile_groups)``: the groups of M-tile ``t`` are
-    ``tile_groups[tile_ptr[t]:tile_ptr[t+1]]``, in pack order. The scan reads
-    ``group_mtile[:ng]`` (the sentinel excluded) and assumes no order: the
-    packers append the groups of empty M-tiles after all real groups.
-    """
-    mt = _check_owner_tiles(np.asarray(group_mtile)[:-1], n_mtiles, "group_mtile")
-    tile_groups = np.argsort(mt, kind="stable").astype(np.int32)
-    return _csr_ptr(mt, n_mtiles), tile_groups
-
-
-def slab_visits(packed) -> Tuple[np.ndarray, np.ndarray]:
-    """Each 128-row slab's blocks, in pack order, for the skinny slab kernel.
-
-    Returns the CSR pair ``(slab_ptr, slab_blocks)``: the blocks of global
-    slab ``s = group_mtile * tile_m / 128 + qm`` are the flat block indices
-    ``g * G + i`` in ``slab_blocks[slab_ptr[s]:slab_ptr[s+1]]``, ascending,
-    which is the order in which the pack adds them (the groups of an M-tile
-    in group order, as :func:`group_ranges` lists them, then the blocks of
-    a group). Every block is listed, the pad blocks (qm 0, bcol 0, all
-    values zero) too: the kernel adds ``0 * B`` for them as the pack does,
-    so a non-finite B row that a pad reads still reaches its slab.
+    Returns the CSR triple ``(slab_ptr, slab_blocks, slab_rows)``: the
+    blocks of global slab ``s = group_mtile * tile_m / 128 + qm`` are the
+    flat block indices ``g * G + i`` in ``slab_blocks[slab_ptr[s]:
+    slab_ptr[s+1]]``, ascending, which is the order in which the pack adds
+    them (the groups of an M-tile in group order, then the blocks of a
+    group); ``slab_rows`` holds beside each the row of B where the block's
+    terms start, ``group_kwin[g] * window_k + bcol[g, i]``. Every block is
+    listed, the pad blocks (qm 0, bcol 0, all values zero) too: the kernels
+    add ``0 * B`` for them as the pack does, so a non-finite B row that a
+    pad reads still reaches its slab.
     """
     cfg = packed.config
     ng, G = packed.n_groups, cfg.group_blocks
@@ -84,7 +72,11 @@ def slab_visits(packed) -> Tuple[np.ndarray, np.ndarray]:
         raise ValueError(f"qm holds a slab outside [0, {per_tile})")
     slab = (tiles[:, None] * per_tile + qm).reshape(-1)
     order = np.argsort(slab, kind="stable")
-    return _csr_ptr(slab, packed.n_mtiles * per_tile), order.astype(np.int32)
+    _check_int32(packed.k_padded, "slab_visits")
+    rows = (np.asarray(packed.group_kwin, dtype=np.int64)[:, None] * cfg.window_k
+            + packed.bcol).reshape(-1)
+    return (_csr_ptr(slab, packed.n_mtiles * per_tile), order.astype(np.int32),
+            rows[order].astype(np.int32))
 
 
 def dia_runs(offsets, span_max: int) -> np.ndarray:
@@ -372,7 +364,7 @@ class Launch(NamedTuple):
 
 def check_csr(ptr: torch.Tensor, items: Sequence[torch.Tensor], names: Sequence[str],
               n_owners: int, device) -> int:
-    """Check a CSR list of a host scan (``group_ranges``, ``stripe_visits``,
+    """Check a CSR list of a host scan (``slab_visits``, ``stripe_visits``,
     ``row_runs``) as a launch takes it: int32 offsets for ``n_owners``, then
     1-D int32 item arrays of one length. Returns that length."""
     need(ptr, names[0], torch.int32, (n_owners + 1,), device)

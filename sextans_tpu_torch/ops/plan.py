@@ -43,7 +43,6 @@ from sextans_tpu_torch.ops.launch import (
     check_edge_pack,
     check_ell_pack,
     check_pack_indices,
-    group_ranges,
     row_runs,
     slab_visits,
     stripe_visits,
@@ -53,6 +52,7 @@ from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded
 from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded, spmm_ell_padded_ref
 from sextans_tpu_torch.ops.spmm_slab import (
     SKINNY_MAX_N,
+    slab_image,
     spmm_slab_padded,
     spmm_slab_skinny_padded,
 )
@@ -94,26 +94,20 @@ def _put(a, dtype, device):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
 
-def _scan(packed, n: int):
-    """The host scan that the kernel of ``packed`` at N walks: ``row_runs``
-    for the edge format, ``stripe_visits`` for the block format, and for the
-    slab format ``slab_visits`` (K2, N <= 32) or ``group_ranges`` (K1)."""
+def _scan(packed):
+    """The host scan that the kernels of ``packed`` walk: ``row_runs`` for
+    the edge format, ``stripe_visits`` for the block format and
+    ``slab_visits`` for the slab format (K1 and K2)."""
     if isinstance(packed, PackedSpMatrixEdge):
         return row_runs
-    if not isinstance(packed, PackedSpMatrixMXU):
-        return stripe_visits
-    return slab_visits if n <= SKINNY_MAX_N else _tile_groups
+    return slab_visits if isinstance(packed, PackedSpMatrixMXU) else stripe_visits
 
 
-def _tile_groups(packed):
-    return group_ranges(packed.group_mtile, packed.n_mtiles)
-
-
-def _upload(packed, device: torch.device, n: int):
+def _upload(packed, device: torch.device):
     """Device copies of the packed arrays and, except for the ELL format, the
-    host scan its kernel at N walks (:func:`_scan`), each made once per
-    device (the scan once per kernel) and kept on the packed object. Returns
-    ``(arrays, ranges)``; ``ranges`` is None for the ELL format."""
+    host scan its kernels walk (:func:`_scan`), each made once per device and
+    kept on the packed object. Returns ``(arrays, ranges)``; ``ranges`` is
+    None for the ELL format."""
     cache = packed.__dict__.setdefault("_dev_cache", {})
     key = str(device)
     if key not in cache:
@@ -135,14 +129,23 @@ def _upload(packed, device: torch.device, n: int):
         cache[key] = tuple(_put(a, dtype, device) for a, dtype in named)
     if isinstance(packed, PackedSpMatrixELL):
         return cache[key], None
-    scan = _scan(packed, n)
-    scan_key = (key, scan.__name__)
+    scan_key = (key, "scan")
     if scan_key not in cache:
-        cache[scan_key] = tuple(_put(r, np.int32, device) for r in scan(packed))
+        cache[scan_key] = tuple(_put(r, np.int32, device) for r in _scan(packed)(packed))
     return cache[key], cache[scan_key]
 
 
-def _runner(packed, backend: str, n: int, ranges):
+def _slab_image(packed, device: torch.device, arrays):
+    """K1's operand tiles (:func:`~sextans_tpu_torch.ops.spmm_slab.slab_image`),
+    made once per device from the uploaded values and kept beside them."""
+    cache = packed.__dict__["_dev_cache"]
+    key = (str(device), "slab_image")
+    if key not in cache:
+        cache[key] = slab_image(arrays[0], packed.config.block_k)
+    return cache[key]
+
+
+def _runner(packed, backend: str, n: int, ranges, image=None):
     """The padded-operand function of ``backend``, with its static
     arguments bound: ``run(*arrays, b_p, c_p, alpha, beta, with_c=...)``."""
     cfg = packed.config
@@ -159,11 +162,10 @@ def _runner(packed, backend: str, n: int, ranges):
               block_k=cfg.block_k, group_blocks=cfg.group_blocks)
     if backend == "xla":
         return functools.partial(spmm_block_padded_ref, **kw)
-    kernel = (
-        spmm_block_padded if backend == "pallas"
-        else spmm_slab_skinny_padded if n <= SKINNY_MAX_N
-        else spmm_slab_padded
-    )
+    if backend == "mxu" and n > SKINNY_MAX_N:
+        return functools.partial(spmm_slab_padded, ranges=ranges, image=image,
+                                 precise=precise, **kw)
+    kernel = spmm_block_padded if backend == "pallas" else spmm_slab_skinny_padded
     return functools.partial(kernel, ranges=ranges, precise=precise, **kw)
 
 
@@ -195,8 +197,12 @@ class SpmmPlan:
         self.m, self.k = packed.shape
         self.n = n
         self.device = resolve_device(device)
-        self.arrays, self.ranges = _upload(packed, self.device, n)
-        self._run = _runner(packed, backend, n, self.ranges)
+        self.arrays, self.ranges = _upload(packed, self.device)
+        # K1's operand tiles, where K1 runs on the tensor cores (plain mode on a card)
+        tc = (backend == "mxu" and n > SKINNY_MAX_N and not packed.config.precise
+              and self.device.type == "cuda")
+        self.image = _slab_image(packed, self.device, self.arrays) if tc else None
+        self._run = _runner(packed, backend, n, self.ranges, self.image)
 
         def as_index(p):
             return None if p is None else torch.as_tensor(

@@ -14,11 +14,12 @@ the (D,) offsets as an int32 tensor beside it, and B and C as they are,
 K7 on B and C transposed; here a row of B outside [0, K) reads as 0, which is
 what those zero rows held, so no padded or transposed copy is made.
 
-K6 takes its diagonals in runs (:func:`dia_plan`, from the host scan
-:func:`~sextans_tpu_torch.ops.launch.dia_runs` of the offsets, made once
-where the split is uploaded, with the offsets it holds on the device): a
-run's window of B and its ``dvals`` are staged in shared memory per 64-row
-tile (:func:`dia_launch`).
+Both kernels take their diagonals in runs (:func:`dia_plan`, from the host
+scan :func:`~sextans_tpu_torch.ops.launch.dia_runs` of the offsets, made
+once where the split is uploaded, with the offsets it holds on the device):
+a run's window of B and its ``dvals`` are staged in shared memory per row
+tile, 64 rows by 16 or 64 columns for K6 (:func:`dia_launch`), 16 or 64 rows
+by all N <= 32 columns for K7, in a ring of buffers (:func:`dia_skinny_launch`).
 
 ``precise`` 1 or 2 runs the compensated variant of both kernels (the JAX
 kernels have one ``precise`` flag, so both levels are one computation):
@@ -46,11 +47,12 @@ from sextans_tpu_torch.ops.launch import (
     need,
     stream_of,
 )
+from sextans_tpu_torch.ops.spmm_slab import SKINNY_MAX_N
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
-from sextans_tpu_torch.utils.config import cdiv
+from sextans_tpu_torch.utils.config import cdiv, round_up
 
 __all__ = ["spmm_dia", "spmm_dia_skinny", "spmm_dia_ref", "DiaRuns", "dia_plan",
-           "dia_launch", "DIA_SPAN_MAX"]
+           "dia_launch", "dia_skinny_launch", "DIA_SPAN_MAX"]
 
 # K6's tile (csrc/spmm_dia.cu: kTileRows, kLanes, kThreads): 64 rows by 16
 # lanes of VEC columns, 128 threads of 8 rows each
@@ -131,6 +133,36 @@ def dia_launch(n: int, m: int, runs: DiaRuns, vec: int) -> Launch:
         raise ValueError(f"spmm_dia: {tiles} tiles exceed the grid")
     return Launch(DIA_LANES, vec, DIA_THREADS, (tiles, 1), smem)
 
+# K7's tiles (csrc/spmm_dia.cu: skinny_threads): 16 rows by all n columns,
+# a thread a cell, four buffers of one run each; or, where tiles of 64 rows
+# still fill the card four times over, 64 rows, 4 cells a thread, two buffers
+DIA_SKINNY_WIDE_CTAS = 4 * 132
+
+
+def dia_skinny_launch(n: int, m: int, runs: DiaRuns) -> Launch:
+    """K7's thread map and grid (``csrc/spmm_dia.cu``): one CTA per tile of
+    ``rows`` rows and all ``n`` <= 32 columns; 64 rows where ceil(m / 64)
+    CTAs fill the card four times over, 4 cells of the tile's row-major
+    (row, column) index a thread and two buffers, else 16 rows, a thread a
+    cell and four buffers (``lanes`` = rows, ``cols`` = cells a thread).
+    Each buffer in shared memory holds the widest run's window of B, rows +
+    span rows of n floats, and the longest run's dvals, length x rows, and
+    offsets, so that the next runs' copies land while one run's diagonals
+    are added. Raises :class:`SharedMemoryError` where that exceeds a
+    CTA's."""
+    if not 1 <= n <= SKINNY_MAX_N:
+        raise ValueError(f"spmm_dia_skinny takes 1 <= n <= {SKINNY_MAX_N}, got {n}")
+    wide = cdiv(m, 64) >= DIA_SKINNY_WIDE_CTAS
+    rows, cells, stages = (64, 4, 2) if wide else (16, 1, 4)
+    smem = stages * 4 * round_up((rows + runs.span) * n + runs.length * (rows + 1), 4)
+    if smem > SMEM_LIMIT:
+        raise SharedMemoryError(
+            f"spmm_dia_skinny: a run of span {runs.span} and {runs.length} diagonals needs "
+            f"{smem} bytes of shared memory at {n} columns, more than the {SMEM_LIMIT} of a "
+            f"CTA (dia_plan cuts runs at span {DIA_SPAN_MAX})")
+    threads = 32 * cdiv(rows * n, 32 * cells)
+    return Launch(rows, cells, threads, (cdiv(m, rows), 1), smem)
+
 # Bytes of one (rows, n) f64 temporary per row step of the plain version.
 _REF_CHUNK_BYTES = 256 << 20
 
@@ -209,30 +241,29 @@ def _launch(name, dvals, offsets, b, c, alpha, beta, *, with_c, precise, runs=No
     if dvals.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {dvals.device}")
     n_diags, m, k, n = _check_dia_operands(dvals, offsets, b, c, with_c=with_c)
+    if runs is None:
+        raise ValueError(f"{name} needs runs=dia_plan(offsets, device) on a CUDA device, "
+                         "and runs.offsets as its offsets")
+    if runs.offsets is not offsets:
+        raise ValueError(f"{name} takes the offsets its run plan holds: pass runs.offsets")
+    n_runs = runs.ptr.shape[0] - 1
+    need(runs.ptr, "runs.ptr", torch.int32, (n_runs + 1,), dvals.device)
     if name == "spmm_dia":
-        if runs is None:
-            raise ValueError("spmm_dia needs runs=dia_plan(offsets, device) on a CUDA device, "
-                             "and runs.offsets as its offsets")
-        if runs.offsets is not offsets:
-            raise ValueError("spmm_dia takes the offsets its run plan holds: pass runs.offsets")
-        n_runs = runs.ptr.shape[0] - 1
-        need(runs.ptr, "runs.ptr", torch.int32, (n_runs + 1,), dvals.device)
         dense = (b, c) if with_c else (b,)
         vec = 4 if n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in dense) else 1
         go = dia_launch(n, m, runs, vec)
+    else:  # K7 reads C per element: only B's rows are copied 16 bytes at a time
+        vec = int(n % 4 == 0 and b.data_ptr() % 16 == 0)
+        go = dia_skinny_launch(n, m, runs)
     out = torch.empty((m, n), dtype=torch.float32, device=dvals.device)
     lib = build_kernels()
-    args = (dvals.data_ptr(), offsets.data_ptr())
-    dense_args = (b.data_ptr(), c.data_ptr() if with_c else None, out.data_ptr(), m, k, n)
-    mode = (float(alpha), float(beta), int(with_c), int(bool(precise)))
+    launch = lib.spmm_dia_launch if name == "spmm_dia" else lib.spmm_dia_skinny_launch
     with torch.cuda.device(dvals.device):
-        if name == "spmm_dia":
-            err = lib.spmm_dia_launch(*args, runs.ptr.data_ptr(), *dense_args, n_runs, *mode,
-                                      vec, runs.span, runs.length, go.threads, go.grid[0],
-                                      go.smem, stream_of(dvals.device))
-        else:
-            err = lib.spmm_dia_skinny_launch(*args, *dense_args, n_diags, *mode,
-                                             stream_of(dvals.device))
+        err = launch(dvals.data_ptr(), offsets.data_ptr(), runs.ptr.data_ptr(), b.data_ptr(),
+                     c.data_ptr() if with_c else None, out.data_ptr(), m, k, n, n_runs,
+                     float(alpha), float(beta), int(with_c), int(bool(precise)), vec,
+                     runs.span, runs.length, *(() if name == "spmm_dia" else (go.lanes,)),
+                     go.threads, go.grid[0], go.smem, stream_of(dvals.device))
     check_launch(lib, name, err)
     return out
 
@@ -273,17 +304,19 @@ def spmm_dia_skinny(
     alpha: float,
     beta: float,
     *,
+    runs: Optional[DiaRuns] = None,
     with_c: bool = True,
     precise: int = 0,
 ) -> torch.Tensor:
-    """The same function as :func:`spmm_dia` with the skinny-N kernel (one
-    thread per output cell, consecutive threads on consecutive cells of the
-    row-major C); correct at any N, chosen for N <= 32."""
+    """The same function as :func:`spmm_dia` for N <= 32 with the skinny-N
+    kernel (a 16-row tile by all N columns a CTA, a window of B per run in
+    shared memory, :func:`dia_skinny_launch`); ``runs`` as for
+    :func:`spmm_dia`."""
     if dvals.device.type == "cpu":
         return spmm_dia_ref(dvals, offsets, b, c, alpha, beta, with_c=with_c,
                             precise=precise)
     out = _launch("spmm_dia_skinny", dvals, offsets, b, c, alpha, beta, with_c=with_c,
-                  precise=precise)
+                  precise=precise, runs=runs)
     spmm_dia_skinny.launches += 1
     return out
 

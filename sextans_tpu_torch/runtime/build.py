@@ -43,14 +43,14 @@ _SIGNATURES = {
     # n_stripes n window_k block_k group_blocks alpha beta
     # with_c precise lanes vec threads grid_x grid_y smem stream
     "spmm_block_launch": [_P] * 8 + [_I] * 5 + [_F, _F] + [_I] * 8 + [_P],
-    # vals qm bcol group_kwin tile_ptr tile_groups b c out
-    # n_mtiles n tile_m window_k block_k group_blocks
-    # alpha beta with_c precise stream
-    "spmm_slab_launch": [_P] * 9 + [_I] * 6 + [_F, _F, _I, _I, _P],
-    # vals bcol group_kwin slab_ptr slab_blocks b c out
-    # n_slabs n window_k block_k group_blocks alpha beta
+    # vals image slab_ptr slab_blocks slab_rows b c out
+    # n_slabs n block_k alpha beta
+    # with_c precise b_vec halves threads grid smem stream
+    "spmm_slab_launch": [_P] * 8 + [_I] * 3 + [_F, _F] + [_I] * 7 + [_P],
+    # vals slab_ptr slab_blocks slab_rows b c out
+    # n_slabs n block_k alpha beta
     # with_c precise b_bulk threads grid smem stream
-    "spmm_slab_skinny_launch": [_P] * 8 + [_I] * 5 + [_F, _F] + [_I] * 6 + [_P],
+    "spmm_slab_skinny_launch": [_P] * 7 + [_I] * 3 + [_F, _F] + [_I] * 6 + [_P],
     # vals meta chunk_kwin row_ptr run_start run_stop b c out
     # m_padded n window_k edge_chunk alpha beta
     # with_c masked precise lanes vec threads grid_x grid_y stream
@@ -60,8 +60,9 @@ _SIGNATURES = {
     # dvals offsets run_ptr b c out m k n n_runs alpha beta
     # with_c precise vec span length threads grid smem stream
     "spmm_dia_launch": [_P] * 6 + [_I] * 4 + [_F, _F] + [_I] * 8 + [_P],
-    # dvals offsets b c out m k n n_diags alpha beta with_c precise stream
-    "spmm_dia_skinny_launch": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _I, _P],
+    # dvals offsets run_ptr b c out m k n n_runs alpha beta
+    # with_c precise vec span length rows threads grid smem stream
+    "spmm_dia_skinny_launch": [_P] * 6 + [_I] * 4 + [_F, _F] + [_I] * 9 + [_P],
     # a b s e p pe count stream
     "df32_probe_pairs": [_P] * 6 + [_I, _P],
     # v b out terms width stream

@@ -7,11 +7,13 @@ no JAX, so on a machine without it run it as::
 
 Tolerance: ``max|kernel - plain| <= 4 * spacing(f32(max|plain|))``; both sum
 the same f32 products in pack order and differ in the rounding of each
-block's product and of the epilogue. In precise mode the block, edge, ELL
-and DIA kernels equal their plain versions to the bit: both take the same
-roundings in the same order (``ops/df32.py``, ``csrc/df32.cuh``); so do the
-wide DIA kernel (K6) and the gather probes' kernels
-(``csrc/gather_probe.cu``) in every mode.
+block's product and of the epilogue (the slab kernel K1 in plain mode
+contracts in 3xTF32 on the tensor cores: on rows of 2,600 terms it is held
+to the f64 oracle instead, no more than 1 ulp past the plain version's own
+distance from it). In precise mode the block, edge, ELL and DIA kernels
+equal their plain versions to the bit: both take the same roundings in the
+same order (``ops/df32.py``, ``csrc/df32.cuh``); so do the DIA kernels (K6,
+K7) and the gather probes' kernels (``csrc/gather_probe.cu``) in every mode.
 """
 
 import numpy as np
@@ -30,7 +32,7 @@ from sextans_tpu_torch.ops.spmm_dia import (
 )
 from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded, spmm_edge_padded_ref
 from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded, spmm_ell_gather_padded_ref
-from sextans_tpu_torch.ops.launch import SharedMemoryError, dia_runs, group_ranges, slab_visits
+from sextans_tpu_torch.ops.launch import SharedMemoryError, dia_runs, slab_visits
 from sextans_tpu_torch.ops.spmm_slab import (
     SKINNY_STAGES,
     spmm_slab_padded,
@@ -85,8 +87,11 @@ def _check(kernel, plain, cuda, packed, n, with_c, precise=0, poison=None):
     cfg = packed.config
     kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k, block_k=cfg.block_k,
               group_blocks=cfg.group_blocks, with_c=with_c, precise=precise)
+    if kernel is spmm_slab_padded:  # K1's operand tiles, made where the plan uploads
+        kw["image"] = pl.image
     before = kernel.launches
     got = kernel(*pl.arrays, b, c, ALPHA, BETA, ranges=pl.ranges, **kw)
+    kw.pop("image", None)
     want = plain(*pl.arrays, b, c, ALPHA, BETA, **kw)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
@@ -274,11 +279,11 @@ def test_wrappers_check_operands(cuda):
         spmm_block_padded(*pl.arrays, b.t().contiguous().t(), c, 1.0, 0.0, **kw)
     with pytest.raises(ValueError, match="expected cuda"):
         spmm_block_padded(*pl.arrays, b.cpu(), c, 1.0, 0.0, **kw)
-    # the kernel walks per-stripe visit lists, not per-M-tile group ranges
-    tile_ranges = tuple(torch.as_tensor(a, device=cuda)
-                        for a in group_ranges(packed.group_mtile, packed.n_mtiles))
+    # the kernel walks per-stripe visit lists, not the slab kernels' per-slab lists
+    slab_lists = tuple(torch.as_tensor(a, device=cuda) for a in slab_visits(
+        tx.pack_mxu(_matrix("banded"), tx.SpmmConfig(tile_m=256, window_k=256))))
     with pytest.raises(ValueError, match="stripe_ptr"):
-        spmm_block_padded(*pl.arrays, b, c, 1.0, 0.0, **{**kw, "ranges": tile_ranges})
+        spmm_block_padded(*pl.arrays, b, c, 1.0, 0.0, **{**kw, "ranges": slab_lists})
     with pytest.raises(ValueError, match="multiple of tile_m"):
         spmm_block_padded(*pl.arrays, b, c[:-8], 1.0, 0.0, **kw)
     with pytest.raises(ValueError, match="c_padded must have shape"):
@@ -325,11 +330,10 @@ def _check_dia(kernel, cuda, split, n, with_c, misaligned=False, precise=0,
     if not with_c:
         c = torch.zeros(1, device=cuda).expand(split.m, n)
     kw = dict(with_c=with_c, precise=precise)
-    runs = {}
-    if kernel is spmm_dia:  # K6 takes the offsets its plan holds
-        runs["runs"] = (dia_plan(split.diag_offsets, cuda) if cut is None
-                        else _runs_cut_at(split.diag_offsets, cuda, cut))
-        offs = runs["runs"].offsets
+    # K6 and K7 take the offsets their plan holds
+    runs = {"runs": (dia_plan(split.diag_offsets, cuda) if cut is None
+                     else _runs_cut_at(split.diag_offsets, cuda, cut))}
+    offs = runs["runs"].offsets
     before = kernel.launches
     got = kernel(dv, offs, b, c, ALPHA, BETA, **runs, **kw)
     want = spmm_dia_ref(dv, offs, b, c, ALPHA, BETA, **kw)
@@ -339,8 +343,7 @@ def _check_dia(kernel, cuda, split, n, with_c, misaligned=False, precise=0,
     finite = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), finite)
     assert bool(finite.all()) == (poison is None)
-    if precise or kernel is spmm_dia:
-        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())  # K6 and K7, every mode
     tol = 4 * np.spacing(np.float32(want[finite].abs().max().item()))
     assert (got[finite] - want[finite]).abs().max().item() <= tol
 
@@ -359,9 +362,9 @@ def test_dia_skinny_kernel_matches_plain(cuda, kind, n):
     _check_dia(spmm_dia_skinny, cuda, _dia_split(kind), n, with_c=n != 13)
 
 
-@pytest.mark.parametrize("kernel", [spmm_dia, spmm_dia_skinny])
-def test_dia_kernels_take_misaligned_b(cuda, kernel):
-    _check_dia(kernel, cuda, _dia_split("band"), 64, with_c=True, misaligned=True)
+@pytest.mark.parametrize("kernel,n", [(spmm_dia, 64), (spmm_dia_skinny, 16)])
+def test_dia_kernels_take_misaligned_b(cuda, kernel, n):
+    _check_dia(kernel, cuda, _dia_split("band"), n, with_c=True, misaligned=True)
 
 
 @pytest.mark.parametrize("n,backend", [(16, "pallas"), (64, "pallas"), (16, "edge"),
@@ -571,9 +574,9 @@ def test_dia_skinny_kernel_precise_equals_plain(cuda, kind, n):
     _check_dia(spmm_dia_skinny, cuda, _dia_split(kind), n, with_c=n != 13, precise=1)
 
 
-@pytest.mark.parametrize("kernel", [spmm_dia, spmm_dia_skinny])
-def test_dia_kernels_precise_take_misaligned_b(cuda, kernel):
-    _check_dia(kernel, cuda, _dia_split("band"), 64, with_c=True, misaligned=True, precise=1)
+@pytest.mark.parametrize("kernel,n", [(spmm_dia, 64), (spmm_dia_skinny, 16)])
+def test_dia_kernels_precise_take_misaligned_b(cuda, kernel, n):
+    _check_dia(kernel, cuda, _dia_split("band"), n, with_c=True, misaligned=True, precise=1)
 
 
 @pytest.mark.parametrize("precise", [1, 2])
@@ -828,20 +831,136 @@ def test_dia_kernel_refuses_a_window_that_does_not_fit(cuda):
         spmm_dia(dv, offs, b, c, 1.0, 0.0)
 
 
+@pytest.mark.parametrize("kernel,n", [(spmm_dia, 64), (spmm_dia_skinny, 16)])
 @pytest.mark.parametrize("other", ["plan", "tensor"])
-def test_dia_kernel_takes_only_the_offsets_its_plan_holds(cuda, other):
+def test_dia_kernel_takes_only_the_offsets_its_plan_holds(cuda, other, kernel, n):
     m = k = 3000
     rng = np.random.default_rng(1)
     dv = torch.as_tensor(rng.standard_normal((2, m)).astype(np.float32), device=cuda)
-    b = torch.ones((k, 64), device=cuda)
-    c = torch.ones((m, 64), device=cuda)
+    b = torch.ones((k, n), device=cuda)
+    c = torch.ones((m, n), device=cuda)
     runs = dia_plan(np.array([-1200, 1200]), cuda)
     if other == "plan":  # a plan of other offsets, whose window is far narrower
         runs = dia_plan(np.array([0, 1]), cuda)
         offs = torch.tensor([-1200, 1200], dtype=torch.int32, device=cuda)
     else:  # the same values in another tensor
         offs = runs.offsets.clone()
-    before = spmm_dia.launches
+    before = kernel.launches
     with pytest.raises(ValueError, match="runs.offsets"):
-        spmm_dia(dv, offs, b, c, 1.0, 0.0, runs=runs)
-    assert spmm_dia.launches == before
+        kernel(dv, offs, b, c, 1.0, 0.0, runs=runs)
+    assert kernel.launches == before
+
+
+# ---- K1 streams its slab's blocks through shared memory and contracts
+# them on the tensor cores in 3xTF32; K7 stages a window of B per 16-row
+# tile and run of diagonals ----
+
+def _check_slab_f64(cuda, coo, packed, n, with_c):
+    """K1 in plain mode (3xTF32 on the tensor cores) against the f64 oracle
+    and its plain version (FFMA order): rows of 2,600 terms take both f32
+    sums past the 4-ulp bar of f64 and apart from each other (the plain
+    version itself reads 4.7 ulp there on an H100), so the kernel is held
+    to be no more than 1 ulp of max|C| further from f64 than the plain
+    version is, and within 4 ulp of f64 where the plain version is."""
+    pl = tx.plan(packed, n, "mxu", device=cuda)
+    rng = np.random.default_rng(n)
+    b = rng.standard_normal((packed.k, n)).astype(np.float32)
+    c = rng.standard_normal((packed.m, n)).astype(np.float32)
+    before = spmm_slab_padded.launches
+    beta, c_in = (BETA, c) if with_c else (0.0, None)
+    got = pl(b, ALPHA, beta, c_in).cpu().numpy()
+    assert spmm_slab_padded.launches == before + 1
+    plain = tx.plan(packed, n, "mxu", device="cpu")(b, ALPHA, beta, c_in).numpy()
+    exact = tx.golden_spmm_exact(tx.CSRMatrix.from_coo(coo), b, ALPHA, beta, c_in)
+    unit = np.spacing(np.float32(np.abs(exact).max()))
+    err, plain_err = np.abs(got - exact).max() / unit, np.abs(plain - exact).max() / unit
+    assert err <= max(4.0, plain_err + 1.0)
+
+
+@pytest.mark.parametrize("precise", [0, 1, 2])
+@pytest.mark.parametrize("with_c", [True, False])
+@pytest.mark.parametrize("kind,bk", [("long_stripe", 32), ("long_stripe", 128),
+                                     ("empty_mtiles", 128)])
+@pytest.mark.parametrize("n", [37, 100])
+def test_slab_kernel_streams_long_slabs(cuda, kind, bk, n, with_c, precise):
+    cfg = tx.SpmmConfig(tile_m=256, window_k=512, block_k=bk, group_blocks=4,
+                        precise=precise)
+    coo = _matrix(kind)
+    packed = tx.pack_mxu(coo, cfg)
+    if kind == "long_stripe":  # some slab holds more blocks than the ring has stages
+        assert np.diff(slab_visits(packed)[0]).max() > SKINNY_STAGES
+    if precise:  # FFMA, as the plain version
+        _check(spmm_slab_padded, spmm_slab_padded_ref, cuda, packed, n, with_c=with_c,
+               precise=precise)
+    else:
+        _check_slab_f64(cuda, coo, packed, n, with_c)
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("poison", [float("nan"), float("inf")])
+@pytest.mark.parametrize("n", [37, 100])
+def test_slab_kernel_pads_meet_nonfinite_b(cuda, n, poison, precise):
+    cfg = tx.SpmmConfig(tile_m=256, window_k=256, block_k=16, group_blocks=8,
+                        precise=precise)
+    packed = tx.pack_mxu(_matrix("empty_mtiles"), cfg)
+    blocks = packed.vals.reshape(packed.n_groups * cfg.group_blocks, -1)
+    assert (np.abs(blocks).max(axis=1) == 0).any()  # pad blocks, read B[window start]
+    _check(spmm_slab_padded, spmm_slab_padded_ref, cuda, packed, n, with_c=True,
+           precise=precise, poison=poison)
+
+
+@pytest.mark.parametrize("n", [64, 100])
+def test_slab_kernel_takes_misaligned_b(cuda, n):
+    cfg = tx.SpmmConfig(tile_m=256, window_k=512, block_k=32, group_blocks=4)
+    packed = tx.pack_mxu(_matrix("banded"), cfg)
+    pl = tx.plan(packed, n, "mxu", device=cuda)
+    rng = np.random.default_rng(n)
+    b = pl.pad_b(rng.standard_normal((packed.k, n)).astype(np.float32))
+    c = pl.pad_c(rng.standard_normal((packed.m, n)).astype(np.float32))
+    shifted = torch.empty(b.numel() + 1, device=cuda)[1:].view(b.shape)
+    shifted.copy_(b)
+    assert shifted.data_ptr() % 16  # 4-byte copies of B's rows instead of 16-byte ones
+    kw = dict(tile_m=256, window_k=512, block_k=32, group_blocks=4, ranges=pl.ranges,
+              image=pl.image)
+    got = spmm_slab_padded(*pl.arrays, shifted, c, ALPHA, BETA, **kw)
+    want = spmm_slab_padded(*pl.arrays, b, c, ALPHA, BETA, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_slab_kernel_needs_its_image_and_slab_lists(cuda):
+    cfg = tx.SpmmConfig(tile_m=256, window_k=256, block_k=16, group_blocks=8)
+    packed = tx.pack_mxu(_matrix("banded"), cfg)
+    pl = tx.plan(packed, 40, "mxu", device=cuda)
+    assert pl.image is not None and tx.plan(packed, 16, "mxu", device=cuda).image is None
+    b = pl.pad_b(np.ones((packed.k, 40), np.float32))
+    c = pl.pad_c(np.ones((packed.m, 40), np.float32))
+    kw = dict(tile_m=256, window_k=256, block_k=16, group_blocks=8, ranges=pl.ranges)
+    before = spmm_slab_padded.launches
+    with pytest.raises(ValueError, match="image"):
+        spmm_slab_padded(*pl.arrays, b, c, 1.0, 0.0, **kw)
+    with pytest.raises(ValueError, match="image must have shape"):
+        spmm_slab_padded(*pl.arrays, b, c, 1.0, 0.0, **kw, image=pl.image[1:])
+    with pytest.raises(ValueError, match="slab_blocks"):
+        spmm_slab_padded(*pl.arrays, b, c, 1.0, 0.0, **{**kw, "ranges": (
+            pl.ranges[0], pl.ranges[1][1:], pl.ranges[2][1:])}, image=pl.image)
+    assert spmm_slab_padded.launches == before
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("cut", [0, 3, None])
+@pytest.mark.parametrize("kind", ["stencil", "band", "rect"])
+@pytest.mark.parametrize("n", [9, 13, 16])
+def test_dia_skinny_kernel_runs_and_ragged_tiles_to_the_bit(cuda, kind, n, cut, precise):
+    split = _dia_split(kind)
+    # K7 equals its plain version to the bit under any cut of the offsets
+    # into runs; 16-row tiles, the last one ragged where M is not a multiple
+    _check_dia(spmm_dia_skinny, cuda, split, n, with_c=n != 13, precise=precise, cut=cut)
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("n", [9, 16])
+def test_dia_skinny_kernel_meets_nonfinite_b_and_rows_off_b(cuda, n, precise):
+    split = _dia_split("band")  # offsets -60..60 run off both ends of B
+    _check_dia(spmm_dia_skinny, cuda, split, n, with_c=True, precise=precise,
+               poison=split.k // 2)

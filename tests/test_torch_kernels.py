@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import sextans_tpu_torch as tx
 from sextans_tpu.format.coo import COOMatrix as RefCOO
 from sextans_tpu.format.csr import CSRMatrix as RefCSR
 from sextans_tpu.format.pack import pack as ref_pack
@@ -37,7 +38,7 @@ from sextans_tpu.utils.config import SpmmConfig as RefConfig
 from sextans_tpu.utils.verify import verify
 from sextans_tpu_torch.format.convert import from_reference
 from sextans_tpu_torch.ops.df32 import acc_step, compensated_epilogue
-from sextans_tpu_torch.ops.launch import SMEM_LIMIT, group_ranges, stripe_visits
+from sextans_tpu_torch.ops.launch import SMEM_LIMIT, slab_visits, stripe_visits
 from sextans_tpu_torch.ops.spmm_block import (
     _block_contrib,
     block_launch,
@@ -151,7 +152,7 @@ def test_slab_ref_matches_mxu_pallas(m, k, n, nnz, bk, with_c):
                           interpret=True, with_c=with_c, **_kw(cfg))
     tb = torch.from_numpy(b_p[:, :n].copy())
     tc = torch.from_numpy(c_p[:, :n].copy())
-    ranges = tuple(torch.from_numpy(a) for a in group_ranges(ref.group_mtile, ref.n_mtiles))
+    ranges = tuple(torch.from_numpy(a) for a in slab_visits(port))
     got = spmm_slab_padded_ref(*_torch_args(port), tb, tc, ALPHA, beta,
                                with_c=with_c, **_kw(cfg)).numpy()
     via_wrapper = spmm_slab_padded(*_torch_args(port), tb, tc, ALPHA, beta,
@@ -171,7 +172,7 @@ def test_slab_skinny_ref_matches_mxu_ct_route(n):
     # the JAX plan's n <= 32 route: spmm_mxu_ct_padded on transposed C
     jax_out = np.asarray(RefPlan(ref, n, backend="mxu_interpret")(b, ALPHA, BETA, c))
     b_p, c_p = _padded(ref, b, c, n)
-    ranges = tuple(torch.from_numpy(a) for a in group_ranges(ref.group_mtile, ref.n_mtiles))
+    ranges = tuple(torch.from_numpy(a) for a in slab_visits(port))
     got = spmm_slab_skinny_padded(*_torch_args(port), torch.from_numpy(b_p),
                                   torch.from_numpy(c_p), ALPHA, BETA,
                                   ranges=ranges, **_kw(cfg)).numpy()
@@ -184,22 +185,31 @@ def test_slab_skinny_rejects_wide_n():
     port = from_reference(ref_pack_mxu(coo, RefConfig(tile_m=128, window_k=128,
                                                       block_k=8, group_blocks=4),
                                        impl="numpy"))
-    ranges = tuple(torch.from_numpy(a) for a in group_ranges(port.group_mtile, 1))
+    ranges = tuple(torch.from_numpy(a) for a in slab_visits(port))
     with pytest.raises(ValueError, match="n <= 32"):
         spmm_slab_skinny_padded(*_torch_args(port), torch.from_numpy(b),
                                 torch.from_numpy(c), ALPHA, BETA, ranges=ranges,
                                 tile_m=128, window_k=128, block_k=8, group_blocks=4)
 
 
-def test_group_ranges_scan_any_order():
-    # groups of M-tiles 2, 0, 0, 3, then an appended empty tile 1; sentinel -1
-    gmt = np.array([2, 0, 0, 3, 1, -1], dtype=np.int32)
-    ptr, groups = group_ranges(gmt, 5)
-    assert ptr.tolist() == [0, 2, 3, 4, 5, 5]  # tile 4 has no group at all
-    assert groups.tolist() == [1, 2, 4, 0, 3]
-    assert ptr.dtype == groups.dtype == np.int32
+def test_slab_visits_scan_any_order():
+    # one slab an M-tile and one block a group: the groups, set to M-tiles
+    # 2, 0, 0, 3, are the blocks of slabs 2, 0, 0, 3 (slab 1 has none); each
+    # block starts at its K-window's row (group_kwin * window_k + bcol)
+    coo = tx.COOMatrix((512, 32), np.array([300, 10, 140, 400]), np.array([0, 9, 17, 30]),
+                       np.ones(4, np.float32))
+    packed = tx.pack_mxu(coo, tx.SpmmConfig(tile_m=128, window_k=8, block_k=8,
+                                            group_blocks=1))
+    assert packed.n_groups == 4 and packed.group_kwin.tolist() == [1, 2, 0, 3]
+    packed.group_mtile[:-1] = [2, 0, 0, 3]
+    ptr, blocks, rows = slab_visits(packed)
+    assert ptr.tolist() == [0, 2, 2, 3, 4]
+    assert blocks.tolist() == [1, 2, 0, 3]
+    assert rows.tolist() == [16, 0, 8, 24]
+    assert ptr.dtype == blocks.dtype == rows.dtype == np.int32
+    packed.group_mtile[0] = 4
     with pytest.raises(ValueError, match="M-tile"):
-        group_ranges(np.array([0, 5, -1], dtype=np.int32), 5)
+        slab_visits(packed)
 
 
 def test_block_launch_spreads_over_the_card():

@@ -1,22 +1,27 @@
-"""The host scans and the arithmetic order of the skinny slab kernel (K2) and
-the wide DIA kernel (K6), on the CPU.
+"""The host scans and the arithmetic order of the slab kernels (K1, K2)
+and the DIA kernels (K6, K7), on the CPU.
 
 * ``slab_visits`` lists every block of a slab pack once, under its (M-tile,
-  ``qm``) slab, in the order in which K1 (and K2 before it) took them: the
-  M-tile's groups as ``group_ranges`` lists them, then the blocks of a
-  group; pad groups and empty slabs and M-tiles included.
-* A walk of K2's loop over those lists (per block the FFMA chain over kk
-  from +0 by ``fma_f32``, then ``acc += cf``, or a Neumaier step after every
-  8 terms in precise mode; the kernel's epilogue) gives the same bits as the
-  same walk over the M-tile group ranges with the ``qm`` test, with NaN and
-  Inf where pad blocks read; it is within 4 ulp of the plain version
-  ``spmm_slab_padded_ref`` and of the JAX package's ``mxu_interpret`` route.
+  ``qm``) slab, in the order in which the parent kernels took them: the
+  M-tile's groups in group order, then the blocks of a group; pad groups
+  and empty slabs and M-tiles included; beside each block, the B row where
+  its terms start. Both slab kernels walk it at every N (``SpmmPlan``).
+* A walk of the FFMA loop over those lists (per block the FFMA chain over
+  kk from +0 by ``fma_f32``, then ``acc += cf``, or a Neumaier step after
+  every 8 terms in precise mode; the kernel's epilogue) gives the same bits
+  as the same walk over the M-tile group ranges with the ``qm`` test, and
+  as K1's walk in chunks of 32 terms, with NaN and Inf where pad blocks
+  read; it is within 4 ulp of the plain version ``spmm_slab_padded_ref`` and
+  of the JAX package's ``mxu_interpret`` route.
+* K1's 3xTF32 split (``tf32_rna``, ``slab_image``) against a NumPy
+  emulation of ``cvt.rna.tf32.f32``, its error bound over a 128-term block,
+  and a walk of K1's plain-mode steps against the plain version and f64.
 * ``dia_runs`` covers every diagonal once, in ascending order, in runs
   whose span is at most the limit, each as long as the limit allows.
-* A walk of K6 over 64-row tiles and those runs, each run's window of B
-  zero-filled outside [0, K) and indexed as the kernel indexes it, gives
-  ``spmm_dia_ref``'s bits, plain and precise, with NaN where a stored zero
-  meets a non-finite B row.
+* A walk of K6 (64-row tiles) and K7 (16- and 64-row tiles) over those runs,
+  each run's window of B zero-filled outside [0, K) and indexed as the
+  kernel indexes it, gives ``spmm_dia_ref``'s bits, plain and precise, with
+  NaN where a stored zero meets a non-finite B row.
 """
 
 import numpy as np
@@ -36,23 +41,30 @@ from sextans_tpu_torch.ops.launch import (
     dia_runs,
     f32,
     fma_f32,
-    group_ranges,
     slab_visits,
 )
+from sextans_tpu_torch.utils.config import round_up
 from sextans_tpu_torch.ops.spmm_dia import (
     DIA_SPAN_MAX,
     DIA_TILE_ROWS,
     DiaRuns,
     dia_launch,
     dia_plan,
+    dia_skinny_launch,
     spmm_dia,
     spmm_dia_ref,
+    spmm_dia_skinny,
 )
 from sextans_tpu_torch.ops.spmm_slab import (
     SKINNY_STAGES,
+    SLAB_CHUNK,
+    slab_image,
+    slab_launch,
     slab_skinny_launch,
+    spmm_slab_padded,
     spmm_slab_padded_ref,
     spmm_slab_skinny_padded,
+    tf32_rna,
 )
 
 ALPHA, BETA = 0.85, -2.06
@@ -87,14 +99,16 @@ def _slab_pack(kind, cfg, precise=0):
 
 
 def _parent_lists(packed):
-    """Each slab's blocks in the order of the M-tile walk: the groups of
-    ``group_ranges``, then i, keeping the blocks whose qm is the slab."""
+    """Each slab's blocks in the order of the parent's M-tile walk: each
+    M-tile's groups in group order (the packers append the groups of empty
+    M-tiles after all real ones), then i, keeping the blocks whose qm is
+    the slab."""
     G = packed.config.group_blocks
     per_tile = packed.config.tile_m // MSLAB
-    tile_ptr, tile_groups = group_ranges(packed.group_mtile, packed.n_mtiles)
+    mtile = packed.group_mtile[:-1]
     lists = [[] for _ in range(packed.n_mtiles * per_tile)]
     for t in range(packed.n_mtiles):
-        for g in tile_groups[tile_ptr[t]:tile_ptr[t + 1]]:
+        for g in np.flatnonzero(mtile == t):
             for i in range(G):
                 lists[t * per_tile + packed.qm[g, i]].append(g * G + i)
     ptr = np.concatenate([[0], np.cumsum([len(x) for x in lists])]).astype(np.int32)
@@ -106,8 +120,10 @@ def _parent_lists(packed):
 def test_slab_visits_list_every_block_once_in_pack_order(kind, cfg):
     packed = _slab_pack(kind, cfg)
     G, per_tile = cfg["group_blocks"], cfg["tile_m"] // MSLAB
-    ptr, blocks = slab_visits(packed)
-    assert ptr.dtype == blocks.dtype == np.int32
+    ptr, blocks, rows = slab_visits(packed)
+    assert ptr.dtype == blocks.dtype == rows.dtype == np.int32
+    brow = (packed.group_kwin.astype(np.int64)[:, None] * cfg["window_k"] + packed.bcol)
+    assert np.array_equal(rows, brow.reshape(-1)[blocks])
     assert ptr.size == packed.n_mtiles * per_tile + 1 and ptr[0] == 0
     assert np.all(np.diff(ptr) >= 0) and ptr[-1] == blocks.size == packed.n_groups * G
     assert np.array_equal(np.sort(blocks), np.arange(blocks.size))  # each block once
@@ -138,13 +154,15 @@ def test_slab_visits_refuses_a_slab_outside_the_tile():
         slab_visits(packed)
 
 
-def _walk_slabs(packed, lists, b_p, c_p, precise):
-    """K2's loop over ``lists``, each slab's r-th block in one step: the
-    FFMA chain over kk from +0, then ``acc += cf`` (a Neumaier step every 8
-    terms in precise mode), then the kernel's epilogue."""
+def _walk_slabs(packed, lists, b_p, c_p, precise, chunk=None):
+    """The FFMA loop over ``lists`` (K2's, and K1's in precise mode), each
+    slab's r-th block in one step: the FFMA chain over kk from +0, then
+    ``acc += cf`` (a Neumaier step every 8 terms in precise mode), then the
+    kernel's epilogue. With ``chunk`` the chain goes stage by stage, as K1
+    streams a block: ``chunk`` terms a stage, the block's sums carried."""
     cfg = packed.config
     bk = cfg.block_k
-    ptr, blocks = lists
+    ptr, blocks = lists[:2]
     counts = np.diff(ptr)
     n = b_p.shape[1]
     acc = torch.zeros((counts.size, MSLAB, n))
@@ -157,11 +175,12 @@ def _walk_slabs(packed, lists, b_p, c_p, precise):
         v = vblk[blk]
         rows = b_p[torch.from_numpy(brow[blk][:, None] + np.arange(bk))]
         cf = torch.zeros((s.size, MSLAB, n))
-        for kk in range(bk):
-            cf = fma_f32(v[:, kk, :, None], rows[:, kk, None, :], cf)
-            if precise and kk % 8 == 7:
-                acc[s], comp[s] = acc_step(acc[s], comp[s], cf)
-                cf = torch.zeros_like(cf)
+        for k0 in range(0, bk, chunk or bk):
+            for kk in range(k0, k0 + (chunk or bk)):
+                cf = fma_f32(v[:, kk, :, None], rows[:, kk, None, :], cf)
+                if precise and kk % 8 == 7:
+                    acc[s], comp[s] = acc_step(acc[s], comp[s], cf)
+                    cf = torch.zeros_like(cf)
         if not precise:
             acc[s] = acc[s] + cf
     acc, comp = acc.view(-1, n), comp.view(-1, n)
@@ -170,10 +189,15 @@ def _walk_slabs(packed, lists, b_p, c_p, precise):
     return fma_f32(torch.full_like(acc, f32(ALPHA)), acc, c_p * f32(BETA))
 
 
+# a block of 64 terms: K1 streams it in two chunks
+WIDE_BLOCK = dict(tile_m=256, window_k=512, block_k=64, group_blocks=2)
+
+
 @pytest.mark.parametrize("precise", [0, 1])
 @pytest.mark.parametrize("kind,cfg,n,poison", [
     ("banded", SLAB_CONFIGS[0], 9, None), ("empty_mtiles", SLAB_CONFIGS[1], 16, np.nan),
-    ("dense_rows", SLAB_CONFIGS[2], 7, np.inf), ("empty_mtiles", SLAB_CONFIGS[0], 1, -np.inf)])
+    ("dense_rows", SLAB_CONFIGS[2], 7, np.inf), ("empty_mtiles", SLAB_CONFIGS[0], 1, -np.inf),
+    ("empty_mtiles", WIDE_BLOCK, 40, np.nan), ("dense_rows", WIDE_BLOCK, 100, None)])
 def test_slab_walk_over_the_scan_keeps_the_parent_order(kind, cfg, n, poison, precise):
     packed = _slab_pack(kind, cfg, precise)
     rng = np.random.default_rng(n)
@@ -185,6 +209,11 @@ def test_slab_walk_over_the_scan_keeps_the_parent_order(kind, cfg, n, poison, pr
     parent = _walk_slabs(packed, _parent_lists(packed), b_p, c_p, precise)
     assert torch.equal(torch.isnan(got), torch.isnan(parent))
     assert torch.equal(got.nan_to_num(), parent.nan_to_num())
+    # K1 streams a block in chunks of 32 terms; its sums carry across them
+    chunked = _walk_slabs(packed, slab_visits(packed), b_p, c_p, precise,
+                          chunk=min(SLAB_CHUNK, cfg["block_k"]))
+    assert torch.equal(chunked.nan_to_num(), got.nan_to_num())
+    assert torch.equal(torch.isnan(chunked), torch.isnan(got))
     assert bool(torch.isfinite(got).all()) == (poison is None)
     plain = spmm_slab_padded_ref(
         *(torch.from_numpy(getattr(packed, a)) for a in
@@ -233,6 +262,206 @@ def test_slab_skinny_launch_map_and_refusals():
     for n in (0, 33):
         with pytest.raises(ValueError, match="1 <= n <= 32"):
             slab_skinny_launch(n, 1, 8)
+
+
+def _tf32_numpy(x):
+    """``cvt.rna.tf32.f32`` in NumPy: x to 11 significant bits, to nearest
+    with ties away from zero, by its f64 mantissa (frexp), not its bits."""
+    x = np.asarray(x, dtype=np.float64)
+    mant, exp = np.frexp(x)
+    return (np.sign(mant) * np.floor(np.abs(mant) * 2.0**11 + 0.5) * 2.0**(exp - 11)).astype(
+        np.float32)
+
+
+def test_tf32_rna_matches_a_numpy_emulation():
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.standard_normal(4000) * 10.0**rng.integers(-30, 30, 4000),
+                        [0.0, -0.0, 1.0, -3.5, 2.0**-126, 3.4e38, -3.4e38]]).astype(np.float32)
+    # halfway between two TF32 values: the 13 dropped bits are 1 followed by zeros
+    ties = (np.arange(1, 200, dtype=np.uint32) << 13 | 0x1000 | 0x3F800000).view(np.float32)
+    x = np.concatenate([x, ties, -ties])
+    got = tf32_rna(torch.from_numpy(x)).numpy()
+    assert np.array_equal(got, _tf32_numpy(x))
+    assert np.all(got.view(np.uint32) & 0x1FFF == 0)
+    assert np.all(np.abs(got[-2 * ties.size:]) > np.abs(x[-2 * ties.size:]))  # ties away
+    # past the largest TF32 value below the f32 maximum, the instruction
+    # rounds to infinity, as the bit trick does
+    big = np.array([np.finfo(np.float32).max], dtype=np.float32)
+    assert np.isinf(tf32_rna(torch.from_numpy(big)).numpy()).all()
+
+
+def test_3xtf32_split_and_its_error_over_a_block():
+    rng = np.random.default_rng(1)
+    # hi + lo gives x back where x has at most 22 significant bits, the 11 of
+    # hi and the 11 of lo
+    exact = (rng.integers(1 << 21, 1 << 22, 2000) * 2.0**rng.integers(-40, 20, 2000)).astype(
+        np.float32)
+    hi = _tf32_numpy(exact)
+    lo = _tf32_numpy(exact.astype(np.float64) - hi)
+    assert np.array_equal(hi.astype(np.float64) + lo, exact)
+    # any x: |x - hi - lo| <= 2^-22 |x| (lo rounds the 13 bits below hi to 11)
+    x = rng.standard_normal(100_000).astype(np.float32)
+    hi = _tf32_numpy(x)
+    lo = _tf32_numpy(x.astype(np.float64) - hi)
+    assert np.all(np.abs(x - (hi.astype(np.float64) + lo)) <= 2.0**-22 * np.abs(x))
+    # a block of 128 terms: hi.hi + hi.lo + lo.hi (products and sum in f64,
+    # exact here) leaves out lo.lo and both operands' split errors, at most
+    # (2^-22 + 2^-22 + 2^-22 + small) |a b| a term: bound 3.01 * 2^-22 * sum |a b|
+    for _ in range(50):
+        a = rng.standard_normal(128).astype(np.float32) * (rng.random(128) < 0.3)
+        b = rng.standard_normal(128).astype(np.float32)
+        ah, bh = _tf32_numpy(a), _tf32_numpy(b)
+        al = _tf32_numpy(a.astype(np.float64) - ah)
+        bl = _tf32_numpy(b.astype(np.float64) - bh)
+        three = np.sum(ah.astype(np.float64) * bh + ah.astype(np.float64) * bl
+                       + al.astype(np.float64) * bh)
+        exact_dot = np.sum(a.astype(np.float64) * b)
+        bound = 3.01 * 2.0**-22 * np.sum(np.abs(a.astype(np.float64) * b))
+        assert abs(three - exact_dot) <= bound
+
+
+def test_slab_image_lays_out_k_major_tiles():
+    rng = np.random.default_rng(2)
+    for bk in (8, 32, 128):
+        ch = min(SLAB_CHUNK, bk)
+        vals = torch.from_numpy(rng.standard_normal((3, 2 * bk, MSLAB)).astype(np.float32))
+        img = slab_image(vals, bk)
+        assert img.shape == (6, bk // ch, 2, 2, ch // 8, 512) and img.is_contiguous()
+        v = vals.reshape(6, bk, MSLAB).numpy()
+        k = np.arange(bk)[:, None]
+        mm = np.arange(MSLAB)[None, :]
+        c, kin = k // ch, k % ch
+        ks, kc, e = kin // 8, kin % 8 // 4, kin % 4
+        half, ng, r = mm // 64, mm % 64 // 8, mm % 8
+        at = (c, half, ks, ng * 64 + kc * 32 + r * 4 + e)
+        for blk in range(6):
+            hi = _tf32_numpy(v[blk])
+            lo = _tf32_numpy(v[blk].astype(np.float64) - hi)
+            tiles = img[blk].numpy()
+            assert np.array_equal(tiles[at[0], at[1], 0, at[2], at[3]], hi)
+            assert np.array_equal(tiles[at[0], at[1], 1, at[2], at[3]], lo)
+    with pytest.raises(ValueError, match="block_k"):
+        slab_image(torch.zeros((1, 4, MSLAB)), 4)
+
+
+def test_slab_launch_map_and_its_ring():
+    # synthetic4704 at bench.py's slab config: 40 slabs; at N = 512 the wide
+    # tiles would give 160 CTAs, so half a slab by 64 columns: 640 CTAs of
+    # one warpgroup, four stages of 32 terms (hi and lo tiles and B rows)
+    go = slab_launch(512, 40, 128)
+    assert (go.lanes, go.cols, go.threads, go.grid) == (64, 64, 128, (640, 1))
+    assert go.smem == 4 * (4 * 32 * (128 + 64 + 8) + 8) == 102432
+    # cant_like: 496 slabs, 1,984 CTAs of a whole slab by 128 columns
+    go = slab_launch(512, 496, 128)
+    assert (go.lanes, go.cols, go.threads, go.grid) == (128, 128, 256, (1984, 1))
+    assert go.smem == 4 * (4 * 32 * (256 + 128 + 8) + 8) == 200736 <= SMEM_LIMIT
+    # ragged N: the last column tile is partly outside
+    assert slab_launch(100, 40, 128).grid == (40 * 2 * 2, 1)
+    assert slab_launch(37, 40, 128).grid == (40 * 2, 1)
+    # precise mode: FFMA, half a slab by 64 columns, the values and B rows
+    go = slab_launch(512, 496, 128, precise=1)
+    assert (go.lanes, go.cols, go.threads, go.grid) == (64, 64, 128, (7936, 1))
+    assert go.smem == 4 * (4 * 32 * (64 + 64 + 8) + 8) == 69664
+    # a stage holds at most 32 terms: the ring fits at any block_k
+    for bk in (8, 16, 32, 64, 128, 512):
+        for n_slabs in (1, 40, 496):
+            for precise in (0, 1):
+                assert slab_launch(512, n_slabs, bk, precise).smem <= SMEM_LIMIT
+    assert slab_launch(512, 40, 8).smem == 4 * (4 * 8 * 200 + 8)
+    with pytest.raises(ValueError, match="block_k % 8"):
+        slab_launch(512, 40, 4)
+    with pytest.raises(ValueError, match="n >= 1"):
+        slab_launch(0, 40, 128)
+
+
+BENCH_SLAB = dict(tile_m=1024, window_k=4096, block_k=128, group_blocks=8)
+
+
+@pytest.mark.parametrize("cfg", [{}, BENCH_SLAB])
+@pytest.mark.parametrize("n", [512, 100, 16])
+def test_slab_visits_are_both_slab_kernels_ranges(cfg, n):
+    packed = tx.pack_mxu(_slab_matrix("banded"), tx.SpmmConfig(**cfg))
+    pl = tx.plan(packed, n, "mxu", device="cpu")
+    assert [t.tolist() for t in pl.ranges] == [a.tolist() for a in slab_visits(packed)]
+    assert pl.image is None  # made on the card, where K1 reads it
+    # the wrappers on CPU tensors run the plain version, with the plan's scan
+    rng = np.random.default_rng(n)
+    b_p = pl.pad_b(rng.standard_normal((packed.k, n)).astype(np.float32))
+    c_p = pl.pad_c(rng.standard_normal((packed.m, n)).astype(np.float32))
+    cfg = packed.config
+    kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k, block_k=cfg.block_k,
+              group_blocks=cfg.group_blocks)
+    kernel = spmm_slab_skinny_padded if n <= 32 else spmm_slab_padded
+    via = kernel(*pl.arrays, b_p, c_p, ALPHA, BETA, ranges=pl.ranges, **kw)
+    assert torch.equal(via, spmm_slab_padded_ref(*pl.arrays, b_p, c_p, ALPHA, BETA, **kw))
+
+
+def _walk_tc(packed, b_p, c_p):
+    """K1's plain mode over ``slab_visits``, each slab's r-th block in one
+    step: per 8 terms the 3xTF32 sum (products and their sum in f64, rounded
+    to f32 once; the card's tensor cores do not round that sum to nearest),
+    added to the block's sum cf, cf to acc after the block; the epilogue."""
+    cfg = packed.config
+    bk = cfg.block_k
+    ptr, blocks, rows = slab_visits(packed)
+    counts = np.diff(ptr)
+    n = b_p.shape[1]
+    acc = torch.zeros((counts.size, MSLAB, n))
+    vblk = torch.from_numpy(packed.vals).view(-1, bk, MSLAB)
+    bh = tf32_rna(b_p)
+    bl = tf32_rna(b_p - bh)
+    for rank in range(counts.max(initial=0)):
+        s = np.flatnonzero(counts > rank)
+        blk = blocks[ptr[s] + rank]
+        v = vblk[blk]
+        vh = tf32_rna(v)
+        vl = tf32_rna(v - vh)
+        at = torch.from_numpy(rows[ptr[s] + rank][:, None] + np.arange(bk))
+        cf = torch.zeros((s.size, MSLAB, n))
+        for k0 in range(0, bk, 8):
+            ks = slice(k0, k0 + 8)
+            f = (torch.einsum("skm,skn->smn", vl[:, ks].double(), bh[at[:, ks]].double())
+                 + torch.einsum("skm,skn->smn", vh[:, ks].double(), bl[at[:, ks]].double())
+                 + torch.einsum("skm,skn->smn", vh[:, ks].double(), bh[at[:, ks]].double()))
+            cf = cf + f.float()
+        acc[s] = acc[s] + cf
+    acc = acc.view(-1, n)
+    return fma_f32(torch.full_like(acc, f32(ALPHA)), acc, c_p * f32(BETA))
+
+
+@pytest.mark.parametrize("kind,cfg,n,poison", [
+    ("banded", WIDE_BLOCK, 40, None), ("dense_rows", SLAB_CONFIGS[1], 100, None),
+    ("empty_mtiles", WIDE_BLOCK, 37, np.nan), ("empty_mtiles", SLAB_CONFIGS[0], 64, np.inf)])
+def test_slab_tc_walk_against_the_plain_version_and_f64(kind, cfg, n, poison):
+    packed = _slab_pack(kind, cfg)
+    rng = np.random.default_rng(n)
+    b_p = torch.from_numpy(rng.standard_normal((packed.k_padded, n)).astype(np.float32))
+    c_p = torch.from_numpy(rng.standard_normal((packed.m_padded, n)).astype(np.float32))
+    if poison is not None:  # row 0 of every K-window: the rows pad blocks read
+        b_p[::cfg["window_k"]] = float(poison)
+    got = _walk_tc(packed, b_p, c_p)
+    arrays = [torch.from_numpy(getattr(packed, a))
+              for a in ("vals", "qm", "bcol", "group_mtile", "group_kwin")]
+    plain = spmm_slab_padded_ref(*arrays, b_p, c_p, ALPHA, BETA, **cfg)
+    # a non-finite B element makes its lo part NaN, so every product with it
+    # is NaN (FFMA gives +-Inf for a nonzero value): the same cells are
+    # non-finite either way
+    finite = torch.isfinite(plain)
+    assert torch.equal(torch.isfinite(got), finite)
+    assert bool(finite.all()) == (poison is None)
+    coo = _slab_matrix(kind)
+    m, k = coo.shape
+    a64 = np.zeros((m, k))
+    np.add.at(a64, (coo.rows, coo.cols), coo.vals.astype(np.float64))
+    b64 = b_p[:k].double().numpy()
+    b64[~np.isfinite(b64)] = 0.0  # the finite cells meet none of these rows
+    want = torch.from_numpy(ALPHA * a64 @ b64 + BETA * c_p[:m].double().numpy())
+    got, plain, finite = got[:m], plain[:m], finite[:m]
+    unit = np.spacing(np.float32(want[finite].abs().max().item()))
+    # each step's products are exact and their sum rounds once: within the
+    # plain-mode bar of f64 (4 ulp of max|C|) and of the plain version
+    assert (got[finite].double() - want[finite]).abs().max().item() <= 4 * unit
+    assert (got[finite] - plain[finite]).abs().max().item() <= 4 * unit
 
 
 OFFSET_CASES = {
@@ -318,23 +547,24 @@ def test_dia_runs_built_by_hand_are_held_to_their_offsets(offsets, ptr, span, le
             build()
 
 
-def _walk_dia(dvals, offsets, b, c, runs_ptr, precise):
-    """K6 over 64-row tiles and the runs: each run's window of B rows
-    row0 + off_first .. row0 + 63 + off_last, zero outside [0, k); diagonal
-    d reads window rows off_d - off_first + (0 .. 63); one FFMA (precise:
-    two_prod and a Neumaier step) per diagonal in run order; the epilogue."""
+def _walk_dia(dvals, offsets, b, c, runs_ptr, precise, tile=DIA_TILE_ROWS):
+    """K6 (64-row tiles) or K7 (16 or 64) over tiles of ``tile`` rows and
+    the runs: each run's window of B rows row0 + off_first .. row0 + tile -
+    1 + off_last, zero outside [0, k); diagonal d reads window rows off_d -
+    off_first + (0 .. tile - 1); one FFMA (precise: two_prod and a Neumaier
+    step) per diagonal in run order; the epilogue."""
     n_diags, m = dvals.shape
     k, n = b.shape
     offs = offsets.tolist()
     out_acc = torch.zeros((m, n))
     out_comp = torch.zeros((m, n))
-    for row0 in range(0, m, DIA_TILE_ROWS):
-        rows = min(DIA_TILE_ROWS, m - row0)
+    for row0 in range(0, m, tile):
+        rows = min(tile, m - row0)
         acc = torch.zeros((rows, n))
         comp = torch.zeros((rows, n))
         for start, stop in zip(runs_ptr[:-1], runs_ptr[1:]):
             off0, last = offs[start], offs[stop - 1] - offs[start]
-            grow = row0 + off0 + np.arange(DIA_TILE_ROWS + last)
+            grow = row0 + off0 + np.arange(tile + last)
             inside = (grow >= 0) & (grow < k)
             win = torch.zeros((grow.size, n))
             win[torch.from_numpy(inside)] = b[torch.from_numpy(grow[inside])]
@@ -352,11 +582,12 @@ def _walk_dia(dvals, offsets, b, c, runs_ptr, precise):
     return fma_f32(torch.full_like(out_acc, f32(ALPHA)), out_acc, c * f32(BETA))
 
 
+@pytest.mark.parametrize("tile", [DIA_TILE_ROWS, 16])
 @pytest.mark.parametrize("precise", [0, 1])
 @pytest.mark.parametrize("case,span_max", [
     ("single", DIA_SPAN_MAX), ("consecutive", DIA_SPAN_MAX), ("consecutive", 7),
     ("beyond_k", DIA_SPAN_MAX), ("beyond_k", 0), ("gapped", 40), ("gapped", DIA_SPAN_MAX)])
-def test_dia_walk_over_runs_gives_the_plain_versions_bits(case, span_max, precise):
+def test_dia_walk_over_runs_gives_the_plain_versions_bits(case, span_max, precise, tile):
     m, k, n = (150, 80, 5) if case == "beyond_k" else (200, 230, 6)
     rng = np.random.default_rng(len(OFFSET_CASES[case]))
     offsets = torch.tensor(OFFSET_CASES[case], dtype=torch.int32)
@@ -366,13 +597,46 @@ def test_dia_walk_over_runs_gives_the_plain_versions_bits(case, span_max, precis
     b[k // 2] = float("nan")  # reaches every row whose diagonals read it
     c = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
     ptr = dia_runs(offsets.numpy(), span_max)
-    got = _walk_dia(dvals, offsets, b, c, ptr, precise)
+    got = _walk_dia(dvals, offsets, b, c, ptr, precise, tile)
     want = spmm_dia_ref(dvals, offsets, b, c, ALPHA, BETA, precise=precise)
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
     rows_meeting_nan = {k // 2 - o for o in OFFSET_CASES[case] if 0 <= k // 2 - o < m}
     assert set(torch.isnan(want).any(dim=1).nonzero().flatten().tolist()) == rows_meeting_nan
-    # the wrapper on CPU tensors runs the plain version; it does not read runs
-    via = spmm_dia(dvals, offsets, b, c, ALPHA, BETA, precise=precise,
-                   runs=dia_plan(offsets.numpy(), "cpu"))
-    assert torch.equal(via.nan_to_num(), want.nan_to_num())
+    # the wrappers on CPU tensors run the plain version; they do not read runs
+    for kernel in (spmm_dia, spmm_dia_skinny):
+        via = kernel(dvals, offsets, b, c, ALPHA, BETA, precise=precise,
+                     runs=dia_plan(offsets.numpy(), "cpu"))
+        assert torch.equal(via.nan_to_num(), want.nan_to_num())
+
+
+def test_dia_skinny_launch_map_and_run_plans():
+    # laplace3d_64's offsets under dia_plan: -4096 | -64, -1, 0 | 1, 64 | 4096
+    lap = dia_plan(np.array([-4096, -64, -1, 0, 1, 64, 4096]), "cpu")
+    assert lap.ptr.tolist() == [0, 1, 4, 6, 7] and (lap.span, lap.length) == (64, 3)
+    # M = 262,144: 4,096 tiles of 64 rows fill the card four times over
+    go = dia_skinny_launch(16, 262144, lap)
+    assert (go.lanes, go.cols, go.threads, go.grid) == (64, 4, 256, (4096, 1))
+    assert go.smem == 2 * 4 * round_up((64 + 64) * 16 + 3 * 65, 4) == 17952
+    # synthetic4704's 256 diagonals at N = 16: nine runs; 4,704 rows give 74
+    # tiles of 64, too few, so 294 tiles of 16 rows
+    split = tx.split_structure(tx.COOMatrix.random(4704, 4704, 104756, seed=42, banded=True,
+                                                   bandwidth=300), n=16)
+    syn = dia_plan(split.diag_offsets, "cpu")
+    assert split.diag_offsets.size == 256 and syn.ptr.numel() - 1 == 9 and syn.span <= 64
+    go = dia_skinny_launch(16, 4704, syn)
+    assert (go.lanes, go.cols, go.threads, go.grid) == (16, 1, 256, (294, 1))
+    assert go.smem == 4 * 4 * round_up((16 + syn.span) * 16 + syn.length * 17, 4)
+    assert dia_skinny_launch(9, 4704, syn).threads == 160  # 144 cells, a thread each
+    assert dia_skinny_launch(1, 4704, syn).threads == 32
+    assert dia_skinny_launch(32, 4704, syn).threads == 512
+    go = dia_skinny_launch(32, 262144, lap)
+    assert (go.cols, go.threads) == (4, 512)  # 2,048 cells, 4 a thread
+    assert dia_skinny_launch(9, 262144, lap).threads == 160  # 576 cells
+    for n in (0, 33):
+        with pytest.raises(ValueError, match="1 <= n <= 32"):
+            dia_skinny_launch(n, 4704, syn)
+    by_hand = DiaRuns(torch.tensor([-9000, 9000], dtype=torch.int32),
+                      torch.tensor([0, 2], dtype=torch.int32), 18000, 2)
+    with pytest.raises(SharedMemoryError, match="shared memory"):
+        dia_skinny_launch(16, 4704, by_hand)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Device time of the skinny slab kernel (K2) and the wide DIA kernel (K6)
-at their measured shapes, to compare two trees of the repository on one
-card, and K6's time under run plans cut finer by hand.
+"""Device time of the redesigned slab and DIA kernels (K1, K2, K6, K7) at
+their measured shapes, to compare two trees of the repository on one card,
+and K6's time under run plans cut finer by hand.
 
     python3 tools/kernel_times.py ROOT [--pace]
 
@@ -10,16 +10,22 @@ commit since ``DiaRuns`` holds its offsets), builds its kernels and prints
 one JSON line per case: ``{"case": ..., "ms": ...}``,
 the kernel's device milliseconds per launch from ``torch.profiler`` (the
 median of 3 traces of 20 launches each), with alpha 0.85, beta -2.06, C
-read, and B, C from numpy seed 0. The cases:
+read, and B, C from numpy seed 0. Every kernel is called as its plan calls
+it (the plan's scan, run plan and operand tiles), so any tree since then
+runs. The cases:
 
-* K2 over ``pack_mxu`` with ``bench.py``'s slab config (tile_m 1024,
-  window_k 4096, block_k 128, group_blocks 8) at N = 16 on synthetic4704
+* K1 over ``pack_mxu`` with ``bench.py``'s slab config (tile_m 1024,
+  window_k 4096, block_k 128, group_blocks 8) at N = 512 on synthetic4704
   (``COOMatrix.random(4704, 4704, 104756, seed=42, banded=True,
   bandwidth=300)``) and cant_like (``fem_like(62451, dofs=3, neighbors=21,
-  seed=2)``);
+  seed=2)``), plain and precise (level 1);
+* K2 over the same packs at N = 16;
 * K6 over the diagonal part of ``split_structure(coo, n=512)`` at N = 512,
   plain and precise, on synthetic4704 and scircuit_like
-  (``circuit_like(170998, seed=9)``).
+  (``circuit_like(170998, seed=9)``);
+* K7 over the diagonal part of ``split_structure(coo, n=16)`` at N = 16,
+  plain and precise, on synthetic4704 and laplace3d_64 (``stencil_3d(64,
+  seed=12)``).
 
 ``--pace`` adds K6 on scircuit_like's 121 diagonals (-60..60) under plans
 cut by hand at spans 0, 1, 3, 7, 15, 31 and ``DIA_SPAN_MAX`` (121 runs down
@@ -27,7 +33,9 @@ to ``dia_plan``'s two), and on its first diagonal alone (one run), plain and
 precise. Every such plan gives the same bits, so what changes is how often
 a tile stages a window and its dvals: the slope of time over runs is what a
 run's staging costs, and the rest is the diagonals' steps and the epilogue.
-To compare two trees, run ROOT_A, ROOT_B, ROOT_B, ROOT_A in one call.
+To compare two trees, run ROOT_A, ROOT_B, ROOT_B, ROOT_A in one call; two
+trees that differ only in how K1 contracts in plain mode (FFMA or the
+tensor cores) race the two on one host in turns.
 """
 
 from __future__ import annotations
@@ -77,9 +85,8 @@ def main(argv) -> int:
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 2
     import sextans_tpu_torch as sx
-    from sextans_tpu_torch.ops.spmm_dia import dia_plan, spmm_dia
-    from sextans_tpu_torch.ops.spmm_slab import spmm_slab_skinny_padded
-    from sextans_tpu_torch.utils.matrices import circuit_like, fem_like
+    from sextans_tpu_torch.ops.spmm_dia import dia_plan, spmm_dia, spmm_dia_skinny
+    from sextans_tpu_torch.utils.matrices import circuit_like, fem_like, stencil_3d
 
     root = str(Path(sx.__file__).parent.parent)
 
@@ -89,21 +96,39 @@ def main(argv) -> int:
     synth = sx.COOMatrix.random(4704, 4704, 104756, seed=42, banded=True, bandwidth=300)
     slab_cfg = sx.SpmmConfig(tile_m=1024, window_k=4096, block_k=128, group_blocks=8,
                              chunk_unroll=2)
-    for tag, coo in (("synthetic4704", synth),
-                     ("cant_like", fem_like(62451, dofs=3, neighbors=21, seed=2))):
+    cant = fem_like(62451, dofs=3, neighbors=21, seed=2)
+    for tag, coo in (("synthetic4704", synth), ("cant_like", cant)):
+        for n, precise in ((512, 0), (512, 1), (16, 0)):
+            rng = np.random.default_rng(0)
+            b = rng.standard_normal((coo.shape[1], n)).astype(np.float32)
+            c = rng.standard_normal((coo.shape[0], n)).astype(np.float32)
+            pl = sx.plan(sx.pack_mxu(coo, slab_cfg.with_(precise=precise)), n, "mxu",
+                         device="cuda")
+            b_p, c_p = pl.pad_b(b), pl.pad_c(c)
+            # the kernel alone, as the plan calls it (K1 at N = 512, K2 at 16)
+            emit(f"{'K1' if n > 32 else 'K2'} {tag} N={n} precise={precise}", device_ms(
+                lambda: pl._run(*pl.arrays, b_p, c_p, ALPHA, BETA),
+                "spmm_slab" if n > 32 else "spmm_slab_skinny_kernel"))
+            del pl, b_p, c_p
+            torch.cuda.empty_cache()
+
+    for tag, coo in (("synthetic4704", synth), ("laplace3d_64", stencil_3d(64, seed=12))):
         n = 16
         rng = np.random.default_rng(0)
-        b = rng.standard_normal((coo.shape[1], n)).astype(np.float32)
-        c = rng.standard_normal((coo.shape[0], n)).astype(np.float32)
-        pl = sx.plan(sx.pack_mxu(coo, slab_cfg), n, "mxu", device="cuda")
-        b_p, c_p = pl.pad_b(b), pl.pad_c(c)
-        kw = dict(tile_m=slab_cfg.tile_m, window_k=slab_cfg.window_k,
-                  block_k=slab_cfg.block_k, group_blocks=slab_cfg.group_blocks,
-                  ranges=pl.ranges)
-        emit(f"K2 {tag} N={n}", device_ms(
-            lambda: spmm_slab_skinny_padded(*pl.arrays, b_p, c_p, ALPHA, BETA, **kw),
-            "spmm_slab_skinny_kernel"))
-        del pl, b_p, c_p
+        b = torch.as_tensor(rng.standard_normal((coo.shape[1], n)).astype(np.float32),
+                            device="cuda")
+        c = torch.as_tensor(rng.standard_normal((coo.shape[0], n)).astype(np.float32),
+                            device="cuda")
+        pl = sx.HybridSpmmPlan(sx.split_structure(coo, n=n), n,
+                               residue_config=sx.SpmmConfig(), backend="pallas", device="cuda")
+        if pl._dia is not spmm_dia_skinny:
+            raise RuntimeError(f"{tag} N={n}: the plan does not run spmm_dia_skinny")
+        for precise in (0, 1):
+            emit(f"K7 {tag} N={n} precise={precise}", device_ms(
+                lambda: spmm_dia_skinny(pl._dvals, pl._offsets, b, c, ALPHA, BETA,
+                                        precise=precise, **getattr(pl, "_dia_kw", {})),
+                "spmm_dia_skinny_kernel"), diagonals=int(pl._dvals.shape[0]))
+        del pl, b, c
         torch.cuda.empty_cache()
 
     scircuit = circuit_like(170998, seed=9)
