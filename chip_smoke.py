@@ -120,7 +120,9 @@ Each path of phases 3
 and 4 prints its pack (seconds, bytes on the card, slots and the share that
 holds a nonzero), the host scan its kernel walks (``stripe_visits`` for
 pallas, ``row_runs`` for edge, ``slab_visits`` for mxu: seconds, bytes and
-its longest list), K1's operand tiles on the mxu path at N > 32 in plain
+its longest list; ``ell_tiles`` for ell_pallas: seconds, bytes, tiles and
+their logical rows), each path's one product checked to launch its kernel
+once, K1's operand tiles on the mxu path at N > 32 in plain
 mode (``slab_image``, made at upload: seconds on the card and bytes),
 ``time_repeat`` (median of 3) and GFLOPS = 2 * N * (nnz + M) / t, and a ``torch.profiler`` breakdown of 20 plan calls: device
 time in the kernel, in every other device op, and the idle share of the
@@ -208,7 +210,7 @@ def kernel_calls(pl, n, precise=None):
     level = dict(precise=int(cfg.precise if precise is None else precise))
     if pl.backend == "ell_pallas":
         name, kernel, plain = "spmm_ell", spmm_ell_gather_padded, spmm_ell_gather_padded_ref
-        kw, extra = dict(m_base=packed.m_base), {}
+        kw = dict(m_base=packed.m_base)
     elif pl.backend == "edge":
         name, kernel, plain = "spmm_edge", spmm_edge_padded, spmm_edge_padded_ref
         kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k,
@@ -415,7 +417,13 @@ def main() -> int:
     import sextans_tpu_torch as sx
     from sextans_tpu_torch.ops import df32
     from sextans_tpu_torch.ops.plan import BACKEND_FORMATS
-    from sextans_tpu_torch.ops.launch import dia_runs, row_runs, slab_visits, stripe_visits
+    from sextans_tpu_torch.ops.launch import (
+        dia_runs,
+        ell_tiles,
+        row_runs,
+        slab_visits,
+        stripe_visits,
+    )
     from sextans_tpu_torch.ops.spmm_block import block_launch, spmm_block_padded
     from sextans_tpu_torch.ops.spmm_dia import (
         DIA_SPAN_MAX,
@@ -427,7 +435,11 @@ def main() -> int:
         spmm_dia_skinny,
     )
     from sextans_tpu_torch.ops.spmm_edge import edge_launch, spmm_edge_padded
-    from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded
+    from sextans_tpu_torch.ops.spmm_ell import (
+        ELL_VEC4_MIN_N,
+        ell_launch,
+        spmm_ell_gather_padded,
+    )
     from sextans_tpu_torch.ops.spmm_slab import (
         SKINNY_MAX_N,
         SKINNY_STAGES,
@@ -497,7 +509,8 @@ def main() -> int:
         want, plain_ms = timed_once(lambda: run_plain(b_p, c_p))
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        ulps = 0.0 if exact or name == "spmm_edge" else 1.0 if name == "spmm_block" else ULP_BAR
+        ulps = (0.0 if exact or name in ("spmm_edge", "spmm_ell") else 1.0
+                if name == "spmm_block" else ULP_BAR)
         tol = ulps * float(np.spacing(np.float32(want.abs().max().item())))
         ok = bool(torch.isfinite(got).all().item()) and err <= tol
         del got, want
@@ -536,6 +549,13 @@ def main() -> int:
                     f"{int(blocks.max(initial=0))}), {go.threads} threads a CTA, {SLAB_STAGES} "
                     f"stages of {min(SLAB_CHUNK, cfg.block_k)} terms, {go.smem} bytes of "
                     f"shared memory a CTA]")
+        elif name == "spmm_ell":
+            tiles = pl.ranges
+            go = ell_launch(n, 4 if n >= ELL_VEC4_MIN_N and n % 4 == 0 else 1,
+                            tiles.tile_ptr.numel() - 1)
+            grid = (f" [{go.grid[0]} CTAs of {go.threads} threads, {go.lanes} lanes x "
+                    f"{go.cols} columns a tile, {tiles.tile_ptr.numel() - 1} tiles of up to "
+                    f"{tiles.group_max} logical rows, {tiles.long_rows.numel()} long rows]")
         print(f"{tag}: {name} ({pl.backend}, precise={pl.packed.config.precise}) N={n}{grid}: "
               f"max_abs_err vs plain {err:.3e} (tol {tol:.3e}) kernel {ms['kernel']:.4f} ms"
               f"{mode0} plain {ms['plain']:.4f} ms "
@@ -704,14 +724,28 @@ def main() -> int:
             scan_note = (f"{scan_note}; {scan.__name__} {t_scan:.4f} s, "
                          f"{sum(r.nbytes for r in pl.ranges) / 1e6:.3f} MB, longest "
                          f"{unit} {longest} {items}")
+        if backend == "ell_pallas":  # K5's tiles, made at upload, made again alone
+            t0 = time.perf_counter()
+            tiles = ell_tiles(packed)
+            t_scan = time.perf_counter() - t0
+            size = np.diff(tiles.tile_ptr)
+            scan_note = (f"; ell_tiles {t_scan:.4f} s, "
+                         f"{sum(r.nbytes for r in pl.ranges[:-1]) / 1e6:.3f} MB, "
+                         f"{size.size} tiles of {tiles.members.mean():.2f} logical rows on "
+                         f"average (group_max {tiles.group_max}), largest {int(size.max())} "
+                         f"padded rows, {tiles.long_rows.size} long rows")
+        expected = None if backend == "ell" else kernel_calls(pl, n)[0]
+        before = counted[expected].launches if expected else 0
         got_dev = pl(b, ALPHA, BETA, c)
+        if expected and counted[expected].launches != before + 1:
+            fail(f"{tag} {backend} N={n}: one product made "
+                 f"{counted[expected].launches - before} launches of {expected}")
         res = sx.verify(ref, got_dev.cpu().numpy())  # the host gate, before any timing
         b_dev = torch.as_tensor(b, device=pl.device)
         c_dev = torch.as_tensor(c, device=pl.device)
         t = statistics.median(time_repeat(pl, b_dev, ALPHA, BETA, c_dev, times=times)
                               for _ in range(3))
         # the ell engine is plain PyTorch by design: it launches no kernel
-        expected = None if backend == "ell" else kernel_calls(pl, n)[0]
         traced = (profile(pl, b_dev, c_dev, (expected,)) if expected
                   else "no kernel (plain PyTorch engine)")
         torch.cuda.synchronize()
@@ -725,8 +759,9 @@ def main() -> int:
         runs[tag.split()[-1], backend, n, int(cfg.precise)] = (ulp, t)
         m = coo.shape[0]
         ok = res.passed and ulp <= bar and acc["finite"] and tuple(got_dev.shape) == (m, n)
-        pack_mb = sum(a.nbytes for a in pl.arrays + (pl.ranges or ())
-                      + ((pl.image,) if pl.image is not None else ())) / 1e6
+        pack_mb = sum(a.nbytes for a in pl.arrays + tuple(pl.ranges or ())
+                      + ((pl.image,) if pl.image is not None else ())
+                      if isinstance(a, torch.Tensor)) / 1e6
         shape = (f"R={packed.slots_per_row}, {packed.n_virt} virtual rows"
                  if backend in ("ell", "ell_pallas") else f"{packed.stats.groups} groups")
         print(f"{tag}: {backend} precise={cfg.precise} N={n} {coo.shape[0]}x{coo.shape[1]} "

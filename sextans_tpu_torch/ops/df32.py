@@ -28,7 +28,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from sextans_tpu_torch.ops.launch import f32, need, stream_of
+from sextans_tpu_torch.ops.launch import f32, need, rank_groups, stream_of
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
 
 __all__ = [
@@ -102,16 +102,7 @@ def add_rows_compensated(acc: torch.Tensor, comp: torch.Tensor, index: torch.Ten
     step per rank then touches each row at most once."""
     if index.numel() == 0:
         return
-    order = torch.argsort(index, stable=True)
-    sorted_idx = index[order]
-    pos = torch.arange(index.numel(), device=index.device)
-    start = torch.ones_like(sorted_idx, dtype=torch.bool)
-    start[1:] = sorted_idx[1:] != sorted_idx[:-1]
-    run_start = torch.cummax(torch.where(start, pos, 0), 0).values
-    rank = torch.empty_like(pos)
-    rank[order] = pos - run_start
-    by_rank = torch.argsort(rank, stable=True)
-    for sel in torch.split(by_rank, torch.bincount(rank).tolist()):
+    for sel in rank_groups(index):
         rows = index[sel]
         t, c = acc_step(acc[rows], comp[rows], x[sel], None if xerr is None else xerr[sel])
         acc[rows] = t

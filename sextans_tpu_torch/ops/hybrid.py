@@ -456,7 +456,7 @@ class HybridSpmmPlan:
         if self.residue_plan is not None:
             parts += [*self.residue_plan.arrays, *(self.residue_plan.ranges or ()),
                       self.residue_plan.image]
-        return sum(t.nbytes for t in parts if t is not None)
+        return sum(t.nbytes for t in parts if isinstance(t, torch.Tensor))
 
     def _operands(self, b, beta, c):
         b = dense_operand(b, (self.k, self.n), "B", self.device).contiguous()

@@ -20,6 +20,10 @@ __all__ = [
     "stripe_visits",
     "dia_runs",
     "row_runs",
+    "EllTiles",
+    "ell_tiles",
+    "ELL_GROUP_MAX",
+    "ELL_LONG_ROWS",
     "check_pack_indices",
     "check_edge_pack",
     "check_ell_pack",
@@ -31,6 +35,7 @@ __all__ = [
     "Launch",
     "no_tf32",
     "add_rows_in_order",
+    "rank_groups",
     "fma_f32",
     "f32",
     "stream_of",
@@ -202,6 +207,102 @@ def row_runs(packed) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
             stop[order].astype(np.int32))
 
 
+# K5's tiles (csrc/spmm_ell.cu): at most ELL_GROUP_MAX logical rows a tile;
+# groups are kept only where they hold ELL_GROUP_MIN_MEAN logical rows on
+# average; a logical row of more than ELL_LONG_ROWS padded rows is cut into
+# tiles of one padded row and folded by a second kernel
+ELL_GROUP_MAX = 3
+ELL_GROUP_MIN_MEAN = 2.0
+ELL_LONG_ROWS = 64
+
+
+class EllTiles(NamedTuple):
+    """K5's host scan of an ELL pack (:func:`ell_tiles`): int32 arrays, and
+    the most logical rows a tile holds (the kernel's instance)."""
+
+    tile_ptr: np.ndarray  # (tiles + 1,) into rows
+    rows: np.ndarray  # (m_padded,) the padded rows in tile order
+    members: np.ndarray  # (tiles,) logical rows in each tile
+    long_ptr: np.ndarray  # (long rows + 1,) into long_virt
+    long_rows: np.ndarray  # real rows whose logical row outgrows a tile
+    long_virt: np.ndarray  # their virtual rows, in fold-table order
+    group_max: int
+
+
+def ell_tiles(packed, group_max: int = ELL_GROUP_MAX) -> EllTiles:
+    """The ELL gather kernel's tiles, from a host scan of the pack.
+
+    A *logical row* is a real row followed by its virtual rows in
+    fold-table order (``fold_rows`` need not be sorted: the virtual rows
+    are grouped by their real row, fold-table order kept within a group);
+    each pad row after ``m_base + n_virt`` is one of its own. ``rows`` lists
+    the padded rows in that order, every one once, and ``tile_ptr`` cuts it
+    into tiles of whole logical rows: runs of consecutive logical rows with
+    the same number of padded rows and the same ``cols``, padded row by
+    padded row (the dofs of a finite-element node), at most ``group_max`` a
+    tile. A tile's ``members`` logical rows then read one B row a slot, which
+    the kernel loads once for all of them. Where the tiles would hold fewer
+    than ``ELL_GROUP_MIN_MEAN`` logical rows on average, each logical row is
+    a tile of its own and ``group_max`` is 1: the kernel's wider instance
+    would only add work. A logical row of more than ``ELL_LONG_ROWS``
+    padded rows is cut into tiles of one padded row each (the kernel folds nothing
+    there) and listed in ``long_rows`` / ``long_virt``, to be folded after
+    the tiles.
+
+    The kernel computes what it computed before, whichever rows share a
+    tile: each padded row's chain in slot order, its epilogue, then each
+    real row's fold in fold-table order.
+    """
+    vals, cols = np.asarray(packed.vals), np.asarray(packed.cols)
+    m_padded, r_slots = cols.shape
+    m, n_virt = packed.m_base, packed.n_virt
+    if group_max < 1:
+        raise ValueError(f"group_max must be positive, got {group_max}")
+    _check_int32(m_padded * r_slots, "ell_tiles")
+    fr = np.asarray(packed.fold_rows, dtype=np.int64)
+    vcnt = np.bincount(fr, minlength=m)[:m]
+    vstart = np.concatenate([[0], np.cumsum(vcnt)])
+    lsize = np.concatenate([1 + vcnt, np.ones(m_padded - m - n_virt, np.int64)])
+    lstart = np.concatenate([[0], np.cumsum(lsize)])
+    n_logical = lsize.size
+    # the padded rows in logical order
+    vorder = np.argsort(fr, kind="stable")
+    rows = np.empty(m_padded, np.int64)
+    rows[lstart[:m]] = np.arange(m)
+    rows[lstart[fr[vorder]] + 1 + np.arange(n_virt) - vstart[fr[vorder]]] = m + vorder
+    rows[lstart[m:-1]] = np.arange(m + n_virt, m_padded)
+
+    # which logical rows read the same B rows as the one before them
+    long = lsize > ELL_LONG_ROWS
+    same = np.zeros(n_logical, bool)
+    cand = np.flatnonzero((lsize[1:] == lsize[:-1]) & ~long[1:]) + 1
+    if cand.size:
+        size = lsize[cand]
+        first = np.concatenate([[0], np.cumsum(size)[:-1]])
+        pos = np.repeat(lstart[cand] - first, size) + np.arange(size.sum())
+        eq = (cols[rows[pos]] == cols[rows[pos - np.repeat(size, size)]]).all(axis=1)
+        same[cand[np.logical_and.reduceat(eq, first)]] = True
+    run_start = np.maximum.accumulate(np.where(same, 0, np.arange(n_logical)))
+    lead = (np.arange(n_logical) - run_start) % group_max == 0
+    if (~long).sum() < ELL_GROUP_MIN_MEAN * (lead & ~long).sum():
+        lead[:] = True
+    starts = np.flatnonzero(lead)
+    members = np.diff(np.append(starts, n_logical))
+    # a long logical row: a tile a padded row
+    pieces = np.where(long[starts], lsize[starts], 1)
+    offset = np.arange(pieces.sum()) - np.repeat(np.cumsum(pieces) - pieces, pieces)
+    tile_ptr = np.append(np.repeat(lstart[starts], pieces) + offset, m_padded)
+    members = np.repeat(members, pieces)
+
+    long_real = np.flatnonzero(long[:m])
+    long_ptr = np.concatenate([[0], np.cumsum(vcnt[long_real])])
+    long_virt = m + np.concatenate(
+        [vorder[vstart[i]:vstart[i + 1]] for i in long_real] or [np.empty(0, np.int64)])
+    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)  # noqa: E731
+    return EllTiles(i32(tile_ptr), i32(rows), i32(members), i32(long_ptr), i32(long_real),
+                    i32(long_virt), int(members.max(initial=1)))
+
+
 def check_pack_indices(packed, idx: np.ndarray, idx_limit: int) -> None:
     """Bounds of a pack's steering, checked once on the host before upload:
     a kernel trusts them for its address arithmetic."""
@@ -349,11 +450,11 @@ def check_operands(
 
 
 class Launch(NamedTuple):
-    """A thread map of the row-parallel kernels (K3, K4): a lane group of
-    ``lanes`` threads works on one owner (a stripe or a row), each thread
-    over ``cols`` consecutive columns; ``threads`` per CTA; ``grid`` = (CTAs
-    along the owners, CTAs along N); ``smem`` bytes of shared memory a
-    CTA."""
+    """A thread map of the row-parallel kernels (K3, K4, K5): a lane group
+    of ``lanes`` threads works on one owner (a stripe, a row or a tile),
+    each thread over ``cols`` consecutive columns; ``threads`` per CTA;
+    ``grid`` = (CTAs along the owners, CTAs along N); ``smem`` bytes of
+    shared memory a CTA."""
 
     lanes: int
     cols: int
@@ -384,19 +485,44 @@ def no_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def rank_groups(index: torch.Tensor):
+    """The positions of ``index`` grouped by their rank among the equal
+    entries before them (0 for the first visit of a row, 1 for the second,
+    ...), each group ascending: one pass per rank then touches each row at
+    most once, and the passes in rank order visit each row's entries in
+    ``index`` order."""
+    order = torch.argsort(index, stable=True)
+    sorted_idx = index[order]
+    pos = torch.arange(index.numel(), device=index.device)
+    start = torch.ones_like(sorted_idx, dtype=torch.bool)
+    start[1:] = sorted_idx[1:] != sorted_idx[:-1]
+    run_start = torch.cummax(torch.where(start, pos, 0), 0).values
+    rank = torch.empty_like(pos)
+    rank[order] = pos - run_start
+    by_rank = torch.argsort(rank, stable=True)
+    return torch.split(by_rank, torch.bincount(rank).tolist())
+
+
 def add_rows_in_order(acc: torch.Tensor, index: torch.Tensor, src: torch.Tensor) -> None:
     """``acc[index[i]] += src[i]`` for every i, duplicates added in i order.
 
     The kernels add blocks into their accumulator in pack order, so the plain
     versions do too, and the two differ only by the rounding of the block
-    products and the epilogue. On the CPU ``index_add_`` runs sequentially;
-    on CUDA it uses atomics in no fixed order, while ``index_put_`` with
-    ``accumulate=True`` sorts the indices stably and sums each run in order.
+    products and the epilogue. On the CPU ``index_add_`` runs sequentially.
+    On CUDA neither it (atomics) nor ``index_put_(accumulate=True)`` keeps
+    that order: on an H100 the latter sums a row's duplicates in another
+    order than ``index_add_`` where a row is narrower than a warp
+    (PERF.md). So there each rank of :func:`rank_groups` is one pass that
+    adds into each row at most once.
     """
-    if acc.device.type == "cuda":
-        acc.index_put_((index,), src, accumulate=True)
-    else:
+    if acc.device.type != "cuda":
         acc.index_add_(0, index, src)
+        return
+    if index.numel() == 0:
+        return
+    for sel in rank_groups(index):
+        rows = index[sel]
+        acc[rows] = acc[rows] + src[sel]
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

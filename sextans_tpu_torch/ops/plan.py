@@ -1,9 +1,9 @@
 """SpmmPlan: a reusable, device-resident execution plan for one packed matrix.
 
 The PyTorch counterpart of ``sextans_tpu.ops.plan.SpmmPlan``: the packed
-arrays (and, for the block, slab and edge formats, the host scan that their
-kernel walks) are uploaded once (memoized on the packed object per device
-and, for the scans, per kernel);
+arrays (and the host scan that their kernel walks: for the ELL format on a
+CUDA device only) are uploaded once (memoized on the packed object per
+device and, for the scans, per kernel);
 each call pads B to ``k_padded`` and C to ``m_padded``, runs one kernel and
 slices the result. N is not padded: the kernels mask a ragged last column chunk.
 
@@ -43,6 +43,7 @@ from sextans_tpu_torch.ops.launch import (
     check_edge_pack,
     check_ell_pack,
     check_pack_indices,
+    ell_tiles,
     row_runs,
     slab_visits,
     stripe_visits,
@@ -104,10 +105,11 @@ def _scan(packed):
 
 
 def _upload(packed, device: torch.device):
-    """Device copies of the packed arrays and, except for the ELL format, the
-    host scan its kernels walk (:func:`_scan`), each made once per device and
-    kept on the packed object. Returns ``(arrays, ranges)``; ``ranges`` is
-    None for the ELL format."""
+    """Device copies of the packed arrays and the host scan their kernels
+    walk (:func:`_scan`; K5's :func:`~sextans_tpu_torch.ops.launch.ell_tiles`
+    on a CUDA device only), each made once per device and kept on the packed
+    object. Returns ``(arrays, ranges)``; ``ranges`` is None for the ELL
+    format on the CPU."""
     cache = packed.__dict__.setdefault("_dev_cache", {})
     key = str(device)
     if key not in cache:
@@ -127,9 +129,15 @@ def _upload(packed, device: torch.device):
                      (packed.bcol, np.int32), (packed.group_mtile, np.int32),
                      (packed.group_kwin, np.int32))
         cache[key] = tuple(_put(a, dtype, device) for a, dtype in named)
-    if isinstance(packed, PackedSpMatrixELL):
-        return cache[key], None
     scan_key = (key, "scan")
+    if isinstance(packed, PackedSpMatrixELL):
+        if device.type != "cuda":  # the plain versions walk no tiles
+            return cache[key], None
+        if scan_key not in cache:
+            tiles = ell_tiles(packed)
+            cache[scan_key] = tiles._replace(
+                **{f: _put(getattr(tiles, f), np.int32, device) for f in tiles._fields[:-1]})
+        return cache[key], cache[scan_key]
     if scan_key not in cache:
         cache[scan_key] = tuple(_put(r, np.int32, device) for r in _scan(packed)(packed))
     return cache[key], cache[scan_key]
@@ -150,9 +158,11 @@ def _runner(packed, backend: str, n: int, ranges, image=None):
     arguments bound: ``run(*arrays, b_p, c_p, alpha, beta, with_c=...)``."""
     cfg = packed.config
     precise = int(cfg.precise)
-    if backend in ("ell", "ell_pallas"):
-        fn = spmm_ell_padded_ref if backend == "ell" else spmm_ell_gather_padded
-        return functools.partial(fn, m_base=packed.m_base, precise=precise)
+    if backend == "ell":
+        return functools.partial(spmm_ell_padded_ref, m_base=packed.m_base, precise=precise)
+    if backend == "ell_pallas":
+        return functools.partial(spmm_ell_gather_padded, m_base=packed.m_base,
+                                 ranges=ranges, precise=precise)
     if backend == "edge":
         return functools.partial(
             spmm_edge_padded, tile_m=cfg.tile_m, window_k=cfg.window_k,

@@ -1,10 +1,12 @@
 """SpMM over the ELL gather pack (format/pack_ell.py).
 
 ``spmm_ell_gather_padded`` is the twin of ``sextans_tpu.ops.spmm_ell_pallas``'s
-``spmm_ell_gather_padded`` (kernel K5): on a CUDA tensor it launches the
-hand-written kernel in ``csrc/spmm_ell.cu`` and then folds the virtual hub
-rows in PyTorch; on a CPU tensor it runs the plain PyTorch version
-``spmm_ell_gather_padded_ref``. Any other device raises.
+``spmm_ell_gather_padded`` (kernel K5) and its hub fold: on a CUDA tensor it
+launches the hand-written kernel in ``csrc/spmm_ell.cu``, which walks the
+tiles of the host scan :func:`~sextans_tpu_torch.ops.launch.ell_tiles`
+(``SpmmPlan.ranges``) and folds the virtual hub rows itself; on a CPU tensor
+it runs the plain PyTorch version ``spmm_ell_gather_padded_ref``. Any other
+device raises.
 
 ``spmm_ell_padded_ref`` is the plain twin of
 ``sextans_tpu.ops.spmm_ell_xla.spmm_ell_padded``, the engine of backend
@@ -29,13 +31,31 @@ so the port always takes the f64 fold.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from sextans_tpu_torch.ops.df32 import acc_step, compensated_epilogue, two_prod
-from sextans_tpu_torch.ops.launch import add_rows_in_order, f32, fma_f32, need, stream_of
+from sextans_tpu_torch.ops.launch import (
+    ELL_GROUP_MAX,
+    EllTiles,
+    Launch,
+    add_rows_in_order,
+    check_csr,
+    f32,
+    fma_f32,
+    need,
+    stream_of,
+)
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
 
-__all__ = ["spmm_ell_gather_padded", "spmm_ell_gather_padded_ref", "spmm_ell_padded_ref"]
+__all__ = ["spmm_ell_gather_padded", "spmm_ell_gather_padded_ref", "spmm_ell_padded_ref",
+           "ell_launch", "ELL_VEC4_MIN_N"]
+
+# K5 (csrc/spmm_ell.cu): threads a CTA, and the least N that its 16-byte
+# loads take (below it, four times the threads on 4-byte loads)
+ELL_THREADS = 256
+ELL_VEC4_MIN_N = 16
 
 # Bytes of one (rows, n) temporary per step of the plain versions.
 _REF_CHUNK_BYTES = 256 << 20
@@ -149,6 +169,39 @@ def spmm_ell_gather_padded_ref(
                  precise=precise)
 
 
+def ell_launch(n: int, vec: int, n_tiles: int = 1) -> Launch:
+    """K5's thread map and grid (``csrc/spmm_ell.cu``): ``lanes`` threads a
+    tile (a power of two >= ceil(n / vec), at most 32), each over ``vec``
+    columns at a time (``cols``) and walking the column chunks ``lane``,
+    ``lane + lanes``, ...; 256 threads a CTA; ``grid`` = (CTAs, 1) for
+    ``n_tiles`` tiles."""
+    if n < 1:
+        raise ValueError(f"spmm_ell takes n >= 1, got {n}")
+    lanes = 1
+    while lanes * vec < n and lanes < 32:
+        lanes *= 2
+    return Launch(lanes, vec, ELL_THREADS, (-(-n_tiles * lanes // ELL_THREADS), 1))
+
+
+def _check_tiles(ranges, m_padded: int, device) -> Tuple[int, int]:
+    """Check an :class:`EllTiles` of tensors as the launch takes it; returns
+    (tiles, long rows)."""
+    if not isinstance(ranges, EllTiles):
+        raise ValueError("spmm_ell on cuda needs ranges=EllTiles from ell_tiles, uploaded")
+    n_tiles = ranges.tile_ptr.shape[0] - 1
+    if n_tiles < 1:
+        raise ValueError("ranges holds no tile")
+    need(ranges.tile_ptr, "tile_ptr", torch.int32, (n_tiles + 1,), device)
+    need(ranges.rows, "rows", torch.int32, (m_padded,), device)
+    need(ranges.members, "members", torch.int32, (n_tiles,), device)
+    if not 1 <= ranges.group_max <= ELL_GROUP_MAX:
+        raise ValueError(f"group_max must be in [1, {ELL_GROUP_MAX}], got {ranges.group_max}")
+    n_long = ranges.long_rows.shape[0]
+    check_csr(ranges.long_ptr, (ranges.long_virt,), ("long_ptr", "long_virt"), n_long, device)
+    need(ranges.long_rows, "long_rows", torch.int32, (n_long,), device)
+    return n_tiles, n_long
+
+
 def spmm_ell_gather_padded(
     vals: torch.Tensor,
     cols: torch.Tensor,
@@ -159,14 +212,19 @@ def spmm_ell_gather_padded(
     beta: float,
     *,
     m_base: int,
+    ranges: Optional[EllTiles] = None,
     with_c: bool = True,
     precise: int = 0,
 ) -> torch.Tensor:
     """``alpha * A @ B + beta * C`` on padded operands, any n; returns the
     padded (m_padded, n) result, virtual rows included and already folded
-    into their real rows. ``with_c=False`` drops the C read and ``c_padded``
-    then gives the shape only. ``precise`` 1 or 2 runs the compensated
-    kernel (one variant for both) and the f64 fold."""
+    into their real rows. ``ranges`` is the pack's
+    :func:`~sextans_tpu_torch.ops.launch.ell_tiles` on the same device
+    (``SpmmPlan.ranges``); the CPU path does not read it. ``with_c=False``
+    drops the C read and ``c_padded`` then gives the shape only. ``precise``
+    1 or 2 runs the compensated kernel (one variant for both) and the f64
+    fold. On the card one launch gathers and folds; a second folds the
+    logical rows that outgrow a tile, where there are any."""
     kw = dict(m_base=m_base, with_c=with_c, precise=int(precise))
     if int(precise) not in (0, 1, 2):
         raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
@@ -190,20 +248,26 @@ def spmm_ell_gather_padded(
         raise ValueError(f"c_padded must have shape {(m_padded, n)}")
     if m_base + fold_rows.shape[0] > m_padded:
         raise ValueError("the virtual hub rows run past m_padded")
+    n_tiles, n_long = _check_tiles(ranges, m_padded, device)
+    if k == 0:  # no slot is live; the kernel indexes row 0 and drops what it reads
+        b_padded = torch.zeros((1, n), dtype=torch.float32, device=device)
     out = torch.empty((m_padded, n), dtype=torch.float32, device=device)
     dense = (b_padded, out) + ((c_padded,) if with_c else ())
-    vec = 4 if n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in dense) else 1
+    vec = 4 if (n >= ELL_VEC4_MIN_N and n % 4 == 0
+                and all(t.data_ptr() % 16 == 0 for t in dense)) else 1
+    go = ell_launch(n, vec, n_tiles)
     lib = build_kernels()
     with torch.cuda.device(device):
         err = lib.spmm_ell_launch(
-            vals.data_ptr(), cols.data_ptr(), b_padded.data_ptr(),
-            c_padded.data_ptr() if with_c else None, out.data_ptr(),
-            m_padded, r_slots, n, float(alpha), float(beta), int(with_c),
-            int(bool(precise)), vec, stream_of(device),
+            vals.data_ptr(), cols.data_ptr(),
+            *(t.data_ptr() for t in ranges[:-1]), b_padded.data_ptr(),
+            c_padded.data_ptr() if with_c else None, out.data_ptr(), n_tiles, r_slots, n,
+            n_long, float(alpha), float(beta), int(with_c), int(bool(precise)), vec,
+            go.lanes, ranges.group_max, stream_of(device),
         )
     check_launch(lib, "spmm_ell", err)
-    spmm_ell_gather_padded.launches += 1
-    return _fold(out, fold_rows, c_padded, beta, **kw)
+    spmm_ell_gather_padded.launches += 1 + (n_long > 0)
+    return out
 
 
 spmm_ell_gather_padded.launches = 0

@@ -40,7 +40,7 @@ from sextans_tpu_torch.ops.spmm_slab import (
     spmm_slab_skinny_padded,
 )
 from sextans_tpu_torch.probes import dma_gather, ell_issue
-from sextans_tpu_torch.utils.matrices import circuit_like, stencil_3d
+from sextans_tpu_torch.utils.matrices import circuit_like, fem_like, stencil_3d
 
 pytestmark = pytest.mark.gpu
 
@@ -147,7 +147,7 @@ def _hub_matrix():
 
 
 def _check_new(kernel, plain, cuda, packed, backend, n, with_c, nonfinite_b=False,
-               precise=0):
+               precise=0, launches=1):
     pl = tx.plan(packed, n, backend, device=cuda)
     rng = np.random.default_rng(n)
     b_host = rng.standard_normal((packed.k, n)).astype(np.float32)
@@ -163,15 +163,16 @@ def _check_new(kernel, plain, cuda, packed, backend, n, with_c, nonfinite_b=Fals
                   masked=cfg.edge_masked, with_c=with_c, precise=precise)
         extra = dict(ranges=pl.ranges)
     else:
-        kw, extra = dict(m_base=packed.m_base, with_c=with_c, precise=precise), {}
+        kw = dict(m_base=packed.m_base, with_c=with_c, precise=precise)
+        extra = dict(ranges=pl.ranges)
     before = kernel.launches
     got = kernel(*pl.arrays, b, c, ALPHA, BETA, **kw, **extra)
     want = plain(*pl.arrays, b, c, ALPHA, BETA, **kw)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert kernel.launches == before + launches
     assert got.shape == want.shape == (packed.m_padded, n) and got.device == cuda
     assert torch.isfinite(got).all() and torch.isfinite(want).all()
-    if precise:
+    if precise or backend == "ell_pallas":  # K5 takes its plain version's roundings
         assert torch.equal(got, want)
     tol = 4 * np.spacing(np.float32(want.abs().max().item()))
     assert (got - want).abs().max().item() <= tol
@@ -225,6 +226,63 @@ def test_ell_kernel_selects_out_pads_with_nonfinite_b(cuda, n):
     _check_new(spmm_ell_gather_padded, spmm_ell_gather_padded_ref, cuda,
                tx.pack_ell(coo, tx.SpmmConfig(tile_m=64), slots_per_row=32),
                "ell_pallas", n, with_c=True, nonfinite_b=True)
+
+
+def _ell_variant(kind, precise=0):
+    """ELL packs that K5's scan takes as they are: a hub row longer than a
+    tile (R = 4: rows 5 and 600 hold 75 padded rows each, folded by the
+    second launch), a row over all 777 columns (25 padded rows in one
+    tile), a finite-element matrix whose three dofs a node share a tile
+    (group_max 3), every row's slots in reverse (live slots that do not
+    ascend), and the virtual rows permuted (``fold_rows`` out of order)."""
+    cfg = tx.SpmmConfig(tile_m=64, precise=precise)
+    if kind == "long_hub":
+        return tx.pack_ell(_hub_matrix(), cfg, slots_per_row=4)
+    if kind == "wide_row":
+        coo = _hub_matrix()
+        rows = np.concatenate([coo.rows, np.full(777, 7)])
+        cols = np.concatenate([coo.cols, np.arange(777)])
+        vals = np.concatenate([coo.vals, np.linspace(-1, 1, 777, dtype=np.float32) + 0.01])
+        return tx.pack_ell(tx.COOMatrix(coo.shape, rows, cols, vals), cfg, slots_per_row=32)
+    if kind == "fem":
+        return tx.pack_ell(fem_like(900, dofs=3, neighbors=7, bandwidth=90, seed=4), cfg,
+                           slots_per_row=16)
+    packed = tx.pack_ell(_hub_matrix(), cfg, slots_per_row=8)
+    if kind == "reversed_slots":
+        packed.cols, packed.vals = packed.cols[:, ::-1].copy(), packed.vals[:, ::-1].copy()
+    else:  # permuted_virtual
+        m, nv = packed.m_base, packed.n_virt
+        perm = np.random.default_rng(7).permutation(nv)
+        for name in ("cols", "vals"):
+            arr = getattr(packed, name).copy()
+            arr[m:m + nv] = arr[m + perm]
+            setattr(packed, name, arr)
+        packed.fold_rows = packed.fold_rows[perm].copy()
+    return packed
+
+
+ELL_VARIANTS = ["long_hub", "wide_row", "fem", "reversed_slots", "permuted_virtual"]
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("kind", ELL_VARIANTS)
+@pytest.mark.parametrize("n", [13, 16, 64, 200])
+def test_ell_kernel_takes_every_pack_to_the_bit(cuda, kind, n, precise):
+    packed = _ell_variant(kind, precise)
+    if kind == "fem":
+        assert tx.plan(packed, n, "ell_pallas", device=cuda).ranges.group_max == 3
+    _check_new(spmm_ell_gather_padded, spmm_ell_gather_padded_ref, cuda, packed,
+               "ell_pallas", n, with_c=n != 16, precise=precise,
+               launches=2 if kind == "long_hub" else 1)
+
+
+def test_ell_kernel_needs_its_tiles_on_card(cuda):
+    packed = tx.pack_ell(_hub_matrix(), tx.SpmmConfig(tile_m=64), slots_per_row=8)
+    pl = tx.plan(packed, 16, "ell_pallas", device=cuda)
+    b = pl.pad_b(np.ones((777, 16), np.float32))
+    c = pl.pad_c(np.ones((1030, 16), np.float32))
+    with pytest.raises(ValueError, match="ell_tiles"):
+        spmm_ell_gather_padded(*pl.arrays, b, c, ALPHA, BETA, m_base=packed.m_base)
 
 
 def test_ell_repeat_on_card_matches_cpu(cuda):

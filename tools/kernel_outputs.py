@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Save the outputs of the kernels that have been redesigned (K1, K2, K3,
-K4, K6, K7), to compare two trees of the repository on one card.
+K4, K5, K6, K7), to compare two trees of the repository on one card.
 
     python3 tools/kernel_outputs.py save ROOT OUT [--full]
     python3 tools/kernel_outputs.py compare OUT_A OUT_B
@@ -17,6 +17,9 @@ matrix (104,756 nnz, seed 42):
   window_k 4096, block_k 128, group_blocks 8) at N = 16 and 9 (a column
   group that is not full), and K1 with the same pack at N = 512 and 100 (a
   column tile that is not full);
+* K5 over ``pack_ell`` with the default config at N = 512, 16 and 13
+  (4-byte loads), with its hub fold, through the plan (an earlier tree
+  folds in PyTorch after the kernel, this one in the kernel);
 
 each at precise levels 0, 1 and 2, and
 
@@ -28,7 +31,7 @@ each with and without C, on the plan's own arrays (``SpmmPlan`` or
 ``HybridSpmmPlan``, and their host scans and, for K1, operand tiles), alpha
 0.85, beta -2.06 and B, C from numpy seed 0. ``--full`` adds the full-size
 shapes: K2 on cant_like (``fem_like(62451, dofs=3, neighbors=21, seed=2)``)
-at N = 16, K1 on it at N = 512, K6 on scircuit_like (``circuit_like(170998,
+at N = 16, K1 and K5 on it at N = 512, K6 on scircuit_like (``circuit_like(170998,
 seed=9)``) at N = 512 and K7 on laplace3d_64 (``stencil_3d(64, seed=12)``)
 at N = 16. It writes the outputs to OUT (``torch.save``) and prints one line
 per output.
@@ -58,6 +61,7 @@ def save(root: str, out: str, full: bool = False) -> int:
     from sextans_tpu_torch.ops.spmm_block import spmm_block_padded
     from sextans_tpu_torch.ops.spmm_dia import spmm_dia, spmm_dia_skinny
     from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded
+    from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded
     from sextans_tpu_torch.ops.spmm_slab import spmm_slab_padded, spmm_slab_skinny_padded
     from sextans_tpu_torch.utils.matrices import circuit_like, fem_like, stencil_3d
 
@@ -76,19 +80,24 @@ def save(root: str, out: str, full: bool = False) -> int:
                     ("spmm_slab_skinny", synth, sx.pack_mxu, slab_cfg, 16),
                     ("spmm_slab_skinny", synth, sx.pack_mxu, slab_cfg, 9),
                     ("spmm_slab", synth, sx.pack_mxu, slab_cfg, 512),
-                    ("spmm_slab", synth, sx.pack_mxu, slab_cfg, 100)]
+                    ("spmm_slab", synth, sx.pack_mxu, slab_cfg, 100),
+                    ("spmm_ell", synth, sx.pack_ell, sx.SpmmConfig(), 512),
+                    ("spmm_ell", synth, sx.pack_ell, sx.SpmmConfig(), 16),
+                    ("spmm_ell", synth, sx.pack_ell, sx.SpmmConfig(), 13)]
     dia_cases = [("synthetic4704", synth, 512), ("synthetic4704", synth, 37),
                  ("synthetic4704", synth, 16), ("synthetic4704", synth, 9)]
     if full:
         cant = fem_like(62451, dofs=3, neighbors=21, seed=2)
         packed_cases += [("spmm_slab_skinny", cant, sx.pack_mxu, slab_cfg, 16),
-                         ("spmm_slab", cant, sx.pack_mxu, slab_cfg, 512)]
+                         ("spmm_slab", cant, sx.pack_mxu, slab_cfg, 512),
+                         ("spmm_ell", cant, sx.pack_ell, sx.SpmmConfig(), 512)]
         dia_cases += [("scircuit_like", circuit_like(170998, seed=9), 512),
                       ("laplace3d_64", stencil_3d(64, seed=12), 16)]
     kernels = {"spmm_block": (spmm_block_padded, "pallas"),
                "spmm_edge": (spmm_edge_padded, "edge"),
                "spmm_slab_skinny": (spmm_slab_skinny_padded, "mxu"),
-               "spmm_slab": (spmm_slab_padded, "mxu")}
+               "spmm_slab": (spmm_slab_padded, "mxu"),
+               "spmm_ell": (spmm_ell_gather_padded, "ell_pallas")}
     outs = {}
 
     def keep(key, kernel, before, got):
@@ -117,7 +126,7 @@ def save(root: str, out: str, full: bool = False) -> int:
                           group_blocks=cfg.group_blocks)
             for with_c in (True, False):
                 before = kernel.launches
-                if name == "spmm_slab":  # through the plan: its scan and operand tiles
+                if name in ("spmm_slab", "spmm_ell"):  # through the plan: its scan (and tiles)
                     got = pl._run(*pl.arrays, b_p, c_p, ALPHA, BETA if with_c else 0.0,
                                   with_c=with_c)
                 else:

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Device time of the redesigned slab and DIA kernels (K1, K2, K6, K7) at
-their measured shapes, to compare two trees of the repository on one card,
-and K6's time under run plans cut finer by hand.
+"""Device time of the redesigned slab, DIA and ELL kernels (K1, K2, K5, K6,
+K7) at their measured shapes, to compare two trees of the repository on one
+card, K6's time under run plans cut finer by hand, and K5's 4- and 16-byte
+loads.
 
-    python3 tools/kernel_times.py ROOT [--pace]
+    python3 tools/kernel_times.py ROOT [--pace] [--vec]
 
 imports ``sextans_tpu_torch`` from the tree at ROOT (a checkout of any
 commit since ``DiaRuns`` holds its offsets), builds its kernels and prints
@@ -25,7 +26,15 @@ runs. The cases:
   (``circuit_like(170998, seed=9)``);
 * K7 over the diagonal part of ``split_structure(coo, n=16)`` at N = 16,
   plain and precise, on synthetic4704 and laplace3d_64 (``stencil_3d(64,
-  seed=12)``).
+  seed=12)``);
+* K5 over ``pack_ell`` with the default config, with its hub fold: every
+  device op of the plan's call (an earlier tree folds in PyTorch after
+  the kernel), plain and precise, at N = 512, 16 and 13 (4-byte loads) on
+  synthetic4704 and N = 512 on cant_like.
+
+``--vec`` times K5 in a tree that has ``ELL_VEC4_MIN_N`` both ways at every
+N that takes them: 16-byte loads (a thread a 4-column chunk) and 4-byte
+loads (a thread a column, four times the threads).
 
 ``--pace`` adds K6 on scircuit_like's 121 diagonals (-60..60) under plans
 cut by hand at spans 0, 1, 3, 7, 15, 31 and ``DIA_SPAN_MAX`` (121 runs down
@@ -51,7 +60,8 @@ CALLS, TRACES = 20, 3
 
 def device_ms(fn, symbol: str) -> float:
     """Median over TRACES traces of the device time of the ops whose name
-    holds ``symbol``, per call of ``fn`` (CALLS calls a trace)."""
+    holds ``symbol`` (every op for ""), per call of ``fn`` (CALLS calls a
+    trace)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -74,7 +84,8 @@ def device_ms(fn, symbol: str) -> float:
 
 
 def main(argv) -> int:
-    if len(argv) not in (1, 2) or argv[1:] not in ([], ["--pace"]):
+    flags = argv[1:]
+    if not argv or any(f not in ("--pace", "--vec") for f in flags):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(argv[0]).resolve()))
@@ -112,6 +123,32 @@ def main(argv) -> int:
             del pl, b_p, c_p
             torch.cuda.empty_cache()
 
+    from sextans_tpu_torch.ops import spmm_ell
+
+    vec_min = getattr(spmm_ell, "ELL_VEC4_MIN_N", None)
+    modes = ([(" vec4", 1), (" vec1", 1 << 30)] if "--vec" in flags and vec_min
+             else [("", vec_min)])
+    for tag, coo, ns in (("synthetic4704", synth, (512, 16, 13)), ("cant_like", cant, (512,))):
+        for precise in (0, 1):
+            packed = sx.pack_ell(coo, sx.SpmmConfig(precise=precise))
+            for n in ns:
+                rng = np.random.default_rng(0)
+                b = rng.standard_normal((coo.shape[1], n)).astype(np.float32)
+                c = rng.standard_normal((coo.shape[0], n)).astype(np.float32)
+                pl = sx.plan(packed, n, "ell_pallas", device="cuda")
+                b_p, c_p = pl.pad_b(b), pl.pad_c(c)
+                for label, min_n in modes:
+                    if min_n is not None:
+                        spmm_ell.ELL_VEC4_MIN_N = min_n
+                    # the kernel with its fold: every device op of the call
+                    emit(f"K5 {tag} N={n} precise={precise}{label}", device_ms(
+                        lambda: pl._run(*pl.arrays, b_p, c_p, ALPHA, BETA), ""))
+                if vec_min is not None:
+                    spmm_ell.ELL_VEC4_MIN_N = vec_min
+                del pl, b_p, c_p
+            del packed
+            torch.cuda.empty_cache()
+
     for tag, coo in (("synthetic4704", synth), ("laplace3d_64", stencil_3d(64, seed=12))):
         n = 16
         rng = np.random.default_rng(0)
@@ -143,7 +180,7 @@ def main(argv) -> int:
         dv = torch.as_tensor(split.diag_vals, device="cuda")
         plan = dia_plan(split.diag_offsets, "cuda")
         plans = [("", plan, dv)]
-        if tag == "scircuit_like" and argv[1:] == ["--pace"]:
+        if tag == "scircuit_like" and "--pace" in flags:
             from sextans_tpu_torch.ops.launch import dia_runs
             from sextans_tpu_torch.ops.spmm_dia import DIA_SPAN_MAX, DiaRuns
 
