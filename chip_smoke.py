@@ -101,6 +101,25 @@ Phases (each prints its lines; any failure exits non-zero):
    sweeps run in their own processes (``python3 -m
    sextans_tpu_torch.probes.dma_gather``, ``... .ell_issue``).
 
+11. Serving: ``SpmmServer`` on ``cuda`` with a ``PackCache`` in a temporary
+   directory, for the formats vpu (K3), mxu (K1 at N = 512, K2 at N = 16),
+   edge (K4) and ell (the plain ELL engine), on synthetic4704 (new
+   buckets), on a second matrix of other seed, m, k and nnz (4690 x 4710,
+   104,000 nnz) that lands in the same buckets, and on cant_like (new
+   buckets; vpu, mxu and edge). Each served product, driven from host B and
+   C with the launch counters set to 0 just before and read just after, is
+   held against ``SpmmPlan`` on the unbucketed pack (to the bit; K1 in plain
+   mode within 4 ulp of max|C|) and against verify and f64 (4 ulp); a
+   precise (level 1) server on the cached synthetic4704 pack shares the
+   plain one's upload and scan. Each prints its served call end to end
+   (CUDA events: host B and C in, pad, kernel, slice) and the kernel on the
+   bucketed pack beside the unbucketed one (the bucket's padding cost),
+   with the card's name and power limit. A second ``PackCache`` on the same
+   root serves cant_like's packs from disk (memory-mapped where above
+   ``SEXTANS_PACK_RAW_BYTES``) to the same bits; ``HybridSpmmPlan`` with
+   its residue through the cache equals the uncached plan on synthetic4704
+   N = 512 (K6 and K3); ``build_kernels.cache_info()`` does not change.
+
 Timings. Beside each kernel of phases 2 and 4: its plain version's time, the
 library call ``torch.sparse.addmm(C, A_csr, B, beta, alpha)`` on the same
 matrix and N (timed only, never used by the package), and the bound
@@ -130,7 +149,7 @@ calls' host-clock time. Each hybrid run of phase 5 prints the same for its
 split (seconds, bytes of every part on the card), with the DIA kernel and
 the residue's kernel apart in the profile.
 
-Every run of phases 3, 4, 5, 7, 8, 9 and 10 is one path: the launch counters are
+Every run of phases 3, 4, 5, 7, 8, 9, 10 and 11 is one path: the launch counters are
 set to 0 just before it and read just after, and its kernels must have
 launched. Nothing failing is passed over: a kernel that does not build or
 launch raises, and nothing falls back to a plain version or the CPU.
@@ -458,6 +477,7 @@ def main() -> int:
         PEAK_HBM_BYTES,
         ROUNDS,
         abba_ms,
+        event_ms,
         time_repeat,
         timed_once,
     )
@@ -1093,6 +1113,173 @@ def main() -> int:
     print(f"phase 10: the gather probes {at()}", flush=True)
     gather_probes(kernels, launches)
     print(f"phase 10: done in {time.perf_counter() - t10:.1f} s {at()}", flush=True)
+
+    # ---- phase 11: serving (SpmmServer, PackCache) ----
+    t11 = time.perf_counter()
+    print(f"phase 11: serving {at()}", flush=True)
+    from sextans_tpu_torch.format.pack_cache import RAW_BYTES_DEFAULT, _packed_nbytes
+
+    builds = build_kernels.cache_info().misses  # the library builds on a miss
+    serving_kernels = {"vpu": "spmm_block", "edge": "spmm_edge", "ell": None}
+    served = {}  # (matrix, format, N) -> the served product
+
+    def serve(tag, srv, coo_, name, iters):
+        """One served product, driven from host B and C as a user serves
+        it, with the launch counters set to 0 just before and read just
+        after; then held against SpmmPlan on the unbucketed pack (to the
+        bit; K1 in plain mode within ULP_BAR of max|C|) and the f64 oracle,
+        and the kernel timed on the bucketed pack beside the unbucketed."""
+        n, fmt, level = srv.n, srv.fmt, int(srv.config.precise)
+        b, c, ref, _ = golden(tag, coo_, n)
+        expected = serving_kernels[fmt] if fmt != "mxu" else (
+            "spmm_slab" if n > SKINNY_MAX_N else "spmm_slab_skinny")
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        pl = srv.plan(coo_, name)
+        t_plan = time.perf_counter() - t0
+        got = pl(b, ALPHA, BETA, c)
+        torch.cuda.synchronize()
+        ran = {k: fn.launches for k, fn in counted.items() if fn.launches}
+        if ran != ({expected: 1} if expected else {}):
+            fail(f"phase 11 {tag} {fmt} N={n}: launches {ran}, expected {expected} once")
+        if expected:
+            key = f"{expected}_precise{level}" if level else expected
+            launches[key] = launches.get(key, 0) + 1
+        unbucketed = srv.pack_cache.get_or_pack(name, coo_, srv.config, fmt)
+        pl0 = sx.SpmmPlan(unbucketed, n, srv.backend, device="cuda")
+        b_dev, c_dev = (torch.as_tensor(x, device="cuda") for x in (b, c))
+        want = pl0(b_dev, ALPHA, BETA, c_dev)
+        unit = float(np.spacing(np.float32(want.abs().max().item())))
+        diff = (got - want).abs().max().item() / unit
+        k1 = expected == "spmm_slab" and not level
+        if not (torch.equal(got, want) or (k1 and diff <= ULP_BAR)):
+            fail(f"phase 11 {tag} {fmt} N={n}: served product {diff:.4f} ulp off the "
+                 f"unbucketed plan's")
+        res = sx.verify(ref, got.cpu().numpy())
+        acc = accuracy((tag, n), got)
+        bar = PRECISE_BAR[level] if level else ULP_BAR
+        if not (res.passed and acc["finite"] and acc["ulp"] <= bar
+                and tuple(got.shape) == coo_.shape[:1] + (n,)):
+            fail(f"phase 11 {tag} {fmt} N={n}: verify {res.passed}, {acc['ulp']:.4f} ulp "
+                 f"(bar {bar:g})")
+        b_p, c_p = pl.pad_b(b_dev), pl.pad_c(c_dev)
+        b0_p, c0_p = pl0.pad_b(b_dev), pl0.pad_c(c_dev)
+        ms = abba_ms({"unbucketed": lambda: pl0._run(*pl0.arrays, b0_p, c0_p, ALPHA, BETA),
+                      "bucketed": lambda: pl.call_padded(b_p, c_p, ALPHA, BETA)}, iters, 2)
+        ms["served"] = event_ms(lambda: pl(b, ALPHA, BETA, c), max(1, iters // 5))
+        a_bytes = [sum(t.nbytes for t in p_.arrays) for p_ in (pl, pl0)]
+        p_, p0 = pl.packed, unbucketed
+        shape = (f"rows {p0.m_padded} -> {p_.m_padded}, R {p0.slots_per_row} -> "
+                 f"{p_.slots_per_row}, {p0.n_virt} -> {p_.n_virt} virtual rows"
+                 if fmt == "ell" else
+                 f"{'chunks' if fmt == 'edge' else 'groups'} "
+                 f"{p0.n_chunks if fmt == 'edge' else p0.n_groups} -> "
+                 f"{p_.n_chunks if fmt == 'edge' else p_.n_groups}, M-tiles "
+                 f"{p0.n_mtiles} -> {p_.n_mtiles}, K-windows {p0.n_kwins} -> {p_.n_kwins}")
+        print(f"phase 11 {tag}: {fmt} ({srv.backend}, precise={level}) N={n} "
+              f"{coo_.shape[0]}x{coo_.shape[1]} nnz={coo_.nnz}, bucket "
+              f"{'new' if pl.bucket_new else 'warm'} ({shape}; A {a_bytes[1] / 1e6:.3f} -> "
+              f"{a_bytes[0] / 1e6:.3f} MB on the card); plan {t_plan:.3f} s; vs unbucketed "
+              f"plan {'equal' if torch.equal(got, want) else f'{diff:.4f} ulp of max|C|'}; "
+              f"verify {'Success!' if res.passed else 'Failed.'}, {acc['ulp']:.4f} ulp of "
+              f"max|C| vs f64 (bar {bar:g}); [{smi}] served call {ms['served']:.4f} ms (host "
+              f"B, C in, pad, kernel, slice); kernel on the bucketed pack "
+              f"{ms['bucketed']:.4f} ms, unbucketed {ms['unbucketed']:.4f} ms "
+              f"({100 * (ms['bucketed'] / ms['unbucketed'] - 1):+.1f} %); launches {ran} "
+              f"{at()}", flush=True)
+        served[tag, fmt, n] = got
+        return pl
+
+    with tempfile.TemporaryDirectory() as tmp11:
+        cache = sx.PackCache(root=Path(tmp11) / "packs")
+
+        def server(fmt, n, level=0, pack_cache=cache):
+            cfg = (slab_cfg if fmt == "mxu" else block_cfg).with_(precise=level)
+            return sx.SpmmServer(n, config=cfg, fmt=fmt, pack_cache=pack_cache, device="cuda")
+
+        cases = [("vpu", 512), ("mxu", 512), ("mxu", 16), ("edge", 512), ("ell", 512)]
+        servers = {case: server(*case) for case in cases}
+        first = {case: serve("synthetic4704", srv, coo, "synthetic4704", 10)
+                 for case, srv in servers.items()}
+        if not all(pl.bucket_new for pl in first.values()):
+            fail("phase 11: synthetic4704 found a warm bucket on new servers")
+        # a precise server on the same cached pack shares the plain one's upload
+        precise_pl = serve("synthetic4704", server("vpu", 512, level=1), coo, "synthetic4704",
+                           10)
+        plain_pl = first["vpu", 512]
+        if not (precise_pl.arrays[0] is plain_pl.arrays[0]
+                and precise_pl.ranges is plain_pl.ranges):
+            fail("phase 11: the precise variant uploaded its own copy of the cached pack")
+        print(f"phase 11: the precise (level 1) and plain servers share one upload "
+              f"({sum(t.nbytes for t in plain_pl.arrays) / 1e6:.3f} MB) and one host scan",
+              flush=True)
+        del first, precise_pl, plain_pl
+        # a second matrix, never seen: another seed, m, k and nnz, the same buckets
+        other = sx.COOMatrix.random(4690, 4710, 104000, seed=43, banded=True, bandwidth=300)
+        for case, srv in servers.items():
+            if serve("synthetic4704b", srv, other, "synthetic4704b", 10).bucket_new:
+                fail(f"phase 11: the second matrix missed the warm bucket of {case}")
+        # cant_like: a new bucket, its packs above the raw threshold
+        for case in cases[:4]:
+            if not serve("cant_like", servers[case], cant, "cant_like", 2).bucket_new:
+                fail(f"phase 11: cant_like landed in a warm bucket of {case}")
+            torch.cuda.empty_cache()
+        raw = sorted(p.name for p in (Path(tmp11) / "packs").glob("*.raw"))
+        reloaded = sx.PackCache(root=Path(tmp11) / "packs")
+        for fmt in ("vpu", "mxu", "edge"):
+            srv = server(fmt, 512, pack_cache=reloaded)
+            b, c = operands(*cant.shape, 512)
+            for fn in counted.values():
+                fn.launches = 0
+            pl = srv.plan(cant, "cant_like")
+            got = pl(b, ALPHA, BETA, c)
+            torch.cuda.synchronize()
+            ran = {k: fn.launches for k, fn in counted.items() if fn.launches}
+            for k, count in ran.items():
+                launches[k] += count
+            packed = reloaded.get_or_pack("cant_like", cant, srv.config, fmt)
+            # a pack above the raw threshold comes back memory-mapped
+            memmapped = isinstance(packed.vals, np.memmap)
+            big = _packed_nbytes(packed) > RAW_BYTES_DEFAULT
+            same = torch.equal(got, served["cant_like", fmt, 512])
+            print(f"phase 11: cant_like {fmt} from a second PackCache on the same root: "
+                  f"disk hits {reloaded.disk_hits}, {_packed_nbytes(packed) / 2**20:.1f} MiB, "
+                  f"memory-mapped {memmapped}; served product "
+                  f"{'equal to' if same else 'DIFFERENT from'} the freshly packed one's; "
+                  f"launches {ran}", flush=True)
+            if not (same and memmapped == big and ran):
+                fail(f"phase 11: cant_like {fmt} from the disk cache")
+            del pl, got, packed
+        if reloaded.disk_hits != 3 or reloaded.misses or not raw:
+            fail(f"phase 11: disk hits {reloaded.disk_hits}, misses {reloaded.misses}, raw "
+                 f"entries {raw}")
+        del served
+        torch.cuda.empty_cache()
+        # the hybrid's residue through the cache: the uncached plan's bits
+        split = splits["synthetic4704", 512][0]
+        b, c, _, _ = golden("synthetic4704", coo, 512)
+        kw = dict(residue_config=block_cfg, backend="pallas", device="cuda")
+        for fn in counted.values():
+            fn.launches = 0
+        got = sx.HybridSpmmPlan(split, 512, pack_cache=cache,
+                                cache_name="synthetic4704@n512-residue", **kw)(b, ALPHA, BETA, c)
+        torch.cuda.synchronize()
+        ran = {k: fn.launches for k, fn in counted.items() if fn.launches}
+        if ran != {"spmm_dia": 1, "spmm_block": 1}:
+            fail(f"phase 11: the cached hybrid launched {ran}")
+        for k, count in ran.items():
+            launches[k] += count
+        same = torch.equal(got, sx.HybridSpmmPlan(split, 512, **kw)(b, ALPHA, BETA, c))
+        print(f"phase 11: hybrid synthetic4704 N=512, residue through the cache (misses "
+              f"{cache.misses}): {'equal to' if same else 'DIFFERENT from'} the uncached plan; "
+              f"launches {ran}", flush=True)
+        if not same:
+            fail("phase 11: the cached hybrid differs from the uncached one")
+    if build_kernels.cache_info().misses != builds:
+        fail(f"phase 11: the kernel library was built again: {build_kernels.cache_info()}")
+    print(f"phase 11: build_kernels {build_kernels.cache_info()}: no build in the phase; "
+          f"done in {time.perf_counter() - t11:.1f} s {at()}", flush=True)
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     probe_src = "benchmarks/scratch/mosaic_eft_probe.py"

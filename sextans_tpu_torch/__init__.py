@@ -9,7 +9,9 @@ byte-identical to the JAX package's. Four packed formats run: the block
 format (``pack``), the slab format (``pack_mxu``), the edge stream
 (``pack_edge``) and the ELL gather format (``pack_ell``); and the hybrid
 structure split (``split_structure`` -> ``HybridSpmmPlan``): diagonals, dense
-hub columns and rows, and a residue in one of those formats.
+hub columns and rows, and a residue in one of those formats. Packs persist
+in a ``PackCache`` (``$SEXTANS_PACK_CACHE_DIR``), shared with the JAX
+package; ``SpmmServer`` serves any matrix through bucket-padded packs.
 
 Quick start::
 
@@ -38,12 +40,15 @@ from sextans_tpu_torch.format.pack import (
 )
 from sextans_tpu_torch.format.pack_edge import PackedSpMatrixEdge, pack_edge
 from sextans_tpu_torch.format.pack_ell import PackedSpMatrixELL, pack_ell
+from sextans_tpu_torch.format.pack_cache import PackCache
 from sextans_tpu_torch.format.pack_mxu import PackedSpMatrixMXU, pack_mxu
 from sextans_tpu_torch.io.mtx import MtxHeader, read_mtx, read_mtx_coo, write_mtx
 from sextans_tpu_torch.ops.golden import golden_spmm, golden_spmm_exact, spmm_flops
 from sextans_tpu_torch.ops.hybrid import HybridSplit, HybridSpmmPlan, split_structure
 from sextans_tpu_torch.ops.plan import SpmmPlan
+from sextans_tpu_torch.ops.serve import ServePlan, SpmmServer, bucketize_pack
 from sextans_tpu_torch.ops.spmm import plan, prepare, spmm
+from sextans_tpu_torch.parallel.partition import ShardedSpMatrix, pack_sharded, pack_sharded_k
 from sextans_tpu_torch.utils.config import SpmmConfig
 from sextans_tpu_torch.utils.verify import VerifyResult, gflops, verify
 
@@ -78,6 +83,13 @@ __all__ = [
     "plan",
     "SpmmPlan",
     "spmm",
+    "PackCache",
+    "SpmmServer",
+    "ServePlan",
+    "bucketize_pack",
+    "ShardedSpMatrix",
+    "pack_sharded",
+    "pack_sharded_k",
     "golden_spmm",
     "golden_spmm_exact",
     "spmm_flops",

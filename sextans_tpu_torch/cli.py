@@ -7,9 +7,10 @@ Reference usage (src/sextans-host.cpp:26-48)::
 Here::
 
     python -m sextans_tpu_torch [matrix A file] [N] [rp_time] [alpha] [beta]
-        [--backend pallas|mxu|xla|edge|ell|ell_pallas] [--tile-m ..] [--window-k ..]
-        [--block-k ..] [--group-blocks ..] [--device cuda|cpu] [--hybrid]
-        [--precise]
+        [--backend auto|pallas|mxu|xla|edge|ell|ell_pallas] [--tile-m ..]
+        [--window-k ..] [--block-k ..] [--group-blocks ..] [--device cuda|cpu]
+        [--hybrid] [--precise] [--skip-cpu] [--save-packed FILE]
+        [--reorder-cols] [--reorder-rows]
 
 The same positional semantics, B (all 1.0, src/sextans-host.cpp:100-104),
 C ((m+1)(n+1)/M/N, src/sextans-host.cpp:107-111), defaults (alpha=0.85,
@@ -18,8 +19,14 @@ beta=-2.06, rp_time=1), GFLOPS formula and Success!/Failed report as
 tapa::round_up<8> (src/sextans-host.cpp:51). The device defaults to
 ``cuda``; there is no fallback to the CPU, which takes ``--device cpu``.
 
-``--hybrid`` splits A at N (``split_structure``), prints the split, and runs
-``HybridSpmmPlan`` with the residue on ``--backend``'s format and kernel.
+``--backend auto`` (the default, as in ``python -m sextans_tpu``) packs the
+block format and runs the block kernel. ``--hybrid`` splits A at N
+(``split_structure``), prints the split, and runs ``HybridSpmmPlan`` with the
+residue on ``--backend``'s format and kernel (the block format for ``auto``).
+``--skip-cpu`` skips the golden run and the verify gate; ``--save-packed``
+writes the pack with its format's ``save``; ``--reorder-cols`` and
+``--reorder-rows`` degree-sort A before packing (refused for the ELL
+format, which they cannot change).
 ``--precise`` sets ``SpmmConfig.precise`` to 1 (compensated accumulation,
 as ``python -m sextans_tpu --precise``) on every backend, and with
 ``--hybrid`` runs ``HybridSpmmPlan(precise=1)``; ``xla`` ignores it.
@@ -38,7 +45,9 @@ from sextans_tpu_torch.format.csr import CSRMatrix
 from sextans_tpu_torch.io.mtx import read_mtx
 from sextans_tpu_torch.ops.golden import golden_spmm
 from sextans_tpu_torch.ops.hybrid import HybridSpmmPlan, split_structure
-from sextans_tpu_torch.ops.plan import BACKEND_FORMATS
+from sextans_tpu_torch.format.pack import pack
+from sextans_tpu_torch.format.pack_ell import pack_ell
+from sextans_tpu_torch.ops.plan import BACKEND_FORMATS, BACKENDS
 from sextans_tpu_torch.ops.spmm import plan as make_plan
 from sextans_tpu_torch.utils.config import SpmmConfig, round_up
 from sextans_tpu_torch.utils.timing import time_repeat
@@ -57,9 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("beta", type=float, nargs="?", default=-2.06)
     p.add_argument(
         "--backend",
-        default="pallas",
-        choices=list(BACKEND_FORMATS),
-        help="pallas = block kernel; mxu = slab kernels (skinny kernel at "
+        default="auto",
+        choices=list(BACKENDS),
+        help="auto = the block format's kernel (pallas); pallas = block kernel; mxu = slab kernels (skinny kernel at "
         "N <= 32); xla = plain PyTorch block version; edge = per-nonzero "
         "edge-stream kernel; ell_pallas = ELL row-gather kernel; ell = plain "
         "PyTorch ELL gather engine",
@@ -81,6 +90,19 @@ def build_parser() -> argparse.ArgumentParser:
         help="compensated accumulation and double-float epilogue "
         "(SpmmConfig.precise=1) on every backend (xla ignores it) and with "
         "--hybrid: within ~1 ulp of the float64 oracle",
+    )
+    p.add_argument("--skip-cpu", action="store_true", help="skip the golden CPU run")
+    p.add_argument("--save-packed", default=None, help="save packed A to .npz")
+    p.add_argument(
+        "--reorder-cols",
+        action="store_true",
+        help="degree-sort columns before packing (helps power-law matrices)",
+    )
+    p.add_argument(
+        "--reorder-rows",
+        action="store_true",
+        help="degree-sort rows before packing; with --reorder-cols the 2-D "
+        "degree reorder (C rows are permuted at the plan boundary)",
     )
     return p
 
@@ -115,6 +137,12 @@ def main(argv=None) -> int:
         if v is not None:
             cfg_kwargs[name] = v
     cfg = SpmmConfig(precise=int(args.precise), **cfg_kwargs)
+    packer = pack if args.backend == "auto" else BACKEND_FORMATS[args.backend][0]
+    if packer is pack_ell and (args.reorder_cols or args.reorder_rows):
+        raise SystemExit(
+            "--reorder-cols/--reorder-rows have no effect on the ELL "
+            "gather format (permutation-invariant); drop the flag"
+        )
 
     if args.hybrid:
         t0 = time.perf_counter()
@@ -123,26 +151,34 @@ def main(argv=None) -> int:
     else:
         print(f"Packing sparse A for {args.device} ...", flush=True)
         t0 = time.perf_counter()
-        packed = BACKEND_FORMATS[args.backend][0](coo, cfg)
+        reorder = {} if packer is pack_ell else dict(reorder_cols=args.reorder_cols,
+                                                       reorder_rows_=args.reorder_rows)
+        packed = packer(coo, cfg, **reorder)
         t_pack = time.perf_counter() - t0
         s = packed.stats
         print(
             f"done ({t_pack * 1e3:.1f} msec): {s.blocks} blocks, "
             f"fill {s.block_fill:.3f}, {s.groups} groups, group fill {s.group_fill:.3f}"
         )
+        if args.save_packed:
+            packed.save(args.save_packed)
+            print(f"packed A saved to {args.save_packed}")
     if args.hybrid:
         pl = HybridSpmmPlan(split, n, residue_config=cfg, backend=args.backend,
+                            residue_fmt="vpu" if args.backend == "auto" else None,
                             precise=cfg.precise, device=args.device)
     else:
         pl = make_plan(packed, n, backend=args.backend, device=args.device)
 
-    print("Run spmm on cpu...", flush=True)
-    csr = CSRMatrix.from_coo(coo)
-    t0 = time.perf_counter()
-    c_ref = golden_spmm(csr, b, args.alpha, args.beta, c)
-    t_cpu = time.perf_counter() - t0
-    print(f"done ({t_cpu * 1e3:.3f} msec)")
-    print(f"CPU GFLOPS: {gflops(nnz, m, n, t_cpu):.3f}")
+    c_ref = None
+    if not args.skip_cpu:
+        print("Run spmm on cpu...", flush=True)
+        csr = CSRMatrix.from_coo(coo)
+        t0 = time.perf_counter()
+        c_ref = golden_spmm(csr, b, args.alpha, args.beta, c)
+        t_cpu = time.perf_counter() - t0
+        print(f"done ({t_cpu * 1e3:.3f} msec)")
+        print(f"CPU GFLOPS: {gflops(nnz, m, n, t_cpu):.3f}")
 
     print("launch kernel", flush=True)
     device_name = (
@@ -155,6 +191,8 @@ def main(argv=None) -> int:
     print(f"Kernel time is {t_kernel * 1e3:f} ms")
     print(f"GFLOPS:{gflops(nnz, m, n, t_kernel):f}")
 
+    if c_ref is None:
+        return 0
     got = pl(b_dev, args.alpha, args.beta, c0).cpu().numpy()
     result = verify(c_ref, got)
     print(result)

@@ -71,7 +71,8 @@ def from_reference(packed) -> Union[Packed, HybridSplit]:
     The format is told by its index array: ``qm`` (slab), ``qrow`` (block),
     ``meta`` (edge), ``fold_rows`` (ELL) or ``diag_offsets`` (a hybrid
     split). Arrays are taken as NumPy with their dtypes checked, so the
-    result is byte-identical to packing, or splitting, the same COO here.
+    result is byte-identical to packing, or splitting, the same COO here. A
+    bucketized ELL pack keeps its ``k_bucket``.
     """
     if hasattr(packed, "diag_offsets"):
         res = packed.residue
@@ -93,7 +94,7 @@ def from_reference(packed) -> Union[Packed, HybridSplit]:
     for name in ("col_perm", "row_perm"):
         p = getattr(packed, name, None)
         perms[name] = None if p is None else np.asarray(p, dtype=np.int32)
-    return cls(
+    out = cls(
         m=int(packed.m),
         k=int(packed.k),
         nnz=int(packed.nnz),
@@ -103,3 +104,6 @@ def from_reference(packed) -> Union[Packed, HybridSplit]:
         **arrays,
         **perms,
     )
+    if hasattr(packed, "k_bucket"):  # a bucketized ELL pack's B extent (ops/serve.py)
+        out.__dict__["k_bucket"] = int(packed.k_bucket)
+    return out

@@ -29,6 +29,7 @@ micro-blocks** (8 = float32 sublane count), grouped by (M-tile, K-window):
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
@@ -141,6 +142,108 @@ class PackedSpMatrix:
         return sum(
             a.nbytes
             for a in (self.vals, self.qrow, self.bcol, self.group_mtile, self.group_kwin)
+        )
+
+    # -- persistence (the reference's closest analog is bitstream reuse via
+    #    TAPAB, README.md:46-48; here the expensive host step is packing) --
+    def save(self, path) -> None:
+        np.savez_compressed(
+            Path(path),
+            m=self.m,
+            k=self.k,
+            nnz=self.nnz,
+            n_mtiles=self.n_mtiles,
+            n_kwins=self.n_kwins,
+            vals=self.vals,
+            qrow=self.qrow,
+            bcol=self.bcol,
+            group_mtile=self.group_mtile,
+            group_kwin=self.group_kwin,
+            config=np.array(
+                [
+                    self.config.tile_m,
+                    self.config.window_k,
+                    self.config.block_k,
+                    self.config.group_blocks,
+                    int(self.config.interleave),
+                    # full round-trip of the kernel knobs (-1 = tile_n None)
+                    -1 if self.config.tile_n is None else self.config.tile_n,
+                    self.config.n_acc,
+                    self.config.chunk_unroll,
+                    int(self.config.precise),
+                ],
+                dtype=np.int64,
+            ),
+            # a_bytes None is stored as 0 (None means "derive from geometry")
+            stats=np.array(
+                [
+                    self.stats.nnz,
+                    self.stats.blocks,
+                    self.stats.slots,
+                    self.stats.groups,
+                    self.stats.pad_blocks,
+                    self.stats.jobs,
+                    self.stats.empty_mtiles,
+                    self.stats.a_bytes or 0,
+                ],
+                dtype=np.int64,
+            ),
+            col_perm=(
+                self.col_perm
+                if self.col_perm is not None
+                else np.zeros(0, dtype=np.int32)
+            ),
+            row_perm=(
+                self.row_perm
+                if self.row_perm is not None
+                else np.zeros(0, dtype=np.int32)
+            ),
+        )
+
+    @staticmethod
+    def load(path) -> "PackedSpMatrix":
+        z = np.load(Path(path))
+        cfg_arr = z["config"]
+        extra = {}
+        if cfg_arr.shape[0] > 5:  # formats saved since round 2
+            extra = dict(
+                tile_n=None if int(cfg_arr[5]) < 0 else int(cfg_arr[5]),
+                n_acc=int(cfg_arr[6]),
+                chunk_unroll=int(cfg_arr[7]),
+            )
+            if cfg_arr.shape[0] > 8:
+                extra["precise"] = int(cfg_arr[8])
+        cfg = SpmmConfig(
+            tile_m=int(cfg_arr[0]),
+            window_k=int(cfg_arr[1]),
+            block_k=int(cfg_arr[2]),
+            group_blocks=int(cfg_arr[3]),
+            interleave=bool(cfg_arr[4]),
+            **extra,
+        )
+        sf = [int(x) for x in z["stats"]]
+        stats = PackStats(
+            *sf[:7], a_bytes=(sf[7] or None) if len(sf) > 7 else None
+        )
+        return PackedSpMatrix(
+            m=int(z["m"]),
+            k=int(z["k"]),
+            nnz=int(z["nnz"]),
+            config=cfg,
+            n_mtiles=int(z["n_mtiles"]),
+            n_kwins=int(z["n_kwins"]),
+            vals=z["vals"],
+            qrow=z["qrow"],
+            bcol=z["bcol"],
+            group_mtile=z["group_mtile"],
+            group_kwin=z["group_kwin"],
+            stats=stats,
+            col_perm=(
+                z["col_perm"] if "col_perm" in z and z["col_perm"].size else None
+            ),
+            row_perm=(
+                z["row_perm"] if "row_perm" in z and z["row_perm"].size else None
+            ),
         )
 
 

@@ -25,6 +25,7 @@ Array layout:
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
@@ -77,6 +78,102 @@ class PackedSpMatrixMXU:
         return sum(
             a.nbytes
             for a in (self.vals, self.qm, self.bcol, self.group_mtile, self.group_kwin)
+        )
+
+    # -- persistence (the TAPAB bitstream-reuse analog, README.md:46-48) --
+    def save(self, path) -> None:
+        np.savez_compressed(
+            Path(path),
+            fmt=np.array([1], dtype=np.int64),  # 1 = MXU dense-slab format
+            m=self.m,
+            k=self.k,
+            nnz=self.nnz,
+            n_mtiles=self.n_mtiles,
+            n_kwins=self.n_kwins,
+            vals=self.vals,
+            qm=self.qm,
+            bcol=self.bcol,
+            group_mtile=self.group_mtile,
+            group_kwin=self.group_kwin,
+            config=np.array(
+                [
+                    self.config.tile_m,
+                    self.config.window_k,
+                    self.config.block_k,
+                    self.config.group_blocks,
+                    int(self.config.interleave),
+                    -1 if self.config.tile_n is None else self.config.tile_n,
+                    self.config.n_acc,
+                    self.config.chunk_unroll,
+                    int(self.config.precise),
+                ],
+                dtype=np.int64,
+            ),
+            stats=np.array(
+                [
+                    self.stats.nnz, self.stats.blocks, self.stats.slots,
+                    self.stats.groups, self.stats.pad_blocks, self.stats.jobs,
+                    self.stats.empty_mtiles,
+                ],
+                dtype=np.int64,
+            ),
+            col_perm=(
+                self.col_perm
+                if self.col_perm is not None
+                else np.zeros(0, dtype=np.int32)
+            ),
+            row_perm=(
+                self.row_perm
+                if self.row_perm is not None
+                else np.zeros(0, dtype=np.int32)
+            ),
+        )
+
+    @staticmethod
+    def load(path) -> "PackedSpMatrixMXU":
+        z = np.load(Path(path))
+        if "fmt" not in z or int(z["fmt"][0]) != 1:
+            raise ValueError(
+                f"{path} is not an MXU-format packed matrix "
+                "(use PackedSpMatrix.load for the VPU block format)"
+            )
+        cfg_arr = z["config"]
+        cfg = SpmmConfig(
+            tile_m=int(cfg_arr[0]),
+            window_k=int(cfg_arr[1]),
+            block_k=int(cfg_arr[2]),
+            group_blocks=int(cfg_arr[3]),
+            interleave=bool(cfg_arr[4]),
+            tile_n=None if int(cfg_arr[5]) < 0 else int(cfg_arr[5]),
+            n_acc=int(cfg_arr[6]),
+            chunk_unroll=int(cfg_arr[7]),
+            precise=int(cfg_arr[8]),
+        )
+        sf = [int(x) for x in z["stats"]]
+        stats = PackStats(
+            *sf[:7], a_bytes=(sf[7] or None) if len(sf) > 7 else None
+        )
+        return PackedSpMatrixMXU(
+            m=int(z["m"]),
+            k=int(z["k"]),
+            nnz=int(z["nnz"]),
+            config=cfg,
+            n_mtiles=int(z["n_mtiles"]),
+            n_kwins=int(z["n_kwins"]),
+            vals=z["vals"],
+            qm=z["qm"],
+            bcol=z["bcol"],
+            group_mtile=z["group_mtile"],
+            group_kwin=z["group_kwin"],
+            stats=stats,
+            col_perm=(
+                z["col_perm"] if z["col_perm"].size else None
+            ),
+            row_perm=(
+                z["row_perm"]
+                if "row_perm" in z and z["row_perm"].size
+                else None
+            ),
         )
 
 

@@ -35,15 +35,12 @@ import numpy as np
 import torch
 
 from sextans_tpu_torch.format.coo import COOMatrix
-from sextans_tpu_torch.format.pack import pack
-from sextans_tpu_torch.format.pack_edge import pack_edge
-from sextans_tpu_torch.format.pack_ell import pack_ell
-from sextans_tpu_torch.format.pack_mxu import pack_mxu
 from sextans_tpu_torch.ops.df32 import two_prod, two_sum
 from sextans_tpu_torch.ops.launch import check_split, f32, no_tf32
 from sextans_tpu_torch.ops.plan import (
     BACKEND_FORMATS,
     BACKENDS,
+    FORMATS,
     SpmmPlan,
     dense_operand,
     resolve_device,
@@ -53,7 +50,7 @@ from sextans_tpu_torch.ops.spmm_slab import SKINNY_MAX_N
 from sextans_tpu_torch.utils.config import SpmmConfig
 
 __all__ = ["HybridSplit", "split_structure", "HybridSpmmPlan", "SPLIT_VERSION",
-           "RESIDUE_FORMATS", "DIA_BACKENDS"]
+           "DIA_BACKENDS"]
 
 # The split rule's cost constants: the JAX package's TPU v5e model
 # (sextans_tpu/utils/autotune.py: BYTES_PER_CYCLE, EDGE_CYCLES_FIXED,
@@ -328,8 +325,6 @@ def split_structure(
     )
 
 
-# The JAX package's residue format names -> this package's packers.
-RESIDUE_FORMATS = {"vpu": pack, "mxu": pack_mxu, "edge": pack_edge, "ell": pack_ell}
 # "pallas": the DIA kernels (their plain version on CPU tensors); "xla": the
 # plain PyTorch version on any device. The JAX package's names.
 DIA_BACKENDS = ("auto", "pallas", "xla")
@@ -347,7 +342,7 @@ class HybridSpmmPlan:
     device (the DIA kernel: K7 ``spmm_dia_skinny`` for N <= 32, else K6
     ``spmm_dia``) and ``"xla"`` (the plain version) on the CPU.
 
-    The residue is packed by ``RESIDUE_FORMATS[residue_fmt]`` (``vpu``,
+    The residue is packed by ``ops/plan.py:FORMATS[residue_fmt]`` (``vpu``,
     ``mxu``, ``edge``, ``ell``) or, without ``residue_fmt``, by the packer of
     ``backend`` (``ops/plan.py:BACKEND_FORMATS``), with ``residue_config``,
     and run by ``SpmmPlan(packed, n, backend)``. An empty residue is skipped
@@ -356,6 +351,12 @@ class HybridSpmmPlan:
     not ported (ROADMAP.md queue 1 item 6), so a non-empty residue without
     ``residue_fmt`` or a concrete ``backend``, or without ``residue_config``,
     raises ``ValueError``.
+
+    ``pack_cache`` and ``cache_name`` route the residue's pack through a
+    :class:`~sextans_tpu_torch.format.pack_cache.PackCache`, as the JAX
+    plan does; ``cache_name`` names the residue (e.g.
+    ``f"{matrix}@n{n}-residue"``), and the cache's content fingerprint keeps
+    a reused name from aliasing another residue.
 
     ``precise`` 1 or 2 is the JAX package's precise composition: the
     residue is packed at that level (where its config has none) and run
@@ -375,6 +376,8 @@ class HybridSpmmPlan:
         residue_fmt: Optional[str] = None,
         backend: str = "auto",
         dia_backend: str = "auto",
+        pack_cache=None,
+        cache_name: Optional[str] = None,
         precise: int = 0,
         device,
     ):
@@ -384,9 +387,9 @@ class HybridSpmmPlan:
             raise ValueError(f"N must be positive, got {n}")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-        if residue_fmt is not None and residue_fmt not in RESIDUE_FORMATS:
+        if residue_fmt is not None and residue_fmt not in FORMATS:
             raise ValueError(f"unknown residue_fmt {residue_fmt!r}; expected one of "
-                             f"{tuple(RESIDUE_FORMATS)}")
+                             f"{tuple(FORMATS)}")
         if dia_backend not in DIA_BACKENDS:
             raise ValueError(f"unknown dia_backend {dia_backend!r}; expected one of "
                              f"{DIA_BACKENDS}")
@@ -402,11 +405,10 @@ class HybridSpmmPlan:
 
         self.residue_plan = None
         if split.residue.nnz > 0:
-            if residue_fmt is not None:
-                packer = RESIDUE_FORMATS[residue_fmt]
-            elif backend != "auto":
-                packer = BACKEND_FORMATS[backend][0]
-            else:
+            if residue_fmt is None and backend != "auto":
+                residue_fmt = next(fmt for fmt, packer in FORMATS.items()
+                                   if packer is BACKEND_FORMATS[backend][0])
+            if residue_fmt is None:
                 raise ValueError(
                     f"the residue holds {split.residue.nnz} nonzeros and neither "
                     "residue_fmt nor a backend names its format; the JAX package's "
@@ -421,7 +423,12 @@ class HybridSpmmPlan:
             cfg = residue_config
             if self.precise and not cfg.precise:
                 cfg = cfg.with_(precise=self.precise)
-            packed = packer(split.residue, cfg)
+            if pack_cache is not None and cache_name is not None:
+                # the cache keys on the pack's fields only: a precise variant
+                # shares the plain pack's arrays and its upload
+                packed = pack_cache.get_or_pack(cache_name, split.residue, cfg, residue_fmt)
+            else:
+                packed = FORMATS[residue_fmt](split.residue, cfg)
             self.residue_plan = SpmmPlan(packed, n, backend, device=self.device)
 
         def put(a, dtype):
@@ -479,13 +486,15 @@ class HybridSpmmPlan:
             acc = c * f32(beta)
         else:
             acc = torch.zeros((self.m, self.n), dtype=torch.float32, device=self.device)
-        if self._head is not None or self._hrows is not None:
-            no_tf32()
         if self._head is not None:
-            acc = acc + f32(alpha) * torch.matmul(self._head, b[self._head_cols])
+            with no_tf32():
+                head = torch.matmul(self._head, b[self._head_cols])
+            acc = acc + f32(alpha) * head
         if self._hrows is not None:
+            with no_tf32():
+                hrows = torch.matmul(self._hrows, b)
             # head rows are unique, so this adds deterministically
-            acc.index_add_(0, self._hrows_idx, f32(alpha) * torch.matmul(self._hrows, b))
+            acc.index_add_(0, self._hrows_idx, f32(alpha) * hrows)
         if self.residue_plan is not None:
             acc = self.residue_plan(b, alpha, 1.0, acc)
         return acc
@@ -517,13 +526,15 @@ class HybridSpmmPlan:
             shape = torch.zeros(1, device=self.device).expand(self.m, self.n)
             add(self._dia(self._dvals, self._offsets, b, shape, 1.0, 0.0, with_c=False,
                           precise=1, **self._dia_kw))
-        if self._head is not None or self._hrows is not None:
-            no_tf32()
         if self._head is not None:
-            add(torch.matmul(self._head, b[self._head_cols]))
+            with no_tf32():
+                head = torch.matmul(self._head, b[self._head_cols])
+            add(head)
         if self._hrows is not None:
+            with no_tf32():
+                hrows = torch.matmul(self._hrows, b)
             # head rows are unique: set their sums, add their errors
-            p, pe = two_prod(a, torch.matmul(self._hrows, b))
+            p, pe = two_prod(a, hrows)
             s, e = two_sum(acc[self._hrows_idx], p)
             acc = acc.index_copy(0, self._hrows_idx, s)
             resid = resid.index_add(0, self._hrows_idx, pe + e)

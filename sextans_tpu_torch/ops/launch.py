@@ -4,6 +4,7 @@ and the f32 rule of the plain versions."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -22,6 +23,7 @@ __all__ = [
     "row_runs",
     "EllTiles",
     "ell_tiles",
+    "ell_fold_count",
     "ELL_GROUP_MAX",
     "ELL_LONG_ROWS",
     "check_pack_indices",
@@ -62,13 +64,26 @@ def slab_visits(packed) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     slab_ptr[s+1]]``, ascending, which is the order in which the pack adds
     them (the groups of an M-tile in group order, then the blocks of a
     group); ``slab_rows`` holds beside each the row of B where the block's
-    terms start, ``group_kwin[g] * window_k + bcol[g, i]``. Every block is
-    listed, the pad blocks (qm 0, bcol 0, all values zero) too: the kernels
-    add ``0 * B`` for them as the pack does, so a non-finite B row that a
-    pad reads still reaches its slab.
+    terms start, ``group_kwin[g] * window_k + bcol[g, i]``.
+
+    Of the blocks whose values are all zero (the pack's pad blocks, and the
+    pad groups a bucket appends to the last M-tile's slab 0, ops/serve.py),
+    one per distinct (slab, K-window, bcol) is kept, the first; the rest are
+    dropped from the slabs' lists, as :func:`stripe_visits` drops them, and
+    parked after ``slab_ptr[-1]``, where no kernel reads them: so
+    ``slab_blocks`` still holds every block once, and the wrappers check
+    its length against the pack's. That leaves every sum as it was to the
+    bit: a zero block's terms are ``0 * B`` (+-0 where its B
+    rows are finite, NaN where one is not), so its block sum is +-0 or NaN,
+    and adding +-0 to an accumulator that starts at +0 and is never -0
+    leaves it unchanged, in the FFMA chains (K2, K1 in precise mode, a
+    Neumaier step as well) and in K1's 3xTF32 steps alike; NaN sticks, and
+    the kept block reads the same B rows as the dropped ones. A kernel
+    visits no block twice, so a slab's chain is as long as its distinct
+    blocks, however many pad groups the bucket adds.
     """
     cfg = packed.config
-    ng, G = packed.n_groups, cfg.group_blocks
+    ng, G, bk = packed.n_groups, cfg.group_blocks, cfg.block_k
     per_tile = cfg.tile_m // MSLAB
     _check_int32(ng * G, "slab_visits")
     tiles = _check_owner_tiles(packed.group_mtile[:ng], packed.n_mtiles, "group_mtile")
@@ -76,11 +91,19 @@ def slab_visits(packed) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     if qm.size and (qm.min() < 0 or qm.max() >= per_tile):
         raise ValueError(f"qm holds a slab outside [0, {per_tile})")
     slab = (tiles[:, None] * per_tile + qm).reshape(-1)
-    order = np.argsort(slab, kind="stable")
     _check_int32(packed.k_padded, "slab_visits")
     rows = (np.asarray(packed.group_kwin, dtype=np.int64)[:, None] * cfg.window_k
             + packed.bcol).reshape(-1)
-    return (_csr_ptr(slab, packed.n_mtiles * per_tile), order.astype(np.int32),
+    keep = (packed.vals.reshape(ng * G, bk * MSLAB) != 0).any(axis=1)
+    zero = np.flatnonzero(~keep)
+    if zero.size:
+        key = slab[zero] * packed.k_padded + rows[zero]
+        _, first = np.unique(key, return_index=True)
+        keep[zero[first]] = True
+    kept = np.flatnonzero(keep)
+    order = np.concatenate([kept[np.argsort(slab[kept], kind="stable")],
+                            np.flatnonzero(~keep)])
+    return (_csr_ptr(slab[kept], packed.n_mtiles * per_tile), order.astype(np.int32),
             rows[order].astype(np.int32))
 
 
@@ -303,6 +326,30 @@ def ell_tiles(packed, group_max: int = ELL_GROUP_MAX) -> EllTiles:
                     i32(long_virt), int(members.max(initial=1)))
 
 
+def ell_fold_count(packed) -> int:
+    """How many of an ELL pack's virtual rows a plan folds: all but a
+    trailing run of all-zero virtual rows that repeat the last one (the same
+    ``cols`` and fold target), of which the first is kept.
+
+    A bucketized pack (ops/serve.py) pads its virtual rows with such a run,
+    all folding into the last real target: folded one by one, in order,
+    they would cost one pass each. Every row of the run computes the same
+    ``0 * B`` terms, so it adds the same +-0 or NaN; after the first, adding
+    it again changes no bit (x + v + v = x + v for v = +-0 or NaN), and in
+    the kernel's fold ``out - beta * C`` is +0 for such a row whatever its
+    C. The rows past the count are then pad rows, folded nowhere.
+    """
+    n = packed.n_virt
+    if n < 2:
+        return n
+    m0 = packed.m_base
+    vals, cols = packed.vals[m0:m0 + n], packed.cols[m0:m0 + n]
+    same = ((vals == 0).all(axis=1) & (cols == cols[-1]).all(axis=1)
+            & (packed.fold_rows == packed.fold_rows[-1]))
+    run = n - np.flatnonzero(~same)[-1] - 1 if not same.all() else n
+    return n - max(run - 1, 0)
+
+
 def check_pack_indices(packed, idx: np.ndarray, idx_limit: int) -> None:
     """Bounds of a pack's steering, checked once on the host before upload:
     a kernel trusts them for its address arithmetic."""
@@ -345,12 +392,19 @@ def check_edge_pack(packed) -> None:
 
 def check_ell_pack(packed) -> None:
     """Bounds of an ELL pack, checked once on the host before upload: the
-    gather kernel trusts ``cols`` and the hub fold trusts ``fold_rows``."""
+    gather kernel trusts ``cols`` and the hub fold trusts ``fold_rows``.
+
+    ``m_base`` is ``m`` as packed; a bucketized pack (ops/serve.py) rounds it
+    up, and its rows ``m .. m_base - 1`` must then hold only zero values:
+    they are pad rows, whose products the plan slices off."""
     shape = packed.cols.shape
     if packed.vals.shape != shape or len(shape) != 2 or shape[1] < 1:
         raise ValueError("cols and vals must be one (m_padded, R) shape")
-    if packed.m_base != packed.m:
-        raise ValueError(f"m_base {packed.m_base} must equal m {packed.m}")
+    if packed.m_base < packed.m:
+        raise ValueError(f"m_base {packed.m_base} must be at least m {packed.m}")
+    if np.any(packed.vals[packed.m:packed.m_base]):
+        raise ValueError(f"rows {packed.m}..{packed.m_base - 1} past m must be all-zero "
+                         "pad rows")
     if packed.m_base + packed.n_virt > shape[0]:
         raise ValueError("the virtual hub rows run past m_padded")
     if packed.cols.size and (packed.cols.min() < 0 or packed.cols.max() >= max(packed.k, 1)):
@@ -476,13 +530,22 @@ def check_csr(ptr: torch.Tensor, items: Sequence[torch.Tensor], names: Sequence[
     return items[0].shape[0]
 
 
-def no_tf32() -> None:
-    """The plain versions contract with ``einsum``; on the card that is a
-    cuBLAS matmul, which would round its inputs to TF32 (10-bit mantissa)
-    if allowed. The JAX package contracts at ``Precision.HIGHEST``, so both
-    TF32 switches are turned off before every plain contraction."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+@contextlib.contextmanager
+def no_tf32():
+    """Both TF32 switches off inside the block, as the caller left them
+    after it. The plain versions contract with ``einsum``/``matmul``; on the
+    card that is a cuBLAS matmul, which would round its inputs to TF32
+    (10-bit mantissa) if allowed. The JAX package contracts at
+    ``Precision.HIGHEST`` and leaves global state alone, so every plain
+    contraction runs inside this (``with no_tf32():``, or ``@no_tf32()`` on a
+    function) and the caller's setting survives the call."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
 
 
 def rank_groups(index: torch.Tensor):

@@ -29,6 +29,7 @@ and the f64 ``ell`` engine; ``xla`` ignores it.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -43,6 +44,7 @@ from sextans_tpu_torch.ops.launch import (
     check_edge_pack,
     check_ell_pack,
     check_pack_indices,
+    ell_fold_count,
     ell_tiles,
     row_runs,
     slab_visits,
@@ -58,7 +60,7 @@ from sextans_tpu_torch.ops.spmm_slab import (
     spmm_slab_skinny_padded,
 )
 
-__all__ = ["SpmmPlan", "BACKENDS", "BACKEND_FORMATS", "PACKS", "resolve_device",
+__all__ = ["SpmmPlan", "BACKENDS", "BACKEND_FORMATS", "PACKS", "FORMATS", "resolve_device",
            "dense_operand"]
 
 # backend -> (the packer that makes its format, the pack type it runs on);
@@ -73,6 +75,8 @@ BACKEND_FORMATS = {
 }
 BACKENDS = ("auto", *BACKEND_FORMATS)
 PACKS = tuple(dict.fromkeys(kind for _, kind in BACKEND_FORMATS.values()))
+# the JAX package's format names -> their packers
+FORMATS = {"vpu": pack, "mxu": pack_mxu, "edge": pack_edge, "ell": pack_ell}
 
 
 def resolve_device(device) -> torch.device:
@@ -92,7 +96,16 @@ def dense_operand(x, shape, name: str, device: torch.device) -> torch.Tensor:
 
 
 def _put(a, dtype, device):
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+    """``a`` as a ``dtype`` tensor on ``device``. A read-only array (a raw
+    pack-cache entry, memory-mapped by ``format/pack_cache.py:_raw_load``) is
+    copied on the host first: ``torch.from_numpy`` warns on it, and on the
+    CPU the tensor would alias the file mapping, where a write faults. The
+    copy costs one host pass over the pack, once per device; the memmap
+    still saves the inflate of an ``.npz``."""
+    a = np.ascontiguousarray(a, dtype=dtype)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
 
 
 def _scan(packed):
@@ -109,12 +122,19 @@ def _upload(packed, device: torch.device):
     walk (:func:`_scan`; K5's :func:`~sextans_tpu_torch.ops.launch.ell_tiles`
     on a CUDA device only), each made once per device and kept on the packed
     object. Returns ``(arrays, ranges)``; ``ranges`` is None for the ELL
-    format on the CPU."""
+    format on the CPU. An ELL pack's ``fold_rows`` is uploaded up to
+    :func:`~sextans_tpu_torch.ops.launch.ell_fold_count`."""
     cache = packed.__dict__.setdefault("_dev_cache", {})
     key = str(device)
+    if isinstance(packed, PackedSpMatrixELL):
+        if "n_fold" not in cache:  # checked and counted once per pack
+            check_ell_pack(packed)
+            cache["n_fold"] = ell_fold_count(packed)
+        # a run of repeated all-zero virtual rows (a bucket's) folds once
+        if cache["n_fold"] < packed.n_virt:
+            packed = dataclasses.replace(packed, fold_rows=packed.fold_rows[:cache["n_fold"]])
     if key not in cache:
         if isinstance(packed, PackedSpMatrixELL):
-            check_ell_pack(packed)
             named = ((packed.vals, np.float32), (packed.cols, np.int32),
                      (packed.fold_rows, np.int32))
         elif isinstance(packed, PackedSpMatrixEdge):
@@ -206,6 +226,7 @@ class SpmmPlan:
         self.packed = packed
         self.m, self.k = packed.shape
         self.n = n
+        self.k_padded = packed.k_padded  # the rows B is padded to
         self.device = resolve_device(device)
         self.arrays, self.ranges = _upload(packed, self.device)
         # K1's operand tiles, where K1 runs on the tensor cores (plain mode on a card)
@@ -232,7 +253,7 @@ class SpmmPlan:
         b = dense_operand(b, (self.k, self.n), "B", self.device)
         if self._col_perm is not None:  # A was packed as A[:, col_perm]
             b = b[self._col_perm]
-        return F.pad(b, (0, 0, 0, self.packed.k_padded - self.k)).contiguous()
+        return F.pad(b, (0, 0, 0, self.k_padded - self.k)).contiguous()
 
     def pad_c(self, c) -> torch.Tensor:
         """C as the kernel takes it: row-permuted, padded to m_padded."""

@@ -87,6 +87,7 @@ def _block_contrib(vb: torch.Tensor, brows: torch.Tensor, precise: int):
     return contrib, None
 
 
+@no_tf32()
 def spmm_block_padded_ref(
     vals: torch.Tensor,  # (ng, 8, G*bk) f32
     qrow: torch.Tensor,  # (ng, G) i32
@@ -115,7 +116,6 @@ def spmm_block_padded_ref(
     :func:`_block_contrib`, one Neumaier step per block visit in pack order
     (:func:`~sextans_tpu_torch.ops.df32.add_rows_compensated`), then the
     compensated epilogue."""
-    no_tf32()
     ng = vals.shape[0]
     G, bk = group_blocks, block_k
     m_padded, n = c_padded.shape

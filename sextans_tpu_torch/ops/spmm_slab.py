@@ -151,6 +151,7 @@ _REF_CHUNK_BYTES = 256 << 20
 _REF_PRECISE_CHUNK_BYTES = 1 << 30
 
 
+@no_tf32()
 def spmm_slab_padded_ref(
     vals: torch.Tensor,  # (ng, G*bk, 128) f32
     qm: torch.Tensor,  # (ng, G) i32
@@ -176,7 +177,6 @@ def spmm_slab_padded_ref(
     goes in by one Neumaier step in pack order, and the epilogue is the
     compensated one. Works in chunks of groups. Contractions are full f32
     (see :func:`~sextans_tpu_torch.ops.launch.no_tf32`)."""
-    no_tf32()
     ng = vals.shape[0]
     G, bk = group_blocks, block_k
     m_padded, n = c_padded.shape
@@ -229,7 +229,7 @@ def _launch(entry: str, vals, qm, bcol, group_mtile, group_kwin, b_padded,
     skinny = entry == "spmm_slab_skinny_launch"
     n_slabs = m_padded // MSLAB
     n_blocks = vals.shape[0] * group_blocks
-    # both kernels visit every block once, under its slab
+    # slab_visits lists every block once (the kernels skip the parked ones)
     if check_csr(ranges[0], ranges[1:], ("slab_ptr", "slab_blocks", "slab_rows"), n_slabs,
                  vals.device) != n_blocks:
         raise ValueError(f"slab_blocks must list the {n_blocks} blocks")

@@ -20,6 +20,8 @@ the CPU.
   package's ``ell_pallas`` interpret route and its ``ell`` engine.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -37,11 +39,13 @@ from sextans_tpu_torch.ops.launch import (
     ELL_GROUP_MAX,
     ELL_LONG_ROWS,
     EllTiles,
+    ell_fold_count,
     ell_tiles,
     f32,
     fma_f32,
     rank_groups,
 )
+from sextans_tpu_torch.ops.serve import bucketize_pack
 from sextans_tpu_torch.ops.spmm_ell import (
     ELL_VEC4_MIN_N,
     ell_launch,
@@ -282,6 +286,38 @@ def test_walk_over_tiles_gives_the_plain_versions_bits(kind, with_c, precise):
     got = _walk(port, t, b, c, ALPHA, BETA if with_c else 0.0, with_c=with_c,
                 precise=precise)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("kind", ["hub_r4", "fem", "hub_r8+permuted"])
+def test_walk_over_a_bucketized_pack(kind, precise):
+    """A served ELL pack (ops/serve.py: ``m_base`` rounded up past ``m`` over
+    all-zero pad rows, the virtual rows after them, pad virtual rows that
+    fold 0 into the last target): every padded row is listed once, the walk
+    gives the plain version's bits, and its real rows are the unbucketed
+    pack's product."""
+    _, _, port = _pack(kind)
+    served = bucketize_pack(port)
+    assert served.m_base > served.m and served.m_padded > port.m_padded
+    t = ell_tiles(served)
+    assert np.array_equal(t.rows, [p for rows in _logical_rows(served) for p in rows])
+    b, _ = _operands(port, 12)
+    c = torch.zeros((served.m_padded, 12))
+    c[: port.m] = _operands(port, 12, seed=1)[1][: port.m]
+    want = _ref(served, b, c, with_c=True, precise=precise)
+    got = _walk(served, t, b, c, ALPHA, BETA, with_c=True, precise=precise)
+    assert torch.equal(got, want)
+    base = _ref(port, b, c[: port.m_padded].clone(), with_c=True, precise=precise)
+    assert torch.equal(want[: port.m], base[: port.m])
+    # as a plan uploads it: the run of pad virtual rows folded once
+    n_fold = ell_fold_count(served)
+    assert port.n_virt < n_fold < served.n_virt
+    trimmed = dataclasses.replace(served, fold_rows=served.fold_rows[:n_fold])
+    t = ell_tiles(trimmed)
+    assert np.array_equal(t.rows, [p for rows in _logical_rows(trimmed) for p in rows])
+    got = _walk(trimmed, t, b, c, ALPHA, BETA, with_c=True, precise=precise)
+    assert torch.equal(got, want)
+    assert torch.equal(_ref(trimmed, b, c, with_c=True, precise=precise), want)
 
 
 @pytest.mark.parametrize("precise", [0, 1])

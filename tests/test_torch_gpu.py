@@ -1022,3 +1022,49 @@ def test_dia_skinny_kernel_meets_nonfinite_b_and_rows_off_b(cuda, n, precise):
     split = _dia_split("band")  # offsets -60..60 run off both ends of B
     _check_dia(spmm_dia_skinny, cuda, split, n, with_c=True, precise=precise,
                poison=split.k // 2)
+
+
+SERVE_GPU_CASES = [("vpu", "pallas", 16), ("vpu", "pallas", 96), ("vpu", "xla", 40),
+                   ("mxu", "mxu", 16), ("mxu", "mxu", 96), ("edge", "edge", 16),
+                   ("edge", "edge", 96), ("ell", "ell", 40)]
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("fmt,backend,n", SERVE_GPU_CASES)
+def test_server_on_card_equals_the_unbucketed_plan(cuda, tmp_path, fmt, backend, n, precise):
+    """Two matrices of one bucket served on the card through the pack
+    cache: each product equal to SpmmPlan on the unbucketed pack (K1 in
+    plain mode, on the tensor cores, within 4 ulp of max|C|), the second
+    in a warm bucket, and no kernel build after the first plan."""
+    from sextans_tpu_torch.ops.plan import FORMATS
+    from sextans_tpu_torch.runtime.build import build_kernels
+
+    cfg = tx.SpmmConfig(tile_m=256, window_k=256, block_k=8, group_blocks=16,
+                        precise=precise)
+    cache = tx.PackCache(root=tmp_path)
+    server = tx.SpmmServer(n, config=cfg, fmt=fmt, backend=backend, pack_cache=cache,
+                           device=cuda)
+    mats = [tx.COOMatrix.random(1030, 777, 12000, seed=3, banded=True, bandwidth=90),
+            tx.COOMatrix.random(1045, 790, 12100, seed=4, banded=True, bandwidth=90)]
+    builds = None
+    for i, coo in enumerate(mats):
+        plan = server.plan(coo, f"m{i}")
+        assert plan.bucket_new == (i == 0)
+        if builds is None:
+            plan(np.zeros((coo.shape[1], n), np.float32))  # the first launch builds
+            builds = build_kernels.cache_info().misses  # the library builds on a miss
+        rng = np.random.default_rng(i)
+        b = rng.standard_normal((coo.shape[1], n)).astype(np.float32)
+        c = rng.standard_normal((coo.shape[0], n)).astype(np.float32)
+        got = plan(b, ALPHA, BETA, c)
+        assert got.device == cuda and got.shape == (coo.shape[0], n)
+        want = tx.SpmmPlan(FORMATS[fmt](coo, cfg), n, backend,
+                           device=cuda)(b, ALPHA, BETA, c)
+        if fmt == "mxu" and n > 32 and not precise:
+            unit = np.spacing(np.float32(want.abs().max().item()))
+            assert (got - want).abs().max().item() <= 4 * unit
+        else:
+            assert torch.equal(got, want)
+        exact = tx.golden_spmm_exact(tx.CSRMatrix.from_coo(coo), b, ALPHA, BETA, c)
+        assert tx.verify(exact, got.cpu().numpy()).passed
+    assert build_kernels.cache_info().misses == builds

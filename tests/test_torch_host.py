@@ -218,6 +218,90 @@ def test_edge_and_ell_save_load_match_reference(tmp_path, fmt):
             tmp_path / "port.npz")
 
 
+@pytest.mark.parametrize("reorder", [False, True])
+@pytest.mark.parametrize("fmt", ["block", "slab"])
+def test_block_and_slab_save_load_match_reference(tmp_path, fmt, reorder):
+    port_coo, ref_coo = MATRICES["random"]()
+    if fmt == "block":
+        kw = dict(tile_m=64, window_k=128, block_k=8, group_blocks=16, precise=1)
+        port_packer, ref_packer, idx = tx.pack, ref_pack, "qrow"
+        port_cls, other = tx.PackedSpMatrix, tx.PackedSpMatrixMXU
+    else:
+        kw = dict(tile_m=128, window_k=128, block_k=16, group_blocks=4, tile_n=256)
+        port_packer, ref_packer, idx = tx.pack_mxu, ref_pack_mxu, "qm"
+        port_cls, other = tx.PackedSpMatrixMXU, tx.PackedSpMatrix
+    port = port_packer(port_coo, tx.SpmmConfig(**kw), reorder_cols=reorder,
+                       reorder_rows_=reorder)
+    ref = ref_packer(ref_coo, RefConfig(**kw), impl="numpy", reorder_cols=reorder,
+                     reorder_rows_=reorder)
+    port.save(tmp_path / "port.npz")
+    ref.save(tmp_path / "ref.npz")
+    with np.load(tmp_path / "port.npz") as a, np.load(tmp_path / "ref.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in a.files:
+            assert a[key].dtype == b[key].dtype and a[key].tobytes() == b[key].tobytes(), key
+    ref_cls = type(ref)
+    for path in ("port.npz", "ref.npz"):  # each package loads the other's file
+        got, want = port_cls.load(tmp_path / path), ref_cls.load(tmp_path / path)
+        assert_same_pack(got, want, idx)
+        assert_same_pack(got, port, idx)
+    if fmt == "block":  # the block load does not check the format (as in the JAX package)
+        with pytest.raises(ValueError, match="not an MXU"):
+            other.load(tmp_path / "port.npz")
+
+
+def _same_sharded(port, ref):
+    for name in ("m", "k", "nnz", "n_shards", "m_local", "n_mtiles_local", "n_kwins", "mode",
+                 "fmt", "m_padded", "k_padded", "n_groups"):
+        assert getattr(port, name) == getattr(ref, name), name
+    assert asdict(port.config) == asdict(ref.config)
+    for name in ("vals", "qrow", "bcol", "group_mtile", "group_kwin", "tile_assign",
+                 "shard_nnz"):
+        a, b = getattr(port, name), getattr(ref, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            assert a.tobytes() == b.tobytes(), name
+    assert len(port.shards) == len(ref.shards)
+    assert port.nnz_imbalance == ref.nnz_imbalance
+
+
+SHARD_CFGS = {"vpu": dict(tile_m=64, window_k=128, block_k=8, group_blocks=16),
+              "mxu": dict(tile_m=128, window_k=128, block_k=16, group_blocks=4),
+              "edge": dict(tile_m=64, window_k=128, edge_chunk=32, edge_lanes=2),
+              "ell": dict(tile_m=64)}
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("fmt", sorted(SHARD_CFGS))
+def test_partition_byte_identical(fmt, shards):
+    from sextans_tpu.parallel import partition as ref_part
+    from sextans_tpu_torch.parallel import partition as port_part
+
+    port_coo, ref_coo = _hub_pair() if fmt == "ell" else MATRICES["empty_mtiles"]()
+    cfg, ref_cfg = tx.SpmmConfig(**SHARD_CFGS[fmt]), RefConfig(**SHARD_CFGS[fmt])
+    for balance in ("contiguous", "nnz"):
+        _same_sharded(tx.pack_sharded(port_coo, shards, cfg, fmt=fmt, balance=balance),
+                      ref_part.pack_sharded(ref_coo, shards, ref_cfg, fmt=fmt, balance=balance))
+    _same_sharded(tx.pack_sharded_k(port_coo, shards, cfg, fmt=fmt),
+                  ref_part.pack_sharded_k(ref_coo, shards, ref_cfg, fmt=fmt))
+    if fmt == "ell":
+        return
+    # the padding alone: a pack grown by a few groups (chunks), as serving pads it
+    packer = {"vpu": (tx.pack, ref_pack), "mxu": (tx.pack_mxu, ref_pack_mxu),
+              "edge": (tx.pack_edge, ref_pack_edge)}[fmt]
+    port_p = packer[0](port_coo, cfg, reorder_cols=True)
+    ref_p = packer[1](ref_coo, ref_cfg, impl="numpy", reorder_cols=True)
+    units = port_p.n_chunks if fmt == "edge" else port_p.n_groups
+    got = port_part._pad_shard_groups(port_p, units + shards)
+    want = ref_part._pad_shard_groups(ref_p, units + shards)
+    if fmt == "edge":
+        assert_same_arrays(got, want, EDGE_ARRAYS, ("n_mtiles", "n_kwins"))
+    else:
+        assert_same_pack(got, want, "qm" if fmt == "mxu" else "qrow")
+    assert port_part._pad_shard_groups(port_p, units) is port_p
+
+
 def test_pack_impl_choices():
     coo, _ = MATRICES["random"]()
     cfg = tx.SpmmConfig(tile_m=128, window_k=128, block_k=8, group_blocks=16)

@@ -492,3 +492,34 @@ def test_cli_hybrid_prints_success(tmp_path, capsys, n, backend):
     assert rc == 0, out
     assert "HybridSplit(m=600" in out and "Success!" in out
     assert "Kernel time is" in out and "GFLOPS:" in out
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+def test_plain_contractions_leave_the_callers_tf32_switches(precise):
+    """The plain versions contract in full f32 (``ops/launch.py:no_tf32``)
+    and hand both TF32 switches back as the caller set them: the block and
+    slab plain versions and a hybrid step with head columns and rows."""
+    _, port = _mixed()
+    split = tx.split_structure(port, n=16, min_head_cols=1, min_head_rows=1)
+    assert split.head_cols.size and split.head_rows.size and split.residue.nnz
+    cfg = tx.SpmmConfig(tile_m=128, window_k=128, block_k=8, group_blocks=16)
+    plans = [tx.HybridSpmmPlan(split, 16, residue_config=cfg, backend="pallas",
+                               precise=precise, device="cpu"),
+             tx.SpmmPlan(tx.pack(port, cfg), 16, "xla", device="cpu"),
+             tx.SpmmPlan(tx.pack_mxu(port, cfg.with_(precise=precise)), 16, "mxu",
+                         device="cpu")]
+    b = np.random.default_rng(0).standard_normal((port.shape[1], 16)).astype(np.float32)
+    switches = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [s.allow_tf32 for s in switches]
+    try:
+        for s in switches:
+            s.allow_tf32 = False
+        want = [pl(b, ALPHA) for pl in plans]
+        for s in switches:
+            s.allow_tf32 = True
+        got = [pl(b, ALPHA) for pl in plans]
+        assert all(s.allow_tf32 is True for s in switches)
+    finally:
+        for s, v in zip(switches, saved):
+            s.allow_tf32 = v
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

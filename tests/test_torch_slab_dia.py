@@ -1,11 +1,14 @@
 """The host scans and the arithmetic order of the slab kernels (K1, K2)
 and the DIA kernels (K6, K7), on the CPU.
 
-* ``slab_visits`` lists every block of a slab pack once, under its (M-tile,
-  ``qm``) slab, in the order in which the parent kernels took them: the
-  M-tile's groups in group order, then the blocks of a group; pad groups
-  and empty slabs and M-tiles included; beside each block, the B row where
-  its terms start. Both slab kernels walk it at every N (``SpmmPlan``).
+* ``slab_visits`` lists every block of a slab pack once: each block that
+  holds a nonzero, and of the all-zero blocks the first per (slab,
+  K-window, bcol), under its (M-tile, ``qm``) slab, in the order in which
+  the parent kernels took them (the M-tile's groups in group order, then
+  the blocks of a group; pad groups and empty slabs and M-tiles included),
+  the other all-zero blocks parked after the last slab's list; beside each
+  block, the B row where its terms start. Both slab kernels walk it at
+  every N (``SpmmPlan``).
 * A walk of the FFMA loop over those lists (per block the FFMA chain over
   kk from +0 by ``fma_f32``, then ``acc += cf``, or a Neumaier step after
   every 8 terms in precise mode; the kernel's epilogue) gives the same bits
@@ -43,6 +46,7 @@ from sextans_tpu_torch.ops.launch import (
     fma_f32,
     slab_visits,
 )
+from sextans_tpu_torch.ops.serve import bucketize_pack
 from sextans_tpu_torch.utils.config import round_up
 from sextans_tpu_torch.ops.spmm_dia import (
     DIA_SPAN_MAX,
@@ -115,6 +119,26 @@ def _parent_lists(packed):
     return ptr, np.array([b for x in lists for b in x], dtype=np.int32)
 
 
+def _kept_lists(packed):
+    """The parent's lists with the all-zero blocks after the first of each
+    (slab, K-window, bcol) dropped, by a plain loop."""
+    G = packed.config.group_blocks
+    ptr, blocks = _parent_lists(packed)
+    zero = ~(packed.vals.reshape(packed.n_groups * G, -1) != 0).any(axis=1)
+    lists = []
+    for s in range(ptr.size - 1):
+        seen, kept = set(), []
+        for b in blocks[ptr[s]:ptr[s + 1]]:
+            key = (packed.group_kwin[b // G], packed.bcol[b // G, b % G])
+            if not zero[b] or key not in seen:
+                kept.append(b)
+            if zero[b]:
+                seen.add(key)
+        lists.append(kept)
+    ptr = np.concatenate([[0], np.cumsum([len(x) for x in lists])]).astype(np.int32)
+    return ptr, np.array([b for x in lists for b in x], dtype=np.int32)
+
+
 @pytest.mark.parametrize("cfg", SLAB_CONFIGS)
 @pytest.mark.parametrize("kind", ["banded", "empty_mtiles", "dense_rows"])
 def test_slab_visits_list_every_block_once_in_pack_order(kind, cfg):
@@ -125,23 +149,25 @@ def test_slab_visits_list_every_block_once_in_pack_order(kind, cfg):
     brow = (packed.group_kwin.astype(np.int64)[:, None] * cfg["window_k"] + packed.bcol)
     assert np.array_equal(rows, brow.reshape(-1)[blocks])
     assert ptr.size == packed.n_mtiles * per_tile + 1 and ptr[0] == 0
-    assert np.all(np.diff(ptr) >= 0) and ptr[-1] == blocks.size == packed.n_groups * G
+    assert np.all(np.diff(ptr) >= 0) and ptr[-1] <= blocks.size == packed.n_groups * G
     assert np.array_equal(np.sort(blocks), np.arange(blocks.size))  # each block once
+    zero = ~(packed.vals.reshape(packed.n_groups * G, -1) != 0).any(axis=1)
+    assert not zero[blocks[ptr[-1]:]].size or zero[blocks[ptr[-1]:]].all()  # parked: pads
+    assert np.array_equal(blocks[ptr[-1]:], np.sort(blocks[ptr[-1]:]))
     tiles = packed.group_mtile[:-1].astype(np.int64)
     slab = (tiles[:, None] * per_tile + packed.qm).reshape(-1)
     owner = np.repeat(np.arange(ptr.size - 1), np.diff(ptr))
-    assert np.array_equal(slab[blocks], owner)
+    assert np.array_equal(slab[blocks[:ptr[-1]]], owner)
     for s in range(ptr.size - 1):
         assert np.all(np.diff(blocks[ptr[s]:ptr[s + 1]]) > 0)
-    parent_ptr, parent_blocks = _parent_lists(packed)
-    assert np.array_equal(ptr, parent_ptr) and np.array_equal(blocks, parent_blocks)
+    kept_ptr, kept_blocks = _kept_lists(packed)
+    assert np.array_equal(ptr, kept_ptr) and np.array_equal(blocks[:ptr[-1]], kept_blocks)
     empty = np.diff(ptr) == 0
     if kind == "banded" and packed.m_padded - packed.m >= MSLAB:
         assert empty.any()  # slabs of padding rows, which no block reaches
     if kind == "empty_mtiles":
         assert empty.any() == (per_tile > 1)  # an empty M-tile's pads go to its slab 0
-        zero = ~(packed.vals.reshape(blocks.size, -1) != 0).any(axis=1)
-        assert zero.any()  # pad blocks, listed under slab 0 of their M-tile
+        assert zero[blocks[:ptr[-1]]].any()  # pad blocks, listed under slab 0 of their M-tile
         assert np.all(packed.qm.reshape(-1)[zero] == 0)
     if kind == "dense_rows":
         assert np.diff(ptr).max() > SKINNY_STAGES
@@ -224,6 +250,37 @@ def test_slab_walk_over_the_scan_keeps_the_parent_order(kind, cfg, n, poison, pr
     if finite.any():
         tol = 4 * np.spacing(np.float32(plain[finite].abs().max().item()))
         assert (got[finite] - plain[finite]).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("poison", [None, np.nan])
+def test_slab_walk_over_a_bucketized_pack(poison, precise):
+    """A served slab pack (ops/serve.py) appends zero-valued pad groups to
+    slab 0 of its last M-tile: the scan keeps one of them, so no slab's list
+    grows by more than one block, and the walk still gives the parent
+    lists' bits and, on the real rows, the unbucketed pack's."""
+    packed = _slab_pack("banded", SLAB_CONFIGS[0], precise)
+    served = bucketize_pack(packed)
+    assert served.n_groups > packed.n_groups
+    assert np.diff(slab_visits(served)[0]).max() <= np.diff(slab_visits(packed)[0]).max() + 1
+    rng = np.random.default_rng(3)
+    b_p = torch.zeros((served.k_padded, 24))
+    b_p[:packed.k_padded] = torch.from_numpy(
+        rng.standard_normal((packed.k_padded, 24)).astype(np.float32))
+    if poison is not None:
+        b_p[0] = float(poison)  # the row the pad blocks read
+    c_p = torch.zeros((served.m_padded, 24))
+    c_p[:packed.m_padded] = torch.from_numpy(
+        rng.standard_normal((packed.m_padded, 24)).astype(np.float32))
+    got = _walk_slabs(served, slab_visits(served), b_p, c_p, precise)
+    parent = _walk_slabs(served, _parent_lists(served), b_p, c_p, precise)
+    assert torch.equal(got.nan_to_num(), parent.nan_to_num())
+    assert torch.equal(torch.isnan(got), torch.isnan(parent))
+    base = _walk_slabs(packed, slab_visits(packed), b_p[:packed.k_padded],
+                       c_p[:packed.m_padded], precise)
+    m = packed.m
+    assert torch.equal(got[:m].nan_to_num(), base[:m].nan_to_num())
+    assert torch.equal(torch.isnan(got[:m]), torch.isnan(base[:m]))
 
 
 @pytest.mark.parametrize("n", [5, 16, 32])

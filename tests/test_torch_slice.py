@@ -289,3 +289,54 @@ def test_cli_rejects_options_not_ported(mtx_file, capsys):
     captured = capsys.readouterr()
     assert rc == 0 and "Success!" in captured.out, captured.out
     assert "ROADMAP.md" not in captured.err
+
+
+@pytest.mark.parametrize("backend", ["pallas", "mxu", "edge", "ell"])
+def test_cli_save_packed_writes_the_jax_packages_file(mtx_file, tmp_path, backend, capsys):
+    path = tmp_path / "a.npz"
+    rc = cli_main([str(mtx_file), "13", "--backend", backend, "--device", "cpu",
+                   "--tile-m", "128", "--window-k", "128", "--group-blocks", "16",
+                   "--save-packed", str(path)])
+    out = capsys.readouterr().out
+    assert rc == 0 and "Success!" in out and f"packed A saved to {path}" in out, out
+    kind = tx.ops.plan.BACKEND_FORMATS[backend][1]
+    port, ref = kind.load(path), getattr(sx, kind.__name__).load(path)
+    for name in ("vals", "group_kwin" if backend in ("pallas", "mxu") else
+                 "meta" if backend == "edge" else "cols"):
+        assert getattr(port, name).tobytes() == getattr(ref, name).tobytes(), name
+    coo = tx.read_mtx(mtx_file)
+    b, c = _operands(*coo.shape, 16)
+    got = tx.plan(port, 16, backend, device="cpu")(b, 0.85, -2.06, c).numpy()
+    assert tx.verify(tx.golden_spmm_exact(tx.CSRMatrix.from_coo(coo), b, 0.85, -2.06, c),
+                     got).passed
+
+
+@pytest.mark.parametrize("flags", [["--reorder-cols"], ["--reorder-rows"],
+                                   ["--reorder-cols", "--reorder-rows"]])
+@pytest.mark.parametrize("backend", ["auto", "mxu", "edge"])
+def test_cli_reorders_before_packing(mtx_file, tmp_path, backend, flags, capsys):
+    path = tmp_path / "a.npz"
+    args = [str(mtx_file), "13", "--device", "cpu", "--tile-m", "128", "--window-k", "128",
+            "--group-blocks", "16", *flags, "--save-packed", str(path)]
+    rc = cli_main(args if backend == "auto" else [*args, "--backend", backend])
+    out = capsys.readouterr().out
+    assert rc == 0 and "Success!" in out, out
+    packed = (tx.PackedSpMatrixEdge if backend == "edge" else tx.PackedSpMatrixMXU
+              if backend == "mxu" else tx.PackedSpMatrix).load(path)
+    assert (packed.col_perm is not None) == ("--reorder-cols" in flags)
+    assert (packed.row_perm is not None) == ("--reorder-rows" in flags)
+
+
+def test_cli_defaults_to_auto_and_skips_the_cpu_run(mtx_file, capsys):
+    assert tx.cli.build_parser().parse_args([str(mtx_file), "8"]).backend == "auto"
+    rc = cli_main([str(mtx_file), "13", "--device", "cpu", "--skip-cpu"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "Kernel time is" in out, out
+    assert "Run spmm on cpu" not in out and "Success!" not in out
+    rc = cli_main([str(mtx_file), "13", "--device", "cpu", "--hybrid", "--tile-m", "64"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "Success!" in out, out  # auto: the residue on the block format
+    for backend in ("ell", "ell_pallas"):
+        with pytest.raises(SystemExit, match="permutation-invariant"):
+            cli_main([str(mtx_file), "8", "--device", "cpu", "--backend", backend,
+                      "--reorder-rows"])
