@@ -119,6 +119,28 @@ Phases (each prints its lines; any failure exits non-zero):
    ``SEXTANS_PACK_RAW_BYTES``) to the same bits; ``HybridSpmmPlan`` with
    its residue through the cache equals the uncached plan on synthetic4704
    N = 512 (K6 and K3); ``build_kernels.cache_info()`` does not change.
+12. Training (``spmm_value_op``, ``ops/autodiff.py``): (a) cant_like N =
+   512 through K1, the op built from cant_like's pattern with every value 0
+   (what a plan over values walks must be the structure, not the values it
+   was built from), 5 Adam steps (lr 1e-3) on vals (from seed-1 normals)
+   and B toward a target made with cant_like's own values, the loss
+   falling at every step; (b) one step at synthetic4704 through K3 (N =
+   512, and precise 1), K1 (N = 512), K2 (N = 16), K4 and K5 (N = 512),
+   and through K3 and K2 built from values that are zero on rows 0-2351;
+   (c) ``examples/train_sparse_torch.py`` on the card (loss < 1e-4). Each
+   run of (a) and (b) holds step 1 against f64: A @ B and dB (on the CSR
+   of A^T, by ``utils/device_verify.py``) within 4 ulp of max|.|, or no
+   further than the plain versions' own f32 sums on the same inputs, and
+   never a ulp past them; dvals (the SDDMM) within 4 ulp of max|dvals|; dC
+   = beta G to the bit; dalpha and dbeta within 2^-20 of sum|G * AB|
+   (sum|G * C|); the forward and A^T kernels against their plain versions
+   on the card (K1 and K2 4 ulp, K3 1, K4, K5 and precise K3 0); and where
+   the op's packs hold the matrix's values, its scatter gives them to the
+   bit. Each prints its losses, its step by ``time_chained`` (forward,
+   backward, Adam) and by CUDA events the scatter, ``slab_image``, the
+   forward and A^T kernels and the SDDMM, beside the library's step
+   (``torch.sparse.mm`` forward and A^T, ``sampled_addmm``, timed only),
+   with the card's name and power limit; no build in the phase.
 
 Timings. Beside each kernel of phases 2 and 4: its plain version's time, the
 library call ``torch.sparse.addmm(C, A_csr, B, beta, alpha)`` on the same
@@ -149,7 +171,7 @@ calls' host-clock time. Each hybrid run of phase 5 prints the same for its
 split (seconds, bytes of every part on the card), with the DIA kernel and
 the residue's kernel apart in the profile.
 
-Every run of phases 3, 4, 5, 7, 8, 9, 10 and 11 is one path: the launch counters are
+Every run of phases 3, 4, 5, 7, 8, 9, 10, 11 and 12 is one path: the launch counters are
 set to 0 just before it and read just after, and its kernels must have
 launched. Nothing failing is passed over: a kernel that does not build or
 launch raises, and nothing falls back to a plain version or the CPU.
@@ -420,6 +442,281 @@ def gather_probes(kernels: dict, launches: dict) -> None:
               f"{bound_ms:.5f} ms ({bound_by})", flush=True)
     del b, operands
     torch.cuda.empty_cache()
+
+
+# phase 12's runs at synthetic4704: (format, N, precise level, built from
+# values that are zero on rows 0-2351); the first run is cant_like's
+TRAIN_CASES = (("vpu", 512, 0, False), ("vpu", 512, 0, True), ("vpu", 512, 1, False),
+               ("mxu", 512, 0, False), ("mxu", 16, 0, False), ("mxu", 16, 0, True),
+               ("edge", 512, 0, False), ("ell", 512, 0, False))
+TRAIN_STEPS = 5  # Adam steps on cant_like
+TRAIN_LR = 1e-3
+SDDMM_CHUNK = 65536
+# each reading of the f64 oracle (utils/device_verify.py) adds in the
+# card's atomic order, which moves it by ~1e-9 ulp from one call to the next
+ORACLE_SLACK = 1e-6
+
+
+def value_kernel(fmt: str, n: int, precise: int) -> str:
+    """The kernel a value op of ``fmt`` runs forward and on A^T at N = n."""
+    from sextans_tpu_torch.ops.spmm_slab import SKINNY_MAX_N
+
+    name = {"vpu": "spmm_block", "edge": "spmm_edge", "ell": "spmm_ell",
+            "mxu": "spmm_slab" if n > SKINNY_MAX_N else "spmm_slab_skinny"}[fmt]
+    return f"{name}_precise{precise}" if precise else name
+
+
+def plain_product(plan, pv, x):
+    """``A(pv) @ x`` (unscaled, no C) through the plain version of
+    ``plan``'s kernel on the same device: the value op with the plain
+    versions on the card."""
+    from sextans_tpu_torch.ops.spmm_block import spmm_block_padded, spmm_block_padded_ref
+    from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded, spmm_edge_padded_ref
+    from sextans_tpu_torch.ops.spmm_ell import (
+        spmm_ell_gather_padded,
+        spmm_ell_gather_padded_ref,
+    )
+    from sextans_tpu_torch.ops.spmm_slab import (
+        spmm_slab_padded,
+        spmm_slab_padded_ref,
+        spmm_slab_skinny_padded,
+    )
+
+    plain = {spmm_block_padded: spmm_block_padded_ref, spmm_edge_padded: spmm_edge_padded_ref,
+             spmm_ell_gather_padded: spmm_ell_gather_padded_ref,
+             spmm_slab_padded: spmm_slab_padded_ref,
+             spmm_slab_skinny_padded: spmm_slab_padded_ref}[plan._run.func]
+    kw = {k: v for k, v in plan._run.keywords.items() if k not in ("ranges", "image")}
+    return plan.unpad(plain(pv, *plan.arrays[1:], plan.pad_b(x), plan.no_c(), 1.0, 0.0,
+                            with_c=False, **kw))
+
+
+def f64_sddmm(rows, cols, g, b):
+    """``g[rows[e]] . b[cols[e]]`` in f64 on the device, in chunks."""
+    import torch
+
+    out = torch.empty(rows.numel(), dtype=torch.float64, device=g.device)
+    for e0 in range(0, rows.numel(), SDDMM_CHUNK):
+        e1 = min(rows.numel(), e0 + SDDMM_CHUNK)
+        out[e0:e1] = (g[rows[e0:e1]].double() * b[cols[e0:e1]].double()).sum(dim=1)
+    return out
+
+
+def training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, smi) -> None:
+    """Phase 12: the differentiable SpMM (``spmm_value_op``) on the card.
+
+    (a) cant_like N = 512 through K1: the op built from the pattern with
+    every value 0, 5 Adam steps on vals and B toward a target made with
+    cant_like's own values, the loss falling at every step; (b) one step at
+    synthetic4704 through each of K1-K5 (``TRAIN_CASES``). Each run is one
+    path (counters set to 0 just before, read just after) and holds step
+    1's output and gradients against f64 and its kernels against their
+    plain versions on the card; then times the step (``time_chained``), its
+    parts and the library's. (c) ``examples/train_sparse_torch.py`` on the
+    card. Adds each run's launches to ``launches``."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    import sextans_tpu_torch as sx
+    from sextans_tpu_torch.ops.spmm_slab import slab_image
+    from sextans_tpu_torch.utils.device_verify import device_full_check
+    from sextans_tpu_torch.utils.timing import event_ms, time_chained
+
+    def ulp_of(x) -> float:
+        return float(np.spacing(np.float32(x)))
+
+    def csr_tensor(coo, vals):
+        csr = sx.CSRMatrix.from_coo(sx.COOMatrix(coo.shape, coo.rows, coo.cols, vals))
+        t = torch.sparse_csr_tensor(
+            torch.as_tensor(csr.indptr.astype(np.int32), device="cuda"),
+            torch.as_tensor(csr.indices.astype(np.int32), device="cuda"),
+            torch.as_tensor(csr.vals, device="cuda"), size=coo.shape)
+        return csr, t
+
+    def run(tag, coo, built, fmt, n, cfg, steps, iters):
+        """One value op: built from ``built``'s values, trained from
+        random values toward ``coo``'s."""
+        m, k = coo.shape
+        kernel = value_kernel(fmt, n, int(cfg.precise))
+        t0 = time.perf_counter()
+        op = sx.spmm_value_op(built, n, config=cfg, fmt=fmt, device="cuda")
+        t_build = time.perf_counter() - t0
+        b_np, c_np = operands(m, k, n)
+        b0, c = (torch.as_tensor(x, device="cuda") for x in (b_np, c_np))
+        true_vals = torch.as_tensor(coo.vals, device="cuda")
+        v0 = torch.as_tensor(np.random.default_rng(1).standard_normal(coo.nnz)
+                             .astype(np.float32), device="cuda")
+        scatter_exact = ""
+        if built is coo:  # the op's own packs hold coo's values: the scatter gives them
+            same = all(torch.equal(sc(true_vals).cpu(), torch.as_tensor(pl.packed.vals))
+                       for sc, pl in ((op.scatter, op.fwd_plan), (op.scatter_t, op.bwd_plan)))
+            if not same:
+                fail(f"{tag}: scattering the values does not give the packs' values")
+            scatter_exact = "; scatter of A's values = its packs' values to the bit"
+        with torch.no_grad():
+            target = op(true_vals, b0, c, ALPHA, BETA)
+        vals = v0.clone().requires_grad_()
+        b = b0.clone().requires_grad_()
+        c_leaf = c.clone().requires_grad_()
+        al = torch.tensor(ALPHA, device="cuda", requires_grad=True)
+        be = torch.tensor(BETA, device="cuda", requires_grad=True)
+        opt = torch.optim.Adam([vals, b], lr=TRAIN_LR)
+
+        def loss_of(out):
+            return torch.mean((out - target) ** 2)
+
+        for fn in counted.values():
+            fn.launches = 0
+        losses, first = [], {}
+        for step in range(steps):
+            opt.zero_grad()
+            out = op(vals, b, c_leaf, al, be)
+            if step == 0:
+                out.register_hook(lambda g: first.setdefault("g", g.detach().clone()))
+            loss = loss_of(out)
+            loss.backward()
+            if step == 0:
+                first.update(out=out.detach().clone(), dvals=vals.grad.clone(),
+                             db=b.grad.clone(), dc=c_leaf.grad.clone(),
+                             dalpha=al.grad.clone(), dbeta=be.grad.clone())
+            opt.step()
+            losses.append(loss.item())
+        with torch.no_grad():
+            losses.append(loss_of(op(vals, b, c_leaf, al, be)).item())
+        torch.cuda.synchronize()
+        ran = {name: fn.launches for name, fn in counted.items() if fn.launches}
+        base = kernel.split("_precise")[0]
+        if set(ran) != {base} or ran[base] < 2 * steps + 1:
+            fail(f"{tag}: launches {ran}, expected {base} at least {2 * steps + 1} times")
+        launches[kernel] = launches.get(kernel, 0) + ran[base]
+        if not all(l1 < l0 for l0, l1 in zip(losses, losses[1:])):
+            fail(f"{tag}: the loss did not fall at every step: {losses}")
+
+        # step 1 against f64 and the plain versions, at v0, b0 and its cotangent
+        g = first["g"]
+        with torch.no_grad():
+            pv, pv_t = op.scatter(v0), op.scatter_t(v0)
+            ab, atg = op.ab(v0, b0), op.atg(v0, g)
+            ab_plain = plain_product(op.fwd_plan, pv, b0)
+            atg_plain = plain_product(op.bwd_plan, pv_t, g)
+        band = (0.0 if base in ("spmm_edge", "spmm_ell") or cfg.precise
+                else 1.0 if base == "spmm_block" else ULP_BAR)
+        diffs = [(x - y).abs().max().item() / ulp_of(y.abs().max().item())
+                 for x, y in ((ab, ab_plain), (atg, atg_plain))]
+        if not all(d <= band for d in diffs):
+            fail(f"{tag}: kernel - plain {diffs} ulp, band {band:g}")
+        csr, a_csr = csr_tensor(coo, v0.cpu().numpy())
+        csr_t, a_t_csr = csr_tensor(coo.transpose(), v0.cpu().numpy())
+        chk = {"AB": device_full_check(ab, csr, b0, 1.0, 0.0, None),
+               "AB plain": device_full_check(ab_plain, csr, b0, 1.0, 0.0, None),
+               "C": device_full_check(first["out"], csr, b0, ALPHA, BETA, c),
+               "dB": device_full_check(first["db"], csr_t, g, ALPHA, 0.0, None),
+               "dB plain": device_full_check(ALPHA * atg_plain, csr_t, g, ALPHA, 0.0, None)}
+        ulps = {key: r["max_abs_vs_f64"] / ulp_of(r["c_max_abs"]) for key, r in chk.items()}
+        # a product without C is held to ULP_BAR of its max, or where the
+        # plain versions' own f32 sums reach further on these inputs, to
+        # theirs; never more than a ulp past them
+        near = all(ulps[key] <= max(ULP_BAR, ulps[f"{key} plain"] + ORACLE_SLACK)
+                   and ulps[key] <= ulps[f"{key} plain"] + 1.0 for key in ("AB", "dB"))
+        sd64 = f64_sddmm(op.rows, op.cols, g, b0)
+        dvals64 = float(np.float32(ALPHA)) * sd64
+        ulps["dvals"] = ((first["dvals"].double() - dvals64).abs().max().item()
+                         / ulp_of(dvals64.abs().max().item()))
+        g64 = g.double()
+        dalpha64 = (v0.double() * sd64).sum().item()
+        dbeta64 = (g64 * c.double()).sum().item()
+        alpha_bar = 2.0**-20 * (g64 * ab.double()).abs().sum().item()
+        beta_bar = 2.0**-20 * (g64 * c.double()).abs().sum().item()
+        alpha_err = abs(first["dalpha"].item() - dalpha64)
+        beta_err = abs(first["dbeta"].item() - dbeta64)
+        dc_exact = torch.equal(first["dc"], be.detach() * g)
+        ok = (near and ulps["dvals"] <= ULP_BAR and dc_exact
+              and alpha_err <= alpha_bar and beta_err <= beta_bar
+              and bool(torch.isfinite(first["db"]).all() and torch.isfinite(first["dvals"]).all()))
+
+        # (d) the step and its parts on the card
+        def step(_):
+            opt.zero_grad()
+            loss = loss_of(op(vals, b, c_leaf, al, be))
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        t_step = time_chained(step, torch.zeros((), device="cuda"), rp_time=iters, warmup=1)
+        fwd, bwd = op.fwd_plan, op.bwd_plan
+        b_p, g_p = fwd.pad_b(b0), bwd.pad_b(g)
+        image = {}
+        if fwd._tc:
+            image = {"image": slab_image(pv, cfg.block_k)}
+            image_t = {"image": slab_image(pv_t, cfg.block_k)}
+        else:
+            image_t = {}
+        ms = {"scatter": event_ms(lambda: op.scatter(v0), iters),
+              "forward": event_ms(lambda: fwd._run(pv, *fwd.arrays[1:], b_p, fwd.no_c(), 1.0,
+                                                   0.0, with_c=False, **image), iters),
+              "A^T": event_ms(lambda: bwd._run(pv_t, *bwd.arrays[1:], g_p, bwd.no_c(), 1.0,
+                                               0.0, with_c=False, **image_t), iters),
+              "SDDMM": event_ms(lambda: op.sddmm(g, b0), iters)}
+        if image:
+            ms["slab_image"] = event_ms(lambda: slab_image(pv, cfg.block_k), iters)
+        b_t = b0.t().contiguous()
+        lib = {"forward": event_ms(lambda: torch.sparse.mm(a_csr, b0), iters),
+               "A^T": event_ms(lambda: torch.sparse.mm(a_t_csr, g), iters),
+               "sampled_addmm": event_ms(lambda: torch.sparse.sampled_addmm(
+                   a_csr, g, b_t, beta=0.0, alpha=ALPHA), iters)}
+        del image, image_t
+        print(f"{tag}: {fmt} ({fwd.backend}, precise={cfg.precise}) N={n} {m}x{k} "
+              f"nnz={coo.nnz}{' built from zero blocks' if built is not coo else ''}; op "
+              f"built in {t_build:.3f} s{scatter_exact}; losses "
+              f"{' > '.join(f'{x:.6e}' for x in losses)}; step 1 vs f64: A @ B {ulps['AB']:.4f} "
+              f"(plain versions {ulps['AB plain']:.4f}), dB {ulps['dB']:.4f} (plain versions "
+              f"{ulps['dB plain']:.4f}), dvals "
+              f"{ulps['dvals']:.4f} ulp of max (bar {ULP_BAR:g}), the op's C {ulps['C']:.4f} "
+              f"(alpha AB + beta C rounded apart, as the JAX op rounds); dC "
+              f"{'= beta G' if dc_exact else '!= beta G'}; dalpha {alpha_err:.3e} (bar {alpha_bar:.3e}), dbeta {beta_err:.3e} (bar "
+              f"{beta_bar:.3e}); kernel - plain {diffs[0]:.4f} / {diffs[1]:.4f} ulp (band "
+              f"{band:g}); [{smi}] step (time_chained: forward, backward, Adam) "
+              f"{t_step * 1e3:.4f} ms; device ms: "
+              + ", ".join(f"{key} {v:.4f}" for key, v in ms.items())
+              + f"; library step {sum(lib.values()):.4f} ms ("
+              + ", ".join(f"{key} {v:.4f}" for key, v in lib.items())
+              + f"); launches {ran} {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"{tag}: {fmt} N={n}: step 1 against f64 {ulps}, dC {dc_exact}, dalpha "
+                 f"{alpha_err:.3e} (bar {alpha_bar:.3e}), dbeta {beta_err:.3e} "
+                 f"(bar {beta_bar:.3e})")
+
+    # (a) cant_like's pattern with every value 0, through K1
+    pattern = sx.COOMatrix(cant.shape, cant.rows, cant.cols, np.zeros(cant.nnz, np.float32))
+    run("phase 12 cant_like", cant, pattern, "mxu", 512, slab_cfg, TRAIN_STEPS, 3)
+    torch.cuda.empty_cache()
+    # (b) every kernel at synthetic4704
+    for fmt, n, level, zero in TRAIN_CASES:
+        cfg = (slab_cfg if fmt == "mxu" else block_cfg).with_(precise=level)
+        built = synth
+        if zero:
+            built = sx.COOMatrix(synth.shape, synth.rows, synth.cols,
+                                 np.where(synth.rows < 2352, 0.0, synth.vals).astype(np.float32))
+        run("phase 12 synthetic4704", synth, built, fmt, n, cfg, 1, 10)
+    # (c) the example on the card
+    spec = importlib.util.spec_from_file_location(
+        "train_sparse_torch", ROOT / "examples" / "train_sparse_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    final = example.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    ran = {name: fn.launches for name, fn in counted.items() if fn.launches}
+    if set(ran) != {"spmm_block"} or final >= 1e-4:
+        fail(f"phase 12: the example reached loss {final:.3e}, launches {ran}")
+    launches["spmm_block"] += ran["spmm_block"]
+    print(f"phase 12: examples/train_sparse_torch.py on the card: 300 Adam steps, final loss "
+          f"{final:.3e} (bar 1e-4) in {time.perf_counter() - t0:.2f} s; launches {ran}",
+          flush=True)
 
 
 def main() -> int:
@@ -1280,6 +1577,15 @@ def main() -> int:
         fail(f"phase 11: the kernel library was built again: {build_kernels.cache_info()}")
     print(f"phase 11: build_kernels {build_kernels.cache_info()}: no build in the phase; "
           f"done in {time.perf_counter() - t11:.1f} s {at()}", flush=True)
+
+    # ---- phase 12: training (spmm_value_op) ----
+    t12 = time.perf_counter()
+    print(f"phase 12: training {at()}", flush=True)
+    training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, smi)
+    if build_kernels.cache_info().misses != builds:
+        fail(f"phase 12: the kernel library was built again: {build_kernels.cache_info()}")
+    print(f"phase 12: no build in the phase; done in {time.perf_counter() - t12:.1f} s {at()}",
+          flush=True)
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     probe_src = "benchmarks/scratch/mosaic_eft_probe.py"

@@ -12,6 +12,10 @@ structure split (``split_structure`` -> ``HybridSpmmPlan``): diagonals, dense
 hub columns and rows, and a residue in one of those formats. Packs persist
 in a ``PackCache`` (``$SEXTANS_PACK_CACHE_DIR``), shared with the JAX
 package; ``SpmmServer`` serves any matrix through bucket-padded packs.
+``spmm_value_op`` and ``spmm_op`` make the product differentiable
+(``torch.autograd``): with respect to A's values (an SDDMM over A's
+pattern), B, C, alpha and beta, the forward and the A^T product through the
+same kernels.
 
 Quick start::
 
@@ -42,7 +46,9 @@ from sextans_tpu_torch.format.pack_edge import PackedSpMatrixEdge, pack_edge
 from sextans_tpu_torch.format.pack_ell import PackedSpMatrixELL, pack_ell
 from sextans_tpu_torch.format.pack_cache import PackCache
 from sextans_tpu_torch.format.pack_mxu import PackedSpMatrixMXU, pack_mxu
+from sextans_tpu_torch.format.slots import slot_map
 from sextans_tpu_torch.io.mtx import MtxHeader, read_mtx, read_mtx_coo, write_mtx
+from sextans_tpu_torch.ops.autodiff import spmm_op, spmm_value_op
 from sextans_tpu_torch.ops.golden import golden_spmm, golden_spmm_exact, spmm_flops
 from sextans_tpu_torch.ops.hybrid import HybridSplit, HybridSpmmPlan, split_structure
 from sextans_tpu_torch.ops.plan import SpmmPlan
@@ -75,6 +81,7 @@ __all__ = [
     "PackedSpMatrixEdge",
     "PackedSpMatrixELL",
     "PackedSpMatrixMXU",
+    "slot_map",
     "from_reference",
     "HybridSplit",
     "split_structure",
@@ -83,6 +90,8 @@ __all__ = [
     "plan",
     "SpmmPlan",
     "spmm",
+    "spmm_op",
+    "spmm_value_op",
     "PackCache",
     "SpmmServer",
     "ServePlan",

@@ -17,6 +17,7 @@ __all__ = [
     "SMEM_LIMIT",
     "SharedMemoryError",
     "COL_MASK",
+    "structure_mask",
     "slab_visits",
     "stripe_visits",
     "dia_runs",
@@ -55,7 +56,18 @@ class SharedMemoryError(ValueError):
 COL_MASK = (1 << (ROW_SHIFT - COL_SHIFT)) - 1
 
 
-def slab_visits(packed) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+def structure_mask(packed, slots: np.ndarray) -> np.ndarray:
+    """The slots of ``packed.vals`` that its COO entries fill (``slots``:
+    :func:`~sextans_tpu_torch.format.slots.slot_map` of the matrix it was
+    packed from), as a bool array of the values' shape: the ``live`` mask of
+    the scans for a plan whose values are given at call time."""
+    live = np.zeros(packed.vals.size, dtype=bool)
+    live[slots] = True
+    return live.reshape(packed.vals.shape)
+
+
+def slab_visits(packed, live: Optional[np.ndarray] = None
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Each 128-row slab's blocks, in pack order, for the slab kernels.
 
     Returns the CSR triple ``(slab_ptr, slab_blocks, slab_rows)``: the
@@ -81,6 +93,11 @@ def slab_visits(packed) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     the kept block reads the same B rows as the dropped ones. A kernel
     visits no block twice, so a slab's chain is as long as its distinct
     blocks, however many pad groups the bucket adds.
+
+    ``live`` (the shape of ``packed.vals``, default ``packed.vals != 0``)
+    marks the slots that count as nonzero. A plan over values given at call
+    time passes its structure (:func:`structure_mask`): every block that
+    holds an entry is then walked, whatever its value now.
     """
     cfg = packed.config
     ng, G, bk = packed.n_groups, cfg.group_blocks, cfg.block_k
@@ -94,7 +111,8 @@ def slab_visits(packed) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     _check_int32(packed.k_padded, "slab_visits")
     rows = (np.asarray(packed.group_kwin, dtype=np.int64)[:, None] * cfg.window_k
             + packed.bcol).reshape(-1)
-    keep = (packed.vals.reshape(ng * G, bk * MSLAB) != 0).any(axis=1)
+    live = packed.vals != 0 if live is None else live
+    keep = live.reshape(ng * G, bk * MSLAB).any(axis=1)
     zero = np.flatnonzero(~keep)
     if zero.size:
         key = slab[zero] * packed.k_padded + rows[zero]
@@ -147,7 +165,7 @@ def _check_int32(count: int, what: str) -> None:
         raise ValueError(f"{what}: {count} flat indices do not fit in int32")
 
 
-def stripe_visits(packed) -> Tuple[np.ndarray, np.ndarray]:
+def stripe_visits(packed, live: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
     """Each 8-row stripe's block visits, in pack order, for the block kernel.
 
     Returns the CSR pair ``(stripe_ptr, visits)``: the visits of global
@@ -165,7 +183,8 @@ def stripe_visits(packed) -> Tuple[np.ndarray, np.ndarray]:
     adding +-0 leaves it unchanged; NaN sticks, and the kept visit reads
     the same B rows as the dropped ones. The same holds for ``acc_step`` at
     both precise levels: its error term is then +0, and ``comp`` (also
-    never -0) is unchanged by subtracting +-0.
+    never -0) is unchanged by subtracting +-0. ``live`` is as in
+    :func:`slab_visits`.
     """
     cfg = packed.config
     ng, G, bk = packed.n_groups, cfg.group_blocks, cfg.block_k
@@ -174,7 +193,8 @@ def stripe_visits(packed) -> Tuple[np.ndarray, np.ndarray]:
     _check_int32(ng * G, "stripe_visits")
     tiles = _check_owner_tiles(packed.group_mtile[:ng], packed.n_mtiles, "group_mtile")
     stripe = (tiles[:, None] * stripes_per_tile + packed.qrow).reshape(-1)
-    keep = (packed.vals.reshape(ng, 8, G, bk) != 0).any(axis=(1, 3)).reshape(-1)
+    live = packed.vals != 0 if live is None else live
+    keep = live.reshape(ng, 8, G, bk).any(axis=(1, 3)).reshape(-1)
     zero = np.flatnonzero(~keep)
     if zero.size:
         kwin = packed.group_kwin.astype(np.int64)[zero // G]
@@ -326,7 +346,7 @@ def ell_tiles(packed, group_max: int = ELL_GROUP_MAX) -> EllTiles:
                     i32(long_virt), int(members.max(initial=1)))
 
 
-def ell_fold_count(packed) -> int:
+def ell_fold_count(packed, live: Optional[np.ndarray] = None) -> int:
     """How many of an ELL pack's virtual rows a plan folds: all but a
     trailing run of all-zero virtual rows that repeat the last one (the same
     ``cols`` and fold target), of which the first is kept.
@@ -337,14 +357,17 @@ def ell_fold_count(packed) -> int:
     ``0 * B`` terms, so it adds the same +-0 or NaN; after the first, adding
     it again changes no bit (x + v + v = x + v for v = +-0 or NaN), and in
     the kernel's fold ``out - beta * C`` is +0 for such a row whatever its
-    C. The rows past the count are then pad rows, folded nowhere.
+    C. The rows past the count are then pad rows, folded nowhere. ``live``
+    is as in :func:`slab_visits`: a virtual row that holds an entry is
+    folded whatever its value now.
     """
     n = packed.n_virt
     if n < 2:
         return n
     m0 = packed.m_base
-    vals, cols = packed.vals[m0:m0 + n], packed.cols[m0:m0 + n]
-    same = ((vals == 0).all(axis=1) & (cols == cols[-1]).all(axis=1)
+    live = packed.vals != 0 if live is None else live
+    cols = packed.cols[m0:m0 + n]
+    same = (~live[m0:m0 + n].any(axis=1) & (cols == cols[-1]).all(axis=1)
             & (packed.fold_rows == packed.fold_rows[-1]))
     run = n - np.flatnonzero(~same)[-1] - 1 if not same.all() else n
     return n - max(run - 1, 0)

@@ -46,6 +46,7 @@ from sextans_tpu_torch.ops.launch import (
     check_pack_indices,
     ell_fold_count,
     ell_tiles,
+    need,
     row_runs,
     slab_visits,
     stripe_visits,
@@ -108,31 +109,37 @@ def _put(a, dtype, device):
     return torch.from_numpy(a).to(device)
 
 
-def _scan(packed):
+def _scan(packed, live):
     """The host scan that the kernels of ``packed`` walk: ``row_runs`` for
-    the edge format, ``stripe_visits`` for the block format and
-    ``slab_visits`` for the slab format (K1 and K2)."""
+    the edge format (its pads are marked in ``meta``: it reads no values),
+    ``stripe_visits`` for the block format and ``slab_visits`` for the slab
+    format (K1 and K2), over the nonzero slots ``live``."""
     if isinstance(packed, PackedSpMatrixEdge):
-        return row_runs
-    return slab_visits if isinstance(packed, PackedSpMatrixMXU) else stripe_visits
+        return row_runs(packed)
+    scan = slab_visits if isinstance(packed, PackedSpMatrixMXU) else stripe_visits
+    return scan(packed, live)
 
 
-def _upload(packed, device: torch.device):
+def _upload(packed, device: torch.device, structure=None):
     """Device copies of the packed arrays and the host scan their kernels
     walk (:func:`_scan`; K5's :func:`~sextans_tpu_torch.ops.launch.ell_tiles`
     on a CUDA device only), each made once per device and kept on the packed
     object. Returns ``(arrays, ranges)``; ``ranges`` is None for the ELL
     format on the CPU. An ELL pack's ``fold_rows`` is uploaded up to
-    :func:`~sextans_tpu_torch.ops.launch.ell_fold_count`."""
+    :func:`~sextans_tpu_torch.ops.launch.ell_fold_count`. The scans read the
+    nonzero values, or the slots ``structure`` marks where it is given (a
+    plan over values given at call time); the two are kept under keys of
+    their own."""
     cache = packed.__dict__.setdefault("_dev_cache", {})
-    key = str(device)
+    key = str(device) if structure is None else (str(device), "structure")
     if isinstance(packed, PackedSpMatrixELL):
-        if "n_fold" not in cache:  # checked and counted once per pack
+        n_key = "n_fold" if structure is None else ("n_fold", "structure")
+        if n_key not in cache:  # checked and counted once per pack
             check_ell_pack(packed)
-            cache["n_fold"] = ell_fold_count(packed)
+            cache[n_key] = ell_fold_count(packed, structure)
         # a run of repeated all-zero virtual rows (a bucket's) folds once
-        if cache["n_fold"] < packed.n_virt:
-            packed = dataclasses.replace(packed, fold_rows=packed.fold_rows[:cache["n_fold"]])
+        if cache[n_key] < packed.n_virt:
+            packed = dataclasses.replace(packed, fold_rows=packed.fold_rows[:cache[n_key]])
     if key not in cache:
         if isinstance(packed, PackedSpMatrixELL):
             named = ((packed.vals, np.float32), (packed.cols, np.int32),
@@ -159,7 +166,7 @@ def _upload(packed, device: torch.device):
                 **{f: _put(getattr(tiles, f), np.int32, device) for f in tiles._fields[:-1]})
         return cache[key], cache[scan_key]
     if scan_key not in cache:
-        cache[scan_key] = tuple(_put(r, np.int32, device) for r in _scan(packed)(packed))
+        cache[scan_key] = tuple(_put(r, np.int32, device) for r in _scan(packed, structure))
     return cache[key], cache[scan_key]
 
 
@@ -200,9 +207,18 @@ def _runner(packed, backend: str, n: int, ranges, image=None):
 
 
 class SpmmPlan:
-    """SpMM executor for a fixed (packed A, N, backend, device)."""
+    """SpMM executor for a fixed (packed A, N, backend, device).
 
-    def __init__(self, packed, n: int, backend: str = "auto", *, device):
+    ``structure`` (internal, for ``ops/autodiff.py``): the slots that the
+    pack's COO entries fill (:func:`~sextans_tpu_torch.ops.launch.structure_mask`).
+    Such a plan runs over values given at each call (:meth:`run_values`):
+    its host scans walk every block and fold every virtual row that holds
+    an entry, whatever the pack's own values, and it keeps no K1 operand
+    tiles (``image`` is None; :meth:`run_values` makes them from each call's
+    values, so its ``__call__`` cannot run K1 on the tensor cores).
+    """
+
+    def __init__(self, packed, n: int, backend: str = "auto", *, device, structure=None):
         if type(packed) not in PACKS:
             raise TypeError(
                 "SpmmPlan takes a PackedSpMatrix, PackedSpMatrixMXU, "
@@ -228,11 +244,14 @@ class SpmmPlan:
         self.n = n
         self.k_padded = packed.k_padded  # the rows B is padded to
         self.device = resolve_device(device)
-        self.arrays, self.ranges = _upload(packed, self.device)
+        if structure is not None and structure.shape != packed.vals.shape:
+            raise ValueError(f"structure must be {packed.vals.shape}, got {structure.shape}")
+        self.arrays, self.ranges = _upload(packed, self.device, structure)
         # K1's operand tiles, where K1 runs on the tensor cores (plain mode on a card)
-        tc = (backend == "mxu" and n > SKINNY_MAX_N and not packed.config.precise
-              and self.device.type == "cuda")
-        self.image = _slab_image(packed, self.device, self.arrays) if tc else None
+        self._tc = (backend == "mxu" and n > SKINNY_MAX_N and not packed.config.precise
+                    and self.device.type == "cuda")
+        self.image = (_slab_image(packed, self.device, self.arrays)
+                      if self._tc and structure is None else None)
         self._run = _runner(packed, backend, n, self.ranges, self.image)
 
         def as_index(p):
@@ -262,7 +281,25 @@ class SpmmPlan:
             c = c[self._row_perm]
         return F.pad(c, (0, 0, 0, self.packed.m_padded - self.m)).contiguous()
 
-    def _unpad(self, out: torch.Tensor) -> torch.Tensor:
+    def no_c(self) -> torch.Tensor:
+        """The C of a call without one: the kernel never reads it; this
+        view gives its shape."""
+        return torch.zeros(1, device=self.device).expand(self.packed.m_padded, self.n)
+
+    def run_values(self, pv: torch.Tensor, b_p, c_p, alpha, beta, *,
+                   with_c: bool = True) -> torch.Tensor:
+        """The plan's kernel over ``pv``, packed values given at this call
+        (the pack's values' shape, f32, on the plan's device), in place of
+        the uploaded ones: padded B and C in (:meth:`pad_b`, :meth:`pad_c`,
+        or :meth:`no_c` with ``with_c=False``), the padded output out. Where
+        K1 runs on the tensor cores, its operand tiles are made from ``pv``
+        for this call (:func:`~sextans_tpu_torch.ops.spmm_slab.slab_image`)."""
+        need(pv, "pv", torch.float32, self.arrays[0].shape, self.device)
+        image = {"image": slab_image(pv, self.packed.config.block_k)} if self._tc else {}
+        return self._run(pv, *self.arrays[1:], b_p, c_p, alpha, beta, with_c=with_c, **image)
+
+    def unpad(self, out: torch.Tensor) -> torch.Tensor:
+        """The (M, N) result of a padded kernel output."""
         out = out[: self.m]
         return out if self._inv_row is None else out[self._inv_row]
 
@@ -271,14 +308,10 @@ class SpmmPlan:
         if c is None:
             if float(beta) != 0.0:
                 raise ValueError("beta != 0 requires an input C")
-            # no-C path: the kernel never reads C; this view gives its shape
-            c_p = torch.zeros(1, device=self.device).expand(
-                self.packed.m_padded, self.n
-            )
-            out = self._run(*self.arrays, b_p, c_p, alpha, 0.0, with_c=False)
+            out = self._run(*self.arrays, b_p, self.no_c(), alpha, 0.0, with_c=False)
         else:
             out = self._run(*self.arrays, b_p, self.pad_c(c), alpha, beta)
-        return self._unpad(out)
+        return self.unpad(out)
 
     def repeat(self, b, alpha=1.0, beta=0.0, c=None, times: int = 1) -> torch.Tensor:
         """Run the kernel ``times`` times on the current stream, feeding C
@@ -293,4 +326,4 @@ class SpmmPlan:
         c_p = self.pad_c(c)
         for _ in range(times):
             c_p = self._run(*self.arrays, b_p, c_p, alpha, beta)
-        return self._unpad(c_p)
+        return self.unpad(c_p)

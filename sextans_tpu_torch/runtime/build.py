@@ -3,10 +3,11 @@
 At first use, every ``sextans_tpu_torch/csrc/*.cu`` is compiled by ``nvcc``
 for Hopper (``sm_90a``), one ``nvcc -c`` per source, all started together,
 and the objects are linked into one shared library with a plain C
-interface, written to ``sextans_tpu_torch/build/`` under a name keyed by a
-hash of the sources and flags, and loaded with ``ctypes``. A later call, or
-another process, with the same sources loads the same file without
-compiling.
+interface, written to ``sextans_tpu_torch/build/`` (or
+``$SEXTANS_TPU_CACHE_DIR/sextans_tpu_torch/``, ``utils/cache.py``) under a
+name keyed by a hash of the sources and flags, and loaded with ``ctypes``.
+A later call, or another process, with the same sources loads the same file
+without compiling.
 
 There is no fallback: without ``nvcc`` this raises ``RuntimeError``, and a
 failed compile raises with the compiler's output.
@@ -22,6 +23,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from sextans_tpu_torch.utils.cache import cache_dir
 
 __all__ = ["build_kernels", "find_nvcc", "check_launch", "PACKAGE_DIR"]
 
@@ -123,12 +126,13 @@ def _run_all(cmds) -> None:
 def build_kernels() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library; cached per process."""
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"libsextans_kernels_{_source_hash()}.so"
+    build_dir = cache_dir(BUILD_DIR)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = build_dir / f"libsextans_kernels_{_source_hash()}.so"
     if not lib_path.exists():
         # Build in a private directory, then rename: a concurrent process
         # building the same sources never sees a half-written library.
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
             objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
             _run_all([nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(obj), str(src)]
                      for src, obj in zip(_sources(), objs))

@@ -1068,3 +1068,104 @@ def test_server_on_card_equals_the_unbucketed_plan(cuda, tmp_path, fmt, backend,
         exact = tx.golden_spmm_exact(tx.CSRMatrix.from_coo(coo), b, ALPHA, BETA, c)
         assert tx.verify(exact, got.cpu().numpy()).passed
     assert build_kernels.cache_info().misses == builds
+
+
+# ---- the differentiable SpMM (ops/autodiff.py) on the card ----
+
+VALUE_GPU_CASES = [("vpu", 0, 64), ("vpu", 0, 16), ("vpu", 1, 64), ("mxu", 0, 64),
+                   ("mxu", 0, 16), ("mxu", 1, 64), ("edge", 0, 64), ("ell", 0, 64),
+                   ("ell", 1, 16)]
+
+
+def _value_kernel(fmt, n):
+    from sextans_tpu_torch.ops.spmm_slab import spmm_slab_skinny_padded
+
+    return {"vpu": spmm_block_padded, "edge": spmm_edge_padded,
+            "ell": spmm_ell_gather_padded,
+            "mxu": spmm_slab_padded if n > 32 else spmm_slab_skinny_padded}[fmt]
+
+
+@pytest.mark.parametrize("zero_blocks", [False, True])
+@pytest.mark.parametrize("fmt,precise,n", VALUE_GPU_CASES)
+def test_value_op_on_card_matches_its_plain_versions(cuda, fmt, precise, n, zero_blocks):
+    """``spmm_value_op`` on the card against the same op on the CPU's plain
+    versions: A(vals) @ B and A^T @ G within 4 ulp of max|.| (the kernels'
+    bands against their plain versions), dvals (the SDDMM, summed in
+    another order) within 4 ulp of max|dvals|, dC equal, dalpha and dbeta
+    within 2^-20 of sum|G * AB| (sum|G * C|); the kernel launched forward
+    and backward. With ``zero_blocks`` the op is built from values that are
+    zero on rows 0-299 (whole blocks, slabs and stripes) and run with the
+    nonzero ones: its scans walk the structure, so the card still agrees."""
+    coo = tx.COOMatrix.random(1030, 777, 12000, seed=3, banded=True, bandwidth=90)
+    built = coo
+    if zero_blocks:
+        built = tx.COOMatrix(coo.shape, coo.rows, coo.cols,
+                             np.where(coo.rows < 300, 0.0, coo.vals).astype(np.float32))
+    cfg = tx.SpmmConfig(tile_m=256, window_k=256, block_k=8, group_blocks=16,
+                        precise=precise)
+    rng = np.random.default_rng(n)
+    b = rng.standard_normal((777, n)).astype(np.float32)
+    c = rng.standard_normal((1030, n)).astype(np.float32)
+    g = rng.standard_normal((1030, n)).astype(np.float32)
+    results = {}
+    kernel = _value_kernel(fmt, n)
+    for key, dev in (("card", cuda), ("plain", torch.device("cpu"))):
+        op = tx.spmm_value_op(built, n, config=cfg, fmt=fmt, device=dev)
+        args = [torch.tensor(x, device=dev, requires_grad=True) for x in (coo.vals, b, c)]
+        args += [torch.tensor(x, device=dev, requires_grad=True) for x in (ALPHA, BETA)]
+        before = kernel.launches
+        out = op(*args)
+        forward = kernel.launches - before
+        out.backward(torch.as_tensor(g, device=dev))
+        backward = kernel.launches - before - forward
+        with torch.no_grad():
+            parts = (op.ab(args[0], args[1]), op.atg(args[0], torch.as_tensor(g, device=dev)))
+        results[key] = [x.detach().cpu() for x in (out, *parts)] + [
+            a.grad.cpu() for a in args]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert forward >= 1 and backward >= 1
+    (out, ab, atg, dvals, db, dc, dalpha, dbeta) = results["card"]
+    (out0, ab0, atg0, dvals0, db0, dc0, dalpha0, dbeta0) = results["plain"]
+    for got, want in ((ab, ab0), (atg, atg0), (dvals, dvals0), (db, db0)):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= 4 * np.spacing(
+            np.float32(want.abs().max().item()))
+    assert torch.equal(dc, dc0)
+    unit = np.spacing(np.float32(out0.abs().max().item()))
+    assert (out - out0).abs().max().item() <= 5 * unit
+    g64 = g.astype(np.float64)
+    ab64 = ab0.double().numpy()
+    assert abs(dalpha.item() - dalpha0.item()) <= 2.0**-20 * np.abs(g64 * ab64).sum()
+    assert abs(dbeta.item() - dbeta0.item()) <= 2.0**-20 * np.abs(g64 * c).sum()
+
+
+@pytest.mark.parametrize("fmt", ["vpu", "mxu", "edge", "ell"])
+def test_value_scatter_on_card_reproduces_the_pack(cuda, fmt):
+    """The value op's scatter on the card gives the pack's values to the
+    bit, duplicates summed in COO entry order (``index_add_`` and
+    ``index_put_(accumulate=True)`` would add them in atomic order)."""
+    from sextans_tpu_torch.ops.autodiff import ValueScatter
+    from sextans_tpu_torch.ops.plan import FORMATS
+
+    rng = np.random.default_rng(8)
+    rows = rng.integers(0, 40, 6000)  # ~4 entries a coordinate
+    cols = rng.integers(0, 50, 6000)
+    vals = (rng.standard_normal(6000) * 2.0 ** rng.integers(-20, 20, 6000)).astype(np.float32)
+    coo = tx.COOMatrix((300, 260), rows, cols, vals)
+    cfg = tx.SpmmConfig(tile_m=128, window_k=128, block_k=8, group_blocks=16, ell_r=4)
+    packed = FORMATS[fmt](coo, cfg)
+    scatter = ValueScatter(tx.slot_map(coo, cfg, fmt), packed.vals.shape, cuda)
+    got = scatter(torch.as_tensor(vals, device=cuda)).cpu().numpy()
+    assert got.tobytes() == np.ascontiguousarray(packed.vals).tobytes()
+
+
+def test_train_sparse_example_on_card(cuda):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "examples" / "train_sparse_torch.py"
+    spec = importlib.util.spec_from_file_location("train_sparse_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    assert example.main(["--device", "cuda"]) < 1e-4
