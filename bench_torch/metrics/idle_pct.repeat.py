@@ -1,0 +1,3 @@
+"""The device's idle share of the traced window, in percent (repeat cells)."""
+
+from bench_torch.readers import idle_pct as read  # noqa: F401
