@@ -107,7 +107,7 @@ Phases (each prints its lines; any failure exits non-zero):
    buckets), on a second matrix of other seed, m, k and nnz (4690 x 4710,
    104,000 nnz) that lands in the same buckets, and on cant_like (new
    buckets; vpu, mxu and edge). Each served product, driven from host B and
-   C with the launch counters set to 0 just before and read just after, is
+   C with the launches counted from just before it to just after, is
    held against ``SpmmPlan`` on the unbucketed pack (to the bit; K1 in plain
    mode within 4 ulp of max|C|) and against verify and f64 (4 ulp); a
    precise (level 1) server on the cached synthetic4704 pack shares the
@@ -171,8 +171,9 @@ calls' host-clock time. Each hybrid run of phase 5 prints the same for its
 split (seconds, bytes of every part on the card), with the DIA kernel and
 the residue's kernel apart in the profile.
 
-Every run of phases 3, 4, 5, 7, 8, 9, 10, 11 and 12 is one path: the launch counters are
-set to 0 just before it and read just after, and its kernels must have
+Every run of phases 3, 4, 5, 7, 8, 9, 10, 11 and 12 is one path: its launches are
+counted from just before it to just after (the process's ``launch.<wrapper>``
+counters, ``sextans_tpu_torch.counters()``), and its kernels must have
 launched. Nothing failing is passed over: a kernel that does not build or
 launch raises, and nothing falls back to a plain version or the CPU.
 The last two lines are a JSON object with one entry per kernel (its phase-2
@@ -209,6 +210,21 @@ PRECISE1 = ("spmm_ell_precise1", "spmm_dia_precise1", "spmm_dia_skinny_precise1"
 
 def fail(msg: str):
     raise RuntimeError(f"chip_smoke FAILED: {msg}")
+
+
+def launch_marks(wrappers: dict) -> dict:
+    """Each kernel wrapper's launches so far (``utils/profiling.py:launches``,
+    the process's ``launch.<wrapper>`` counters): marks to count from."""
+    from sextans_tpu_torch.utils.profiling import launches
+
+    return {name: launches(fn) for name, fn in wrappers.items()}
+
+
+def launched_since(wrappers: dict, marks: dict) -> dict:
+    """The launches of each wrapper since ``marks`` (:func:`launch_marks`),
+    of those that launched."""
+    now = launch_marks(wrappers)
+    return {name: now[name] - marks[name] for name in wrappers if now[name] > marks[name]}
 
 
 def bound(nnz: int, m: int, k: int, n: int):
@@ -339,7 +355,7 @@ GATHER_K, GATHER_M, GATHER_N, GATHER_R, GATHER_ZEROS = 400_000, 262_144, 512, 4,
 def gather_probes(kernels: dict, launches: dict) -> None:
     """Phase 10: P1's twin in both staging modes and P2's in both variants
     at the TPU probes' own inputs (seed 0), each run one path with its
-    counter set to 0 just before and read just after; then each timed at one
+    launches counted from just before it to just after; then each timed at one
     sweep shape beside its plain version, ``embedding_bag`` and the bound.
     Adds each kernel's row to ``kernels`` and its launches to ``launches``."""
     import numpy as np
@@ -377,14 +393,14 @@ def gather_probes(kernels: dict, launches: dict) -> None:
         rows = np.where(live[..., None], b[np.where(live, cols, 0)], 0)
         einsum = np.einsum("mr,mrn->mn", vals, rows)
         exact = np.einsum("mr,mrn->mn", vals.astype(np.float64), rows.astype(np.float64))
-        wrappers[probe].launches = 0
+        mark = launch_marks(wrappers)
         got = run(name, t_cols, t_vals, t_b)
         if probe == "ell_issue":  # again with a NaN in the row that the pads load
             t_nan = t_b.clone()
             t_nan[0] = float("nan")
             got_nan = run(name, t_cols, t_vals, t_nan)
         torch.cuda.synchronize()
-        count = wrappers[probe].launches
+        count = launched_since(wrappers, mark).get(probe, 0)
         want = plain(name, t_cols, t_vals, t_b)
         out = got.cpu().numpy()
         err = (got - want).abs().max().item()
@@ -509,7 +525,7 @@ def training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, smi)
     every value 0, 5 Adam steps on vals and B toward a target made with
     cant_like's own values, the loss falling at every step; (b) one step at
     synthetic4704 through each of K1-K5 (``TRAIN_CASES``). Each run is one
-    path (counters set to 0 just before, read just after) and holds step
+    path (launches counted from just before it to just after) and holds step
     1's output and gradients against f64 and its kernels against their
     plain versions on the card; then times the step (``time_chained``), its
     parts and the library's. (c) ``examples/train_sparse_torch.py`` on the
@@ -567,8 +583,7 @@ def training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, smi)
         def loss_of(out):
             return torch.mean((out - target) ** 2)
 
-        for fn in counted.values():
-            fn.launches = 0
+        marks = launch_marks(counted)
         losses, first = [], {}
         for step in range(steps):
             opt.zero_grad()
@@ -586,7 +601,7 @@ def training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, smi)
         with torch.no_grad():
             losses.append(loss_of(op(vals, b, c_leaf, al, be)).item())
         torch.cuda.synchronize()
-        ran = {name: fn.launches for name, fn in counted.items() if fn.launches}
+        ran = launched_since(counted, marks)
         base = kernel.split("_precise")[0]
         if set(ran) != {base} or ran[base] < 2 * steps + 1:
             fail(f"{tag}: launches {ran}, expected {base} at least {2 * steps + 1} times")
@@ -705,12 +720,11 @@ def training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, smi)
         "train_sparse_torch", ROOT / "examples" / "train_sparse_torch.py")
     example = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(example)
-    for fn in counted.values():
-        fn.launches = 0
+    marks = launch_marks(counted)
     t0 = time.perf_counter()
     final = example.main(["--device", "cuda"])
     torch.cuda.synchronize()
-    ran = {name: fn.launches for name, fn in counted.items() if fn.launches}
+    ran = launched_since(counted, marks)
     if set(ran) != {"spmm_block"} or final >= 1e-4:
         fail(f"phase 12: the example reached loss {final:.3e}, launches {ran}")
     launches["spmm_block"] += ran["spmm_block"]
@@ -1012,8 +1026,7 @@ def main() -> int:
         reused = packed is not None  # an earlier run's pack of the same matrix
         packed = packed if reused else BACKEND_FORMATS[backend][0](coo, cfg)
         t_pack = time.perf_counter() - t0
-        for fn in counted.values():
-            fn.launches = 0
+        marks = launch_marks(counted)
         t0 = time.perf_counter()
         pl = sx.plan(packed, n, backend, device="cuda")
         t_plan = time.perf_counter() - t0
@@ -1052,11 +1065,11 @@ def main() -> int:
                          f"average (group_max {tiles.group_max}), largest {int(size.max())} "
                          f"padded rows, {tiles.long_rows.size} long rows")
         expected = None if backend == "ell" else kernel_calls(pl, n)[0]
-        before = counted[expected].launches if expected else 0
+        before = launched_since(counted, marks).get(expected, 0)
         got_dev = pl(b, ALPHA, BETA, c)
-        if expected and counted[expected].launches != before + 1:
-            fail(f"{tag} {backend} N={n}: one product made "
-                 f"{counted[expected].launches - before} launches of {expected}")
+        one = launched_since(counted, marks).get(expected, 0) - before
+        if expected and one != 1:
+            fail(f"{tag} {backend} N={n}: one product made {one} launches of {expected}")
         res = sx.verify(ref, got_dev.cpu().numpy())  # the host gate, before any timing
         b_dev = torch.as_tensor(b, device=pl.device)
         c_dev = torch.as_tensor(c, device=pl.device)
@@ -1066,7 +1079,7 @@ def main() -> int:
         traced = (profile(pl, b_dev, c_dev, (expected,)) if expected
                   else "no kernel (plain PyTorch engine)")
         torch.cuda.synchronize()
-        ran = {name: fn.launches for name, fn in counted.items() if fn.launches}
+        ran = launched_since(counted, marks)
         if set(ran) != ({expected} if expected else set()):
             fail(f"{tag} {backend} N={n}: launches {ran}, expected {expected} only")
         for name, count in ran.items():
@@ -1141,8 +1154,7 @@ def main() -> int:
                 t0 = time.perf_counter()
                 splits[name_, n] = sx.split_structure(coo, n=n), time.perf_counter() - t0
             split, t_split = splits[name_, n]
-            for fn in counted.values():
-                fn.launches = 0
+            marks = launch_marks(counted)
             pl = sx.HybridSpmmPlan(split, n, residue_config=block_cfg, backend="pallas",
                                    precise=precise, device="cuda")
             runs_note = ""
@@ -1161,7 +1173,7 @@ def main() -> int:
             expected = {dia} | ({"spmm_block"} if pl.residue_plan else set())
             traced = profile(pl, b_dev, c_dev, tuple(expected))
             torch.cuda.synchronize()
-            ran = {name: fn.launches for name, fn in counted.items() if fn.launches}
+            ran = launched_since(counted, marks)
             if set(ran) != expected:
                 fail(f"{tag} hybrid N={n}: launches {ran}, expected {sorted(expected)}")
             tally = launches if tally is None else tally
@@ -1251,11 +1263,11 @@ def main() -> int:
                  "df32_probe_chain": df32.eft_probe_chain}
         a, b, v, bb = df32.probe_inputs(0)
         ta, tb, tv, tbb = (torch.as_tensor(x, device="cuda") for x in (a, b, v, bb))
-        for fn in probe.values():
-            fn.launches = 0
+        marks = launch_marks(probe)
         pairs, chain = df32.eft_probe_pairs(ta, tb), df32.eft_probe_chain(tv, tbb)
         torch.cuda.synchronize()
-        probe_launches = {name: fn.launches for name, fn in probe.items()}
+        ran = launched_since(probe, marks)
+        probe_launches = {name: ran.get(name, 0) for name in probe}
         if min(probe_launches.values()) == 0:
             fail(f"phase 7: a probe kernel never launched: {probe_launches}")
         report = df32.probe_report(a, b, v, bb, [x.cpu().numpy() for x in pairs],
@@ -1422,7 +1434,7 @@ def main() -> int:
 
     def serve(tag, srv, coo_, name, iters):
         """One served product, driven from host B and C as a user serves
-        it, with the launch counters set to 0 just before and read just
+        it, with its launches counted from just before it to just
         after; then held against SpmmPlan on the unbucketed pack (to the
         bit; K1 in plain mode within ULP_BAR of max|C|) and the f64 oracle,
         and the kernel timed on the bucketed pack beside the unbucketed."""
@@ -1430,14 +1442,13 @@ def main() -> int:
         b, c, ref, _ = golden(tag, coo_, n)
         expected = serving_kernels[fmt] if fmt != "mxu" else (
             "spmm_slab" if n > SKINNY_MAX_N else "spmm_slab_skinny")
-        for fn in counted.values():
-            fn.launches = 0
+        marks = launch_marks(counted)
         t0 = time.perf_counter()
         pl = srv.plan(coo_, name)
         t_plan = time.perf_counter() - t0
         got = pl(b, ALPHA, BETA, c)
         torch.cuda.synchronize()
-        ran = {k: fn.launches for k, fn in counted.items() if fn.launches}
+        ran = launched_since(counted, marks)
         if ran != ({expected: 1} if expected else {}):
             fail(f"phase 11 {tag} {fmt} N={n}: launches {ran}, expected {expected} once")
         if expected:
@@ -1527,12 +1538,11 @@ def main() -> int:
         for fmt in ("vpu", "mxu", "edge"):
             srv = server(fmt, 512, pack_cache=reloaded)
             b, c = operands(*cant.shape, 512)
-            for fn in counted.values():
-                fn.launches = 0
+            marks = launch_marks(counted)
             pl = srv.plan(cant, "cant_like")
             got = pl(b, ALPHA, BETA, c)
             torch.cuda.synchronize()
-            ran = {k: fn.launches for k, fn in counted.items() if fn.launches}
+            ran = launched_since(counted, marks)
             for k, count in ran.items():
                 launches[k] += count
             packed = reloaded.get_or_pack("cant_like", cant, srv.config, fmt)
@@ -1557,12 +1567,11 @@ def main() -> int:
         split = splits["synthetic4704", 512][0]
         b, c, _, _ = golden("synthetic4704", coo, 512)
         kw = dict(residue_config=block_cfg, backend="pallas", device="cuda")
-        for fn in counted.values():
-            fn.launches = 0
+        marks = launch_marks(counted)
         got = sx.HybridSpmmPlan(split, 512, pack_cache=cache,
                                 cache_name="synthetic4704@n512-residue", **kw)(b, ALPHA, BETA, c)
         torch.cuda.synchronize()
-        ran = {k: fn.launches for k, fn in counted.items() if fn.launches}
+        ran = launched_since(counted, marks)
         if ran != {"spmm_dia": 1, "spmm_block": 1}:
             fail(f"phase 11: the cached hybrid launched {ran}")
         for k, count in ran.items():

@@ -30,6 +30,11 @@ passes ``device="cpu"``.
 
 The CUDA kernels are compiled at first use into ``sextans_tpu_torch/build/``
 (runtime/build.py); on CPU tensors the same calls run plain PyTorch versions.
+
+Under ``torch.profiler`` (``utils/profiling.py:trace``) the calls name their
+parts as spans (``sx.plan.call``, ``sx.kernel.<wrapper>``, ...);
+``counters()`` gives the process's counts: products, pad bytes, kernel
+launches, and the host seconds of packing, uploading and the kernel library.
 """
 
 from sextans_tpu_torch.format.convert import from_reference
@@ -56,6 +61,7 @@ from sextans_tpu_torch.ops.serve import ServePlan, SpmmServer, bucketize_pack
 from sextans_tpu_torch.ops.spmm import plan, prepare, spmm
 from sextans_tpu_torch.parallel.partition import ShardedSpMatrix, pack_sharded, pack_sharded_k
 from sextans_tpu_torch.utils.config import SpmmConfig
+from sextans_tpu_torch.utils.profiling import annotate, counters
 from sextans_tpu_torch.utils.verify import VerifyResult, gflops, verify
 
 __version__ = "0.1.0"
@@ -104,4 +110,6 @@ __all__ = [
     "spmm_flops",
     "verify",
     "gflops",
+    "annotate",
+    "counters",
 ]

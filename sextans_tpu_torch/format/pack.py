@@ -36,6 +36,7 @@ import numpy as np
 
 from sextans_tpu_torch.format.coo import COOMatrix
 from sextans_tpu_torch.utils.config import SpmmConfig, cdiv
+from sextans_tpu_torch.utils.profiling import timed
 
 __all__ = ["PackedSpMatrix", "PackStats", "pack", "reorder_columns"]
 
@@ -295,6 +296,7 @@ def _check_impl(impl: str) -> None:
         raise ValueError(f"unknown pack impl {impl!r}")
 
 
+@timed("pack_s")
 def pack(
     coo: COOMatrix,
     config: SpmmConfig = SpmmConfig(),

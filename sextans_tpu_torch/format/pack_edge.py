@@ -47,6 +47,7 @@ from sextans_tpu_torch.format.pack import (
     reorder_rows,
 )
 from sextans_tpu_torch.utils.config import SpmmConfig, cdiv
+from sextans_tpu_torch.utils.profiling import timed
 
 __all__ = ["PackedSpMatrixEdge", "pack_edge"]
 
@@ -185,6 +186,7 @@ class PackedSpMatrixEdge:
         )
 
 
+@timed("pack_s")
 def pack_edge(
     coo: COOMatrix,
     config: SpmmConfig,

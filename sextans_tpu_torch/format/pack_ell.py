@@ -38,6 +38,7 @@ import numpy as np
 from sextans_tpu_torch.format.coo import COOMatrix
 from sextans_tpu_torch.format.pack import PackStats
 from sextans_tpu_torch.utils.config import SpmmConfig, cdiv, round_up
+from sextans_tpu_torch.utils.profiling import timed
 
 __all__ = [
     "PackedSpMatrixELL",
@@ -224,6 +225,7 @@ def check_ell_inflation(
         )
 
 
+@timed("pack_s")
 def pack_ell(
     coo: COOMatrix,
     config: SpmmConfig = SpmmConfig(),

@@ -33,6 +33,7 @@ import numpy as np
 from sextans_tpu_torch.format.coo import COOMatrix
 from sextans_tpu_torch.format.pack import PackStats, _check_impl
 from sextans_tpu_torch.utils.config import SpmmConfig, cdiv
+from sextans_tpu_torch.utils.profiling import timed
 
 __all__ = ["PackedSpMatrixMXU", "pack_mxu"]
 
@@ -177,6 +178,7 @@ class PackedSpMatrixMXU:
         )
 
 
+@timed("pack_s")
 def pack_mxu(
     coo: COOMatrix,
     config: SpmmConfig,

@@ -23,12 +23,14 @@ import numpy as np
 
 from sextans_tpu_torch.format.coo import COOMatrix
 from sextans_tpu_torch.utils.config import SpmmConfig
+from sextans_tpu_torch.utils.profiling import timed
 
 __all__ = ["slot_map"]
 
 MSLAB = 128
 
 
+@timed("pack_s")
 def slot_map(
     coo: COOMatrix, config: SpmmConfig, fmt: str = "vpu",
     reorder_cols: bool = False,

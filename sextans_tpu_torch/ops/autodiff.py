@@ -43,6 +43,7 @@ from sextans_tpu_torch.format.slots import slot_map
 from sextans_tpu_torch.ops.launch import rank_groups, structure_mask
 from sextans_tpu_torch.ops.plan import FORMATS, SpmmPlan, dense_operand, resolve_device
 from sextans_tpu_torch.utils.config import SpmmConfig
+from sextans_tpu_torch.utils.profiling import annotate, timed
 
 __all__ = ["spmm_op", "spmm_value_op", "SpmmValueOp", "bwd_backend"]
 
@@ -57,6 +58,7 @@ class ValueScatter:
     as the packs' ``np.add.at`` sums them. ``index_add_`` and
     ``index_put_(accumulate=True)`` on CUDA add duplicates in atomic order."""
 
+    @timed("upload_s")
     def __init__(self, slots: np.ndarray, shape, device: torch.device):
         self.shape = tuple(shape)
         self.numel = int(np.prod(self.shape))
@@ -65,10 +67,11 @@ class ValueScatter:
         self.groups = ([(idx[sel], sel) for sel in rank_groups(idx)] if idx.numel() else [])
 
     def __call__(self, vals: torch.Tensor) -> torch.Tensor:
-        flat = torch.zeros(self.numel, dtype=torch.float32, device=self.device)
-        for idx, sel in self.groups:
-            flat[idx] = flat[idx] + vals[sel]
-        return flat.view(self.shape)
+        with annotate("sx.autodiff.scatter"):
+            flat = torch.zeros(self.numel, dtype=torch.float32, device=self.device)
+            for idx, sel in self.groups:
+                flat[idx] = flat[idx] + vals[sel]
+            return flat.view(self.shape)
 
 
 def bwd_backend(backend: str, fwd_plan: SpmmPlan) -> str:
@@ -112,22 +115,25 @@ class SpmmValueOp:
 
     def ab(self, vals: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """``A(vals) @ b`` through the pack's kernel."""
-        return self._product(self.fwd_plan, self.scatter(vals), b)
+        with annotate("sx.autodiff.ab"):
+            return self._product(self.fwd_plan, self.scatter(vals), b)
 
     def atg(self, vals: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         """``A(vals)^T @ g`` through the transpose pack's kernel."""
-        return self._product(self.bwd_plan, self.scatter_t(vals), g)
+        with annotate("sx.autodiff.atg"):
+            return self._product(self.bwd_plan, self.scatter_t(vals), g)
 
     def sddmm(self, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """``dvals[e] = g[rows[e]] . b[cols[e]]`` in f32, in chunks of
         ``_SDDMM_CHUNK`` entries so that the gathered (chunk, N) rows stay
         bounded: a product and a sum over N (no ``einsum``, which may lower
         to a TF32 ``bmm``)."""
-        out = torch.empty(self.nnz, dtype=torch.float32, device=self.device)
-        for e0 in range(0, self.nnz, _SDDMM_CHUNK):
-            e1 = min(self.nnz, e0 + _SDDMM_CHUNK)
-            out[e0:e1] = (g[self.rows[e0:e1]] * b[self.cols[e0:e1]]).sum(dim=1)
-        return out
+        with annotate("sx.autodiff.sddmm"):
+            out = torch.empty(self.nnz, dtype=torch.float32, device=self.device)
+            for e0 in range(0, self.nnz, _SDDMM_CHUNK):
+                e1 = min(self.nnz, e0 + _SDDMM_CHUNK)
+                out[e0:e1] = (g[self.rows[e0:e1]] * b[self.cols[e0:e1]]).sum(dim=1)
+            return out
 
     def __call__(self, vals, b, c, alpha, beta) -> torch.Tensor:
         m, k = self.shape

@@ -30,6 +30,7 @@ import torch
 
 from sextans_tpu_torch.ops.launch import f32, need, rank_groups, stream_of
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
+from sextans_tpu_torch.utils.profiling import count
 
 __all__ = [
     "two_sum",
@@ -151,7 +152,7 @@ def eft_probe_pairs(a: torch.Tensor, b: torch.Tensor):
                                    *(o.data_ptr() for o in outs), a.numel(),
                                    stream_of(a.device))
     check_launch(lib, "df32_probe_pairs", err)
-    eft_probe_pairs.launches += 1
+    count("launch.eft_probe_pairs")
     return tuple(outs)
 
 
@@ -182,12 +183,8 @@ def eft_probe_chain(v: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         err = lib.df32_probe_chain(v.data_ptr(), b.data_ptr(), out.data_ptr(),
                                    v.shape[0], v.shape[1], stream_of(v.device))
     check_launch(lib, "df32_probe_chain", err)
-    eft_probe_chain.launches += 1
+    count("launch.eft_probe_chain")
     return out
-
-
-eft_probe_pairs.launches = 0
-eft_probe_chain.launches = 0
 
 
 def probe_report(a, b, v, bb, pairs, chain) -> Dict[str, float]:

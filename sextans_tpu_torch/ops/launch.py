@@ -12,6 +12,7 @@ import torch
 
 from sextans_tpu_torch.format.pack_edge import COL_SHIFT, PAD_BIT, ROW_END, ROW_SHIFT
 from sextans_tpu_torch.format.pack_mxu import MSLAB
+from sextans_tpu_torch.utils.profiling import timed
 
 __all__ = [
     "SMEM_LIMIT",
@@ -56,6 +57,7 @@ class SharedMemoryError(ValueError):
 COL_MASK = (1 << (ROW_SHIFT - COL_SHIFT)) - 1
 
 
+@timed("upload_s")
 def structure_mask(packed, slots: np.ndarray) -> np.ndarray:
     """The slots of ``packed.vals`` that its COO entries fill (``slots``:
     :func:`~sextans_tpu_torch.format.slots.slot_map` of the matrix it was

@@ -60,6 +60,7 @@ from sextans_tpu_torch.ops.spmm_slab import (
     spmm_slab_padded,
     spmm_slab_skinny_padded,
 )
+from sextans_tpu_torch.utils.profiling import annotate, count, timed
 
 __all__ = ["SpmmPlan", "BACKENDS", "BACKEND_FORMATS", "PACKS", "FORMATS", "resolve_device",
            "dense_operand"]
@@ -120,6 +121,7 @@ def _scan(packed, live):
     return scan(packed, live)
 
 
+@timed("upload_s")
 def _upload(packed, device: torch.device, structure=None):
     """Device copies of the packed arrays and the host scan their kernels
     walk (:func:`_scan`; K5's :func:`~sextans_tpu_torch.ops.launch.ell_tiles`
@@ -170,6 +172,7 @@ def _upload(packed, device: torch.device, structure=None):
     return cache[key], cache[scan_key]
 
 
+@timed("upload_s")
 def _slab_image(packed, device: torch.device, arrays):
     """K1's operand tiles (:func:`~sextans_tpu_torch.ops.spmm_slab.slab_image`),
     made once per device from the uploaded values and kept beside them."""
@@ -253,6 +256,8 @@ class SpmmPlan:
         self.image = (_slab_image(packed, self.device, self.arrays)
                       if self._tc and structure is None else None)
         self._run = _runner(packed, backend, n, self.ranges, self.image)
+        # the bytes of the padded B, and of B and C, that a call makes
+        self._pad_bytes = (4 * self.k_padded * n, 4 * (self.k_padded + packed.m_padded) * n)
 
         def as_index(p):
             return None if p is None else torch.as_tensor(
@@ -295,7 +300,10 @@ class SpmmPlan:
         K1 runs on the tensor cores, its operand tiles are made from ``pv``
         for this call (:func:`~sextans_tpu_torch.ops.spmm_slab.slab_image`)."""
         need(pv, "pv", torch.float32, self.arrays[0].shape, self.device)
-        image = {"image": slab_image(pv, self.packed.config.block_k)} if self._tc else {}
+        image = {}
+        if self._tc:
+            with annotate("sx.plan.slab_image"):
+                image["image"] = slab_image(pv, self.packed.config.block_k)
         return self._run(pv, *self.arrays[1:], b_p, c_p, alpha, beta, with_c=with_c, **image)
 
     def unpad(self, out: torch.Tensor) -> torch.Tensor:
@@ -304,14 +312,20 @@ class SpmmPlan:
         return out if self._inv_row is None else out[self._inv_row]
 
     def __call__(self, b, alpha=1.0, beta=0.0, c=None) -> torch.Tensor:
-        b_p = self.pad_b(b)
-        if c is None:
+        """``alpha * A @ b + beta * c`` (M, N), inside the span
+        ``sx.plan.call``. Counts ``plan.calls`` and ``plan.pad_bytes``
+        (``utils/profiling.py``)."""
+        with_c = c is not None
+        if not with_c:
             if float(beta) != 0.0:
                 raise ValueError("beta != 0 requires an input C")
-            out = self._run(*self.arrays, b_p, self.no_c(), alpha, 0.0, with_c=False)
-        else:
-            out = self._run(*self.arrays, b_p, self.pad_c(c), alpha, beta)
-        return self.unpad(out)
+            beta = 0.0
+        count("plan.calls")
+        count("plan.pad_bytes", self._pad_bytes[with_c])
+        with annotate("sx.plan.call"):
+            b_p = self.pad_b(b)
+            c_p = self.pad_c(c) if with_c else self.no_c()
+            return self.unpad(self._run(*self.arrays, b_p, c_p, alpha, beta, with_c=with_c))
 
     def repeat(self, b, alpha=1.0, beta=0.0, c=None, times: int = 1) -> torch.Tensor:
         """Run the kernel ``times`` times on the current stream, feeding C

@@ -34,6 +34,7 @@ from sextans_tpu_torch.ops.launch import (
     stream_of,
 )
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
+from sextans_tpu_torch.utils.profiling import annotate, count
 
 __all__ = ["spmm_block_padded", "spmm_block_padded_ref", "block_launch"]
 
@@ -181,45 +182,43 @@ def spmm_block_padded(
     compensated pair where the TPU kept ``n_acc`` of them. The TPU's
     ``n_acc``/``chunk_unroll`` hints have no counterpart here.
     """
-    precise = int(precise)
-    kw = dict(tile_m=tile_m, window_k=window_k, block_k=block_k,
-              group_blocks=group_blocks)
-    if vals.device.type == "cpu":
-        return spmm_block_padded_ref(
+    with annotate("sx.kernel.spmm_block_padded"):
+        precise = int(precise)
+        kw = dict(tile_m=tile_m, window_k=window_k, block_k=block_k,
+                  group_blocks=group_blocks)
+        if vals.device.type == "cpu":
+            return spmm_block_padded_ref(
+                vals, qrow, bcol, group_mtile, group_kwin, b_padded, c_padded,
+                alpha, beta, with_c=with_c, precise=precise, **kw,
+            )
+        if vals.device.type != "cuda":
+            raise ValueError(f"spmm_block runs on cpu or cuda, not {vals.device}")
+        m_padded, n = check_operands(
             vals, qrow, bcol, group_mtile, group_kwin, b_padded, c_padded,
-            alpha, beta, with_c=with_c, precise=precise, **kw,
+            vals_shape_per_group=(8, group_blocks * block_k), tile_m=tile_m,
+            window_k=window_k, group_blocks=group_blocks, with_c=with_c,
         )
-    if vals.device.type != "cuda":
-        raise ValueError(f"spmm_block runs on cpu or cuda, not {vals.device}")
-    m_padded, n = check_operands(
-        vals, qrow, bcol, group_mtile, group_kwin, b_padded, c_padded,
-        vals_shape_per_group=(8, group_blocks * block_k), tile_m=tile_m,
-        window_k=window_k, group_blocks=group_blocks, with_c=with_c,
-    )
-    n_stripes = m_padded // 8
-    check_csr(ranges[0], ranges[1:], ("stripe_ptr", "visits"), n_stripes, vals.device)
-    if precise not in (0, 1, 2):
-        raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
-    out = torch.empty((m_padded, n), dtype=torch.float32, device=vals.device)
-    dense = (b_padded, out, c_padded) if with_c else (b_padded, out)
-    vec = int(n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in dense))
-    go = block_launch(n, n_stripes, precise)
-    if go.smem > SMEM_LIMIT:
-        raise SharedMemoryError(f"spmm_block needs {go.smem} bytes of shared memory a CTA, "
-                                f"over {SMEM_LIMIT}")
-    lib = build_kernels()
-    with torch.cuda.device(vals.device):
-        err = lib.spmm_block_launch(
-            vals.data_ptr(), bcol.data_ptr(), group_kwin.data_ptr(),
-            ranges[0].data_ptr(), ranges[1].data_ptr(), b_padded.data_ptr(),
-            c_padded.data_ptr() if with_c else None, out.data_ptr(), n_stripes,
-            n, window_k, block_k, group_blocks, float(alpha), float(beta),
-            int(with_c), precise, go.lanes, vec, go.threads, *go.grid, go.smem,
-            stream_of(vals.device),
-        )
-    check_launch(lib, "spmm_block", err)
-    spmm_block_padded.launches += 1
-    return out
-
-
-spmm_block_padded.launches = 0
+        n_stripes = m_padded // 8
+        check_csr(ranges[0], ranges[1:], ("stripe_ptr", "visits"), n_stripes, vals.device)
+        if precise not in (0, 1, 2):
+            raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
+        out = torch.empty((m_padded, n), dtype=torch.float32, device=vals.device)
+        dense = (b_padded, out, c_padded) if with_c else (b_padded, out)
+        vec = int(n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in dense))
+        go = block_launch(n, n_stripes, precise)
+        if go.smem > SMEM_LIMIT:
+            raise SharedMemoryError(f"spmm_block needs {go.smem} bytes of shared memory a CTA, "
+                                    f"over {SMEM_LIMIT}")
+        lib = build_kernels()
+        with torch.cuda.device(vals.device):
+            err = lib.spmm_block_launch(
+                vals.data_ptr(), bcol.data_ptr(), group_kwin.data_ptr(),
+                ranges[0].data_ptr(), ranges[1].data_ptr(), b_padded.data_ptr(),
+                c_padded.data_ptr() if with_c else None, out.data_ptr(), n_stripes,
+                n, window_k, block_k, group_blocks, float(alpha), float(beta),
+                int(with_c), precise, go.lanes, vec, go.threads, *go.grid, go.smem,
+                stream_of(vals.device),
+            )
+        check_launch(lib, "spmm_block", err)
+        count("launch.spmm_block_padded")
+        return out

@@ -50,6 +50,7 @@ from sextans_tpu_torch.ops.launch import (
 from sextans_tpu_torch.ops.spmm_slab import SKINNY_MAX_N
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
 from sextans_tpu_torch.utils.config import cdiv, round_up
+from sextans_tpu_torch.utils.profiling import annotate, count
 
 __all__ = ["spmm_dia", "spmm_dia_skinny", "spmm_dia_ref", "DiaRuns", "dia_plan",
            "dia_launch", "dia_skinny_launch", "DIA_SPAN_MAX"]
@@ -287,13 +288,14 @@ def spmm_dia(
     CPU does not read ``runs``. ``with_c=False`` drops
     the C read and ``c`` then gives the shape only; ``precise`` 1 or 2 runs
     the compensated variant."""
-    if dvals.device.type == "cpu":
-        return spmm_dia_ref(dvals, offsets, b, c, alpha, beta, with_c=with_c,
-                            precise=precise)
-    out = _launch("spmm_dia", dvals, offsets, b, c, alpha, beta, with_c=with_c,
-                  precise=precise, runs=runs)
-    spmm_dia.launches += 1
-    return out
+    with annotate("sx.kernel.spmm_dia"):
+        if dvals.device.type == "cpu":
+            return spmm_dia_ref(dvals, offsets, b, c, alpha, beta, with_c=with_c,
+                                precise=precise)
+        out = _launch("spmm_dia", dvals, offsets, b, c, alpha, beta, with_c=with_c,
+                      precise=precise, runs=runs)
+        count("launch.spmm_dia")
+        return out
 
 
 def spmm_dia_skinny(
@@ -312,14 +314,11 @@ def spmm_dia_skinny(
     kernel (a 16-row tile by all N columns a CTA, a window of B per run in
     shared memory, :func:`dia_skinny_launch`); ``runs`` as for
     :func:`spmm_dia`."""
-    if dvals.device.type == "cpu":
-        return spmm_dia_ref(dvals, offsets, b, c, alpha, beta, with_c=with_c,
-                            precise=precise)
-    out = _launch("spmm_dia_skinny", dvals, offsets, b, c, alpha, beta, with_c=with_c,
-                  precise=precise, runs=runs)
-    spmm_dia_skinny.launches += 1
-    return out
-
-
-spmm_dia.launches = 0
-spmm_dia_skinny.launches = 0
+    with annotate("sx.kernel.spmm_dia_skinny"):
+        if dvals.device.type == "cpu":
+            return spmm_dia_ref(dvals, offsets, b, c, alpha, beta, with_c=with_c,
+                                precise=precise)
+        out = _launch("spmm_dia_skinny", dvals, offsets, b, c, alpha, beta, with_c=with_c,
+                      precise=precise, runs=runs)
+        count("launch.spmm_dia_skinny")
+        return out

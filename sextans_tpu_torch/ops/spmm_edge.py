@@ -33,6 +33,7 @@ from sextans_tpu_torch.ops.launch import (
     stream_of,
 )
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
+from sextans_tpu_torch.utils.profiling import annotate, count
 
 __all__ = ["spmm_edge_padded", "spmm_edge_padded_ref", "edge_launch"]
 
@@ -200,37 +201,35 @@ def spmm_edge_padded(
     2); at 1 and 2 each row's compensation stays in registers beside its
     sum.
     """
-    precise = int(precise)
-    kw = dict(tile_m=tile_m, window_k=window_k, edge_chunk=edge_chunk,
-              with_c=with_c)
-    if vals.device.type == "cpu":
-        return spmm_edge_padded_ref(
-            vals, meta, chunk_mtile, chunk_kwin, b_padded, c_padded, alpha,
-            beta, masked=masked, precise=precise, **kw,
-        )
-    if vals.device.type != "cuda":
-        raise ValueError(f"spmm_edge runs on cpu or cuda, not {vals.device}")
-    if precise not in (0, 1, 2):
-        raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
-    m_padded, n = _check_edge_operands(
-        vals, meta, chunk_mtile, chunk_kwin, b_padded, c_padded, ranges, **kw)
-    out = torch.empty((m_padded, n), dtype=torch.float32, device=vals.device)
-    dense = (b_padded, out, c_padded) if with_c else (b_padded, out)
-    vec = int(n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in dense))
-    go = edge_launch(n, m_padded)
-    lib = build_kernels()
-    with torch.cuda.device(vals.device):
-        err = lib.spmm_edge_launch(
-            vals.data_ptr(), meta.data_ptr(), chunk_kwin.data_ptr(),
-            *(r.data_ptr() for r in ranges), b_padded.data_ptr(),
-            c_padded.data_ptr() if with_c else None, out.data_ptr(), m_padded, n,
-            window_k, edge_chunk, float(alpha), float(beta), int(with_c),
-            int(masked), precise, go.lanes, vec, go.threads, *go.grid,
-            stream_of(vals.device),
-        )
-    check_launch(lib, "spmm_edge", err)
-    spmm_edge_padded.launches += 1
-    return out
-
-
-spmm_edge_padded.launches = 0
+    with annotate("sx.kernel.spmm_edge_padded"):
+        precise = int(precise)
+        kw = dict(tile_m=tile_m, window_k=window_k, edge_chunk=edge_chunk,
+                  with_c=with_c)
+        if vals.device.type == "cpu":
+            return spmm_edge_padded_ref(
+                vals, meta, chunk_mtile, chunk_kwin, b_padded, c_padded, alpha,
+                beta, masked=masked, precise=precise, **kw,
+            )
+        if vals.device.type != "cuda":
+            raise ValueError(f"spmm_edge runs on cpu or cuda, not {vals.device}")
+        if precise not in (0, 1, 2):
+            raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
+        m_padded, n = _check_edge_operands(
+            vals, meta, chunk_mtile, chunk_kwin, b_padded, c_padded, ranges, **kw)
+        out = torch.empty((m_padded, n), dtype=torch.float32, device=vals.device)
+        dense = (b_padded, out, c_padded) if with_c else (b_padded, out)
+        vec = int(n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in dense))
+        go = edge_launch(n, m_padded)
+        lib = build_kernels()
+        with torch.cuda.device(vals.device):
+            err = lib.spmm_edge_launch(
+                vals.data_ptr(), meta.data_ptr(), chunk_kwin.data_ptr(),
+                *(r.data_ptr() for r in ranges), b_padded.data_ptr(),
+                c_padded.data_ptr() if with_c else None, out.data_ptr(), m_padded, n,
+                window_k, edge_chunk, float(alpha), float(beta), int(with_c),
+                int(masked), precise, go.lanes, vec, go.threads, *go.grid,
+                stream_of(vals.device),
+            )
+        check_launch(lib, "spmm_edge", err)
+        count("launch.spmm_edge_padded")
+        return out

@@ -48,6 +48,7 @@ from sextans_tpu_torch.ops.launch import (
     stream_of,
 )
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
+from sextans_tpu_torch.utils.profiling import annotate, count
 
 __all__ = ["spmm_ell_gather_padded", "spmm_ell_gather_padded_ref", "spmm_ell_padded_ref",
            "ell_launch", "ELL_VEC4_MIN_N"]
@@ -225,49 +226,47 @@ def spmm_ell_gather_padded(
     1 or 2 runs the compensated kernel (one variant for both) and the f64
     fold. On the card one launch gathers and folds; a second folds the
     logical rows that outgrow a tile, where there are any."""
-    kw = dict(m_base=m_base, with_c=with_c, precise=int(precise))
-    if int(precise) not in (0, 1, 2):
-        raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
-    if vals.device.type == "cpu":
-        return spmm_ell_gather_padded_ref(
-            vals, cols, fold_rows, b_padded, c_padded, alpha, beta, **kw)
-    if vals.device.type != "cuda":
-        raise ValueError(f"spmm_ell runs on cpu or cuda, not {vals.device}")
-    device = vals.device
-    m_padded, r_slots = vals.shape
-    need(vals, "vals", torch.float32, (m_padded, r_slots), device)
-    need(cols, "cols", torch.int32, (m_padded, r_slots), device)
-    need(fold_rows, "fold_rows", torch.int32, (fold_rows.shape[0],), device)
-    if b_padded.dim() != 2 or b_padded.shape[1] == 0:
-        raise ValueError("b_padded must be 2-D with at least one column")
-    k, n = b_padded.shape
-    need(b_padded, "b_padded", torch.float32, (k, n), device)
-    if with_c:
-        need(c_padded, "c_padded", torch.float32, (m_padded, n), device)
-    elif tuple(c_padded.shape) != (m_padded, n):
-        raise ValueError(f"c_padded must have shape {(m_padded, n)}")
-    if m_base + fold_rows.shape[0] > m_padded:
-        raise ValueError("the virtual hub rows run past m_padded")
-    n_tiles, n_long = _check_tiles(ranges, m_padded, device)
-    if k == 0:  # no slot is live; the kernel indexes row 0 and drops what it reads
-        b_padded = torch.zeros((1, n), dtype=torch.float32, device=device)
-    out = torch.empty((m_padded, n), dtype=torch.float32, device=device)
-    dense = (b_padded, out) + ((c_padded,) if with_c else ())
-    vec = 4 if (n >= ELL_VEC4_MIN_N and n % 4 == 0
-                and all(t.data_ptr() % 16 == 0 for t in dense)) else 1
-    go = ell_launch(n, vec, n_tiles)
-    lib = build_kernels()
-    with torch.cuda.device(device):
-        err = lib.spmm_ell_launch(
-            vals.data_ptr(), cols.data_ptr(),
-            *(t.data_ptr() for t in ranges[:-1]), b_padded.data_ptr(),
-            c_padded.data_ptr() if with_c else None, out.data_ptr(), n_tiles, r_slots, n,
-            n_long, float(alpha), float(beta), int(with_c), int(bool(precise)), vec,
-            go.lanes, ranges.group_max, stream_of(device),
-        )
-    check_launch(lib, "spmm_ell", err)
-    spmm_ell_gather_padded.launches += 1 + (n_long > 0)
-    return out
-
-
-spmm_ell_gather_padded.launches = 0
+    with annotate("sx.kernel.spmm_ell_gather_padded"):
+        kw = dict(m_base=m_base, with_c=with_c, precise=int(precise))
+        if int(precise) not in (0, 1, 2):
+            raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
+        if vals.device.type == "cpu":
+            return spmm_ell_gather_padded_ref(
+                vals, cols, fold_rows, b_padded, c_padded, alpha, beta, **kw)
+        if vals.device.type != "cuda":
+            raise ValueError(f"spmm_ell runs on cpu or cuda, not {vals.device}")
+        device = vals.device
+        m_padded, r_slots = vals.shape
+        need(vals, "vals", torch.float32, (m_padded, r_slots), device)
+        need(cols, "cols", torch.int32, (m_padded, r_slots), device)
+        need(fold_rows, "fold_rows", torch.int32, (fold_rows.shape[0],), device)
+        if b_padded.dim() != 2 or b_padded.shape[1] == 0:
+            raise ValueError("b_padded must be 2-D with at least one column")
+        k, n = b_padded.shape
+        need(b_padded, "b_padded", torch.float32, (k, n), device)
+        if with_c:
+            need(c_padded, "c_padded", torch.float32, (m_padded, n), device)
+        elif tuple(c_padded.shape) != (m_padded, n):
+            raise ValueError(f"c_padded must have shape {(m_padded, n)}")
+        if m_base + fold_rows.shape[0] > m_padded:
+            raise ValueError("the virtual hub rows run past m_padded")
+        n_tiles, n_long = _check_tiles(ranges, m_padded, device)
+        if k == 0:  # no slot is live; the kernel indexes row 0 and drops what it reads
+            b_padded = torch.zeros((1, n), dtype=torch.float32, device=device)
+        out = torch.empty((m_padded, n), dtype=torch.float32, device=device)
+        dense = (b_padded, out) + ((c_padded,) if with_c else ())
+        vec = 4 if (n >= ELL_VEC4_MIN_N and n % 4 == 0
+                    and all(t.data_ptr() % 16 == 0 for t in dense)) else 1
+        go = ell_launch(n, vec, n_tiles)
+        lib = build_kernels()
+        with torch.cuda.device(device):
+            err = lib.spmm_ell_launch(
+                vals.data_ptr(), cols.data_ptr(),
+                *(t.data_ptr() for t in ranges[:-1]), b_padded.data_ptr(),
+                c_padded.data_ptr() if with_c else None, out.data_ptr(), n_tiles, r_slots, n,
+                n_long, float(alpha), float(beta), int(with_c), int(bool(precise)), vec,
+                go.lanes, ranges.group_max, stream_of(device),
+            )
+        check_launch(lib, "spmm_ell", err)
+        count("launch.spmm_ell_gather_padded", 1 + (n_long > 0))
+        return out

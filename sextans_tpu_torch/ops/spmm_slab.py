@@ -38,6 +38,7 @@ from sextans_tpu_torch.ops.launch import (
 )
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
 from sextans_tpu_torch.utils.config import cdiv, round_up
+from sextans_tpu_torch.utils.profiling import annotate, count
 
 __all__ = ["spmm_slab_padded", "spmm_slab_skinny_padded", "spmm_slab_padded_ref",
            "slab_launch", "slab_skinny_launch", "slab_image", "tf32_rna"]
@@ -291,21 +292,22 @@ def spmm_slab_padded(
     ``image`` is :func:`slab_image` of ``vals`` (the plain version on the
     CPU does not read it). ``with_c`` and ``precise`` are as in
     :func:`~sextans_tpu_torch.ops.spmm_block.spmm_block_padded`."""
-    kw = dict(tile_m=tile_m, window_k=window_k, block_k=block_k,
-              group_blocks=group_blocks, with_c=with_c, precise=int(precise))
-    if vals.device.type == "cpu":
-        return spmm_slab_padded_ref(
-            vals, qm, bcol, group_mtile, group_kwin, b_padded, c_padded,
-            alpha, beta, **kw,
+    with annotate("sx.kernel.spmm_slab_padded"):
+        kw = dict(tile_m=tile_m, window_k=window_k, block_k=block_k,
+                  group_blocks=group_blocks, with_c=with_c, precise=int(precise))
+        if vals.device.type == "cpu":
+            return spmm_slab_padded_ref(
+                vals, qm, bcol, group_mtile, group_kwin, b_padded, c_padded,
+                alpha, beta, **kw,
+            )
+        if vals.device.type != "cuda":
+            raise ValueError(f"spmm_slab runs on cpu or cuda, not {vals.device}")
+        out = _launch(
+            "spmm_slab_launch", vals, qm, bcol, group_mtile, group_kwin, b_padded,
+            c_padded, alpha, beta, ranges=ranges, image=image, **kw,
         )
-    if vals.device.type != "cuda":
-        raise ValueError(f"spmm_slab runs on cpu or cuda, not {vals.device}")
-    out = _launch(
-        "spmm_slab_launch", vals, qm, bcol, group_mtile, group_kwin, b_padded,
-        c_padded, alpha, beta, ranges=ranges, image=image, **kw,
-    )
-    spmm_slab_padded.launches += 1
-    return out
+        count("launch.spmm_slab_padded")
+        return out
 
 
 def spmm_slab_skinny_padded(
@@ -331,24 +333,21 @@ def spmm_slab_skinny_padded(
     per half slab, over the slab's blocks (``ranges`` =
     :func:`~sextans_tpu_torch.ops.launch.slab_visits`); returns the padded
     (m_padded, n) result."""
-    kw = dict(tile_m=tile_m, window_k=window_k, block_k=block_k,
-              group_blocks=group_blocks, with_c=with_c, precise=int(precise))
-    if vals.device.type == "cpu":
-        if b_padded.shape[1] > SKINNY_MAX_N:
-            raise ValueError(f"spmm_slab_skinny takes n <= {SKINNY_MAX_N}")
-        return spmm_slab_padded_ref(
-            vals, qm, bcol, group_mtile, group_kwin, b_padded, c_padded,
-            alpha, beta, **kw,
+    with annotate("sx.kernel.spmm_slab_skinny_padded"):
+        kw = dict(tile_m=tile_m, window_k=window_k, block_k=block_k,
+                  group_blocks=group_blocks, with_c=with_c, precise=int(precise))
+        if vals.device.type == "cpu":
+            if b_padded.shape[1] > SKINNY_MAX_N:
+                raise ValueError(f"spmm_slab_skinny takes n <= {SKINNY_MAX_N}")
+            return spmm_slab_padded_ref(
+                vals, qm, bcol, group_mtile, group_kwin, b_padded, c_padded,
+                alpha, beta, **kw,
+            )
+        if vals.device.type != "cuda":
+            raise ValueError(f"spmm_slab_skinny runs on cpu or cuda, not {vals.device}")
+        out = _launch(
+            "spmm_slab_skinny_launch", vals, qm, bcol, group_mtile, group_kwin,
+            b_padded, c_padded, alpha, beta, ranges=ranges, **kw,
         )
-    if vals.device.type != "cuda":
-        raise ValueError(f"spmm_slab_skinny runs on cpu or cuda, not {vals.device}")
-    out = _launch(
-        "spmm_slab_skinny_launch", vals, qm, bcol, group_mtile, group_kwin,
-        b_padded, c_padded, alpha, beta, ranges=ranges, **kw,
-    )
-    spmm_slab_skinny_padded.launches += 1
-    return out
-
-
-spmm_slab_padded.launches = 0
-spmm_slab_skinny_padded.launches = 0
+        count("launch.spmm_slab_skinny_padded")
+        return out

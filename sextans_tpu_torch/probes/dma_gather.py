@@ -51,6 +51,7 @@ from sextans_tpu_torch.probes import (
     sweep_report,
 )
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
+from sextans_tpu_torch.utils.profiling import count
 from sextans_tpu_torch.utils.timing import abba_ms
 
 __all__ = ["STAGINGS", "probe_inputs", "gather_spmm", "gather_spmm_ref", "async_group_rows",
@@ -135,11 +136,9 @@ def gather_spmm(cols: torch.Tensor, vals: torch.Tensor, b: torch.Tensor, *,
             STAGINGS.index(staging), 4 if aligned else 1, int(block),
             group if staging == "async" else 0, stream_of(cols.device))
     check_launch(lib, "dma_gather", err)
-    gather_spmm.launches += 1
+    count("launch.gather_spmm")
     return out
 
-
-gather_spmm.launches = 0
 
 # The sweep's modes: (label, staging, block).
 SWEEP_MODES = (("direct", "direct", 256), ("async block=256", "async", 256),

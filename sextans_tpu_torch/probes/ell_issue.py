@@ -49,6 +49,7 @@ from sextans_tpu_torch.probes import (
     sweep_report,
 )
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
+from sextans_tpu_torch.utils.profiling import count
 from sextans_tpu_torch.utils.timing import abba_ms
 
 __all__ = ["VARIANTS", "probe_inputs", "ell_issue", "ell_issue_ref", "main"]
@@ -110,11 +111,8 @@ def ell_issue(vals: torch.Tensor, cols: torch.Tensor, b: torch.Tensor, *,
                                    out.data_ptr(), m, r, n, VARIANTS.index(variant), vec,
                                    stream_of(cols.device))
     check_launch(lib, "ell_issue", err)
-    ell_issue.launches += 1
+    count("launch.ell_issue")
     return out
-
-
-ell_issue.launches = 0
 
 
 def main() -> int:

@@ -25,6 +25,7 @@ import tempfile
 from pathlib import Path
 
 from sextans_tpu_torch.utils.cache import cache_dir
+from sextans_tpu_torch.utils.profiling import timed
 
 __all__ = ["build_kernels", "find_nvcc", "check_launch", "PACKAGE_DIR"]
 
@@ -123,8 +124,11 @@ def _run_all(cmds) -> None:
 
 
 @functools.lru_cache(maxsize=None)
+@timed("library_s")
 def build_kernels() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library; cached per process."""
+    """Compile (if needed) and load the kernel library; cached per process.
+    Its host seconds, the load or the compile, go to the counter
+    ``library_s`` (``utils/profiling.py``)."""
     nvcc = find_nvcc()
     build_dir = cache_dir(BUILD_DIR)
     build_dir.mkdir(parents=True, exist_ok=True)

@@ -1,9 +1,28 @@
-"""Profiling hooks.
+"""Profiling hooks: the port's spans and counters.
 
 The PyTorch counterpart of ``sextans_tpu.utils.profiling``: ``trace``
 records ``torch.profiler`` (host and, where there is a card, CUDA activity)
-around any code and writes a Chrome trace (``chrome://tracing``, Perfetto);
-``annotate`` names a span on that timeline.
+around any code and writes a Chrome trace (``chrome://tracing``, Perfetto).
+
+The program names its own work on that timeline with ``annotate`` (a
+``record_function`` range while a profiler records, else one shared no-op:
+tracing is on exactly when someone profiles) and counts it with ``count``
+into one process-wide dictionary that ``counters()`` returns. ``timed``
+is for set-up-scale work: a span that also adds its host seconds to a
+counter of the same name. Names:
+
+* spans: ``sx.plan.call`` (``SpmmPlan.__call__``: the pads, the kernel
+  wrapper, the output's slice); ``sx.kernel.<wrapper>`` around each kernel
+  wrapper K1-K7, on either device; ``sx.autodiff.ab``, ``.atg``,
+  ``.sddmm``, ``.scatter`` and ``sx.plan.slab_image`` (a training step).
+  A product opens two, one a layer: a recorded span costs the host about
+  as much as a pad's own host work, so finer spans would mostly time
+  themselves;
+* counters: ``plan.calls``, ``plan.pad_bytes`` (bytes of the padded B and
+  C the plan made); ``launch.<wrapper>``, the kernel launches of each
+  wrapper on a card (:func:`launches`); ``pack_s``, ``upload_s`` and
+  ``library_s``, host seconds of the packers, of the upload to the device
+  and of loading (or compiling) the kernel library.
 """
 
 from __future__ import annotations
@@ -11,12 +30,20 @@ from __future__ import annotations
 import contextlib
 import os
 import tempfile
+import time
 from pathlib import Path
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-__all__ = ["trace", "annotate"]
+__all__ = ["trace", "annotate", "recording", "count", "counters", "launches", "timed"]
+
+# whether a profiler records: a C call, the cheapest test there is
+recording = torch.autograd._profiler_enabled
+
+_OFF = contextlib.nullcontext()
+_COUNTERS: dict = {}
+_TIMED_DEPTH: dict = {}
 
 
 @contextlib.contextmanager
@@ -24,7 +51,8 @@ def trace(logdir=None):
     """Record a trace of the block and write it to
     ``<logdir>/trace_<pid>.json`` (``logdir`` defaults to
     ``$TMPDIR/sextans_tpu_torch_trace``); yields the ``torch.profiler``
-    profile, whose ``key_averages()`` sum the device time by kernel.
+    profile, whose ``key_averages()`` sum the device time by kernel. The
+    trace holds the program's spans (see the module).
 
     >>> with trace("traces") as prof:
     ...     plan(b, alpha, beta, c); torch.cuda.synchronize()
@@ -40,5 +68,40 @@ def trace(logdir=None):
 
 
 def annotate(name: str):
-    """A named span on the profiler's timeline (a context manager)."""
-    return record_function(name)
+    """A span named ``name`` on the profiler's timeline (a context manager)
+    while a profiler records; otherwise one shared no-op."""
+    return record_function(name) if recording() else _OFF
+
+
+def count(name: str, n=1) -> None:
+    """Add ``n`` to the process-wide counter ``name``."""
+    _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+def counters() -> dict:
+    """A copy of every counter of this process (see the module)."""
+    return dict(_COUNTERS)
+
+
+def launches(wrapper) -> int:
+    """The kernel launches of a kernel wrapper (a function of ``ops/`` or
+    ``probes/``) so far in this process: its counter ``launch.<name>``."""
+    return _COUNTERS.get(f"launch.{wrapper.__name__}", 0)
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """A span ``name`` that also adds its host seconds to the counter
+    ``name`` (also a decorator). A span nested inside another of the same
+    name counts once. For set-up-scale work: it adds no synchronise, so
+    device work it queued may still run after it closes."""
+    depth = _TIMED_DEPTH.get(name, 0)
+    _TIMED_DEPTH[name] = depth + 1
+    t0 = time.perf_counter()
+    try:
+        with annotate(name):
+            yield
+    finally:
+        _TIMED_DEPTH[name] = depth
+        if depth == 0:
+            count(name, time.perf_counter() - t0)

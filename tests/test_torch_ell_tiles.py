@@ -53,6 +53,7 @@ from sextans_tpu_torch.ops.spmm_ell import (
     spmm_ell_gather_padded_ref,
 )
 from sextans_tpu_torch.utils.matrices import fem_like
+from sextans_tpu_torch.utils.profiling import launches
 
 ALPHA, BETA = 0.85, -2.06
 
@@ -382,11 +383,11 @@ def test_ell_launch_map_and_the_cpu_wrapper():
     b, c = _operands(port, 8)
     arrays = [torch.from_numpy(np.ascontiguousarray(a)) for a in
               (port.vals, port.cols, port.fold_rows)]
-    before = spmm_ell_gather_padded.launches
+    before = launches(spmm_ell_gather_padded)
     got = spmm_ell_gather_padded(*arrays, b, c, ALPHA, BETA, m_base=port.m_base,
                                  ranges=ell_tiles(port))
     assert torch.equal(got, _ref(port, b, c, with_c=True, precise=0))
-    assert spmm_ell_gather_padded.launches == before
+    assert launches(spmm_ell_gather_padded) == before
 
 
 @pytest.mark.parametrize("width", [1, 2, 16, 64])

@@ -41,6 +41,7 @@ from sextans_tpu_torch.ops.spmm_slab import (
 )
 from sextans_tpu_torch.probes import dma_gather, ell_issue
 from sextans_tpu_torch.utils.matrices import circuit_like, fem_like, stencil_3d
+from sextans_tpu_torch.utils.profiling import launches
 
 pytestmark = pytest.mark.gpu
 
@@ -89,12 +90,12 @@ def _check(kernel, plain, cuda, packed, n, with_c, precise=0, poison=None):
               group_blocks=cfg.group_blocks, with_c=with_c, precise=precise)
     if kernel is spmm_slab_padded:  # K1's operand tiles, made where the plan uploads
         kw["image"] = pl.image
-    before = kernel.launches
+    before = launches(kernel)
     got = kernel(*pl.arrays, b, c, ALPHA, BETA, ranges=pl.ranges, **kw)
     kw.pop("image", None)
     want = plain(*pl.arrays, b, c, ALPHA, BETA, **kw)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert launches(kernel) == before + 1
     assert got.shape == want.shape == (packed.m_padded, n) and got.device == cuda
     finite = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), finite)
@@ -147,7 +148,7 @@ def _hub_matrix():
 
 
 def _check_new(kernel, plain, cuda, packed, backend, n, with_c, nonfinite_b=False,
-               precise=0, launches=1):
+               precise=0, n_launches=1):
     pl = tx.plan(packed, n, backend, device=cuda)
     rng = np.random.default_rng(n)
     b_host = rng.standard_normal((packed.k, n)).astype(np.float32)
@@ -165,11 +166,11 @@ def _check_new(kernel, plain, cuda, packed, backend, n, with_c, nonfinite_b=Fals
     else:
         kw = dict(m_base=packed.m_base, with_c=with_c, precise=precise)
         extra = dict(ranges=pl.ranges)
-    before = kernel.launches
+    before = launches(kernel)
     got = kernel(*pl.arrays, b, c, ALPHA, BETA, **kw, **extra)
     want = plain(*pl.arrays, b, c, ALPHA, BETA, **kw)
     torch.cuda.synchronize()
-    assert kernel.launches == before + launches
+    assert launches(kernel) == before + n_launches
     assert got.shape == want.shape == (packed.m_padded, n) and got.device == cuda
     assert torch.isfinite(got).all() and torch.isfinite(want).all()
     if precise or backend == "ell_pallas":  # K5 takes its plain version's roundings
@@ -273,7 +274,7 @@ def test_ell_kernel_takes_every_pack_to_the_bit(cuda, kind, n, precise):
         assert tx.plan(packed, n, "ell_pallas", device=cuda).ranges.group_max == 3
     _check_new(spmm_ell_gather_padded, spmm_ell_gather_padded_ref, cuda, packed,
                "ell_pallas", n, with_c=n != 16, precise=precise,
-               launches=2 if kind == "long_hub" else 1)
+               n_launches=2 if kind == "long_hub" else 1)
 
 
 def test_ell_kernel_needs_its_tiles_on_card(cuda):
@@ -392,11 +393,11 @@ def _check_dia(kernel, cuda, split, n, with_c, misaligned=False, precise=0,
     runs = {"runs": (dia_plan(split.diag_offsets, cuda) if cut is None
                      else _runs_cut_at(split.diag_offsets, cuda, cut))}
     offs = runs["runs"].offsets
-    before = kernel.launches
+    before = launches(kernel)
     got = kernel(dv, offs, b, c, ALPHA, BETA, **runs, **kw)
     want = spmm_dia_ref(dv, offs, b, c, ALPHA, BETA, **kw)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert launches(kernel) == before + 1
     assert got.shape == want.shape == (split.m, n) and got.device == cuda
     finite = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), finite)
@@ -440,13 +441,13 @@ def test_hybrid_plan_on_card_matches_cpu(cuda, n, backend):
     dia = spmm_dia_skinny if n <= 32 else spmm_dia
     exact = tx.golden_spmm_exact(tx.CSRMatrix.from_coo(coo), b, ALPHA, BETA, c)
     tol = 4 * np.spacing(np.float32(np.abs(exact).max()))
-    before = dia.launches
+    before = launches(dia)
     for got in (on_card(b, ALPHA, BETA, c), on_card.repeat(b, ALPHA, BETA, c, times=1)):
         assert got.device == cuda
         got = got.cpu().numpy()
         assert tx.verify(exact, got).passed
         assert np.abs(got - on_cpu(b, ALPHA, BETA, c).numpy()).max() <= tol
-    assert dia.launches == before + 2
+    assert launches(dia) == before + 2
     noc = on_card(b, 1.5).cpu().numpy()
     assert np.abs(noc - on_cpu(b, 1.5).numpy()).max() <= tol
 
@@ -551,14 +552,14 @@ def test_edge_kernel_precise_unmasked_pads_with_nonfinite_b(cuda, precise):
 
 def test_eft_probe_twin_on_card(cuda):
     a, b, v, bb = df32.probe_inputs(0)
-    pairs_before, chain_before = df32.eft_probe_pairs.launches, df32.eft_probe_chain.launches
+    pairs_before, chain_before = launches(df32.eft_probe_pairs), launches(df32.eft_probe_chain)
     ta, tb = torch.as_tensor(a, device=cuda), torch.as_tensor(b, device=cuda)
     tv, tbb = torch.as_tensor(v, device=cuda), torch.as_tensor(bb, device=cuda)
     pairs = df32.eft_probe_pairs(ta, tb)
     chain = df32.eft_probe_chain(tv, tbb)
     torch.cuda.synchronize()
-    assert df32.eft_probe_pairs.launches == pairs_before + 1
-    assert df32.eft_probe_chain.launches == chain_before + 1
+    assert launches(df32.eft_probe_pairs) == pairs_before + 1
+    assert launches(df32.eft_probe_chain) == chain_before + 1
     for got, want in zip(pairs + (chain,),
                          df32.eft_probe_pairs_ref(ta, tb) + (df32.eft_probe_chain_ref(tv, tbb),)):
         assert torch.equal(got, want)
@@ -581,10 +582,10 @@ def test_precise_plan_on_card_launches_its_kernel(cuda, backend, n, precise):
     rng = np.random.default_rng(1)
     b = rng.standard_normal((coo.shape[1], n)).astype(np.float32)
     c = rng.standard_normal((coo.shape[0], n)).astype(np.float32)
-    before = kernel.launches
+    before = launches(kernel)
     got = tx.plan(packed, n, backend, device=cuda)(b, ALPHA, BETA, c)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1 and got.device == cuda
+    assert launches(kernel) == before + 1 and got.device == cuda
     got = got.cpu()
     on_cpu = tx.plan(packed, n, backend, device="cpu")(b, ALPHA, BETA, c)
     exact = tx.golden_spmm_exact(tx.CSRMatrix.from_coo(coo), b, ALPHA, BETA, c)
@@ -645,10 +646,10 @@ def test_precise_ell_plan_on_card_launches_its_kernel(cuda, backend, n, precise)
     rng = np.random.default_rng(1)
     b = rng.standard_normal((coo.shape[1], n)).astype(np.float32)
     c = rng.standard_normal((coo.shape[0], n)).astype(np.float32)
-    before = spmm_ell_gather_padded.launches
+    before = launches(spmm_ell_gather_padded)
     got = tx.plan(packed, n, backend, device=cuda)(b, ALPHA, BETA, c)
     torch.cuda.synchronize()
-    assert spmm_ell_gather_padded.launches == before + (backend == "ell_pallas")
+    assert launches(spmm_ell_gather_padded) == before + (backend == "ell_pallas")
     assert got.device == cuda
     got = got.cpu()
     exact = tx.golden_spmm_exact(tx.CSRMatrix.from_coo(coo), b, ALPHA, BETA, c)
@@ -684,10 +685,10 @@ def test_precise_hybrid_plan_on_card_launches_its_kernels(cuda, n, backend, prec
                                precise=precise, device="cpu")
     dia = spmm_dia_skinny if n <= 32 else spmm_dia
     residue = spmm_block_padded if backend == "pallas" else spmm_ell_gather_padded
-    before = (dia.launches, residue.launches)
+    before = (launches(dia), launches(residue))
     got = on_card(b, ALPHA, BETA, c)
     torch.cuda.synchronize()
-    assert (dia.launches, residue.launches) == (before[0] + 1, before[1] + 1)
+    assert (launches(dia), launches(residue)) == (before[0] + 1, before[1] + 1)
     assert got.device == cuda
     got = got.cpu().numpy()
     exact = tx.golden_spmm_exact(tx.CSRMatrix.from_coo(coo), b, ALPHA, BETA, c)
@@ -721,10 +722,10 @@ def _gather_operands(cuda, k, m, r, n, zero_share=0.0):
     for block in (256, 1024)])
 def test_dma_gather_kernel_equals_plain(cuda, k, m, r, n, staging, block):
     cols, vals, b = _gather_operands(cuda, k, m, r, n)
-    before = dma_gather.gather_spmm.launches
+    before = launches(dma_gather.gather_spmm)
     got = dma_gather.gather_spmm(cols, vals, b, staging=staging, block=block)
     torch.cuda.synchronize()
-    assert dma_gather.gather_spmm.launches == before + 1
+    assert launches(dma_gather.gather_spmm) == before + 1
     assert torch.equal(got, dma_gather.gather_spmm_ref(cols, vals, b))
 
 
@@ -735,12 +736,12 @@ def test_ell_issue_kernel_equals_plain_and_keeps_pads_out(cuda, k, m, r, n, vari
     cols[(vals == 0) & (torch.arange(m, device=cuda)[:, None] % 2 == 0)] = 0
     vals[3, 0], cols[3, 0] = 0.5, 0  # a nonzero slot on row 0
     want = ell_issue.ell_issue_ref(vals, cols, b)
-    before = ell_issue.ell_issue.launches
+    before = launches(ell_issue.ell_issue)
     assert torch.equal(ell_issue.ell_issue(vals, cols, b, variant=variant), want)
     b[0] = float("nan")
     got = ell_issue.ell_issue(vals, cols, b, variant=variant)
     torch.cuda.synchronize()
-    assert ell_issue.ell_issue.launches == before + 2
+    assert launches(ell_issue.ell_issue) == before + 2
     hit = ((cols == 0) & (vals != 0)).any(dim=1)
     assert bool(hit[3]) and bool(((cols == 0) & (vals == 0)).any())
     assert torch.equal(~torch.isfinite(got).all(dim=1), hit)
@@ -756,12 +757,12 @@ def test_dma_gather_async_refuses_what_it_cannot_copy(cuda):
     shifted = torch.empty(b.numel() + 1, device=cuda)[1:].view(b.shape)
     shifted.copy_(b)
     assert shifted.data_ptr() % 16
-    before = dma_gather.gather_spmm.launches
+    before = launches(dma_gather.gather_spmm)
     with pytest.raises(ValueError, match="16-byte aligned"):
         dma_gather.gather_spmm(cols, vals, shifted, staging="async")
     got = dma_gather.gather_spmm(cols, vals, shifted)
     torch.cuda.synchronize()
-    assert dma_gather.gather_spmm.launches == before + 1
+    assert launches(dma_gather.gather_spmm) == before + 1
     assert torch.equal(got, dma_gather.gather_spmm_ref(cols, vals, b))
     with pytest.raises(SharedMemoryError):
         dma_gather.gather_spmm(*_gather_operands(cuda, 16, 4, 8, 4096), staging="async")
@@ -833,12 +834,12 @@ def test_slab_skinny_refuses_a_ring_that_does_not_fit(cuda):
     idx = torch.zeros((1, 1), **i32)
     ranges = (torch.tensor([0, 1], **i32), torch.zeros(1, **i32))
     b, c = torch.ones((bk, 32), device=cuda), torch.ones((128, 32), device=cuda)
-    before = spmm_slab_skinny_padded.launches
+    before = launches(spmm_slab_skinny_padded)
     with pytest.raises(SharedMemoryError, match="shared memory"):
         spmm_slab_skinny_padded(vals, idx, idx, torch.tensor([0, -1], **i32),
                                 torch.zeros(1, **i32), b, c, 1.0, 0.0, tile_m=128,
                                 window_k=bk, block_k=bk, group_blocks=1, ranges=ranges)
-    assert spmm_slab_skinny_padded.launches == before
+    assert launches(spmm_slab_skinny_padded) == before
 
 
 @pytest.mark.parametrize("precise", [0, 1])
@@ -876,11 +877,11 @@ def test_dia_kernel_refuses_a_window_that_does_not_fit(cuda):
     offs = torch.as_tensor(offsets.astype(np.int32), device=cuda)
     b = torch.ones((k, 64), device=cuda)
     c = torch.ones((m, 64), device=cuda)
-    before = spmm_dia.launches
+    before = launches(spmm_dia)
     by_hand = DiaRuns(offs, torch.tensor([0, 2], dtype=torch.int32, device=cuda), 2400, 2)
     with pytest.raises(SharedMemoryError, match="shared memory"):
         spmm_dia(dv, offs, b, c, 1.0, 0.0, runs=by_hand)
-    assert spmm_dia.launches == before
+    assert launches(spmm_dia) == before
     runs = dia_plan(offsets, cuda)  # two runs of one diagonal each
     assert runs.ptr.tolist() == [0, 1, 2] and (runs.span, runs.length) == (0, 1)
     got = spmm_dia(dv, runs.offsets, b, c, ALPHA, BETA, runs=runs)
@@ -903,10 +904,10 @@ def test_dia_kernel_takes_only_the_offsets_its_plan_holds(cuda, other, kernel, n
         offs = torch.tensor([-1200, 1200], dtype=torch.int32, device=cuda)
     else:  # the same values in another tensor
         offs = runs.offsets.clone()
-    before = kernel.launches
+    before = launches(kernel)
     with pytest.raises(ValueError, match="runs.offsets"):
         kernel(dv, offs, b, c, 1.0, 0.0, runs=runs)
-    assert kernel.launches == before
+    assert launches(kernel) == before
 
 
 # ---- K1 streams its slab's blocks through shared memory and contracts
@@ -924,10 +925,10 @@ def _check_slab_f64(cuda, coo, packed, n, with_c):
     rng = np.random.default_rng(n)
     b = rng.standard_normal((packed.k, n)).astype(np.float32)
     c = rng.standard_normal((packed.m, n)).astype(np.float32)
-    before = spmm_slab_padded.launches
+    before = launches(spmm_slab_padded)
     beta, c_in = (BETA, c) if with_c else (0.0, None)
     got = pl(b, ALPHA, beta, c_in).cpu().numpy()
-    assert spmm_slab_padded.launches == before + 1
+    assert launches(spmm_slab_padded) == before + 1
     plain = tx.plan(packed, n, "mxu", device="cpu")(b, ALPHA, beta, c_in).numpy()
     exact = tx.golden_spmm_exact(tx.CSRMatrix.from_coo(coo), b, ALPHA, beta, c_in)
     unit = np.spacing(np.float32(np.abs(exact).max()))
@@ -994,7 +995,7 @@ def test_slab_kernel_needs_its_image_and_slab_lists(cuda):
     b = pl.pad_b(np.ones((packed.k, 40), np.float32))
     c = pl.pad_c(np.ones((packed.m, 40), np.float32))
     kw = dict(tile_m=256, window_k=256, block_k=16, group_blocks=8, ranges=pl.ranges)
-    before = spmm_slab_padded.launches
+    before = launches(spmm_slab_padded)
     with pytest.raises(ValueError, match="image"):
         spmm_slab_padded(*pl.arrays, b, c, 1.0, 0.0, **kw)
     with pytest.raises(ValueError, match="image must have shape"):
@@ -1002,7 +1003,7 @@ def test_slab_kernel_needs_its_image_and_slab_lists(cuda):
     with pytest.raises(ValueError, match="slab_blocks"):
         spmm_slab_padded(*pl.arrays, b, c, 1.0, 0.0, **{**kw, "ranges": (
             pl.ranges[0], pl.ranges[1][1:], pl.ranges[2][1:])}, image=pl.image)
-    assert spmm_slab_padded.launches == before
+    assert launches(spmm_slab_padded) == before
 
 
 @pytest.mark.parametrize("precise", [0, 1])
@@ -1113,11 +1114,11 @@ def test_value_op_on_card_matches_its_plain_versions(cuda, fmt, precise, n, zero
         op = tx.spmm_value_op(built, n, config=cfg, fmt=fmt, device=dev)
         args = [torch.tensor(x, device=dev, requires_grad=True) for x in (coo.vals, b, c)]
         args += [torch.tensor(x, device=dev, requires_grad=True) for x in (ALPHA, BETA)]
-        before = kernel.launches
+        before = launches(kernel)
         out = op(*args)
-        forward = kernel.launches - before
+        forward = launches(kernel) - before
         out.backward(torch.as_tensor(g, device=dev))
-        backward = kernel.launches - before - forward
+        backward = launches(kernel) - before - forward
         with torch.no_grad():
             parts = (op.ab(args[0], args[1]), op.atg(args[0], torch.as_tensor(g, device=dev)))
         results[key] = [x.detach().cpu() for x in (out, *parts)] + [

@@ -30,6 +30,7 @@ from sextans_tpu_torch.ops import hybrid
 from sextans_tpu_torch.ops.launch import check_split
 from sextans_tpu_torch.ops.spmm_dia import spmm_dia, spmm_dia_ref, spmm_dia_skinny
 from sextans_tpu_torch.utils import matrices
+from sextans_tpu_torch.utils.profiling import launches
 
 ALPHA, BETA = 0.85, -2.06
 SPLIT_ARRAYS = ("diag_offsets", "diag_vals", "head_cols", "head_dense", "head_rows",
@@ -264,9 +265,9 @@ def test_dia_wrappers_run_plain_version_on_cpu():
     args = (torch.from_numpy(dvals), torch.tensor(offsets, dtype=torch.int32),
             torch.from_numpy(b), torch.from_numpy(c), ALPHA, BETA)
     want = spmm_dia_ref(*args)
-    before = (spmm_dia.launches, spmm_dia_skinny.launches)
+    before = (launches(spmm_dia), launches(spmm_dia_skinny))
     assert torch.equal(spmm_dia(*args), want) and torch.equal(spmm_dia_skinny(*args), want)
-    assert (spmm_dia.launches, spmm_dia_skinny.launches) == before
+    assert (launches(spmm_dia), launches(spmm_dia_skinny)) == before
     meta = torch.empty((2, 8), device="meta")
     for fn in (spmm_dia, spmm_dia_skinny):
         with pytest.raises(ValueError, match="cpu or cuda"):

@@ -51,6 +51,7 @@ from sextans_tpu_torch.ops.spmm_ell import (
     spmm_ell_gather_padded_ref,
     spmm_ell_padded_ref,
 )
+from sextans_tpu_torch.utils.profiling import launches
 
 ALPHA, BETA = 0.85, -2.06
 
@@ -174,11 +175,11 @@ def test_ell_gather_precise_matches_jax_kernel(with_c):
     assert _err(got, want) <= 2 * _ulp(exact)
     assert _err(got, exact) <= 1.0 * _ulp(exact)
     # the wrapper on a CPU tensor is the plain version, launching nothing
-    before = spmm_ell_gather_padded.launches
+    before = launches(spmm_ell_gather_padded)
     via = spmm_ell_gather_padded(*arrays, torch.from_numpy(b), torch.from_numpy(c_p), ALPHA,
                                  beta, m_base=port.m_base, with_c=with_c, precise=2)
     assert torch.equal(via[:m], torch.from_numpy(got))
-    assert spmm_ell_gather_padded.launches == before
+    assert launches(spmm_ell_gather_padded) == before
 
 
 @pytest.mark.parametrize("with_c", [True, False])
@@ -308,10 +309,10 @@ def test_dia_precise_matches_jax_kernels(route, n, with_c):
     plain = spmm_dia_ref(*args, with_c=with_c).numpy()
     assert _err(got.numpy(), exact) <= _err(plain, exact)
     # both wrappers run the plain version on CPU tensors, at either level
-    before = (spmm_dia.launches, spmm_dia_skinny.launches)
+    before = (launches(spmm_dia), launches(spmm_dia_skinny))
     for fn in (spmm_dia, spmm_dia_skinny):
         assert torch.equal(fn(*args, with_c=with_c, precise=2), got)
-    assert (spmm_dia.launches, spmm_dia_skinny.launches) == before
+    assert (launches(spmm_dia), launches(spmm_dia_skinny)) == before
 
 
 def test_dia_precise_keeps_a_long_cancelling_sum():

@@ -26,6 +26,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from sextans_tpu_torch.ops.launch import SMEM_LIMIT, SharedMemoryError
 from sextans_tpu_torch.probes import dma_gather, ell_issue, gather_bound
+from sextans_tpu_torch.utils.profiling import launches
 
 REPO = Path(__file__).resolve().parent.parent
 K, M, R, BLOCK = 1024, 128, 4, 32
@@ -97,9 +98,9 @@ def _p1(n):
 @pytest.mark.parametrize("n", [16, 128])
 def test_p1_matches_the_pallas_probe(n, staging):
     b, cols, vals, tpu = _p1(n)
-    before = dma_gather.gather_spmm.launches
+    before = launches(dma_gather.gather_spmm)
     got = dma_gather.gather_spmm(*_t(cols, vals, b), staging=staging).numpy()
-    assert dma_gather.gather_spmm.launches == before  # the plain version: no launch
+    assert launches(dma_gather.gather_spmm) == before  # the plain version: no launch
     assert got.shape == (M, n) and np.isfinite(got).all()
     assert np.abs(got - tpu).max() <= 4 * _ulp(tpu)
     assert np.abs(got - _f64(vals, cols, b)).max() <= 4 * _ulp(got)

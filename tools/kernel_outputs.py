@@ -100,9 +100,17 @@ def save(root: str, out: str, full: bool = False) -> int:
                "spmm_ell": (spmm_ell_gather_padded, "ell_pallas")}
     outs = {}
 
+    def launches(kernel) -> int:
+        """The kernel's launches so far: the ``launch.<wrapper>`` counter of
+        ``sx.counters()``, or on a tree older than the counters the
+        wrapper's own ``launches`` attribute."""
+        if hasattr(sx, "counters"):
+            return sx.counters().get(f"launch.{kernel.__name__}", 0)
+        return kernel.launches
+
     def keep(key, kernel, before, got):
         torch.cuda.synchronize()
-        if kernel.launches != before + 1:
+        if launches(kernel) != before + 1:
             raise RuntimeError(f"{key}: the kernel did not launch")
         outs[key] = got.cpu()
         print(f"{key}: {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}",
@@ -125,7 +133,7 @@ def save(root: str, out: str, full: bool = False) -> int:
                 kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k, block_k=cfg.block_k,
                           group_blocks=cfg.group_blocks)
             for with_c in (True, False):
-                before = kernel.launches
+                before = launches(kernel)
                 if name in ("spmm_slab", "spmm_ell"):  # through the plan: its scan (and tiles)
                     got = pl._run(*pl.arrays, b_p, c_p, ALPHA, BETA if with_c else 0.0,
                                   with_c=with_c)
@@ -150,7 +158,7 @@ def save(root: str, out: str, full: bool = False) -> int:
             raise RuntimeError(f"{tag} N={n}: the plan does not run {kernel.__name__}")
         for level in (0, 1):
             for with_c in (True, False):
-                before = kernel.launches
+                before = launches(kernel)
                 got = kernel(pl._dvals, pl._offsets, b, c, ALPHA, BETA if with_c else 0.0,
                              with_c=with_c, precise=level, **getattr(pl, "_dia_kw", {}))
                 keep(f"{'' if coo is synth else tag + ' '}{kernel.__name__} N={n} "
