@@ -131,14 +131,18 @@ Phases (each prints its lines; any failure exits non-zero):
    run of (a) and (b) holds step 1 against f64: A @ B and dB (on the CSR
    of A^T, by ``utils/device_verify.py``) within 4 ulp of max|.|, or no
    further than the plain versions' own f32 sums on the same inputs, and
-   never a ulp past them; dvals (the SDDMM) within 4 ulp of max|dvals|; dC
+   never a ulp past them; dvals (the SDDMM kernel, ``csrc/sddmm.cu``, one
+   launch a step) within 4 ulp of max|dvals|; dC
    = beta G to the bit; dalpha and dbeta within 2^-20 of sum|G * AB|
    (sum|G * C|); the forward and A^T kernels against their plain versions
-   on the card (K1 and K2 4 ulp, K3 1, K4, K5 and precise K3 0); and where
+   on the card (K1 and K2 4 ulp, K3 1, K4, K5 and precise K3 0), and the
+   SDDMM kernel against its plain version within 4 ulp of max|dvals|,
+   beside its tiles' B-row reuse (``sddmm.entries / sddmm.b_rows``); and where
    the op's packs hold the matrix's values, its scatter gives them to the
    bit. Each prints its losses, its step by ``time_chained`` (forward,
    backward, Adam) and by CUDA events the scatter, ``slab_image``, the
-   forward and A^T kernels and the SDDMM, beside the library's step
+   forward and A^T kernels and the SDDMM (kernel and plain version),
+   beside the library's step
    (``torch.sparse.mm`` forward and A^T, ``sampled_addmm``, timed only),
    with the card's name and power limit; no build in the phase.
 
@@ -233,6 +237,16 @@ def bound(nnz: int, m: int, k: int, n: int):
 
     flop_ms = 2.0 * nnz * n / PEAK_F32_FLOPS * 1e3
     byte_ms = (8.0 * nnz + 4.0 * k * n + 8.0 * m * n) / PEAK_HBM_BYTES * 1e3
+    return max(flop_ms, byte_ms), "operations" if flop_ms > byte_ms else "bytes"
+
+
+def sddmm_bound(nnz: int, m: int, k: int, n: int):
+    """Least milliseconds of the SDDMM ``G[rows[e]] . B[cols[e]]``: G and B
+    once, 8 bytes of coordinates and 4 of output a nonzero; and its limit."""
+    from sextans_tpu_torch.utils.timing import PEAK_F32_FLOPS, PEAK_HBM_BYTES
+
+    flop_ms = 2.0 * nnz * n / PEAK_F32_FLOPS * 1e3
+    byte_ms = (12.0 * nnz + 4.0 * (m + k) * n) / PEAK_HBM_BYTES * 1e3
     return max(flop_ms, byte_ms), "operations" if flop_ms > byte_ms else "bytes"
 
 
@@ -518,7 +532,8 @@ def f64_sddmm(rows, cols, g, b):
     return out
 
 
-def training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, smi) -> None:
+def training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, kernels,
+             smi) -> None:
     """Phase 12: the differentiable SpMM (``spmm_value_op``) on the card.
 
     (a) cant_like N = 512 through K1: the op built from the pattern with
@@ -529,15 +544,18 @@ def training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, smi)
     1's output and gradients against f64 and its kernels against their
     plain versions on the card; then times the step (``time_chained``), its
     parts and the library's. (c) ``examples/train_sparse_torch.py`` on the
-    card. Adds each run's launches to ``launches``."""
+    card. Adds each run's launches to ``launches`` and the SDDMM's row at
+    cant_like to ``kernels``."""
     import importlib.util
 
     import numpy as np
     import torch
 
     import sextans_tpu_torch as sx
+    from sextans_tpu_torch.ops.sddmm import sddmm_rows, sddmm_rows_ref
     from sextans_tpu_torch.ops.spmm_slab import slab_image
     from sextans_tpu_torch.utils.device_verify import device_full_check
+    from sextans_tpu_torch.utils.profiling import launches as launches_of
     from sextans_tpu_torch.utils.timing import event_ms, time_chained
 
     def ulp_of(x) -> float:
@@ -584,6 +602,7 @@ def training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, smi)
             return torch.mean((out - target) ** 2)
 
         marks = launch_marks(counted)
+        sddmm_mark = launches_of(sddmm_rows)
         losses, first = [], {}
         for step in range(steps):
             opt.zero_grad()
@@ -605,7 +624,11 @@ def training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, smi)
         base = kernel.split("_precise")[0]
         if set(ran) != {base} or ran[base] < 2 * steps + 1:
             fail(f"{tag}: launches {ran}, expected {base} at least {2 * steps + 1} times")
+        ran["sddmm"] = launches_of(sddmm_rows) - sddmm_mark
+        if ran["sddmm"] != steps:
+            fail(f"{tag}: {ran['sddmm']} SDDMM launches in {steps} steps, expected one a step")
         launches[kernel] = launches.get(kernel, 0) + ran[base]
+        launches["sddmm"] = launches.get("sddmm", 0) + ran["sddmm"]
         if not all(l1 < l0 for l0, l1 in zip(losses, losses[1:])):
             fail(f"{tag}: the loss did not fall at every step: {losses}")
 
@@ -636,6 +659,12 @@ def training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, smi)
         near = all(ulps[key] <= max(ULP_BAR, ulps[f"{key} plain"] + ORACLE_SLACK)
                    and ulps[key] <= ulps[f"{key} plain"] + 1.0 for key in ("AB", "dB"))
         sd64 = f64_sddmm(op.rows, op.cols, g, b0)
+        sd, sd_plain = op.sddmm(g, b0), sddmm_rows_ref(g, b0, op.rows, op.cols)
+        sd_err = (sd - sd_plain).abs().max().item()
+        diffs.append(sd_err / ulp_of(sd_plain.abs().max().item()))
+        del sd, sd_plain
+        tiles = op.sddmm_tiles
+        reuse = tiles.codes.numel() / (tiles.slot_ptr[-1] - tiles.tile_rows.sum()).item()
         dvals64 = float(np.float32(ALPHA)) * sd64
         ulps["dvals"] = ((first["dvals"].double() - dvals64).abs().max().item()
                          / ulp_of(dvals64.abs().max().item()))
@@ -647,7 +676,7 @@ def training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, smi)
         alpha_err = abs(first["dalpha"].item() - dalpha64)
         beta_err = abs(first["dbeta"].item() - dbeta64)
         dc_exact = torch.equal(first["dc"], be.detach() * g)
-        ok = (near and ulps["dvals"] <= ULP_BAR and dc_exact
+        ok = (near and ulps["dvals"] <= ULP_BAR and diffs[2] <= ULP_BAR and dc_exact
               and alpha_err <= alpha_bar and beta_err <= beta_bar
               and bool(torch.isfinite(first["db"]).all() and torch.isfinite(first["dvals"]).all()))
 
@@ -673,7 +702,8 @@ def training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, smi)
                                                    0.0, with_c=False, **image), iters),
               "A^T": event_ms(lambda: bwd._run(pv_t, *bwd.arrays[1:], g_p, bwd.no_c(), 1.0,
                                                0.0, with_c=False, **image_t), iters),
-              "SDDMM": event_ms(lambda: op.sddmm(g, b0), iters)}
+              "SDDMM": event_ms(lambda: op.sddmm(g, b0), iters),
+              "SDDMM plain": event_ms(lambda: sddmm_rows_ref(g, b0, op.rows, op.cols), iters)}
         if image:
             ms["slab_image"] = event_ms(lambda: slab_image(pv, cfg.block_k), iters)
         b_t = b0.t().contiguous()
@@ -682,6 +712,12 @@ def training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, smi)
                "sampled_addmm": event_ms(lambda: torch.sparse.sampled_addmm(
                    a_csr, g, b_t, beta=0.0, alpha=ALPHA), iters)}
         del image, image_t
+        if coo is cant:
+            kernels["sddmm"] = dict(max_abs_err=sd_err, ms=ms["SDDMM"],
+                                    plain_ms=ms["SDDMM plain"],
+                                    **dict(zip(("bound_ms", "bound_by"),
+                                               sddmm_bound(coo.nnz, m, k, n))),
+                                    library_ms=lib["sampled_addmm"])
         print(f"{tag}: {fmt} ({fwd.backend}, precise={cfg.precise}) N={n} {m}x{k} "
               f"nnz={coo.nnz}{' built from zero blocks' if built is not coo else ''}; op "
               f"built in {t_build:.3f} s{scatter_exact}; losses "
@@ -692,14 +728,16 @@ def training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, smi)
               f"(alpha AB + beta C rounded apart, as the JAX op rounds); dC "
               f"{'= beta G' if dc_exact else '!= beta G'}; dalpha {alpha_err:.3e} (bar {alpha_bar:.3e}), dbeta {beta_err:.3e} (bar "
               f"{beta_bar:.3e}); kernel - plain {diffs[0]:.4f} / {diffs[1]:.4f} ulp (band "
-              f"{band:g}); [{smi}] step (time_chained: forward, backward, Adam) "
-              f"{t_step * 1e3:.4f} ms; device ms: "
+              f"{band:g}), SDDMM {diffs[2]:.4f} (bar {ULP_BAR:g}; {tiles.tile_rows.numel()} "
+              f"tiles, B-row reuse {reuse:.3f}); [{smi}] step (time_chained: forward, "
+              f"backward, Adam) {t_step * 1e3:.4f} ms; device ms: "
               + ", ".join(f"{key} {v:.4f}" for key, v in ms.items())
               + f"; library step {sum(lib.values()):.4f} ms ("
               + ", ".join(f"{key} {v:.4f}" for key, v in lib.items())
               + f"); launches {ran} {'ok' if ok else 'MISMATCH'}", flush=True)
         if not ok:
-            fail(f"{tag}: {fmt} N={n}: step 1 against f64 {ulps}, dC {dc_exact}, dalpha "
+            fail(f"{tag}: {fmt} N={n}: step 1 against f64 {ulps}, kernel - plain {diffs}, "
+                 f"dC {dc_exact}, dalpha "
                  f"{alpha_err:.3e} (bar {alpha_bar:.3e}), dbeta {beta_err:.3e} "
                  f"(bar {beta_bar:.3e})")
 
@@ -1590,7 +1628,7 @@ def main() -> int:
     # ---- phase 12: training (spmm_value_op) ----
     t12 = time.perf_counter()
     print(f"phase 12: training {at()}", flush=True)
-    training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, smi)
+    training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, kernels, smi)
     if build_kernels.cache_info().misses != builds:
         fail(f"phase 12: the kernel library was built again: {build_kernels.cache_info()}")
     print(f"phase 12: no build in the phase; done in {time.perf_counter() - t12:.1f} s {at()}",
@@ -1625,6 +1663,8 @@ def main() -> int:
         sources[name] = ("sextans_tpu_torch/csrc/gather_probe.cu",
                          "benchmarks/scratch/dma_gather_probe.py:37" if name.startswith("dma")
                          else "benchmarks/scratch/ell_issue_probe.py:24")
+    sources["sddmm"] = ("sextans_tpu_torch/csrc/sddmm.cu",
+                        "none: sextans_tpu/ops/autodiff.py:58 _sddmm is XLA ops")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **kernels[name]}

@@ -1,6 +1,7 @@
 // async_copy.cuh: copies from device memory into shared memory that run
 // beside the threads' own work, for the skinny slab kernel (K2,
-// spmm_slab.cu) and the wide DIA kernel (K6, spmm_dia.cu). sm_90 PTX:
+// spmm_slab.cu), the wide DIA kernel (K6, spmm_dia.cu) and the SDDMM
+// (sddmm.cu). sm_90 PTX:
 //
 // * cp.async.bulk (the Tensor Memory Accelerator's 1-D copy): one thread
 //   asks for a contiguous run of bytes; its completion is counted in bytes
@@ -81,6 +82,22 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// The same, copying `src_bytes` (4 or 0) of the 4 and filling the rest of
+// `dst` with zeros: src_bytes 0 reads nothing.
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// 16 bytes, of which `src_bytes` (16 or 0) are copied and the rest zeroed.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
                : "memory");
 }
 

@@ -20,12 +20,13 @@ block, stripe visit or virtual row that holds an entry is walked whatever
 its value. ``spmm_op`` keeps the simple ``op(b, c)`` with vals, alpha and
 beta closed over.
 
-The scatter and the SDDMM are PyTorch ops, as they are XLA ops in the JAX
-package (no Pallas kernel there). The scatter adds in COO entry order on
-every device (one pass per rank of ``ops/launch.py:rank_groups``), so
-scattering ``a.vals`` gives ``packed.vals`` to the bit. The SDDMM is an
-elementwise product and a sum over N, never a contraction, so TF32 cannot
-touch it.
+The scatter is PyTorch ops, as it is XLA ops in the JAX package (no Pallas
+kernel there). It adds in COO entry order on every device (one pass per
+rank of ``ops/launch.py:rank_groups``), so scattering ``a.vals`` gives
+``packed.vals`` to the bit. The SDDMM (``ops/sddmm.py:sddmm_rows``) is a
+hand-written kernel on the card, over a host plan of A's entries made once
+per op, and its plain version on the CPU; both multiply-add in f32 and sum
+over N, never a contraction, so TF32 cannot touch it.
 
 ``device`` is required, as it is for ``plan`` and ``SpmmPlan``: the JAX op
 takes none.
@@ -42,12 +43,11 @@ from sextans_tpu_torch.format.coo import COOMatrix
 from sextans_tpu_torch.format.slots import slot_map
 from sextans_tpu_torch.ops.launch import rank_groups, structure_mask
 from sextans_tpu_torch.ops.plan import FORMATS, SpmmPlan, dense_operand, resolve_device
+from sextans_tpu_torch.ops.sddmm import sddmm_plan, sddmm_rows
 from sextans_tpu_torch.utils.config import SpmmConfig
 from sextans_tpu_torch.utils.profiling import annotate, timed
 
 __all__ = ["spmm_op", "spmm_value_op", "SpmmValueOp", "bwd_backend"]
-
-_SDDMM_CHUNK = 65536  # bounds the (chunk, N) gathered intermediates
 
 
 class ValueScatter:
@@ -105,6 +105,7 @@ class SpmmValueOp:
         self.scatter_t = ValueScatter(slots_t, packed_t.vals.shape, self.device)
         self.rows = torch.as_tensor(a.rows.astype(np.int64), device=self.device)
         self.cols = torch.as_tensor(a.cols.astype(np.int64), device=self.device)
+        self.sddmm_tiles = sddmm_plan(a.rows, a.cols, a.shape, self.device)
 
     @staticmethod
     def _product(plan: SpmmPlan, pv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -124,16 +125,12 @@ class SpmmValueOp:
             return self._product(self.bwd_plan, self.scatter_t(vals), g)
 
     def sddmm(self, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """``dvals[e] = g[rows[e]] . b[cols[e]]`` in f32, in chunks of
-        ``_SDDMM_CHUNK`` entries so that the gathered (chunk, N) rows stay
-        bounded: a product and a sum over N (no ``einsum``, which may lower
-        to a TF32 ``bmm``)."""
+        """``dvals[e] = g[rows[e]] . b[cols[e]]`` in f32
+        (:func:`~sextans_tpu_torch.ops.sddmm.sddmm_rows`: the kernel over the
+        op's tiles on the card, the plain version on the CPU)."""
         with annotate("sx.autodiff.sddmm"):
-            out = torch.empty(self.nnz, dtype=torch.float32, device=self.device)
-            for e0 in range(0, self.nnz, _SDDMM_CHUNK):
-                e1 = min(self.nnz, e0 + _SDDMM_CHUNK)
-                out[e0:e1] = (g[self.rows[e0:e1]] * b[self.cols[e0:e1]]).sum(dim=1)
-            return out
+            return sddmm_rows(g.contiguous(), b.contiguous(), self.rows, self.cols,
+                              tiles=self.sddmm_tiles)
 
     def __call__(self, vals, b, c, alpha, beta) -> torch.Tensor:
         m, k = self.shape

@@ -13,8 +13,9 @@ counter of the same name. Names:
 
 * spans: ``sx.plan.call`` (``SpmmPlan.__call__``: the pads, the kernel
   wrapper, the output's slice); ``sx.kernel.<wrapper>`` around each kernel
-  wrapper K1-K7, on either device; ``sx.autodiff.ab``, ``.atg``,
-  ``.sddmm``, ``.scatter`` and ``sx.plan.slab_image`` (a training step).
+  wrapper K1-K7 and the SDDMM's, on either device; ``sx.autodiff.ab``,
+  ``.atg``, ``.sddmm``, ``.scatter`` and ``sx.plan.slab_image`` (a training
+  step).
   A product opens two, one a layer: a recorded span costs the host about
   as much as a pad's own host work, so finer spans would mostly time
   themselves;
@@ -22,7 +23,9 @@ counter of the same name. Names:
   C the plan made); ``launch.<wrapper>``, the kernel launches of each
   wrapper on a card (:func:`launches`); ``pack_s``, ``upload_s`` and
   ``library_s``, host seconds of the packers, of the upload to the device
-  and of loading (or compiling) the kernel library.
+  and of loading (or compiling) the kernel library; ``sddmm.entries`` and
+  ``sddmm.b_rows``, the entries of the SDDMM's host plans and the B rows
+  their tiles stage a call (their ratio is each staged row's reuse).
 """
 
 from __future__ import annotations

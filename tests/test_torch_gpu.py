@@ -1170,3 +1170,156 @@ def test_train_sparse_example_on_card(cuda):
     example = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(example)
     assert example.main(["--device", "cuda"]) < 1e-4
+
+
+# ---- the SDDMM kernel (csrc/sddmm.cu) behind d/dvals ----
+
+def _sddmm_matrix(order):
+    """Duplicates (~2 entries a coordinate), empty rows (every fourth holds
+    entries), a finite-element block of rows with equal columns and a row
+    of 700 columns, past one tile; rows in CSR order or shuffled."""
+    rng = np.random.default_rng(11)
+    fem = fem_like(240, dofs=3, neighbors=9, seed=4)
+    rows = np.concatenate([4 * rng.integers(0, 100, 5000), fem.rows + 400, np.full(700, 2)])
+    cols = np.concatenate([rng.integers(0, 300, 5000), fem.cols, np.arange(700)])
+    coo = tx.COOMatrix((640, 700), rows, cols, np.ones(rows.size, np.float32))
+    if order == "sorted":
+        return coo.sorted_by_row()
+    p = rng.permutation(coo.nnz)
+    return tx.COOMatrix(coo.shape, coo.rows[p], coo.cols[p], coo.vals[p])
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("n", [1, 16, 40, 512, 600])
+def test_sddmm_kernel_matches_its_plain_version(cuda, n, order):
+    """The kernel within 4 ulp of max|dvals| of the plain version (which
+    sums in another order), and equal to the bit to the host walk of its own
+    arithmetic over the plan (``sddmm_rows_walk``); one launch."""
+    from sextans_tpu_torch.ops.launch import sddmm_tiles
+    from sextans_tpu_torch.ops.sddmm import (sddmm_plan, sddmm_rows, sddmm_rows_ref,
+                                             sddmm_rows_walk)
+
+    a = _sddmm_matrix(order)
+    m, k = a.shape
+    rng = np.random.default_rng(n)
+    g = torch.tensor(rng.standard_normal((m, n)), dtype=torch.float32)
+    b = torch.tensor(rng.standard_normal((k, n)), dtype=torch.float32)
+    rows = torch.as_tensor(a.rows.astype(np.int64))
+    cols = torch.as_tensor(a.cols.astype(np.int64))
+    tiles = sddmm_plan(a.rows, a.cols, a.shape, cuda)
+    assert (tiles.perm is None) == (order == "sorted")
+    before = launches(sddmm_rows)
+    got = sddmm_rows(g.to(cuda), b.to(cuda), rows.to(cuda), cols.to(cuda), tiles=tiles)
+    torch.cuda.synchronize()
+    assert launches(sddmm_rows) - before == 1
+    got = got.cpu()
+    want = sddmm_rows_ref(g, b, rows, cols)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 4 * np.spacing(
+        np.float32(want.abs().max().item()))
+    walk = sddmm_rows_walk(sddmm_tiles(a.rows, a.cols, a.shape), g, b, 4 if n % 4 == 0 else 1)
+    assert torch.equal(got, walk)
+
+
+def test_sddmm_kernel_with_no_entry_launches_nothing(cuda):
+    from sextans_tpu_torch.ops.sddmm import sddmm_plan, sddmm_rows
+
+    a = tx.COOMatrix((5, 4), [], [], [])
+    tiles = sddmm_plan(a.rows, a.cols, a.shape, cuda)
+    before = launches(sddmm_rows)
+    idx = torch.zeros(0, dtype=torch.int64, device=cuda)
+    out = sddmm_rows(torch.ones(5, 8, device=cuda), torch.ones(4, 8, device=cuda), idx, idx,
+                     tiles=tiles)
+    assert out.shape == (0,) and launches(sddmm_rows) == before
+
+
+def test_sddmm_kernel_refuses_tiles_of_other_coordinates(cuda):
+    """The kernel reads the coordinates from the tiles alone: a plan that
+    holds another number of entries than ``rows`` is refused, unlaunched."""
+    from sextans_tpu_torch.ops.sddmm import sddmm_plan, sddmm_rows
+
+    a = tx.COOMatrix.random(50, 40, 300, seed=3)
+    tiles = sddmm_plan(a.rows[:-1], a.cols[:-1], a.shape, cuda)
+    rows = torch.as_tensor(a.rows.astype(np.int64), device=cuda)
+    cols = torch.as_tensor(a.cols.astype(np.int64), device=cuda)
+    before = launches(sddmm_rows)
+    with pytest.raises(ValueError, match="entries"):
+        sddmm_rows(torch.ones(50, 8, device=cuda), torch.ones(40, 8, device=cuda), rows, cols,
+                   tiles=tiles)
+    assert launches(sddmm_rows) == before
+
+
+def test_sddmm_launches_once_a_backward_that_needs_dvals(cuda):
+    """``launch.sddmm_rows`` grows by one per backward that needs dvals and
+    stays still where ``vals`` needs no gradient (``spmm_op`` too)."""
+    from sextans_tpu_torch.ops.sddmm import sddmm_rows
+
+    coo = tx.COOMatrix.random(300, 260, 3000, seed=6)
+    cfg = tx.SpmmConfig(tile_m=128, window_k=128, block_k=8, group_blocks=16)
+    op = tx.spmm_value_op(coo, 32, config=cfg, fmt="mxu", device=cuda)
+    vals = torch.tensor(coo.vals, device=cuda)
+    b = torch.randn(260, 32, device=cuda, requires_grad=True)
+    c = torch.randn(300, 32, device=cuda)
+    for need_vals, grows in ((True, 1), (False, 0)):
+        v = vals.clone().requires_grad_(need_vals)
+        before = launches(sddmm_rows)
+        for _ in range(3):
+            op(v, b, c, ALPHA, BETA).square().sum().backward()
+        assert launches(sddmm_rows) - before == 3 * grows
+    f = tx.spmm_op(coo, 32, ALPHA, BETA, config=cfg, fmt="mxu", device=cuda)
+    before = launches(sddmm_rows)
+    f(b, c).sum().backward()
+    assert launches(sddmm_rows) == before
+
+
+@pytest.mark.parametrize("fmt", ["mxu", "ell"])
+def test_value_op_gradients_on_cant_like(cuda, fmt):
+    """The value op's five gradients on cant_like at N = 512, held as
+    ``chip_smoke.py`` phase 12 holds them: dvals (the SDDMM kernel) and dB
+    (K1 or K5 over A^T) within 4 ulp of max against f64, dC = beta * G to
+    the bit, dalpha and dbeta within 2^-20 of sum|G * AB| (sum|G * C|)."""
+    from sextans_tpu_torch.ops.sddmm import sddmm_rows
+    from sextans_tpu_torch.utils.device_verify import device_full_check
+
+    n = 512
+    coo = fem_like(62451, dofs=3, neighbors=21, seed=2)
+    cfg = (tx.SpmmConfig(tile_m=1024, window_k=4096, block_k=128, group_blocks=8)
+           if fmt == "mxu" else tx.SpmmConfig())
+    op = tx.spmm_value_op(coo, n, config=cfg, fmt=fmt, device=cuda)
+    rng = np.random.default_rng(12)
+    m, k = coo.shape
+    vals = torch.tensor(coo.vals, device=cuda, requires_grad=True)
+    b = torch.tensor(rng.standard_normal((k, n)), dtype=torch.float32, device=cuda,
+                     requires_grad=True)
+    c = torch.tensor(rng.standard_normal((m, n)), dtype=torch.float32, device=cuda,
+                     requires_grad=True)
+    al = torch.tensor(ALPHA, device=cuda, requires_grad=True)
+    be = torch.tensor(BETA, device=cuda, requires_grad=True)
+    g = torch.tensor(rng.standard_normal((m, n)), dtype=torch.float32, device=cuda)
+    before = launches(sddmm_rows)
+    out = op(vals, b, c, al, be)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert launches(sddmm_rows) - before == 1
+    alpha32 = float(np.float32(ALPHA))
+    with torch.no_grad():
+        rows, cols = op.rows, op.cols
+        exact = torch.empty(coo.nnz, dtype=torch.float64, device=cuda)
+        for e0 in range(0, coo.nnz, 65536):
+            e1 = min(coo.nnz, e0 + 65536)
+            exact[e0:e1] = (g[rows[e0:e1]].double() * b[cols[e0:e1]].double()).sum(dim=1)
+        dvals64 = alpha32 * exact
+        ab = op.ab(vals, b)
+    unit = np.spacing(np.float32(dvals64.abs().max().item()))
+    assert (vals.grad.double() - dvals64).abs().max().item() <= 4 * unit
+    at = coo.transpose()
+    csr_t = tx.CSRMatrix.from_coo(at)
+    r = device_full_check(b.grad, csr_t, g, ALPHA, 0.0, None)
+    assert r["max_abs_vs_f64"] <= 4 * np.spacing(np.float32(r["c_max_abs"]))
+    assert torch.equal(c.grad, be.detach() * g)
+    g64, c64 = g.double(), c.detach().double()
+    dalpha64 = (vals.detach().double() * exact).sum().item()
+    assert abs(al.grad.item() - dalpha64) <= 2.0**-20 * (g64 * ab.double()).abs().sum().item()
+    gc = g64 * c64
+    assert abs(be.grad.item() - gc.sum().item()) <= 2.0**-20 * gc.abs().sum().item()
+    assert torch.isfinite(vals.grad).all() and torch.isfinite(b.grad).all()

@@ -81,7 +81,7 @@ def test_build_flags_target_hopper_and_hash_sources():
     assert {p.name for p in build._sources()} == {
         "spmm_block.cu", "spmm_block_precise1.cu", "spmm_block_precise2.cu",
         "spmm_slab.cu", "spmm_edge.cu", "spmm_ell.cu", "spmm_dia.cu", "df32_probe.cu",
-        "gather_probe.cu"}
+        "gather_probe.cu", "sddmm.cu"}
     assert build._source_hash() == build._source_hash()
     # the headers are hashed with the sources, so editing one rebuilds
     for header in ("df32.cuh", "spmm_block.cuh", "async_copy.cuh"):
@@ -91,9 +91,10 @@ def test_build_flags_target_hopper_and_hash_sources():
                 "spmm_slab_skinny_launch": 7, "spmm_edge_launch": 9,
                 "spmm_ell_launch": 11, "spmm_dia_launch": 6, "spmm_dia_skinny_launch": 6,
                 "df32_probe_pairs": 6, "df32_probe_chain": 3,
-                "dma_gather_launch": 4, "ell_issue_launch": 4}
-    # alpha and beta: the SpMM kernels take both, the probes neither
-    probes = {"df32_probe_pairs", "df32_probe_chain", "dma_gather_launch", "ell_issue_launch"}
+                "dma_gather_launch": 4, "ell_issue_launch": 4, "sddmm_tile_launch": 9}
+    # alpha and beta: the SpMM kernels take both, the probes and the SDDMM neither
+    probes = {"df32_probe_pairs", "df32_probe_chain", "dma_gather_launch", "ell_issue_launch",
+              "sddmm_tile_launch"}
     entries = [name for name in build._SIGNATURES if name != "sx_error_string"]
     assert sorted(entries) == sorted(pointers)
     for name in entries:

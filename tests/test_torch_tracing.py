@@ -18,6 +18,7 @@ from sextans_tpu_torch.ops.spmm_block import spmm_block_padded
 from sextans_tpu_torch.ops.spmm_dia import spmm_dia, spmm_dia_skinny
 from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded
 from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded
+from sextans_tpu_torch.ops.sddmm import sddmm_rows
 from sextans_tpu_torch.ops.spmm_slab import spmm_slab_padded, spmm_slab_skinny_padded
 from sextans_tpu_torch.probes import dma_gather, ell_issue
 from sextans_tpu_torch.utils import profiling
@@ -27,7 +28,7 @@ N = 40  # over 32: the mxu backend runs K1 (spmm_slab_padded)
 CFG = tx.SpmmConfig(tile_m=256, window_k=512, block_k=16, group_blocks=8)
 WRAPPERS = (spmm_slab_padded, spmm_slab_skinny_padded, spmm_block_padded, spmm_edge_padded,
             spmm_ell_gather_padded, spmm_dia, spmm_dia_skinny, df32.eft_probe_pairs,
-            df32.eft_probe_chain, dma_gather.gather_spmm, ell_issue.ell_issue)
+            df32.eft_probe_chain, dma_gather.gather_spmm, ell_issue.ell_issue, sddmm_rows)
 
 
 @pytest.fixture(scope="module")
@@ -137,9 +138,11 @@ def test_value_op_step_spans(coo):
         out.square().mean().backward()
     got = spans(prof)
     for name in ("sx.autodiff.ab", "sx.autodiff.sddmm", "sx.autodiff.atg",
-                 "sx.autodiff.scatter", "sx.kernel.spmm_slab_padded"):
+                 "sx.autodiff.scatter", "sx.kernel.spmm_slab_padded", "sx.kernel.sddmm_rows"):
         assert name in got, name
     assert inside(got["sx.autodiff.scatter"], got["sx.autodiff.atg"])
+    assert len(got["sx.kernel.sddmm_rows"]) == 1
+    assert inside(got["sx.kernel.sddmm_rows"], got["sx.autodiff.sddmm"])
     assert len(got["sx.kernel.spmm_slab_padded"]) == 2  # A and A^T
 
 
