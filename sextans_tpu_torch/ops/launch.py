@@ -301,6 +301,10 @@ def ell_tiles(packed, group_max: int = ELL_GROUP_MAX) -> EllTiles:
     The kernel computes what it computed before, whichever rows share a
     tile: each padded row's chain in slot order, its epilogue, then each
     real row's fold in fold-table order.
+
+    Counts ``ell.tiles`` and ``ell.tile_rows``, the tiles and the sum of
+    their ``members`` (pad rows included; a long row's pieces one each):
+    their ratio is how many rows share each staged B row.
     """
     vals, cols = np.asarray(packed.vals), np.asarray(packed.cols)
     m_padded, r_slots = cols.shape
@@ -347,6 +351,8 @@ def ell_tiles(packed, group_max: int = ELL_GROUP_MAX) -> EllTiles:
     long_ptr = np.concatenate([[0], np.cumsum(vcnt[long_real])])
     long_virt = m + np.concatenate(
         [vorder[vstart[i]:vstart[i + 1]] for i in long_real] or [np.empty(0, np.int64)])
+    count("ell.tiles", members.size)
+    count("ell.tile_rows", int(members.sum()))
     i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)  # noqa: E731
     return EllTiles(i32(tile_ptr), i32(rows), i32(members), i32(long_ptr), i32(long_real),
                     i32(long_virt), int(members.max(initial=1)))

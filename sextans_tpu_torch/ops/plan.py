@@ -128,7 +128,10 @@ def _upload(packed, device: torch.device, structure=None):
     on a CUDA device only), each made once per device and kept on the packed
     object. Returns ``(arrays, ranges)``; ``ranges`` is None for the ELL
     format on the CPU. An ELL pack's ``fold_rows`` is uploaded up to
-    :func:`~sextans_tpu_torch.ops.launch.ell_fold_count`. The scans read the
+    :func:`~sextans_tpu_torch.ops.launch.ell_fold_count`; the pack's entries,
+    slots, padded rows and folded virtual rows are counted with that count
+    (``ell.*``, ``utils/profiling.py``), once a pack, and once more where
+    plans over ``structure`` make their own. The scans read the
     nonzero values, or the slots ``structure`` marks where it is given (a
     plan over values given at call time); the two are kept under keys of
     their own."""
@@ -139,6 +142,10 @@ def _upload(packed, device: torch.device, structure=None):
         if n_key not in cache:  # checked and counted once per pack
             check_ell_pack(packed)
             cache[n_key] = ell_fold_count(packed, structure)
+            count("ell.entries", packed.nnz)
+            count("ell.slots", packed.cols.size)
+            count("ell.rows", packed.m_padded)
+            count("ell.fold_rows", cache[n_key])
         # a run of repeated all-zero virtual rows (a bucket's) folds once
         if cache[n_key] < packed.n_virt:
             packed = dataclasses.replace(packed, fold_rows=packed.fold_rows[:cache[n_key]])

@@ -25,7 +25,12 @@ counter of the same name. Names:
   ``library_s``, host seconds of the packers, of the upload to the device
   and of loading (or compiling) the kernel library; ``sddmm.entries`` and
   ``sddmm.b_rows``, the entries of the SDDMM's host plans and the B rows
-  their tiles stage a call (their ratio is each staged row's reuse).
+  their tiles stage a call (their ratio is each staged row's reuse);
+  ``ell.entries``, ``ell.slots``, ``ell.rows`` and ``ell.fold_rows``, an ELL
+  pack's entries, slots (padded rows times R), padded rows and the virtual
+  rows its plans fold, once a pack at upload; ``ell.tiles`` and
+  ``ell.tile_rows``, K5's tiles and the logical rows they hold
+  (``ops/launch.py:ell_tiles``).
 """
 
 from __future__ import annotations
