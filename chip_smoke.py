@@ -25,7 +25,11 @@ Phases (each prints its lines; any failure exits non-zero):
    grid; K2's its grid (two CTAs a slab), threads, stages and shared memory
    a CTA, and how many slabs hold blocks; K1's the same and its contraction
    and tile; K6's and K7's their run plan (runs of diagonals, their widest
-   span), tiles, threads and shared memory a CTA.
+   span), tiles, threads and shared memory a CTA. K5 runs twice: on padded
+   C and output, as ``SpmmPlan.repeat`` and serving give them, and on the
+   (M, N) C and output that ``SpmmPlan.__call__`` gives it, to the bit
+   against its plain version and the padded call's rows; its time is the
+   latter's.
 3. The main path end to end: write_mtx -> read_mtx -> the backend's packer
    -> plan(device="cuda") -> verify against golden_spmm, and max-abs against
    golden_spmm_exact in ulp of max|C| (bar: 4 ulp), for pallas, mxu, edge
@@ -46,7 +50,11 @@ Phases (each prints its lines; any failure exits non-zero):
    is printed, and whether it is a hub row. On those two, the DIA kernel is
    also held against its plain version and timed beside it and the library
    call on the diagonal part, as in phase 2. Each run at N > 32 prints K6's
-   run plan (``dia_runs``: seconds, bytes, runs).
+   run plan (``dia_runs``: seconds, bytes, runs). Then scircuit_like at N =
+   512 through ell_pallas (K5; the default pack's 40 hub rows outgrow a
+   tile, so their virtual rows go through the kernel's scratch to its
+   second launch, the long fold): the main path under the hub bar of 16,
+   and the kernel to the bit against its plain version as in phase 2.
 6. ``python -m sextans_tpu_torch <mtx> 16 --backend B`` for B in mxu, edge
    and ell_pallas, and ``--hybrid --backend pallas``, and with ``--precise``
    for B in pallas, mxu, edge and ell_pallas and with ``--hybrid --backend
@@ -870,7 +878,9 @@ def main() -> int:
         """Hold ``pl``'s kernel against its plain version on the card (to
         the bit with ``exact``, and always for K4; K3 within 1 ulp) and
         time both beside the library call and the bound; at a precise
-        level, also beside the same kernel in plain mode."""
+        level, also beside the same kernel in plain mode. K5 runs on the
+        padded shapes and on the (M, N) ones that ``SpmmPlan.__call__`` gives
+        it, and is timed on the latter."""
         n = pl.n
         b_p, c_p = pl.pad_b(b_dev), pl.pad_c(c_dev)
         name, run_kernel, run_plain = kernel_calls(pl, n)
@@ -882,19 +892,34 @@ def main() -> int:
                 if name == "spmm_block" else ULP_BAR)
         tol = ulps * float(np.spacing(np.float32(want.abs().max().item())))
         ok = bool(torch.isfinite(got).all().item()) and err <= tol
+        # K5 as SpmmPlan.__call__ launches it: the caller's (M, N) C and an
+        # (M, N) output, to the bit against its plain version on the same
+        # shapes and against the padded call's real rows; timed as "kernel"
+        c_m = pl.pad_c(c_dev, pl.m) if name == "spmm_ell" and pl._in_place else None
+        if c_m is not None:
+            got_m = run_kernel(b_p, c_m)
+            ok = ok and (tuple(got_m.shape) == (pl.m, n) and torch.equal(got_m, got[: pl.m])
+                         and torch.equal(got_m, run_plain(b_p, c_m)))
+            del got_m
         del got, want
         library = library_call(coo)
         fns = {"plain": lambda: run_plain(b_p, c_p), "kernel": lambda: run_kernel(b_p, c_p),
                "library": lambda: library(b_dev, c_dev)}
+        if c_m is not None:
+            fns["padded"] = fns["kernel"]
+            fns["kernel"] = lambda: run_kernel(b_p, c_m)
         if slow_plain:  # timed once, above
             del fns["plain"]
         if pl.packed.config.precise:
             run_mode0 = kernel_calls(pl, n, precise=0)[1]
-            fns["mode0"] = lambda: run_mode0(b_p, c_p)
+            fns["mode0"] = lambda: run_mode0(b_p, c_p if c_m is None else c_m)
         ms = {"plain": plain_ms, **abba_ms(fns, iters, rounds)}
         bound_ms, bound_by = bound(coo.nnz, *coo.shape, n)
         mode0 = (f" (plain mode {ms['mode0']:.4f} ms, x{ms['kernel'] / ms['mode0']:.2f})"
                  if "mode0" in ms else "")
+        if "padded" in ms:
+            mode0 += (f" on (M, N) C and out, to the bit against its plain version and the "
+                      f"padded call (padded C and out {ms['padded']:.4f} ms)")
         grid = ""
         if name in ("spmm_block", "spmm_edge"):
             go = (block_launch(n, pl.packed.m_padded // 8) if name == "spmm_block"
@@ -1106,8 +1131,11 @@ def main() -> int:
         before = launched_since(counted, marks).get(expected, 0)
         got_dev = pl(b, ALPHA, BETA, c)
         one = launched_since(counted, marks).get(expected, 0) - before
-        if expected and one != 1:
-            fail(f"{tag} {backend} N={n}: one product made {one} launches of {expected}")
+        # K5 folds the logical rows that outgrow a tile in a second launch
+        want_one = 1 + (backend == "ell_pallas" and pl.ranges.long_rows.numel() > 0)
+        if expected and one != want_one:
+            fail(f"{tag} {backend} N={n}: one product made {one} launches of {expected}, "
+                 f"expected {want_one}")
         res = sx.verify(ref, got_dev.cpu().numpy())  # the host gate, before any timing
         b_dev = torch.as_tensor(b, device=pl.device)
         c_dev = torch.as_tensor(c, device=pl.device)
@@ -1260,6 +1288,16 @@ def main() -> int:
                      time_dia=True)
         drive_hybrid("phase 5 laplace3d_64", laplace, 16, times=10, bar=ULP_BAR,
                      time_dia=True)
+        # K5 on scircuit_like's 40 hub rows, which outgrow a tile: their
+        # virtual rows past M go through the kernel's scratch to the long fold
+        pl, b_dev, c_dev, _ = drive("phase 5 scircuit_like", scircuit, "ell_pallas", 512,
+                                    times=5, bar=HUB_ULP_BAR)
+        if not pl.ranges.long_rows.numel():
+            fail("phase 5 scircuit_like: the ELL pack has no long rows")
+        check_kernel("phase 5 scircuit_like", scircuit, pl, b_dev, c_dev, iters=1, exact=True,
+                     rounds=2, slow_plain=True)
+        del pl, b_dev, c_dev
+        torch.cuda.empty_cache()
 
         print(f"phase 3-5: launches on the main paths {launches} (at "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)

@@ -5,7 +5,9 @@ arrays (and the host scan that their kernel walks: for the ELL format on a
 CUDA device only) are uploaded once (memoized on the packed object per
 device and, for the scans, per kernel);
 each call pads B to ``k_padded`` and C to ``m_padded``, runs one kernel and
-slices the result. N is not padded: the kernels mask a ragged last column chunk.
+slices the result, except on the ``ell_pallas`` route, whose kernel takes
+the caller's B and C where they lie (``k_padded`` is K there) and writes an
+(M, N) output. N is not padded: the kernels mask a ragged last column chunk.
 
 Backends keep the JAX package's names so that flags read the same:
 
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -190,6 +193,14 @@ def _slab_image(packed, device: torch.device, arrays):
     return cache[key]
 
 
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` padded with zero rows to ``rows``, contiguous; ``x`` itself
+    where it is both already."""
+    if rows > x.shape[0]:
+        x = F.pad(x, (0, 0, 0, rows - x.shape[0]))
+    return x.contiguous()
+
+
 def _runner(packed, backend: str, n: int, ranges, image=None):
     """The padded-operand function of ``backend``, with its static
     arguments bound: ``run(*arrays, b_p, c_p, alpha, beta, with_c=...)``."""
@@ -263,8 +274,6 @@ class SpmmPlan:
         self.image = (_slab_image(packed, self.device, self.arrays)
                       if self._tc and structure is None else None)
         self._run = _runner(packed, backend, n, self.ranges, self.image)
-        # the bytes of the padded B, and of B and C, that a call makes
-        self._pad_bytes = (4 * self.k_padded * n, 4 * (self.k_padded + packed.m_padded) * n)
 
         def as_index(p):
             return None if p is None else torch.as_tensor(
@@ -278,25 +287,37 @@ class SpmmPlan:
             inv = np.empty(self.m, dtype=np.int64)
             inv[packed.row_perm] = np.arange(self.m)
             self._inv_row = as_index(inv)
+        # the rows of a call's C and output: K5 takes them at their real size
+        # (csrc/spmm_ell.cu), every other kernel padded to m_padded
+        self._in_place = backend == "ell_pallas" and packed.m_base == self.m
+        self._c_rows = self.m if self._in_place else packed.m_padded
+        # the bytes of B, and of B and C, that a call makes (pads and gathers)
+        b_bytes = (4 * self.k_padded * n
+                   if self.k_padded > self.k or packed.col_perm is not None else 0)
+        c_bytes = (4 * self._c_rows * n
+                   if self._c_rows > self.m or packed.row_perm is not None else 0)
+        self._pad_bytes = (b_bytes, b_bytes + c_bytes)
 
     def pad_b(self, b) -> torch.Tensor:
         """B as the kernel takes it: column-permuted, padded to k_padded."""
         b = dense_operand(b, (self.k, self.n), "B", self.device)
         if self._col_perm is not None:  # A was packed as A[:, col_perm]
             b = b[self._col_perm]
-        return F.pad(b, (0, 0, 0, self.k_padded - self.k)).contiguous()
+        return _pad_rows(b, self.k_padded)
 
-    def pad_c(self, c) -> torch.Tensor:
-        """C as the kernel takes it: row-permuted, padded to m_padded."""
+    def pad_c(self, c, rows: Optional[int] = None) -> torch.Tensor:
+        """C as the kernel takes it: row-permuted, padded to ``rows``
+        (m_padded by default)."""
         c = dense_operand(c, (self.m, self.n), "C", self.device)
         if self._row_perm is not None:  # A was packed as A[row_perm, :]
             c = c[self._row_perm]
-        return F.pad(c, (0, 0, 0, self.packed.m_padded - self.m)).contiguous()
+        return _pad_rows(c, self.packed.m_padded if rows is None else rows)
 
-    def no_c(self) -> torch.Tensor:
+    def no_c(self, rows: Optional[int] = None) -> torch.Tensor:
         """The C of a call without one: the kernel never reads it; this
-        view gives its shape."""
-        return torch.zeros(1, device=self.device).expand(self.packed.m_padded, self.n)
+        view gives its shape, ``rows`` (m_padded by default) by N."""
+        return torch.zeros(1, device=self.device).expand(
+            self.packed.m_padded if rows is None else rows, self.n)
 
     def run_values(self, pv: torch.Tensor, b_p, c_p, alpha, beta, *,
                    with_c: bool = True) -> torch.Tensor:
@@ -314,14 +335,16 @@ class SpmmPlan:
         return self._run(pv, *self.arrays[1:], b_p, c_p, alpha, beta, with_c=with_c, **image)
 
     def unpad(self, out: torch.Tensor) -> torch.Tensor:
-        """The (M, N) result of a padded kernel output."""
-        out = out[: self.m]
+        """The (M, N) result of a kernel output of M or more rows."""
+        if out.shape[0] != self.m:
+            out = out[: self.m]
         return out if self._inv_row is None else out[self._inv_row]
 
     def __call__(self, b, alpha=1.0, beta=0.0, c=None) -> torch.Tensor:
         """``alpha * A @ b + beta * c`` (M, N), inside the span
-        ``sx.plan.call``. Counts ``plan.calls`` and ``plan.pad_bytes``
-        (``utils/profiling.py``)."""
+        ``sx.plan.call``. Counts ``plan.calls``, ``plan.pad_bytes`` and, on
+        the ``ell_pallas`` route, whose C and output have M rows,
+        ``plan.in_place`` (``utils/profiling.py``)."""
         with_c = c is not None
         if not with_c:
             if float(beta) != 0.0:
@@ -329,9 +352,11 @@ class SpmmPlan:
             beta = 0.0
         count("plan.calls")
         count("plan.pad_bytes", self._pad_bytes[with_c])
+        if self._in_place:
+            count("plan.in_place")
         with annotate("sx.plan.call"):
             b_p = self.pad_b(b)
-            c_p = self.pad_c(c) if with_c else self.no_c()
+            c_p = self.pad_c(c, self._c_rows) if with_c else self.no_c(self._c_rows)
             return self.unpad(self._run(*self.arrays, b_p, c_p, alpha, beta, with_c=with_c))
 
     def repeat(self, b, alpha=1.0, beta=0.0, c=None, times: int = 1) -> torch.Tensor:

@@ -16,9 +16,11 @@ device raises.
   non-finite ``B[0]``), folds the virtual rows into ``A @ B`` and then
   applies ``alpha``/``beta``;
 * ``ell_pallas`` selects out every slot whose value is 0, applies
-  ``alpha``/``beta`` to every padded row, virtual rows included, and then
-  folds ``out[m_base + j] - beta * C[m_base + j]`` into ``fold_rows[j]``,
-  which stays exact when C is the live carry of ``SpmmPlan.repeat``.
+  ``alpha``/``beta`` to every padded row that C holds (``alpha`` alone to
+  the rest), and then folds ``out[m_base + j] - beta * C[m_base + j]``
+  into ``fold_rows[j]`` (``out[m_base + j]`` alone where C has no such
+  row), which stays exact when C is the live carry of ``SpmmPlan.repeat``.
+  C and the result have the caller's M rows or the padded ones.
 
 ``precise`` (``SpmmConfig.precise``; 1 and 2 are one computation here, as
 in the JAX package, whose ELL engines take one ``precise`` flag): ``ell``
@@ -103,20 +105,34 @@ def spmm_ell_padded_ref(
     return out.float()
 
 
-def _fold(out, fold_rows, c_padded, beta, *, m_base, with_c, precise=0):
-    """``out[fold_rows[j]] += out[m_base + j] - beta * C[m_base + j]`` (the
-    beta term only with C), duplicates in order: in place in f32, or in
-    precise mode in f64 with one rounding to f32 at the end."""
+def _epilogue(alpha, acc, comp, beta, c, *, precise):
+    """The kernel's epilogue of ``acc`` (and ``comp`` in precise mode):
+    ``fma(alpha, acc, beta * c)``, or ``alpha * acc`` where ``c`` is None."""
+    cin = () if c is None else (beta, c)
+    if precise:
+        return compensated_epilogue(alpha, acc, comp, *cin)
+    if c is not None:
+        return fma_f32(torch.full_like(acc, f32(alpha)), acc, c * f32(beta))
+    return acc * f32(alpha)
+
+
+def _fold(out, past, fold_rows, c_padded, beta, *, m_base, with_c, precise=0):
+    """``out[fold_rows[j]] += o_v - beta * C[v]`` for the virtual row ``v =
+    m_base + j`` (the beta term only where v lies in C; ``o_v`` is
+    ``out[v]`` below ``out``'s row count and ``past[v - rows]`` beyond it),
+    duplicates in order: in place in f32, or in precise mode in f64 with one
+    rounding to f32 at the end."""
     n_virt = fold_rows.shape[0]
     if not n_virt:
         return out
     if precise:
-        out = out.double()
-    virt = out[m_base:m_base + n_virt]
+        out, past = out.double(), past.double()
+    rows, end = out.shape[0], m_base + n_virt
+    split = min(rows, end)  # the virtual rows below it lie in out, the rest in past
+    add = out[m_base:split]
     if with_c:
-        add = virt - c_padded[m_base:m_base + n_virt].to(out.dtype) * f32(beta)
-    else:
-        add = virt.clone()
+        add = add - c_padded[m_base:split].to(out.dtype) * f32(beta)
+    add = torch.cat([add, past[split - rows:end - rows]])
     add_rows_in_order(out, fold_rows.long(), add)
     return out.float()
 
@@ -137,9 +153,12 @@ def spmm_ell_gather_padded_ref(
     """Plain version of K5 (backend ``"ell_pallas"`` on the CPU), rounding as
     the kernel does: one fused multiply-add per slot in slot order from zero,
     value-0 slots selected out; ``fma(alpha, acc, beta * C)`` on every padded
-    row; then the hub fold that strips the virtual rows' ``beta * C`` term.
-    In precise mode each slot is ``two_prod`` and a Neumaier step, the
-    epilogue is ``compensated_epilogue`` and the fold runs in f64."""
+    row that lies in C (``alpha * acc`` on the rest); then the hub fold
+    that strips the virtual rows' ``beta * C`` term. In precise mode each
+    slot is ``two_prod`` and a Neumaier step, the epilogue is
+    ``compensated_epilogue`` and the fold runs in f64. Returns as many rows
+    as ``c_padded`` has (m_base up to m_padded; with ``with_c=False`` it
+    gives the shape only), a tensor of its own."""
     m_padded, r_slots = vals.shape
     n = b_padded.shape[1]
     acc = torch.zeros((m_padded, n), dtype=torch.float32, device=vals.device)
@@ -159,14 +178,12 @@ def spmm_ell_gather_padded_ref(
         acc[r0:r1] = a
         if precise:
             comp[r0:r1] = cm
-    cin = (beta, c_padded) if with_c else ()
-    if precise:
-        out = compensated_epilogue(alpha, acc, comp, *cin)
-    elif with_c:
-        out = fma_f32(torch.full_like(acc, f32(alpha)), acc, c_padded * f32(beta))
-    else:
-        out = acc * f32(alpha)
-    return _fold(out, fold_rows, c_padded, beta, m_base=m_base, with_c=with_c,
+    rows = c_padded.shape[0]
+    out = _epilogue(alpha, acc[:rows], comp[:rows] if precise else None, beta,
+                    c_padded if with_c else None, precise=precise)
+    past = _epilogue(alpha, acc[rows:], comp[rows:] if precise else None, beta, None,
+                     precise=precise)
+    return _fold(out, past, fold_rows, c_padded, beta, m_base=m_base, with_c=with_c,
                  precise=precise)
 
 
@@ -217,15 +234,19 @@ def spmm_ell_gather_padded(
     with_c: bool = True,
     precise: int = 0,
 ) -> torch.Tensor:
-    """``alpha * A @ B + beta * C`` on padded operands, any n; returns the
-    padded (m_padded, n) result, virtual rows included and already folded
-    into their real rows. ``ranges`` is the pack's
+    """``alpha * A @ B + beta * C``, any n. C and the result have the rows
+    that ``c_padded`` has: from ``m_base``, the real rows (``SpmmPlan``'s
+    call hands the caller's C as it lies), up to ``m_padded``, where the
+    virtual rows' own results are returned too (``SpmmPlan.repeat``); the
+    virtual rows are folded into their real rows either way, and a row past
+    C's is taken with no C term. ``ranges`` is the pack's
     :func:`~sextans_tpu_torch.ops.launch.ell_tiles` on the same device
     (``SpmmPlan.ranges``); the CPU path does not read it. ``with_c=False``
     drops the C read and ``c_padded`` then gives the shape only. ``precise``
     1 or 2 runs the compensated kernel (one variant for both) and the f64
     fold. On the card one launch gathers and folds; a second folds the
-    logical rows that outgrow a tile, where there are any."""
+    logical rows that outgrow a tile, where there are any, with a scratch
+    for their virtual rows past C's."""
     with annotate("sx.kernel.spmm_ell_gather_padded"):
         kw = dict(m_base=m_base, with_c=with_c, precise=int(precise))
         if int(precise) not in (0, 1, 2):
@@ -244,17 +265,25 @@ def spmm_ell_gather_padded(
             raise ValueError("b_padded must be 2-D with at least one column")
         k, n = b_padded.shape
         need(b_padded, "b_padded", torch.float32, (k, n), device)
+        rows = c_padded.shape[0] if c_padded.dim() == 2 else -1
+        if not m_base <= rows <= m_padded:
+            raise ValueError(f"c_padded must have from {m_base} to {m_padded} rows, "
+                             f"got shape {tuple(c_padded.shape)}")
         if with_c:
-            need(c_padded, "c_padded", torch.float32, (m_padded, n), device)
-        elif tuple(c_padded.shape) != (m_padded, n):
-            raise ValueError(f"c_padded must have shape {(m_padded, n)}")
+            need(c_padded, "c_padded", torch.float32, (rows, n), device)
+        elif tuple(c_padded.shape) != (rows, n):
+            raise ValueError(f"c_padded must have shape {(rows, n)}")
         if m_base + fold_rows.shape[0] > m_padded:
             raise ValueError("the virtual hub rows run past m_padded")
         n_tiles, n_long = _check_tiles(ranges, m_padded, device)
         if k == 0:  # no slot is live; the kernel indexes row 0 and drops what it reads
             b_padded = torch.zeros((1, n), dtype=torch.float32, device=device)
-        out = torch.empty((m_padded, n), dtype=torch.float32, device=device)
-        dense = (b_padded, out) + ((c_padded,) if with_c else ())
+        out = torch.empty((rows, n), dtype=torch.float32, device=device)
+        # the rows past C's, where the long rows' virtual rows are kept for their fold
+        scratch = (torch.empty((m_padded - rows, n), dtype=torch.float32, device=device)
+                   if n_long and rows < m_padded else None)
+        dense = (b_padded, out) + ((c_padded,) if with_c else ()) + (
+            (scratch,) if scratch is not None else ())
         vec = 4 if (n >= ELL_VEC4_MIN_N and n % 4 == 0
                     and all(t.data_ptr() % 16 == 0 for t in dense)) else 1
         go = ell_launch(n, vec, n_tiles)
@@ -263,9 +292,10 @@ def spmm_ell_gather_padded(
             err = lib.spmm_ell_launch(
                 vals.data_ptr(), cols.data_ptr(),
                 *(t.data_ptr() for t in ranges[:-1]), b_padded.data_ptr(),
-                c_padded.data_ptr() if with_c else None, out.data_ptr(), n_tiles, r_slots, n,
-                n_long, float(alpha), float(beta), int(with_c), int(bool(precise)), vec,
-                go.lanes, ranges.group_max, stream_of(device),
+                c_padded.data_ptr() if with_c else None, out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), n_tiles, r_slots, n,
+                n_long, rows, float(alpha), float(beta), int(with_c), int(bool(precise)),
+                vec, go.lanes, ranges.group_max, stream_of(device),
             )
         check_launch(lib, "spmm_ell", err)
         count("launch.spmm_ell_gather_padded", 1 + (n_long > 0))

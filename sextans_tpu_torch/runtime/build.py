@@ -59,9 +59,9 @@ _SIGNATURES = {
     # m_padded n window_k edge_chunk alpha beta
     # with_c masked precise lanes vec threads grid_x grid_y stream
     "spmm_edge_launch": [_P] * 9 + [_I] * 4 + [_F, _F] + [_I] * 8 + [_P],
-    # vals cols tile_ptr rows members long_ptr long_rows long_virt b c out
-    # n_tiles r_slots n n_long alpha beta with_c precise vec lanes group_max stream
-    "spmm_ell_launch": [_P] * 11 + [_I] * 4 + [_F, _F] + [_I] * 5 + [_P],
+    # vals cols tile_ptr rows members long_ptr long_rows long_virt b c out scratch
+    # n_tiles r_slots n n_long m_rows alpha beta with_c precise vec lanes group_max stream
+    "spmm_ell_launch": [_P] * 12 + [_I] * 5 + [_F, _F] + [_I] * 5 + [_P],
     # dvals offsets run_ptr b c out m k n n_runs alpha beta
     # with_c precise vec span length threads grid smem stream
     "spmm_dia_launch": [_P] * 6 + [_I] * 4 + [_F, _F] + [_I] * 8 + [_P],

@@ -19,10 +19,11 @@ counter of the same name. Names:
   A product opens two, one a layer: a recorded span costs the host about
   as much as a pad's own host work, so finer spans would mostly time
   themselves;
-* counters: ``plan.calls``, ``plan.pad_bytes`` (bytes of the padded B and
-  C the plan made); ``launch.<wrapper>``, the kernel launches of each
-  wrapper on a card (:func:`launches`); ``pack_s``, ``upload_s`` and
-  ``library_s``, host seconds of the packers, of the upload to the device
+* counters: ``plan.calls``, ``plan.pad_bytes`` (bytes of the B and C the
+  plan made: pads and the gathers of a reordered pack), ``plan.in_place``
+  (the calls that handed the ELL gather kernel C and the output unpadded);
+  ``launch.<wrapper>``, the kernel launches of each wrapper on a card
+  (:func:`launches`); ``pack_s``, ``upload_s`` and ``library_s``, host seconds of the packers, of the upload to the device
   and of loading (or compiling) the kernel library; ``sddmm.entries`` and
   ``sddmm.b_rows``, the entries of the SDDMM's host plans and the B rows
   their tiles stage a call (their ratio is each staged row's reuse);

@@ -207,7 +207,8 @@ def _walk(port, t: EllTiles, b, c, alpha, beta, *, with_c, precise):
     same padded row (a value-0 slot's product dropped); its epilogue; each
     member's virtual rows folded into its real row's sum in order (rank by
     rank here: a rank touches each real row once); then the long rows'
-    fold."""
+    fold. C and the output have the rows ``c`` has: a padded row past them
+    takes no C term and keeps its sum for the fold alone."""
     m_padded, r_slots = port.vals.shape
     ptr = t.tile_ptr.astype(np.int64)
     rows = t.rows.astype(np.int64)
@@ -231,18 +232,20 @@ def _walk(port, t: EllTiles, b, c, alpha, beta, *, with_c, precise):
             acc, comp = torch.where(live, s_, acc), torch.where(live, e_, comp)
         else:
             acc = torch.where(live, fma_f32(v, x, acc), acc)
-    cp = c[torch.from_numpy(rows)]
+    kept = torch.from_numpy(rows < c.shape[0])  # the padded rows that C and out hold
+    has_c = kept[:, None] & with_c
+    cp = torch.zeros_like(acc)
+    cp[kept] = c[torch.from_numpy(rows)[kept]]
     if precise:
-        o = compensated_epilogue(alpha, acc, comp, *((beta, cp) if with_c else ()))
-    elif with_c:
-        o = fma_f32(torch.full_like(acc, f32(alpha)), acc, cp * f32(beta))
+        o = torch.where(has_c, compensated_epilogue(alpha, acc, comp, beta, cp),
+                        compensated_epilogue(alpha, acc, comp))
     else:
-        o = acc * f32(alpha)
+        o = torch.where(has_c, fma_f32(torch.full_like(acc, f32(alpha)), acc, cp * f32(beta)),
+                        acc * f32(alpha))
     add = o.double() if precise else o.clone()
-    if with_c:
-        add = add - (cp.double() if precise else cp) * f32(beta)
-    out = torch.empty_like(o)
-    out[torch.from_numpy(rows)] = o
+    add = torch.where(has_c, add - (cp.double() if precise else cp) * f32(beta), add)
+    out = torch.empty((c.shape[0], b.shape[1]), dtype=torch.float32)
+    out[torch.from_numpy(rows)[kept]] = o[kept]
     sums = {}
 
     def fold(i, a):
@@ -287,6 +290,28 @@ def test_walk_over_tiles_gives_the_plain_versions_bits(kind, with_c, precise):
     got = _walk(port, t, b, c, ALPHA, BETA if with_c else 0.0, with_c=with_c,
                 precise=precise)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("with_c", [True, False])
+@pytest.mark.parametrize("kind", KINDS)
+def test_walk_in_place_gives_the_plain_versions_bits(kind, with_c, precise):
+    """C and the output at the real rows (``SpmmPlan.__call__``): the walk
+    gives the plain version's bits, and the padded route's values on the
+    real rows (the virtual rows' o without a C term is the zero pad's, up
+    to the sign of a zero)."""
+    _, _, port = _pack(kind)
+    t = ell_tiles(port)
+    b, c = _operands(port, 12)
+    c_real = c[:port.m_base].clone()
+    want = _ref(port, b, c_real, with_c=with_c, precise=precise)
+    assert want.shape == (port.m_base, 12)
+    got = _walk(port, t, b, c_real, ALPHA, BETA if with_c else 0.0, with_c=with_c,
+                precise=precise)
+    assert torch.equal(got, want)
+    c_pad = torch.cat([c_real, torch.zeros((port.m_padded - port.m_base, 12))])
+    padded = _ref(port, b, c_pad, with_c=with_c, precise=precise)
+    assert torch.equal(want, padded[:port.m_base])
 
 
 @pytest.mark.parametrize("precise", [0, 1])

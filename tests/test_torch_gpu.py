@@ -297,6 +297,95 @@ def test_ell_repeat_on_card_matches_cpu(cuda):
     assert (on_card.cpu() - on_cpu).abs().max().item() <= tol
 
 
+def _ell_in_place_pack(kind, precise):
+    """``hub_rows``: R = 8, virtual rows and no long row; ``long_hub``: R = 4,
+    two logical rows that outgrow a tile (the second launch folds them)."""
+    if kind == "long_hub":
+        return _ell_variant("long_hub", precise)
+    return tx.pack_ell(_hub_matrix(), tx.SpmmConfig(tile_m=64, precise=precise),
+                       slots_per_row=8)
+
+
+def _off16(t):
+    """``t``'s values in a contiguous tensor 4 bytes past a 16-byte boundary,
+    as a caller's slice may lie: K5 then takes 4-byte loads (vec 1)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("with_c", [True, False])
+@pytest.mark.parametrize("kind", ["hub_rows", "long_hub"])
+@pytest.mark.parametrize("n,vec", [(16, 4), (40, 4), (512, 4), (600, 4), (16, 1), (40, 1),
+                                   (512, 1), (600, 1)])
+def test_ell_in_place_call_equals_the_padded_route(cuda, kind, n, vec, with_c, precise):
+    """SpmmPlan's call hands K5 the caller's (K, N) B and (M, N) C where they
+    lie and a fresh (M, N) output: equal to the padded route (pad_b, pad_c,
+    the padded kernel, unpad), and to K5's plain twin on the same unpadded
+    operands, to the bit; one launch a call where no row is long, two where
+    the long rows' fold runs (their virtual rows kept in a scratch)."""
+    packed = _ell_in_place_pack(kind, precise)
+    pl = tx.plan(packed, n, "ell_pallas", device=cuda)
+    assert (pl.ranges.long_rows.numel() > 0) == (kind == "long_hub")
+    rng = np.random.default_rng(n)
+    b = torch.from_numpy(rng.standard_normal((packed.k, n)).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rng.standard_normal((packed.m, n)).astype(np.float32)).to(cuda)
+    if vec == 1:
+        b, c = _off16(b), _off16(c)
+    assert (b.data_ptr() % 16 == 0) == (vec == 4)
+    b0, c0 = b.clone(), c.clone()
+    before = launches(spmm_ell_gather_padded)
+    got = pl(b, ALPHA, BETA, c) if with_c else pl(b, ALPHA)
+    torch.cuda.synchronize()
+    assert launches(spmm_ell_gather_padded) == before + (2 if kind == "long_hub" else 1)
+    assert got.shape == (packed.m, n) and got._base is None and got.device == cuda
+    assert torch.isfinite(got).all()
+    assert torch.equal(b, b0) and torch.equal(c, c0)
+    beta = BETA if with_c else 0.0
+    kw = dict(m_base=packed.m_base, with_c=with_c, precise=precise)
+    padded = spmm_ell_gather_padded(*pl.arrays, pl.pad_b(b), pl.pad_c(c) if with_c
+                                    else pl.no_c(), ALPHA, beta, ranges=pl.ranges, **kw)
+    assert padded.shape == (packed.m_padded, n)
+    assert torch.equal(got, padded[:packed.m])
+    c_in = c.cpu() if with_c else torch.zeros(1).expand(packed.m, n)
+    twin = spmm_ell_gather_padded_ref(*(a.cpu() for a in pl.arrays), b.cpu(), c_in, ALPHA,
+                                      beta, **kw)
+    assert torch.equal(got.cpu(), twin)
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("kind", ["hub_rows", "long_hub"])
+def test_ell_repeat_and_padded_calls_keep_the_padded_rows_on_card(cuda, kind, precise):
+    """``repeat`` still carries the whole padded C through K5, virtual rows
+    included, to its plain twin's bits; a bucketized pack (a served one,
+    ``m_base`` past ``m``) keeps the padded route, and its real rows are the
+    in-place call's; a C of fewer rows than the real ones is refused."""
+    packed = _ell_in_place_pack(kind, precise)
+    n = 40
+    pl = tx.plan(packed, n, "ell_pallas", device=cuda)
+    rng = np.random.default_rng(3)
+    b = rng.standard_normal((packed.k, n)).astype(np.float32)
+    c = (0.1 * rng.standard_normal((packed.m, n))).astype(np.float32)
+    b_p, c_p = pl.pad_b(b), pl.pad_c(c)
+    kw = dict(m_base=packed.m_base, precise=precise)
+    carry, twin = c_p, c_p.cpu()
+    cpu_arrays = [a.cpu() for a in pl.arrays]
+    for _ in range(3):
+        carry = spmm_ell_gather_padded(*pl.arrays, b_p, carry, ALPHA, BETA, ranges=pl.ranges,
+                                       **kw)
+        twin = spmm_ell_gather_padded_ref(*cpu_arrays, b_p.cpu(), twin, ALPHA, BETA, **kw)
+    assert carry.shape == (packed.m_padded, n)
+    assert torch.equal(carry.cpu(), twin)
+    assert torch.equal(pl.repeat(b, ALPHA, BETA, c, times=3), carry[:packed.m])
+    served = tx.SpmmPlan(tx.bucketize_pack(packed), n, "ell_pallas", device=cuda)
+    assert torch.equal(served(b, ALPHA, BETA, c), pl(b, ALPHA, BETA, c))
+    with pytest.raises(ValueError, match="rows"):
+        spmm_ell_gather_padded(*pl.arrays, b_p, c_p[:packed.m_base - 1], ALPHA, BETA,
+                               ranges=pl.ranges, **kw)
+
+
 @pytest.mark.parametrize("backend", ["pallas", "mxu", "xla", "edge", "ell", "ell_pallas"])
 @pytest.mark.parametrize("n", [16, 96])
 def test_plan_on_card_matches_cpu(cuda, backend, n):
