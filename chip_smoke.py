@@ -700,7 +700,7 @@ def training(cant, synth, slab_cfg, block_cfg, operands, counted, launches, kern
         fwd, bwd = op.fwd_plan, op.bwd_plan
         b_p, g_p = fwd.pad_b(b0), bwd.pad_b(g)
         image = {}
-        if fwd._tc:
+        if fwd._image:  # K1 on the tensor cores reads operand tiles
             image = {"image": slab_image(pv, cfg.block_k)}
             image_t = {"image": slab_image(pv_t, cfg.block_k)}
         else:
@@ -793,27 +793,22 @@ def main() -> int:
     import sextans_tpu_torch as sx
     from sextans_tpu_torch.ops import df32
     from sextans_tpu_torch.ops.plan import BACKEND_FORMATS
-    from sextans_tpu_torch.ops.launch import (
-        dia_runs,
-        ell_tiles,
-        row_runs,
-        slab_visits,
-        stripe_visits,
-    )
-    from sextans_tpu_torch.ops.spmm_block import block_launch, spmm_block_padded
+    from sextans_tpu_torch.ops.spmm_block import block_launch, spmm_block_padded, stripe_visits
     from sextans_tpu_torch.ops.spmm_dia import (
         DIA_SPAN_MAX,
         dia_launch,
         dia_plan,
+        dia_runs,
         dia_skinny_launch,
         spmm_dia,
         spmm_dia_ref,
         spmm_dia_skinny,
     )
-    from sextans_tpu_torch.ops.spmm_edge import edge_launch, spmm_edge_padded
+    from sextans_tpu_torch.ops.spmm_edge import edge_launch, row_runs, spmm_edge_padded
     from sextans_tpu_torch.ops.spmm_ell import (
         ELL_VEC4_MIN_N,
         ell_launch,
+        ell_tiles,
         spmm_ell_gather_padded,
     )
     from sextans_tpu_torch.ops.spmm_slab import (
@@ -824,6 +819,7 @@ def main() -> int:
         slab_image,
         slab_launch,
         slab_skinny_launch,
+        slab_visits,
         spmm_slab_padded,
         spmm_slab_skinny_padded,
     )

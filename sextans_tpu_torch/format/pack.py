@@ -98,7 +98,7 @@ class PackedSpMatrix:
       block within its K-window (global cols = window_k*k_win + bcol + 0..block_k-1).
     * ``group_mtile`` (groups+1,) int32 — M-tile of each group, sentinel -1;
       the plan scans it once, with ``qrow``, into per-stripe visit lists
-      (``ops/launch.py:stripe_visits``).
+      (``ops/spmm_block.py:stripe_visits``).
     * ``group_kwin``  (groups,) int32 — K-window of each group.
     """
 

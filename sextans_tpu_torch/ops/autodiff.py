@@ -41,13 +41,24 @@ import torch
 
 from sextans_tpu_torch.format.coo import COOMatrix
 from sextans_tpu_torch.format.slots import slot_map
-from sextans_tpu_torch.ops.launch import rank_groups, structure_mask
+from sextans_tpu_torch.ops.launch import rank_groups
 from sextans_tpu_torch.ops.plan import FORMATS, SpmmPlan, dense_operand, resolve_device
 from sextans_tpu_torch.ops.sddmm import sddmm_plan, sddmm_rows
 from sextans_tpu_torch.utils.config import SpmmConfig
 from sextans_tpu_torch.utils.profiling import annotate, timed
 
-__all__ = ["spmm_op", "spmm_value_op", "SpmmValueOp", "bwd_backend"]
+__all__ = ["spmm_op", "spmm_value_op", "SpmmValueOp", "bwd_backend", "structure_mask"]
+
+
+@timed("upload_s")
+def structure_mask(packed, slots: np.ndarray) -> np.ndarray:
+    """The slots of ``packed.vals`` that its COO entries fill (``slots``:
+    :func:`~sextans_tpu_torch.format.slots.slot_map` of the matrix it was
+    packed from), as a bool array of the values' shape: the ``live`` mask of
+    the scans for a plan whose values are given at call time."""
+    live = np.zeros(packed.vals.size, dtype=bool)
+    live[slots] = True
+    return live.reshape(packed.vals.shape)
 
 
 class ValueScatter:

@@ -36,10 +36,10 @@ import torch
 
 from sextans_tpu_torch.format.coo import COOMatrix
 from sextans_tpu_torch.ops.df32 import two_prod, two_sum
-from sextans_tpu_torch.ops.launch import check_split, f32, no_tf32
+from sextans_tpu_torch.ops.launch import f32, no_tf32, put
 from sextans_tpu_torch.ops.plan import (
-    BACKEND_FORMATS,
     BACKENDS,
+    FORMAT_OF,
     FORMATS,
     SpmmPlan,
     dense_operand,
@@ -50,7 +50,7 @@ from sextans_tpu_torch.ops.spmm_slab import SKINNY_MAX_N
 from sextans_tpu_torch.utils.config import SpmmConfig
 
 __all__ = ["HybridSplit", "split_structure", "HybridSpmmPlan", "SPLIT_VERSION",
-           "DIA_BACKENDS"]
+           "DIA_BACKENDS", "check_split"]
 
 # The split rule's cost constants: the JAX package's TPU v5e model
 # (sextans_tpu/utils/autotune.py: BYTES_PER_CYCLE, EDGE_CYCLES_FIXED,
@@ -327,6 +327,30 @@ def split_structure(
 
 # "pallas": the DIA kernels (their plain version on CPU tensors); "xla": the
 # plain PyTorch version on any device. The JAX package's names.
+def check_split(split) -> None:
+    """Shapes and indices of a hybrid split, checked once on the host before
+    upload: the plan gathers B rows at ``head_cols`` and adds into C rows at
+    ``head_rows``, and a diagonal must cross A."""
+    m, k = split.m, split.k
+    offs, rows = np.asarray(split.diag_offsets), np.asarray(split.head_rows)
+    cols = np.asarray(split.head_cols)
+    shapes = {"diag_vals": (offs.size, m), "head_dense": (m, cols.size),
+              "head_rows_dense": (rows.size, k)}
+    for name, shape in shapes.items():
+        if np.shape(getattr(split, name)) != shape:
+            raise ValueError(f"{name} must be {shape}, got {np.shape(getattr(split, name))}")
+    if offs.ndim != 1 or cols.ndim != 1 or rows.ndim != 1:
+        raise ValueError("diag_offsets, head_cols and head_rows must be 1-D")
+    if tuple(split.residue.shape) != (m, k):
+        raise ValueError(f"the residue must be ({m}, {k}), got {tuple(split.residue.shape)}")
+    if offs.size and (np.any(np.diff(offs) <= 0) or offs[0] <= -m or offs[-1] >= k):
+        raise ValueError(f"diag_offsets must ascend strictly within ({-m}, {k})")
+    if cols.size and (cols.min() < 0 or cols.max() >= k):
+        raise ValueError(f"head_cols holds a column outside [0, k={k})")
+    if rows.size and (np.any(np.diff(rows) <= 0) or rows[0] < 0 or rows[-1] >= m):
+        raise ValueError(f"head_rows must ascend strictly within [0, m={m})")
+
+
 DIA_BACKENDS = ("auto", "pallas", "xla")
 
 
@@ -344,7 +368,7 @@ class HybridSpmmPlan:
 
     The residue is packed by ``ops/plan.py:FORMATS[residue_fmt]`` (``vpu``,
     ``mxu``, ``edge``, ``ell``) or, without ``residue_fmt``, by the packer of
-    ``backend`` (``ops/plan.py:BACKEND_FORMATS``), with ``residue_config``,
+    ``backend`` (``ops/plan.py:FORMAT_OF``), with ``residue_config``,
     and run by ``SpmmPlan(packed, n, backend)``. An empty residue is skipped
     and needs none of the three. The JAX package picks the residue's format
     and config with ``choose_backend`` from TPU cycle models; that choice is
@@ -406,8 +430,7 @@ class HybridSpmmPlan:
         self.residue_plan = None
         if split.residue.nnz > 0:
             if residue_fmt is None and backend != "auto":
-                residue_fmt = next(fmt for fmt, packer in FORMATS.items()
-                                   if packer is BACKEND_FORMATS[backend][0])
+                residue_fmt = FORMAT_OF[backend]
             if residue_fmt is None:
                 raise ValueError(
                     f"the residue holds {split.residue.nnz} nonzeros and neither "
@@ -431,14 +454,11 @@ class HybridSpmmPlan:
                 packed = FORMATS[residue_fmt](split.residue, cfg)
             self.residue_plan = SpmmPlan(packed, n, backend, device=self.device)
 
-        def put(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(self.device)
-
         self._dvals = self._offsets = self._dia = self._runs = None
         self._dia_kw = {}
         if split.diag_offsets.size:
-            self._dvals = put(split.diag_vals, np.float32)
-            self._offsets = put(split.diag_offsets, np.int32)
+            self._dvals = put(split.diag_vals, np.float32, self.device)
+            self._offsets = put(split.diag_offsets, np.int32, self.device)
             self._dia = (spmm_dia_ref if dia_backend == "xla"
                          else spmm_dia_skinny if n <= SKINNY_MAX_N else spmm_dia)
             if self._dia is not spmm_dia_ref:  # K6, K7: the offsets in runs, planned once
@@ -447,12 +467,12 @@ class HybridSpmmPlan:
                 self._dia_kw = {"runs": self._runs}
         self._head = self._head_cols = None
         if split.head_cols.size:
-            self._head = put(split.head_dense, np.float32)
-            self._head_cols = put(split.head_cols, np.int64)
+            self._head = put(split.head_dense, np.float32, self.device)
+            self._head_cols = put(split.head_cols, np.int64, self.device)
         self._hrows = self._hrows_idx = None
         if split.head_rows.size:
-            self._hrows = put(split.head_rows_dense, np.float32)
-            self._hrows_idx = put(split.head_rows, np.int64)
+            self._hrows = put(split.head_rows_dense, np.float32, self.device)
+            self._hrows_idx = put(split.head_rows, np.int64, self.device)
 
     @property
     def nbytes(self) -> int:

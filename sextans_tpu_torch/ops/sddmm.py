@@ -2,9 +2,8 @@
 over A's entries (``ops/autodiff.py`` multiplies it by alpha for d/dvals).
 
 ``sddmm_rows`` launches the hand-written kernel in ``csrc/sddmm.cu`` on a
-CUDA tensor, walking the tiles of the host plan
-:func:`~sextans_tpu_torch.ops.launch.sddmm_tiles` (made once per op,
-:func:`sddmm_plan`); on a CPU tensor it runs the plain PyTorch version
+CUDA tensor, walking the tiles of the host plan :func:`sddmm_tiles` (made
+once per op, :func:`sddmm_plan`); on a CPU tensor it runs the plain PyTorch version
 ``sddmm_rows_ref``. Any other device raises.
 
 The kernel replaces no TPU kernel: the JAX package computes the SDDMM with
@@ -20,30 +19,177 @@ kernel to it.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from sextans_tpu_torch.ops.launch import (
-    SddmmTiles,
-    Launch,
-    check_csr,
-    fma_f32,
-    need,
-    sddmm_tiles,
-    stream_of,
-)
+from sextans_tpu_torch.ops.launch import (Launch, check_csr, check_int32, fma_f32, need,
+                                          put_scan, stream_of)
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
 from sextans_tpu_torch.utils.profiling import annotate, count, timed
 
-__all__ = ["sddmm_rows", "sddmm_rows_ref", "sddmm_rows_walk", "sddmm_plan", "sddmm_launch"]
+__all__ = ["sddmm_rows", "sddmm_rows_ref", "sddmm_rows_walk", "sddmm_plan", "sddmm_launch",
+           "SddmmTiles", "sddmm_tiles", "SDDMM_RING_ROWS", "SDDMM_TILE_ENTRIES"]
 
 # csrc/sddmm.cu: threads a CTA, and the most lanes an entry takes
 SDDMM_THREADS = 128
 SDDMM_MAX_LANES = 8
 
 SDDMM_REF_CHUNK = 65536  # bounds the plain version's (chunk, N) gathered intermediates
+
+
+# The SDDMM kernel's tiles (csrc/sddmm.cu). A unit is up to SDDMM_GROUP_MAX
+# consecutive rows with the same columns (a finite-element node's dofs) of
+# at most SDDMM_UNIT_ENTRIES entries and SDDMM_UNIT_SLOTS slots (columns
+# plus rows), or a piece of SDDMM_LONG entries of a row too long for one; a
+# tile is a run of units with at most SDDMM_RING_ROWS slots (its distinct G
+# rows and B rows, the rows of the kernel's shared-memory ring) and
+# SDDMM_TILE_ENTRIES entries (the kernel's registers)
+SDDMM_GROUP_MAX = 4
+SDDMM_UNIT_ENTRIES = 224
+SDDMM_UNIT_SLOTS = 96
+SDDMM_LONG = min(SDDMM_UNIT_ENTRIES, SDDMM_UNIT_SLOTS - 1)
+SDDMM_RING_ROWS = 128
+SDDMM_TILE_ENTRIES = 256
+
+
+class SddmmTiles(NamedTuple):
+    """The SDDMM kernel's host plan of A's entries (:func:`sddmm_tiles`):
+    int32 arrays, A's shape and the most slots a tile holds."""
+
+    perm: Optional[np.ndarray]  # (nnz,) the COO entry of each CSR-ordered one; None: identity
+    tile_ptr: np.ndarray  # (tiles + 1,) into the CSR-ordered entries
+    slot_ptr: np.ndarray  # (tiles + 1,) into slots
+    tile_rows: np.ndarray  # (tiles,) how many of a tile's slots are G rows (they come first)
+    slots: np.ndarray  # each tile's distinct rows of A (G rows), then its distinct columns (B rows)
+    codes: np.ndarray  # (nnz,) an entry's G slot | its B slot << 16, within its tile
+    shape: Tuple[int, int]  # A's (m, k): the rows of G and of B
+    ring_rows: int  # the most slots a tile holds
+
+
+def sddmm_tiles(rows: np.ndarray, cols: np.ndarray, shape: Tuple[int, int]) -> SddmmTiles:
+    """The SDDMM kernel's tiles of A's entries (COO ``rows``, ``cols`` of an
+    (m, k) matrix), from a host scan.
+
+    The entries are taken in CSR order, a stable (row, col) sort; ``perm``
+    is None when the COO is already in that order. Consecutive rows with
+    the same columns form units of up to ``SDDMM_GROUP_MAX`` rows, as many
+    as fit ``SDDMM_UNIT_ENTRIES`` entries and ``SDDMM_UNIT_SLOTS`` slots:
+    their entries read each B row once for all of them. A row longer than
+    ``SDDMM_LONG`` is cut into units of that many entries, contiguous
+    slices, so it is spread over tiles. A tile is a run of consecutive
+    units, cut where the running sum of the units' slots (columns plus
+    rows, a bound on what the tile stages) or of their entries enters a new
+    bin: the bins are narrower than the limits by the most one of A's units
+    adds, so a tile never holds more than ``SDDMM_RING_ROWS`` slots or
+    ``SDDMM_TILE_ENTRIES`` entries, and the shorter A's rows, the more
+    units a tile takes. Each tile lists its distinct rows (G
+    rows), then its distinct columns (B rows); ``codes`` gives each entry's
+    two slots.
+
+    Vectorised: no Python loop over tiles, units or rows."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    m, k = (int(x) for x in shape)
+    nnz = rows.size
+    if cols.shape != rows.shape or rows.ndim != 1:
+        raise ValueError("rows and cols must be 1-D arrays of one length")
+    check_int32(nnz, "sddmm_tiles")
+    if nnz and (rows.min() < 0 or rows.max() >= m or cols.min() < 0 or cols.max() >= k):
+        raise ValueError(f"an entry lies outside the ({m}, {k}) matrix")
+    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)  # noqa: E731
+    if nnz == 0:
+        zero, empty = np.zeros(1, np.int32), np.zeros(0, np.int32)
+        return SddmmTiles(None, zero, zero, empty, empty, empty, (m, k), 0)
+    d_row = np.diff(rows)
+    perm = None
+    if not np.all((d_row > 0) | ((d_row == 0) & (np.diff(cols) >= 0))):
+        perm = np.lexsort((cols, rows))
+        rows, cols = rows[perm], cols[perm]
+        d_row = np.diff(rows)
+    row_start = np.concatenate([[0], np.flatnonzero(d_row) + 1])
+    rlen = np.diff(np.append(row_start, nnz))
+    n_rows = row_start.size
+
+    # which rows hold the same columns as the one before them
+    same = np.zeros(n_rows, bool)
+    cand = np.flatnonzero((rlen[1:] == rlen[:-1]) & (rlen[1:] <= SDDMM_LONG)) + 1
+    if cand.size:
+        size = rlen[cand]
+        first = np.concatenate([[0], np.cumsum(size)[:-1]])
+        at = np.repeat(row_start[cand] - first, size) + np.arange(size.sum())
+        eq = cols[at] == cols[at - np.repeat(size, size)]
+        same[cand[np.logical_and.reduceat(eq, first)]] = True
+    # segments: a row, or a slice of SDDMM_LONG entries of a longer one
+    pieces = -(-rlen // SDDMM_LONG)
+    seg_row = np.repeat(np.arange(n_rows), pieces)
+    seg_in = np.arange(seg_row.size) - np.repeat(np.cumsum(pieces) - pieces, pieces)
+    seg_start = row_start[seg_row] + seg_in * SDDMM_LONG
+    seg_len = np.minimum(rlen[seg_row] - seg_in * SDDMM_LONG, SDDMM_LONG)
+    n_segs = seg_row.size
+    # units: as many rows of a run of equal ones as fit; each slice of a long row
+    run_start = np.maximum.accumulate(np.where(same, 0, np.arange(n_rows)))
+    per_unit = np.clip(np.minimum(SDDMM_UNIT_ENTRIES // rlen, SDDMM_UNIT_SLOTS - rlen),
+                       1, SDDMM_GROUP_MAX)
+    lead = ((np.arange(n_rows) - run_start) % per_unit == 0)[seg_row] | (seg_in > 0)
+    unit_first = np.flatnonzero(lead)  # each unit's first segment
+    unit_of = np.cumsum(lead) - 1  # of each segment
+    useg = np.diff(np.append(unit_first, n_segs))  # its rows, or 1
+    uent = seg_len[unit_first] * useg
+    uslots = seg_len[unit_first] + useg
+    bin_slots = SDDMM_RING_ROWS - int(uslots.max()) + 1
+    bin_ents = SDDMM_TILE_ENTRIES - int(uent.max()) + 1
+    key_s = (np.cumsum(uslots) - uslots) // bin_slots
+    key_e = (np.cumsum(uent) - uent) // bin_ents
+    tlead = np.ones(unit_first.size, bool)
+    tlead[1:] = (key_s[1:] != key_s[:-1]) | (key_e[1:] != key_e[:-1])
+    n_tiles = int(tlead.sum())
+    tile_first = unit_first[tlead]  # each tile's first segment
+    tile_ptr = np.append(seg_start[tile_first], nnz)
+    tile_of = (np.cumsum(tlead) - 1)[unit_of]  # of each segment
+
+    # G slots: the tile's distinct rows, in order
+    new_trow = seg_in == 0
+    new_trow[tile_first] = True
+    crow = np.cumsum(new_trow)
+    lrow = crow - crow[tile_first][tile_of]
+    t_rows = np.bincount(tile_of[new_trow], minlength=n_tiles)
+    # B slots: the tile's distinct columns, from each unit's first segment
+    # (the unit's other rows repeat its columns in order)
+    first_len = seg_len[unit_first]
+    at = np.repeat(seg_start[unit_first] - (np.cumsum(first_len) - first_len), first_len)
+    at += np.arange(at.size)
+    keys = np.repeat(tile_of[unit_first], first_len) * k + cols[at]
+    order = None if np.all(keys[1:] >= keys[:-1]) else np.argsort(keys, kind="stable")
+    sk = keys if order is None else keys[order]
+    new_key = np.ones(sk.size, bool)
+    new_key[1:] = sk[1:] != sk[:-1]
+    uniq = sk[new_key]
+    rank = np.cumsum(new_key) - 1  # of each sorted key
+    utile = uniq // k
+    t_cols = np.bincount(utile, minlength=n_tiles)
+    col_first = np.concatenate([[0], np.cumsum(t_cols)[:-1]])
+    lcol_first = np.empty(at.size, np.int64)
+    lcol_first[slice(None) if order is None else order] = rank
+    lcol_first -= np.repeat(col_first[tile_of[unit_first]], first_len)
+    # each segment's entries take their unit's first segment's
+    ufirst_at = (np.cumsum(first_len) - first_len)[unit_of]
+    lcol = lcol_first[np.repeat(ufirst_at - seg_start, seg_len) + np.arange(nnz)]
+
+    tslots = t_rows + t_cols
+    slot_ptr = np.concatenate([[0], np.cumsum(tslots)])
+    slots = np.empty(int(slot_ptr[-1]), np.int64)
+    slots[slot_ptr[tile_of[new_trow]] + lrow[new_trow]] = rows[row_start[seg_row[new_trow]]]
+    slots[slot_ptr[utile] + t_rows[utile] + np.arange(uniq.size) - col_first[utile]] = uniq % k
+    codes = np.repeat(lrow | t_rows[tile_of] << 16, seg_len) + (lcol << 16)
+    ring_rows = int(tslots.max())
+    if ring_rows > SDDMM_RING_ROWS or np.diff(tile_ptr).max() > SDDMM_TILE_ENTRIES:
+        raise RuntimeError("sddmm_tiles made a tile past the kernel's limits")
+    count("sddmm.entries", nnz)
+    count("sddmm.b_rows", int(t_cols.sum()))
+    return SddmmTiles(None if perm is None else i32(perm), i32(tile_ptr), i32(slot_ptr),
+                      i32(t_rows), i32(slots), i32(codes), (m, k), ring_rows)
 
 
 def sddmm_rows_ref(g: torch.Tensor, b: torch.Tensor, rows: torch.Tensor,
@@ -77,16 +223,12 @@ def sddmm_launch(n: int, vec: int, n_tiles: int = 1) -> Launch:
 @timed("upload_s")
 def sddmm_plan(rows: np.ndarray, cols: np.ndarray, shape, device: torch.device
                ) -> Optional[SddmmTiles]:
-    """:func:`~sextans_tpu_torch.ops.launch.sddmm_tiles` of A's COO
+    """:func:`sddmm_tiles` of A's COO
     coordinates, uploaded to ``device`` (int32 tensors); None on the CPU,
     whose plain version walks no tiles."""
     if device.type != "cuda":
         return None
-    tiles = sddmm_tiles(rows, cols, shape)
-    put = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    return tiles._replace(perm=None if tiles.perm is None else put(tiles.perm),
-                          **{f: put(getattr(tiles, f))
-                             for f in ("tile_ptr", "slot_ptr", "tile_rows", "slots", "codes")})
+    return put_scan(sddmm_tiles(rows, cols, shape), device)
 
 
 def _check_tiles(tiles, shape, nnz, device) -> int:
@@ -149,7 +291,7 @@ def sddmm_rows(g: torch.Tensor, b: torch.Tensor, rows: torch.Tensor, cols: torch
 def sddmm_rows_walk(tiles: SddmmTiles, g: torch.Tensor, b: torch.Tensor, vec: int
                     ) -> torch.Tensor:
     """The kernel's result on the host: walks the host plan ``tiles``
-    (NumPy, :func:`~sextans_tpu_torch.ops.launch.sddmm_tiles`) and takes the
+    (NumPy, :func:`sddmm_tiles`) and takes the
     kernel's roundings in its order (``csrc/sddmm.cu``): per lane and
     chunk a product and an FFMA chain over its columns, added to the lane's
     sum chunk by chunk, then the lanes' butterfly.

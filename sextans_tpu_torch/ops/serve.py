@@ -33,15 +33,16 @@ import numpy as np
 from sextans_tpu_torch.format.pack_cache import PackCache
 from sextans_tpu_torch.format.pack_edge import PackedSpMatrixEdge
 from sextans_tpu_torch.format.pack_ell import PackedSpMatrixELL
-from sextans_tpu_torch.ops.plan import BACKEND_FORMATS, FORMATS, SpmmPlan, resolve_device
+from sextans_tpu_torch.ops.plan import FORMAT_OF, FORMAT_TABLE, FORMATS, SpmmPlan, resolve_device
 from sextans_tpu_torch.parallel.partition import _pad_shard_groups
 from sextans_tpu_torch.utils.config import SpmmConfig, cdiv, round_up
 
 __all__ = ["SpmmServer", "ServePlan", "bucketize_pack", "bucket_up", "AUTO_BACKENDS"]
 
-# format -> the backend "auto" serves it with: the pack's own kernel, on
-# every device (on the CPU the plans run their plain versions)
-AUTO_BACKENDS = {"vpu": "pallas", "mxu": "mxu", "edge": "edge", "ell": "ell"}
+# format -> the backend "auto" serves it with: the first servable one, the
+# pack's own kernel, on every device (on the CPU the plans run their plain versions)
+AUTO_BACKENDS = {name: next(b for b, engine in f.backends.items() if engine.servable)
+                 for name, f in FORMAT_TABLE.items()}
 
 
 def bucket_up(x: int, growth: float = 1.25) -> int:
@@ -146,14 +147,15 @@ class ServePlan(SpmmPlan):
 
 
 def _check_servable(backend: str) -> None:
-    if backend not in BACKEND_FORMATS:
+    if backend not in FORMAT_OF:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
-                         f"{tuple(BACKEND_FORMATS)}")
-    if backend == "ell_pallas":
+                         f"{tuple(FORMAT_OF)}")
+    fmt = FORMAT_OF[backend]
+    if not FORMAT_TABLE[fmt].backends[backend].servable:
         raise ValueError(
-            "backend 'ell_pallas' not servable, as in the JAX package (its "
-            "gather tables are per-matrix shaped); serve fmt='ell' with the "
-            "'ell' engine"
+            f"backend {backend!r} not servable, as in the JAX package (its "
+            f"tables are per-matrix shaped); serve fmt={fmt!r} with the "
+            f"{AUTO_BACKENDS[fmt]!r} engine"
         )
 
 
@@ -184,7 +186,7 @@ class SpmmServer:
         if backend == "auto":
             backend = AUTO_BACKENDS[fmt]
         _check_servable(backend)
-        if BACKEND_FORMATS[backend][0] is not FORMATS[fmt]:
+        if FORMAT_OF[backend] != fmt:
             raise ValueError(f"backend {backend!r} does not run the {fmt!r} format")
         if n < 1:
             raise ValueError(f"N must be positive, got {n}")

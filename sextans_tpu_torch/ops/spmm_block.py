@@ -11,8 +11,10 @@ kernel's compensated levels, with ``ops/df32.py`` in the plain version.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from sextans_tpu_torch.ops.df32 import (
@@ -24,19 +26,26 @@ from sextans_tpu_torch.ops.df32 import (
 from sextans_tpu_torch.ops.launch import (
     SMEM_LIMIT,
     Launch,
+    PackHost,
     SharedMemoryError,
     add_rows_in_order,
     check_csr,
+    check_int32,
     check_operands,
+    check_owner_tiles,
+    check_pack_indices,
+    csr_ptr,
     f32,
     fma_f32,
+    group_static,
     no_tf32,
     stream_of,
 )
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
 from sextans_tpu_torch.utils.profiling import annotate, count
 
-__all__ = ["spmm_block_padded", "spmm_block_padded_ref", "block_launch"]
+__all__ = ["spmm_block_padded", "spmm_block_padded_ref", "block_launch", "stripe_visits",
+           "BLOCK_HOST", "block_runner", "block_ref_runner"]
 
 # Bytes of temporaries (gathered B rows + products) one chunk of groups of the
 # plain version may hold: keeps it near 1 GB even on a cant-sized pack.
@@ -174,7 +183,7 @@ def spmm_block_padded(
     (m_padded, n) result.
 
     ``ranges`` is ``(stripe_ptr, visits)`` from
-    :func:`~sextans_tpu_torch.ops.launch.stripe_visits`, on the same device:
+    :func:`stripe_visits`, on the same device:
     the kernel walks each stripe's own visits (:func:`block_launch`), and
     reads ``qrow`` and ``group_mtile`` only through them. ``with_c=False``
     drops the C read; ``c_padded`` then gives the shape only. ``precise`` is
@@ -222,3 +231,64 @@ def spmm_block_padded(
         check_launch(lib, "spmm_block", err)
         count("launch.spmm_block_padded")
         return out
+
+
+def stripe_visits(packed, live: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """Each 8-row stripe's block visits, in pack order, for the block kernel.
+
+    Returns the CSR pair ``(stripe_ptr, visits)``: the visits of global
+    stripe ``s = group_mtile * tile_m / 8 + qrow`` are the flat block
+    indices ``g * G + i`` in ``visits[stripe_ptr[s]:stripe_ptr[s+1]]``,
+    ascending, which is the order in which the pack adds them (the groups of
+    an M-tile in group order, then the blocks of a group).
+
+    Of the visits whose 8 x block_k values are all zero (the pack's pad
+    blocks: qrow 0, bcol 0), one per distinct (stripe, K-window, bcol) is
+    kept, the first; the rest are dropped. That leaves every sum as it was
+    to the bit. A zero block adds ``contrib = +-0`` where its B rows are
+    finite, and NaN where one is not. An accumulator starts at +0 and is
+    never -0 in round-to-nearest (``a + b`` is -0 only if both are), so
+    adding +-0 leaves it unchanged; NaN sticks, and the kept visit reads
+    the same B rows as the dropped ones. The same holds for ``acc_step`` at
+    both precise levels: its error term is then +0, and ``comp`` (also
+    never -0) is unchanged by subtracting +-0. ``live`` is as in
+    :func:`~sextans_tpu_torch.ops.spmm_slab.slab_visits`.
+    """
+    cfg = packed.config
+    ng, G, bk = packed.n_groups, cfg.group_blocks, cfg.block_k
+    stripes_per_tile = cfg.tile_m // 8
+    n_stripes = packed.n_mtiles * stripes_per_tile
+    check_int32(ng * G, "stripe_visits")
+    tiles = check_owner_tiles(packed.group_mtile[:ng], packed.n_mtiles, "group_mtile")
+    stripe = (tiles[:, None] * stripes_per_tile + packed.qrow).reshape(-1)
+    live = packed.vals != 0 if live is None else live
+    keep = live.reshape(ng, 8, G, bk).any(axis=(1, 3)).reshape(-1)
+    zero = np.flatnonzero(~keep)
+    if zero.size:
+        kwin = packed.group_kwin.astype(np.int64)[zero // G]
+        key = (stripe[zero] * packed.n_kwins + kwin) * cfg.window_k + packed.bcol.reshape(-1)[zero]
+        _, first = np.unique(key, return_index=True)
+        keep[zero[first]] = True
+    kept = np.flatnonzero(keep)
+    order = np.argsort(stripe[kept], kind="stable")
+    return csr_ptr(stripe[kept], n_stripes), kept[order].astype(np.int32)
+
+
+BLOCK_HOST = PackHost(
+    check=lambda packed, live: check_pack_indices(packed, packed.qrow, packed.config.tile_m // 8),
+    arrays=lambda p: ((p.vals, np.float32), (p.qrow, np.int32), (p.bcol, np.int32),
+                      (p.group_mtile, np.int32), (p.group_kwin, np.int32)),
+    scan=stripe_visits)
+
+
+def block_runner(packed, n: int, ranges, image=None):
+    """K3 (backend ``pallas``) with the pack's static arguments bound:
+    ``SpmmPlan``'s ``run(*arrays, b_p, c_p, alpha, beta, with_c=...)``."""
+    return functools.partial(spmm_block_padded, ranges=ranges,
+                             precise=int(packed.config.precise), **group_static(packed.config))
+
+
+def block_ref_runner(packed, n: int, ranges, image=None):
+    """The plain version (backend ``xla``; it ignores ``precise``, as the JAX
+    plan's ``xla`` does), bound as :func:`block_runner`."""
+    return functools.partial(spmm_block_padded_ref, **group_static(packed.config))

@@ -15,7 +15,7 @@ K7 on B and C transposed; here a row of B outside [0, K) reads as 0, which is
 what those zero rows held, so no padded or transposed copy is made.
 
 Both kernels take their diagonals in runs (:func:`dia_plan`, from the host
-scan :func:`~sextans_tpu_torch.ops.launch.dia_runs` of the offsets, made
+scan :func:`dia_runs` of the offsets, made
 once where the split is uploaded, with the offsets it holds on the device):
 a run's window of B and its ``dvals`` are staged in shared memory per row
 tile, 64 rows by 16 or 64 columns for K6 (:func:`dia_launch`), 16 or 64 rows
@@ -41,7 +41,6 @@ from sextans_tpu_torch.ops.launch import (
     SMEM_LIMIT,
     Launch,
     SharedMemoryError,
-    dia_runs,
     f32,
     fma_f32,
     need,
@@ -53,7 +52,7 @@ from sextans_tpu_torch.utils.config import cdiv, round_up
 from sextans_tpu_torch.utils.profiling import annotate, count
 
 __all__ = ["spmm_dia", "spmm_dia_skinny", "spmm_dia_ref", "DiaRuns", "dia_plan",
-           "dia_launch", "dia_skinny_launch", "DIA_SPAN_MAX"]
+           "dia_launch", "dia_skinny_launch", "DIA_SPAN_MAX", "dia_runs"]
 
 # K6's tile (csrc/spmm_dia.cu: kTileRows, kLanes, kThreads): 64 rows by 16
 # lanes of VEC columns, 128 threads of 8 rows each
@@ -64,6 +63,27 @@ DIA_THREADS = 128
 # (64 + 64 + 8) * 64 * 4 bytes of B and at most 65 * 65 * 4 of dvals and
 # offsets, 51,716 bytes, so four CTAs fit on an SM.
 DIA_SPAN_MAX = 64
+
+
+def dia_runs(offsets, span_max: int) -> np.ndarray:
+    """The DIA kernel's runs of diagonals, from a host scan of the offsets.
+
+    Cuts the strictly ascending ``offsets``, in order, into runs of
+    consecutive diagonals whose span (last offset minus first) is at most
+    ``span_max``, each run as long as that allows (the greedy cut, which
+    gives the fewest runs). Returns ``run_ptr`` (int32, runs + 1): run ``r``
+    holds diagonals ``run_ptr[r]:run_ptr[r+1]``. Walking the runs in order
+    walks every diagonal once, in ascending offset order.
+    """
+    offs = np.asarray(offsets, dtype=np.int64)
+    if offs.ndim != 1 or np.any(np.diff(offs) <= 0):
+        raise ValueError("offsets must be 1-D and ascend strictly")
+    if span_max < 0:
+        raise ValueError(f"span_max must be >= 0, got {span_max}")
+    starts = [0] if offs.size else []
+    while starts and starts[-1] < offs.size:
+        starts.append(int(np.searchsorted(offs, offs[starts[-1]] + span_max, side="right")))
+    return np.array(starts or [0], dtype=np.int32)
 
 
 @dataclass(frozen=True)
@@ -103,7 +123,7 @@ class DiaRuns:
 def dia_plan(offsets, device) -> DiaRuns:
     """The run plan of the ascending ``offsets`` (a host array), with the
     offsets uploaded to ``device`` as int32:
-    :func:`~sextans_tpu_torch.ops.launch.dia_runs` at the run limit
+    :func:`dia_runs` at the run limit
     ``DIA_SPAN_MAX``."""
     offs = np.asarray(offsets, dtype=np.int64)
     ptr = dia_runs(offs, DIA_SPAN_MAX)

@@ -10,8 +10,10 @@ kernel's compensated levels, with ``ops/df32.py`` in the plain version.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from sextans_tpu_torch.format.pack_edge import COL_SHIFT, PAD_BIT, ROW_END, ROW_SHIFT
@@ -22,11 +24,14 @@ from sextans_tpu_torch.ops.df32 import (
     two_prod,
 )
 from sextans_tpu_torch.ops.launch import (
-    COL_MASK,
     Launch,
+    PackHost,
     add_rows_in_order,
     check_csr,
     check_dense,
+    check_int32,
+    check_owner_tiles,
+    csr_ptr,
     f32,
     fma_f32,
     need,
@@ -35,7 +40,11 @@ from sextans_tpu_torch.ops.launch import (
 from sextans_tpu_torch.runtime.build import build_kernels, check_launch
 from sextans_tpu_torch.utils.profiling import annotate, count
 
-__all__ = ["spmm_edge_padded", "spmm_edge_padded_ref", "edge_launch"]
+__all__ = ["spmm_edge_padded", "spmm_edge_padded_ref", "edge_launch", "row_runs",
+           "check_edge_pack", "COL_MASK", "EDGE_HOST", "edge_runner"]
+
+# The column field of an edge's meta word, after the shift by COL_SHIFT.
+COL_MASK = (1 << (ROW_SHIFT - COL_SHIFT)) - 1
 
 # Bytes of one temporary (the edge products) per chunk of chunks of the plain
 # version: at cant_like N = 512 an unchunked gather would be ~8 GB. Precise
@@ -192,7 +201,7 @@ def spmm_edge_padded(
     (m_padded, n) result.
 
     ``ranges`` is ``(row_ptr, run_start, run_stop)`` from
-    :func:`~sextans_tpu_torch.ops.launch.row_runs`, on the same device: the
+    :func:`row_runs`, on the same device: the
     kernel walks each row's own runs (:func:`edge_launch`). ``masked`` is
     ``SpmmConfig.edge_masked``; ``with_c=False`` drops the C read and
     ``c_padded`` then gives the shape only. The kernel walks a run's edges
@@ -233,3 +242,84 @@ def spmm_edge_padded(
         check_launch(lib, "spmm_edge", err)
         count("launch.spmm_edge_padded")
         return out
+
+
+def row_runs(packed) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Each padded output row's runs, in pack order, for the edge kernel.
+
+    A run is the stretch of slots ``[start, stop]`` (flat indices into the
+    (chunks, 1, E) arrays) that one register sums before it flushes into a
+    row: it ends at a ``row_end`` slot, including the flush the packer
+    forces on a chunk's last slot, and starts after the previous run's end
+    or at its chunk's first slot, so it never crosses a chunk. Its row is
+    its M-tile's first row plus the row field of its ``row_end`` slot. Pads
+    inside a run stay in it. Slots after a chunk's last ``row_end`` (the
+    all-padding chunks of empty M-tiles) flush nowhere and are not listed.
+
+    A run of pads alone (the tail of a job's last chunk, up to a chunk long,
+    which the packer's forced flush adds into the tile's row 0) is cut to
+    its last slot. That leaves every sum as it was to the bit: every pad
+    reads column 0 of its chunk's K-window and adds ``0 * B`` of that row
+    (unmasked) or nothing (masked), so the run's register stays +0 for a
+    finite row and turns NaN for another, however many pads it holds; the
+    same at both precise levels, where the product's error is +-0 too.
+
+    Returns the CSR triple ``(row_ptr, run_start, run_stop)``: row ``r``'s
+    runs are ``row_ptr[r]:row_ptr[r+1]``, in ascending slot order, which is
+    the order in which the pack flushes them.
+    """
+    cfg = packed.config
+    nc, E = packed.n_chunks, cfg.edge_chunk
+    m_padded = packed.n_mtiles * cfg.tile_m
+    check_int32(nc * E, "row_runs")
+    tiles = check_owner_tiles(packed.chunk_mtile[:nc], packed.n_mtiles, "chunk_mtile")
+    w = np.ascontiguousarray(packed.meta).reshape(-1).view(np.uint32)
+    stop = np.flatnonzero(w & ROW_END)
+    chunk = stop // E
+    after_prev = np.empty_like(stop)
+    after_prev[:1] = 0
+    after_prev[1:] = stop[:-1] + 1
+    start = np.maximum(after_prev, chunk * E)
+    reals = np.concatenate([[0], np.cumsum((w & PAD_BIT) == 0)])
+    start = np.where(reals[stop + 1] > reals[start], start, stop)
+    row = tiles[chunk] * cfg.tile_m + (w[stop] >> ROW_SHIFT).astype(np.int64)
+    order = np.argsort(row, kind="stable")
+    return (csr_ptr(row, m_padded), start[order].astype(np.int32),
+            stop[order].astype(np.int32))
+
+
+def check_edge_pack(packed) -> None:
+    """Bounds of an edge pack's meta words and chunk steering, checked once
+    on the host before upload: the edge kernel trusts them for its
+    addresses. ``chunk_mtile`` is checked by :func:`row_runs`."""
+    cfg = packed.config
+    nc, E = packed.n_chunks, cfg.edge_chunk
+    if packed.vals.shape != (nc, 1, E) or packed.meta.shape != (nc, 1, E):
+        raise ValueError(f"vals and meta must be ({nc}, 1, {E})")
+    if packed.chunk_mtile.shape != (nc + 1,) or packed.chunk_mtile[-1] != -1:
+        raise ValueError("chunk_mtile must be (chunks+1,) and end in the sentinel -1")
+    if nc == 0:
+        raise ValueError("an edge pack has at least one chunk per M-tile")
+    if packed.chunk_kwin.min() < 0 or packed.chunk_kwin.max() >= packed.n_kwins:
+        raise ValueError("chunk_kwin holds a K-window outside the padded K")
+    w = packed.meta.view(np.uint32)
+    if (w >> ROW_SHIFT).max() >= cfg.tile_m:
+        raise ValueError(f"an edge's row is outside [0, tile_m={cfg.tile_m})")
+    if ((w >> COL_SHIFT) & COL_MASK).max() >= cfg.window_k:
+        raise ValueError(f"an edge's column is outside [0, window_k={cfg.window_k})")
+
+
+# the pads are marked in meta: the scan reads no values
+EDGE_HOST = PackHost(
+    check=lambda packed, live: check_edge_pack(packed),
+    arrays=lambda packed: ((packed.vals, np.float32), (packed.meta, np.int32),
+                           (packed.chunk_mtile, np.int32), (packed.chunk_kwin, np.int32)),
+    scan=lambda packed, live: row_runs(packed))
+
+
+def edge_runner(packed, n: int, ranges, image=None):
+    """K4 (backend ``edge``) bound as ``SpmmPlan`` runs it."""
+    cfg = packed.config
+    return functools.partial(spmm_edge_padded, tile_m=cfg.tile_m, window_k=cfg.window_k,
+                             edge_chunk=cfg.edge_chunk, masked=cfg.edge_masked, ranges=ranges,
+                             precise=int(cfg.precise))

@@ -3,8 +3,8 @@
 ``spmm_ell_gather_padded`` is the twin of ``sextans_tpu.ops.spmm_ell_pallas``'s
 ``spmm_ell_gather_padded`` (kernel K5) and its hub fold: on a CUDA tensor it
 launches the hand-written kernel in ``csrc/spmm_ell.cu``, which walks the
-tiles of the host scan :func:`~sextans_tpu_torch.ops.launch.ell_tiles`
-(``SpmmPlan.ranges``) and folds the virtual hub rows itself; on a CPU tensor
+tiles of the host scan :func:`ell_tiles` (``SpmmPlan.ranges``) and folds
+the virtual hub rows itself; on a CPU tensor
 it runs the plain PyTorch version ``spmm_ell_gather_padded_ref``. Any other
 device raises.
 
@@ -33,17 +33,20 @@ so the port always takes the f64 fold.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+import functools
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from sextans_tpu_torch.ops.df32 import acc_step, compensated_epilogue, two_prod
 from sextans_tpu_torch.ops.launch import (
-    ELL_GROUP_MAX,
-    EllTiles,
     Launch,
+    PackHost,
     add_rows_in_order,
     check_csr,
+    check_int32,
     f32,
     fma_f32,
     need,
@@ -53,7 +56,9 @@ from sextans_tpu_torch.runtime.build import build_kernels, check_launch
 from sextans_tpu_torch.utils.profiling import annotate, count
 
 __all__ = ["spmm_ell_gather_padded", "spmm_ell_gather_padded_ref", "spmm_ell_padded_ref",
-           "ell_launch", "ELL_VEC4_MIN_N"]
+           "ell_launch", "ELL_VEC4_MIN_N", "EllTiles", "ell_tiles", "ell_fold_count",
+           "check_ell_pack", "ELL_GROUP_MAX", "ELL_LONG_ROWS", "ELL_HOST", "ell_gather_runner",
+           "ell_runner", "ell_in_place"]
 
 # K5 (csrc/spmm_ell.cu): threads a CTA, and the least N that its 16-byte
 # loads take (below it, four times the threads on 4-byte loads)
@@ -62,6 +67,135 @@ ELL_VEC4_MIN_N = 16
 
 # Bytes of one (rows, n) temporary per step of the plain versions.
 _REF_CHUNK_BYTES = 256 << 20
+
+
+# K5's tiles (csrc/spmm_ell.cu): at most ELL_GROUP_MAX logical rows a tile;
+# groups are kept only where they hold ELL_GROUP_MIN_MEAN logical rows on
+# average; a logical row of more than ELL_LONG_ROWS padded rows is cut into
+# tiles of one padded row and folded by a second kernel
+ELL_GROUP_MAX = 3
+ELL_GROUP_MIN_MEAN = 2.0
+ELL_LONG_ROWS = 64
+
+
+class EllTiles(NamedTuple):
+    """K5's host scan of an ELL pack (:func:`ell_tiles`): int32 arrays, and
+    the most logical rows a tile holds (the kernel's instance)."""
+
+    tile_ptr: np.ndarray  # (tiles + 1,) into rows
+    rows: np.ndarray  # (m_padded,) the padded rows in tile order
+    members: np.ndarray  # (tiles,) logical rows in each tile
+    long_ptr: np.ndarray  # (long rows + 1,) into long_virt
+    long_rows: np.ndarray  # real rows whose logical row outgrows a tile
+    long_virt: np.ndarray  # their virtual rows, in fold-table order
+    group_max: int
+
+
+def ell_tiles(packed, group_max: int = ELL_GROUP_MAX) -> EllTiles:
+    """The ELL gather kernel's tiles, from a host scan of the pack.
+
+    A *logical row* is a real row followed by its virtual rows in
+    fold-table order (``fold_rows`` need not be sorted: the virtual rows
+    are grouped by their real row, fold-table order kept within a group);
+    each pad row after ``m_base + n_virt`` is one of its own. ``rows`` lists
+    the padded rows in that order, every one once, and ``tile_ptr`` cuts it
+    into tiles of whole logical rows: runs of consecutive logical rows with
+    the same number of padded rows and the same ``cols``, padded row by
+    padded row (the dofs of a finite-element node), at most ``group_max`` a
+    tile. A tile's ``members`` logical rows then read one B row a slot, which
+    the kernel loads once for all of them. Where the tiles would hold fewer
+    than ``ELL_GROUP_MIN_MEAN`` logical rows on average, each logical row is
+    a tile of its own and ``group_max`` is 1: the kernel's wider instance
+    would only add work. A logical row of more than ``ELL_LONG_ROWS``
+    padded rows is cut into tiles of one padded row each (the kernel folds nothing
+    there) and listed in ``long_rows`` / ``long_virt``, to be folded after
+    the tiles.
+
+    The kernel computes what it computed before, whichever rows share a
+    tile: each padded row's chain in slot order, its epilogue, then each
+    real row's fold in fold-table order.
+
+    Counts ``ell.tiles`` and ``ell.tile_rows``, the tiles and the sum of
+    their ``members`` (pad rows included; a long row's pieces one each):
+    their ratio is how many rows share each staged B row.
+    """
+    vals, cols = np.asarray(packed.vals), np.asarray(packed.cols)
+    m_padded, r_slots = cols.shape
+    m, n_virt = packed.m_base, packed.n_virt
+    if group_max < 1:
+        raise ValueError(f"group_max must be positive, got {group_max}")
+    check_int32(m_padded * r_slots, "ell_tiles")
+    fr = np.asarray(packed.fold_rows, dtype=np.int64)
+    vcnt = np.bincount(fr, minlength=m)[:m]
+    vstart = np.concatenate([[0], np.cumsum(vcnt)])
+    lsize = np.concatenate([1 + vcnt, np.ones(m_padded - m - n_virt, np.int64)])
+    lstart = np.concatenate([[0], np.cumsum(lsize)])
+    n_logical = lsize.size
+    # the padded rows in logical order
+    vorder = np.argsort(fr, kind="stable")
+    rows = np.empty(m_padded, np.int64)
+    rows[lstart[:m]] = np.arange(m)
+    rows[lstart[fr[vorder]] + 1 + np.arange(n_virt) - vstart[fr[vorder]]] = m + vorder
+    rows[lstart[m:-1]] = np.arange(m + n_virt, m_padded)
+
+    # which logical rows read the same B rows as the one before them
+    long = lsize > ELL_LONG_ROWS
+    same = np.zeros(n_logical, bool)
+    cand = np.flatnonzero((lsize[1:] == lsize[:-1]) & ~long[1:]) + 1
+    if cand.size:
+        size = lsize[cand]
+        first = np.concatenate([[0], np.cumsum(size)[:-1]])
+        pos = np.repeat(lstart[cand] - first, size) + np.arange(size.sum())
+        eq = (cols[rows[pos]] == cols[rows[pos - np.repeat(size, size)]]).all(axis=1)
+        same[cand[np.logical_and.reduceat(eq, first)]] = True
+    run_start = np.maximum.accumulate(np.where(same, 0, np.arange(n_logical)))
+    lead = (np.arange(n_logical) - run_start) % group_max == 0
+    if (~long).sum() < ELL_GROUP_MIN_MEAN * (lead & ~long).sum():
+        lead[:] = True
+    starts = np.flatnonzero(lead)
+    members = np.diff(np.append(starts, n_logical))
+    # a long logical row: a tile a padded row
+    pieces = np.where(long[starts], lsize[starts], 1)
+    offset = np.arange(pieces.sum()) - np.repeat(np.cumsum(pieces) - pieces, pieces)
+    tile_ptr = np.append(np.repeat(lstart[starts], pieces) + offset, m_padded)
+    members = np.repeat(members, pieces)
+
+    long_real = np.flatnonzero(long[:m])
+    long_ptr = np.concatenate([[0], np.cumsum(vcnt[long_real])])
+    long_virt = m + np.concatenate(
+        [vorder[vstart[i]:vstart[i + 1]] for i in long_real] or [np.empty(0, np.int64)])
+    count("ell.tiles", members.size)
+    count("ell.tile_rows", int(members.sum()))
+    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)  # noqa: E731
+    return EllTiles(i32(tile_ptr), i32(rows), i32(members), i32(long_ptr), i32(long_real),
+                    i32(long_virt), int(members.max(initial=1)))
+
+
+def ell_fold_count(packed, live: Optional[np.ndarray] = None) -> int:
+    """How many of an ELL pack's virtual rows a plan folds: all but a
+    trailing run of all-zero virtual rows that repeat the last one (the same
+    ``cols`` and fold target), of which the first is kept.
+
+    A bucketized pack (ops/serve.py) pads its virtual rows with such a run,
+    all folding into the last real target: folded one by one, in order,
+    they would cost one pass each. Every row of the run computes the same
+    ``0 * B`` terms, so it adds the same +-0 or NaN; after the first, adding
+    it again changes no bit (x + v + v = x + v for v = +-0 or NaN), and in
+    the kernel's fold ``out - beta * C`` is +0 for such a row whatever its
+    C. The rows past the count are then pad rows, folded nowhere. ``live``
+    is as in :func:`~sextans_tpu_torch.ops.spmm_slab.slab_visits`: a virtual row that holds an entry is
+    folded whatever its value now.
+    """
+    n = packed.n_virt
+    if n < 2:
+        return n
+    m0 = packed.m_base
+    live = packed.vals != 0 if live is None else live
+    cols = packed.cols[m0:m0 + n]
+    same = (~live[m0:m0 + n].any(axis=1) & (cols == cols[-1]).all(axis=1)
+            & (packed.fold_rows == packed.fold_rows[-1]))
+    run = n - np.flatnonzero(~same)[-1] - 1 if not same.all() else n
+    return n - max(run - 1, 0)
 
 
 def _row_steps(m_padded: int, n: int, itemsize: int = 4):
@@ -240,7 +374,7 @@ def spmm_ell_gather_padded(
     virtual rows' own results are returned too (``SpmmPlan.repeat``); the
     virtual rows are folded into their real rows either way, and a row past
     C's is taken with no C term. ``ranges`` is the pack's
-    :func:`~sextans_tpu_torch.ops.launch.ell_tiles` on the same device
+    :func:`ell_tiles` on the same device
     (``SpmmPlan.ranges``); the CPU path does not read it. ``with_c=False``
     drops the C read and ``c_padded`` then gives the shape only. ``precise``
     1 or 2 runs the compensated kernel (one variant for both) and the f64
@@ -300,3 +434,68 @@ def spmm_ell_gather_padded(
         check_launch(lib, "spmm_ell", err)
         count("launch.spmm_ell_gather_padded", 1 + (n_long > 0))
         return out
+
+
+def check_ell_pack(packed) -> None:
+    """Bounds of an ELL pack, checked once on the host before upload: the
+    gather kernel trusts ``cols`` and the hub fold trusts ``fold_rows``.
+
+    ``m_base`` is ``m`` as packed; a bucketized pack (ops/serve.py) rounds it
+    up, and its rows ``m .. m_base - 1`` must then hold only zero values:
+    they are pad rows, whose products the plan slices off."""
+    shape = packed.cols.shape
+    if packed.vals.shape != shape or len(shape) != 2 or shape[1] < 1:
+        raise ValueError("cols and vals must be one (m_padded, R) shape")
+    if packed.m_base < packed.m:
+        raise ValueError(f"m_base {packed.m_base} must be at least m {packed.m}")
+    if np.any(packed.vals[packed.m:packed.m_base]):
+        raise ValueError(f"rows {packed.m}..{packed.m_base - 1} past m must be all-zero "
+                         "pad rows")
+    if packed.m_base + packed.n_virt > shape[0]:
+        raise ValueError("the virtual hub rows run past m_padded")
+    if packed.cols.size and (packed.cols.min() < 0 or packed.cols.max() >= max(packed.k, 1)):
+        raise ValueError(f"a slot's column is outside [0, k={packed.k})")
+    fr = packed.fold_rows
+    if fr.size and (fr.min() < 0 or fr.max() >= packed.m):
+        raise ValueError(f"fold_rows holds a row outside [0, m={packed.m})")
+
+
+def _ell_checked(packed, live):
+    """:func:`check_ell_pack`; counts ``ell.*``; returns the pack with
+    ``fold_rows`` cut to :func:`ell_fold_count`, or None if nothing is cut."""
+    check_ell_pack(packed)
+    n_fold = ell_fold_count(packed, live)
+    count("ell.entries", packed.nnz)
+    count("ell.slots", packed.cols.size)
+    count("ell.rows", packed.m_padded)
+    count("ell.fold_rows", n_fold)
+    if n_fold == packed.n_virt:
+        return None
+    return dataclasses.replace(packed, fold_rows=packed.fold_rows[:n_fold])
+
+
+# the plain versions walk no tiles
+ELL_HOST = PackHost(
+    check=_ell_checked,
+    arrays=lambda packed: ((packed.vals, np.float32), (packed.cols, np.int32),
+                           (packed.fold_rows, np.int32)),
+    scan=lambda packed, live: ell_tiles(packed),
+    cuda_only=True)
+
+
+def ell_gather_runner(packed, n: int, ranges, image=None):
+    """K5 and its hub fold (backend ``ell_pallas``) bound as ``SpmmPlan`` runs it."""
+    return functools.partial(spmm_ell_gather_padded, m_base=packed.m_base, ranges=ranges,
+                             precise=int(packed.config.precise))
+
+
+def ell_runner(packed, n: int, ranges, image=None):
+    """The plain ELL engine (backend ``ell``), bound as :func:`ell_gather_runner`."""
+    return functools.partial(spmm_ell_padded_ref, m_base=packed.m_base,
+                             precise=int(packed.config.precise))
+
+
+def ell_in_place(packed) -> bool:
+    """Whether ``SpmmPlan.__call__`` gives K5 C and its output at the caller's
+    M rows: where the pack's real rows are the matrix's, not a bucket's."""
+    return packed.m_base == packed.m

@@ -5,9 +5,9 @@
 ``spmm_mxu_ct_padded`` (kernel K2, n <= 32). On a CUDA tensor each launches
 its hand-written kernel in ``csrc/spmm_slab.cu``; on a CPU tensor both run
 the one plain PyTorch version, ``spmm_slab_padded_ref``. Any other device
-raises. Both walk their slab's blocks (``ranges`` from
-:func:`~sextans_tpu_torch.ops.launch.slab_visits`), streamed through shared
-memory (:func:`slab_launch`, :func:`slab_skinny_launch`). K1 in plain mode
+raises. Both walk their slab's blocks (``ranges`` from :func:`slab_visits`,
+the host scan made at upload), streamed through shared memory
+(:func:`slab_launch`, :func:`slab_skinny_launch`). K1 in plain mode
 contracts on the tensor cores in 3xTF32 and reads the values' hi and lo
 tiles made once at upload (:func:`slab_image`, ``SpmmPlan.image``). Both
 kernels return C in the (M, N) layout: the TPU's transposed-C route has no
@@ -19,19 +19,27 @@ the epilogue, with ``ops/df32.py`` in the plain version.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from sextans_tpu_torch.ops.df32 import add_rows_compensated, compensated_epilogue
 from sextans_tpu_torch.ops.launch import (
     SMEM_LIMIT,
     Launch,
+    PackHost,
     SharedMemoryError,
     add_rows_in_order,
     check_csr,
+    check_int32,
     check_operands,
+    check_owner_tiles,
+    check_pack_indices,
+    csr_ptr,
     f32,
+    group_static,
     need,
     no_tf32,
     stream_of,
@@ -41,7 +49,8 @@ from sextans_tpu_torch.utils.config import cdiv, round_up
 from sextans_tpu_torch.utils.profiling import annotate, count
 
 __all__ = ["spmm_slab_padded", "spmm_slab_skinny_padded", "spmm_slab_padded_ref",
-           "slab_launch", "slab_skinny_launch", "slab_image", "tf32_rna"]
+           "slab_launch", "slab_skinny_launch", "slab_image", "tf32_rna", "slab_visits",
+           "SLAB_HOST", "slab_runner", "k1_image"]
 
 MSLAB = 128
 SKINNY_MAX_N = 32
@@ -288,7 +297,7 @@ def spmm_slab_padded(
 ) -> torch.Tensor:
     """``alpha * A @ B + beta * C`` on padded operands, any n; returns the
     padded (m_padded, n) result. ``ranges`` is the slab's blocks
-    (:func:`~sextans_tpu_torch.ops.launch.slab_visits`); on a CUDA device
+    (:func:`slab_visits`); on a CUDA device
     ``image`` is :func:`slab_image` of ``vals`` (the plain version on the
     CPU does not read it). ``with_c`` and ``precise`` are as in
     :func:`~sextans_tpu_torch.ops.spmm_block.spmm_block_padded`."""
@@ -331,7 +340,7 @@ def spmm_slab_skinny_padded(
 ) -> torch.Tensor:
     """The same product for n <= 32, with all n columns in one CUDA block
     per half slab, over the slab's blocks (``ranges`` =
-    :func:`~sextans_tpu_torch.ops.launch.slab_visits`); returns the padded
+    :func:`slab_visits`); returns the padded
     (m_padded, n) result."""
     with annotate("sx.kernel.spmm_slab_skinny_padded"):
         kw = dict(tile_m=tile_m, window_k=window_k, block_k=block_k,
@@ -351,3 +360,88 @@ def spmm_slab_skinny_padded(
         )
         count("launch.spmm_slab_skinny_padded")
         return out
+
+
+def slab_visits(packed, live: Optional[np.ndarray] = None
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Each 128-row slab's blocks, in pack order, for the slab kernels.
+
+    Returns the CSR triple ``(slab_ptr, slab_blocks, slab_rows)``: the
+    blocks of global slab ``s = group_mtile * tile_m / 128 + qm`` are the
+    flat block indices ``g * G + i`` in ``slab_blocks[slab_ptr[s]:
+    slab_ptr[s+1]]``, ascending, which is the order in which the pack adds
+    them (the groups of an M-tile in group order, then the blocks of a
+    group); ``slab_rows`` holds beside each the row of B where the block's
+    terms start, ``group_kwin[g] * window_k + bcol[g, i]``.
+
+    Of the blocks whose values are all zero (the pack's pad blocks, and the
+    pad groups a bucket appends to the last M-tile's slab 0, ops/serve.py),
+    one per distinct (slab, K-window, bcol) is kept, the first; the rest are
+    dropped from the slabs' lists, as
+    :func:`~sextans_tpu_torch.ops.spmm_block.stripe_visits` drops them, and
+    parked after ``slab_ptr[-1]``, where no kernel reads them: so
+    ``slab_blocks`` still holds every block once, and the wrappers check
+    its length against the pack's. That leaves every sum as it was to the
+    bit: a zero block's terms are ``0 * B`` (+-0 where its B
+    rows are finite, NaN where one is not), so its block sum is +-0 or NaN,
+    and adding +-0 to an accumulator that starts at +0 and is never -0
+    leaves it unchanged, in the FFMA chains (K2, K1 in precise mode, a
+    Neumaier step as well) and in K1's 3xTF32 steps alike; NaN sticks, and
+    the kept block reads the same B rows as the dropped ones. A kernel
+    visits no block twice, so a slab's chain is as long as its distinct
+    blocks, however many pad groups the bucket adds.
+
+    ``live`` (the shape of ``packed.vals``, default ``packed.vals != 0``)
+    marks the slots that count as nonzero. A plan over values given at call
+    time passes its structure
+    (:func:`~sextans_tpu_torch.ops.autodiff.structure_mask`): every block that
+    holds an entry is then walked, whatever its value now.
+    """
+    cfg = packed.config
+    ng, G, bk = packed.n_groups, cfg.group_blocks, cfg.block_k
+    per_tile = cfg.tile_m // MSLAB
+    check_int32(ng * G, "slab_visits")
+    tiles = check_owner_tiles(packed.group_mtile[:ng], packed.n_mtiles, "group_mtile")
+    qm = np.asarray(packed.qm, dtype=np.int64)
+    if qm.size and (qm.min() < 0 or qm.max() >= per_tile):
+        raise ValueError(f"qm holds a slab outside [0, {per_tile})")
+    slab = (tiles[:, None] * per_tile + qm).reshape(-1)
+    check_int32(packed.k_padded, "slab_visits")
+    rows = (np.asarray(packed.group_kwin, dtype=np.int64)[:, None] * cfg.window_k
+            + packed.bcol).reshape(-1)
+    live = packed.vals != 0 if live is None else live
+    keep = live.reshape(ng * G, bk * MSLAB).any(axis=1)
+    zero = np.flatnonzero(~keep)
+    if zero.size:
+        key = slab[zero] * packed.k_padded + rows[zero]
+        _, first = np.unique(key, return_index=True)
+        keep[zero[first]] = True
+    kept = np.flatnonzero(keep)
+    order = np.concatenate([kept[np.argsort(slab[kept], kind="stable")],
+                            np.flatnonzero(~keep)])
+    return (csr_ptr(slab[kept], packed.n_mtiles * per_tile), order.astype(np.int32),
+            rows[order].astype(np.int32))
+
+
+SLAB_HOST = PackHost(
+    check=lambda packed, live: check_pack_indices(packed, packed.qm, packed.config.tile_m // MSLAB),
+    arrays=lambda p: ((p.vals, np.float32), (p.qm, np.int32), (p.bcol, np.int32),
+                      (p.group_mtile, np.int32), (p.group_kwin, np.int32)),
+    scan=slab_visits)
+
+
+def slab_runner(packed, n: int, ranges, image=None):
+    """K1 (backend ``mxu``), or K2 for N <= ``SKINNY_MAX_N``, bound as
+    ``SpmmPlan`` runs it; K1 reads ``image`` (:func:`k1_image`)."""
+    kw = dict(ranges=ranges, precise=int(packed.config.precise), **group_static(packed.config))
+    if n > SKINNY_MAX_N:
+        return functools.partial(spmm_slab_padded, image=image, **kw)
+    return functools.partial(spmm_slab_skinny_padded, **kw)
+
+
+def k1_image(cfg, n: int, device: torch.device):
+    """The maker of K1's operand tiles (:func:`slab_image`) where K1 runs on
+    the tensor cores (plain mode, N > ``SKINNY_MAX_N``, on a card), else None."""
+    if n > SKINNY_MAX_N and not cfg.precise and device.type == "cuda":
+        return functools.partial(slab_image, block_k=cfg.block_k)
+    return None

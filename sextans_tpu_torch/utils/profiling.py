@@ -31,7 +31,7 @@ counter of the same name. Names:
   pack's entries, slots (padded rows times R), padded rows and the virtual
   rows its plans fold, once a pack at upload; ``ell.tiles`` and
   ``ell.tile_rows``, K5's tiles and the logical rows they hold
-  (``ops/launch.py:ell_tiles``).
+  (``ops/spmm_ell.py:ell_tiles``).
 """
 
 from __future__ import annotations

@@ -13,6 +13,8 @@ order. Then the JAX package's own checks (dense, f64 and finite
 differences), and the host scans of a plan over values given at call time.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,13 +25,11 @@ import sextans_tpu_torch as tx
 from sextans_tpu.format.coo import COOMatrix as RefCOO
 from sextans_tpu.ops.autodiff import spmm_value_op as ref_value_op
 from sextans_tpu.utils.config import SpmmConfig as RefConfig
-from sextans_tpu_torch.ops.launch import (
-    ell_fold_count,
-    slab_visits,
-    stripe_visits,
-    structure_mask,
-)
+from sextans_tpu_torch.ops.autodiff import structure_mask
 from sextans_tpu_torch.ops.plan import FORMATS, SpmmPlan
+from sextans_tpu_torch.ops.spmm_block import stripe_visits
+from sextans_tpu_torch.ops.spmm_ell import ell_fold_count
+from sextans_tpu_torch.ops.spmm_slab import slab_visits
 
 ALPHA, BETA = 1.3, -0.7
 VPU = dict(tile_m=32, window_k=128, block_k=8, group_blocks=16, tile_n=128)

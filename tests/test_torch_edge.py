@@ -17,6 +17,8 @@ and slot rank with ``fma_f32``, gives ``spmm_edge_padded_ref``'s bits at
 every precise level, with non-finite B where the pads read.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import numpy as np
 import pytest
 import torch
@@ -31,9 +33,12 @@ from sextans_tpu.utils.config import SpmmConfig as RefConfig
 from sextans_tpu_torch.format.convert import from_reference
 from sextans_tpu_torch.format.pack_edge import COL_SHIFT, PAD_BIT, ROW_END, ROW_SHIFT
 from sextans_tpu_torch.ops.df32 import acc_step, compensated_epilogue, two_prod
-from sextans_tpu_torch.ops.launch import COL_MASK, check_edge_pack, fma_f32, row_runs
+from sextans_tpu_torch.ops.launch import fma_f32
 from sextans_tpu_torch.ops.spmm_edge import (
+    COL_MASK,
+    check_edge_pack,
     edge_launch,
+    row_runs,
     spmm_edge_padded,
     spmm_edge_padded_ref,
 )

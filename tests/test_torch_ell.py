@@ -14,6 +14,8 @@ passing ``verify`` against the f64 oracle: both sides sum the same f32
 products in slot order and fold the hub rows in order.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import numpy as np
 import pytest
 import torch
@@ -26,8 +28,8 @@ from sextans_tpu.ops.golden import golden_spmm_exact
 from sextans_tpu.ops.plan import SpmmPlan as RefPlan
 from sextans_tpu.utils.config import SpmmConfig as RefConfig
 from sextans_tpu_torch.format.convert import from_reference
-from sextans_tpu_torch.ops.launch import check_ell_pack
 from sextans_tpu_torch.ops.spmm_ell import (
+    check_ell_pack,
     spmm_ell_gather_padded,
     spmm_ell_gather_padded_ref,
     spmm_ell_padded_ref,

@@ -14,6 +14,8 @@ the CPU at a small size: ``pack_ell`` with R left to its chooser, then
 
 from __future__ import annotations
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import numpy as np
 import pytest
 import torch
@@ -22,7 +24,7 @@ import sextans_tpu_torch as tx
 from bench_torch import harness, reference
 from bench_torch.roofline import spmm_bound_s
 from bench_torch.trace import Op, Trace
-from sextans_tpu_torch.ops.launch import ELL_GROUP_MAX, ELL_LONG_ROWS, ell_tiles
+from sextans_tpu_torch.ops.spmm_ell import ELL_GROUP_MAX, ELL_LONG_ROWS, ell_tiles
 from sextans_tpu_torch.utils import profiling
 from sextans_tpu_torch.utils.matrices import fem_like
 

@@ -11,14 +11,19 @@ and one with no virtual row; with the counters ``plan.in_place`` and
 call on (m_padded, N) operands still carry and return the padded rows.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import numpy as np
 import pytest
 import torch
 
 import sextans_tpu_torch as tx
-from sextans_tpu_torch.ops.launch import ell_tiles
 from sextans_tpu_torch.ops.serve import bucketize_pack
-from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded, spmm_ell_gather_padded_ref
+from sextans_tpu_torch.ops.spmm_ell import (
+    ell_tiles,
+    spmm_ell_gather_padded,
+    spmm_ell_gather_padded_ref,
+)
 from sextans_tpu_torch.utils import profiling
 
 ALPHA, BETA = 0.85, -2.06

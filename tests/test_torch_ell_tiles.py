@@ -20,6 +20,8 @@ the CPU.
   package's ``ell_pallas`` interpret route and its ``ell`` engine.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import dataclasses
 
 import numpy as np
@@ -35,20 +37,16 @@ from sextans_tpu.ops.plan import SpmmPlan as RefPlan
 from sextans_tpu.utils.config import SpmmConfig as RefConfig
 from sextans_tpu_torch.format.convert import from_reference
 from sextans_tpu_torch.ops.df32 import acc_step, compensated_epilogue, two_prod
-from sextans_tpu_torch.ops.launch import (
-    ELL_GROUP_MAX,
-    ELL_LONG_ROWS,
-    EllTiles,
-    ell_fold_count,
-    ell_tiles,
-    f32,
-    fma_f32,
-    rank_groups,
-)
+from sextans_tpu_torch.ops.launch import f32, fma_f32, rank_groups
 from sextans_tpu_torch.ops.serve import bucketize_pack
 from sextans_tpu_torch.ops.spmm_ell import (
+    ELL_GROUP_MAX,
+    ELL_LONG_ROWS,
     ELL_VEC4_MIN_N,
+    EllTiles,
+    ell_fold_count,
     ell_launch,
+    ell_tiles,
     spmm_ell_gather_padded,
     spmm_ell_gather_padded_ref,
 )

@@ -16,6 +16,8 @@ same order (``ops/df32.py``, ``csrc/df32.cuh``); so do the DIA kernels (K6,
 K7) and the gather probes' kernels (``csrc/gather_probe.cu``) in every mode.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import numpy as np
 import pytest
 import torch
@@ -26,15 +28,17 @@ from sextans_tpu_torch.ops.spmm_block import spmm_block_padded, spmm_block_padde
 from sextans_tpu_torch.ops.spmm_dia import (
     DiaRuns,
     dia_plan,
+    dia_runs,
     spmm_dia,
     spmm_dia_ref,
     spmm_dia_skinny,
 )
 from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded, spmm_edge_padded_ref
 from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded, spmm_ell_gather_padded_ref
-from sextans_tpu_torch.ops.launch import SharedMemoryError, dia_runs, slab_visits
+from sextans_tpu_torch.ops.launch import SharedMemoryError
 from sextans_tpu_torch.ops.spmm_slab import (
     SKINNY_STAGES,
+    slab_visits,
     spmm_slab_padded,
     spmm_slab_padded_ref,
     spmm_slab_skinny_padded,
@@ -1284,9 +1288,8 @@ def test_sddmm_kernel_matches_its_plain_version(cuda, n, order):
     """The kernel within 4 ulp of max|dvals| of the plain version (which
     sums in another order), and equal to the bit to the host walk of its own
     arithmetic over the plan (``sddmm_rows_walk``); one launch."""
-    from sextans_tpu_torch.ops.launch import sddmm_tiles
     from sextans_tpu_torch.ops.sddmm import (sddmm_plan, sddmm_rows, sddmm_rows_ref,
-                                             sddmm_rows_walk)
+                                             sddmm_rows_walk, sddmm_tiles)
 
     a = _sddmm_matrix(order)
     m, k = a.shape

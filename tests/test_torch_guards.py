@@ -1,6 +1,8 @@
 """Guards of the PyTorch port: it never imports JAX, its kernels build only
 with nvcc and never fall back, and what it does not run yet raises."""
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import ctypes
 import importlib.util
 import re

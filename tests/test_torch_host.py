@@ -7,6 +7,8 @@ the copies to the originals: packed arrays byte-identical, files and oracle
 outputs equal.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 from dataclasses import asdict
 
 import numpy as np

@@ -12,6 +12,8 @@ port with one fused multiply-add per diagonal, the TPU kernels and XLA with
 a product and a sum, and the head matmuls in another order.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +29,7 @@ from sextans_tpu.utils.config import SpmmConfig as RefConfig
 from sextans_tpu_torch.cli import main as cli_main
 from sextans_tpu_torch.format.convert import from_reference
 from sextans_tpu_torch.ops import hybrid
-from sextans_tpu_torch.ops.launch import check_split
+from sextans_tpu_torch.ops.hybrid import check_split
 from sextans_tpu_torch.ops.spmm_dia import spmm_dia, spmm_dia_ref, spmm_dia_skinny
 from sextans_tpu_torch.utils import matrices
 from sextans_tpu_torch.utils.profiling import launches

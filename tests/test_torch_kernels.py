@@ -19,6 +19,8 @@ same products, taken in a different association. On CPU tensors the kernel
 wrappers run the plain versions, so they are checked here too.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,14 +40,16 @@ from sextans_tpu.utils.config import SpmmConfig as RefConfig
 from sextans_tpu.utils.verify import verify
 from sextans_tpu_torch.format.convert import from_reference
 from sextans_tpu_torch.ops.df32 import acc_step, compensated_epilogue
-from sextans_tpu_torch.ops.launch import SMEM_LIMIT, slab_visits, stripe_visits
+from sextans_tpu_torch.ops.launch import SMEM_LIMIT
 from sextans_tpu_torch.ops.spmm_block import (
     _block_contrib,
     block_launch,
     spmm_block_padded,
     spmm_block_padded_ref,
+    stripe_visits,
 )
 from sextans_tpu_torch.ops.spmm_slab import (
+    slab_visits,
     spmm_slab_padded,
     spmm_slab_padded_ref,
     spmm_slab_skinny_padded,

@@ -5,6 +5,8 @@ CPU), and the cache across packages: both write the same files under the
 same names, so one directory serves both, ``.npz`` and raw entries alike.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import warnings
 
 import numpy as np

@@ -11,6 +11,8 @@ and, on long accumulations, to ``golden_spmm_exact``: block and edge within
 slab within 1.5 ulp and no worse than its plain mode.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 from fractions import Fraction
 
 import jax

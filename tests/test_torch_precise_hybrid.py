@@ -25,6 +25,8 @@ f32 before the f64 fold), ``ell`` 0.5001 ulp (f64 throughout), the DIA part
 and hub-row matmuls are uncompensated in both packages).
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import jax
 import jax.numpy as jnp
 import numpy as np

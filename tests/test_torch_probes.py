@@ -13,6 +13,8 @@ the f64 sum: R = 4 terms, each product and sum rounded once in the port,
 while XLA:CPU may contract a product and its sum into one FMA.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import functools
 import importlib.util
 import sys

@@ -13,22 +13,22 @@
   integer-valued inputs, at N from 1 to 600.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import numpy as np
 import pytest
 import torch
 
 import sextans_tpu_torch as tx
-from sextans_tpu_torch.ops.launch import (
+from sextans_tpu_torch.ops.sddmm import (
     SDDMM_RING_ROWS,
     SDDMM_TILE_ENTRIES,
-    sddmm_tiles,
-)
-from sextans_tpu_torch.ops.sddmm import (
     sddmm_launch,
     sddmm_plan,
     sddmm_rows,
     sddmm_rows_ref,
     sddmm_rows_walk,
+    sddmm_tiles,
 )
 from sextans_tpu_torch.utils.matrices import fem_like
 

@@ -9,6 +9,8 @@ own plan on the unbucketed pack. Then the server: two matrices in one
 bucket, the pack cache, and the errors the JAX server raises.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import dataclasses
 from dataclasses import asdict
 
@@ -29,8 +31,12 @@ from sextans_tpu.ops.serve import bucket_up as ref_bucket_up
 from sextans_tpu.ops.serve import bucketize_pack as ref_bucketize
 from sextans_tpu.utils.config import SpmmConfig as RefConfig
 from sextans_tpu_torch.format.convert import from_reference
-from sextans_tpu_torch.ops.launch import check_ell_pack, ell_fold_count
-from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded_ref, spmm_ell_padded_ref
+from sextans_tpu_torch.ops.spmm_ell import (
+    check_ell_pack,
+    ell_fold_count,
+    spmm_ell_gather_padded_ref,
+    spmm_ell_padded_ref,
+)
 from sextans_tpu_torch.ops.serve import bucket_up, bucketize_pack
 
 ALPHA, BETA = 0.85, -2.06

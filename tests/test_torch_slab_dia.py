@@ -27,6 +27,8 @@ and the DIA kernels (K6, K7), on the CPU.
   NaN where a stored zero meets a non-finite B row.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import numpy as np
 import pytest
 import torch
@@ -41,10 +43,8 @@ from sextans_tpu_torch.ops.df32 import acc_step, compensated_epilogue, two_prod
 from sextans_tpu_torch.ops.launch import (
     SMEM_LIMIT,
     SharedMemoryError,
-    dia_runs,
     f32,
     fma_f32,
-    slab_visits,
 )
 from sextans_tpu_torch.ops.serve import bucketize_pack
 from sextans_tpu_torch.utils.config import round_up
@@ -54,6 +54,7 @@ from sextans_tpu_torch.ops.spmm_dia import (
     DiaRuns,
     dia_launch,
     dia_plan,
+    dia_runs,
     dia_skinny_launch,
     spmm_dia,
     spmm_dia_ref,
@@ -65,6 +66,7 @@ from sextans_tpu_torch.ops.spmm_slab import (
     slab_image,
     slab_launch,
     slab_skinny_launch,
+    slab_visits,
     spmm_slab_padded,
     spmm_slab_padded_ref,
     spmm_slab_skinny_padded,

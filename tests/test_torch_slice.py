@@ -8,6 +8,8 @@ association), and against the f64 oracle through ``verify``. Then the plan's
 no-C path, permutations, repeat and errors, the API surface and the CLI.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import dataclasses
 
 import numpy as np

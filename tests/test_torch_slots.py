@@ -7,6 +7,8 @@ COO entry order on every device) must reproduce each pack's ``vals`` bit
 for bit, as ``np.add.at`` does in ``tests/test_slots.py``.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,8 @@ readers of them (``bench_torch/program.py``) on a CPU traced window.
 
 from __future__ import annotations
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import time
 
 import pytest

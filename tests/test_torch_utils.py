@@ -6,6 +6,8 @@ single poisoned element anywhere in C (mirroring
 ``tests/test_device_verify.py``); here it runs on CPU tensors.
 """
 
+import torch_cpu  # noqa: F401  one torch thread per xdist worker
+
 import importlib.util
 import json
 import time

@@ -181,8 +181,7 @@ def main(argv) -> int:
         plan = dia_plan(split.diag_offsets, "cuda")
         plans = [("", plan, dv)]
         if tag == "scircuit_like" and "--pace" in flags:
-            from sextans_tpu_torch.ops.launch import dia_runs
-            from sextans_tpu_torch.ops.spmm_dia import DIA_SPAN_MAX, DiaRuns
+            from sextans_tpu_torch.ops.spmm_dia import DIA_SPAN_MAX, DiaRuns, dia_runs
 
             host = split.diag_offsets.astype(np.int64)
             for cut in (0, 1, 3, 7, 15, 31, DIA_SPAN_MAX):
