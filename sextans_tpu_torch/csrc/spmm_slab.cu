@@ -31,11 +31,11 @@
 // epilogue writes it into C's rows. Per block, each step's sum goes into
 // fresh registers f, f into the block's sum cf (round to nearest), cf into
 // acc after the block's last step; blocks in pack order; epilogue
-// fma(alpha, acc, beta * C) (alpha * acc without C). Compared with the FFMA
-// chain, a sum differs by the rounding of products and steps: on the
-// shapes chip_smoke.py runs, within 4 ulp of max|C| of the plain version
-// and closer to the f64 oracle than it; on rows of thousands of terms the
-// two differ by more, each about as far from f64 (tests/test_torch_gpu.py).
+// fma(alpha, acc, beta * C) (alpha * acc without C). Compared with the FFMA chain, a
+// sum differs by the rounding of products and steps: on the shapes
+// chip_smoke.py runs, within 4 ulp of max|C| of the plain version and
+// closer to the f64 oracle than it; on rows of thousands of terms the two
+// differ by more, each about as far from f64 (tests/test_torch_gpu.py).
 //
 // Its tiles: a stage holds 32 terms (a chunk) of a block, so that four fit
 // beside each other; a CTA takes a whole slab by 128 columns (two
@@ -45,15 +45,33 @@
 // The column tiles of a slab are adjacent in the grid, so the 2nd and later
 // reads of a block's tiles come from L2.
 //
-// What bounds K1 on the H100: at the slab format's low fill (~5 % on a
-// banded FEM matrix) most of a block's 2 * bk * 128 * n flops multiply
-// zeros. On FFMA that padded work alone needs 1.14 ms at 67 TFLOP/s on
-// cant_like at N = 512, the library's time; 3xTF32 is three tensor-core
-// products a term, 0.46 ms at 495 TFLOP/s. The tensor cores are fed from
-// shared memory, each step waited for before its sums are read (ptxas
-// serialises the wgmmas if any other instruction reads their registers
-// while they run), so the steps of one warpgroup do not overlap; the tiles
-// (hi and lo: 8 bytes a value) are read from L2 once per column tile.
+// Its mainloop keeps the tensor cores busy. A group of wgmmas is one 8-term
+// step on one half slab: its three products, into one of two sets of sum
+// registers in turn (a whole-slab CTA's two half slabs take one set each).
+// After issuing group u a warpgroup waits only for group u - 1
+// (wgmma.wait_group 1) and adds its sums into cf while u runs; the next
+// step's A fragment goes into the other of two fragment sets, as u may
+// still read its own. A chunk's groups are unrolled (the kernel is
+// instantiated by steps a chunk, 1, 2 or 4), so every set is named at
+// compile time, and the last group is waited for at the chunk's end: ptxas
+// serialises the wgmmas (its notes C7514, C7515) where a wgmma may still run
+// across the loop's back edge or a branch while other instructions read or
+// write sum registers. A stage is released without a CTA-wide barrier:
+// each warpgroup, once its wgmmas on a chunk have completed, refills its
+// own B rows of the stage and counts itself out on the stage's counter;
+// the last warpgroup out copies the next chunk's tiles in. So one
+// warpgroup's wait does not stall the other. (Adding each step straight
+// into acc, with no block sum, would free the registers for a single
+// m64n128k8 a step over a whole slab, but on rows of 2,600 terms it left
+// 12.4 ulp of max|C| against f64 where the plain version leaves 4.1.)
+//
+// What bounds K1 on the H100: at the slab format's low fill (3.8 % on the
+// cant stand-in of the benchmark, 6,480 blocks) most of a block's 2 * bk *
+// 128 * n flops multiply zeros: 108.7 GFLOP at N = 512 there, three
+// tensor-core products a term, 0.66 ms at 495 TFLOP/s (1.6 ms on FFMA at
+// 67 TFLOP/s). Next to it, L2: the tiles (hi and lo, 8 bytes a value) and
+// the B rows are read from L2 once per column tile, 48 KB a chunk for the
+// 1,536 tensor-core cycles of a whole-slab CTA's chunk.
 //
 // Precise mode (SpmmConfig.precise >= 1; spmm_mxu_pallas.py:89-98, 113-121
 // for K1, :339-344, :356-363 for K2) keeps the FFMA chain, for both K1 and
@@ -132,6 +150,11 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
+// The threads of one warpgroup (named barrier 1 + wg; 0 is __syncthreads).
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(kWarpgroup) : "memory");
+}
+
 // d (+)= a . b: a the 64 x 8 tile in registers (its tf32 fragment), b the
 // 8 x 64 tile behind `desc`; d is overwritten when scale_d is 0.
 __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4],
@@ -151,10 +174,20 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+// Ties the compiler's reads and writes of r to this point (as CUTLASS's
+// warpgroup_fence_operand): sums read after a wait stay after it, and none
+// moves past the next wgmma on r.
+__device__ __forceinline__ void fence_regs(float (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
 // H half slabs (64 H rows) by 64 W columns a CTA, W warpgroups (blockDim.x
-// = 128 W), warpgroup wg on columns 64 wg ..; H is 1 or 2. A wait for the
-// tensor cores covers SPW steps of 8 terms, each into its own sums.
-template <int H, int SPW>
+// = 128 W), warpgroup wg on columns 64 wg ..; H is 1 or 2. A stage holds
+// the chunk's hi and lo tiles for the CTA's half slabs as slab_image lays
+// them out, then each warpgroup's B rows at its own columns, row stride
+// kTileN + kBPad.
+template <int H, int NKS>
 __global__ void __launch_bounds__(2 * kWarpgroup, 1) spmm_slab_tc_kernel(
     const float* __restrict__ image,       // slab_image: (ng * G, chunks, 2, 2, ch / 8, 512)
     const int* __restrict__ slab_ptr,      // (n_slabs + 1,)
@@ -165,33 +198,42 @@ __global__ void __launch_bounds__(2 * kWarpgroup, 1) spmm_slab_tc_kernel(
     float* __restrict__ out,               // (m_padded, n)
     int n, int block_k, float alpha, float beta, int with_c, int b_vec) {
   extern __shared__ float4 smem4[];
-  const int tn = blockDim.x / kWarpgroup * kTileN;
-  const int ch = min(kChunk, block_k), nch = block_k / ch;
-  const int half_img = 2 * kSlabRows * ch;         // floats of a half slab's chunk, hi and lo
-  const int stage = H * half_img + ch * (tn + kBPad);  // floats a stage
+  constexpr int kStep = 8 * kSlabRows;  // floats of a half slab's tile a step
+  const int wgs = blockDim.x / kWarpgroup, tn = wgs * kTileN;
+  const int ch = 8 * NKS, nch = block_k / ch;  // NKS = min(kChunk, block_k) / 8
+  const int half_img = 2 * kSlabRows * ch;  // floats of a half slab's chunk, hi and lo
+  const int b_rows = ch * (kTileN + kBPad);  // floats of a warpgroup's B rows
+  const int stage = H * half_img + wgs * b_rows;  // floats a stage
   float* ring = reinterpret_cast<float*>(smem4);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStagesK1 * stage);
+  int* freed = reinterpret_cast<int*>(full + kStagesK1);  // warpgroups out of a stage
   const int n_ctiles = (n + tn - 1) / tn;
   const int hs = blockIdx.x / n_ctiles;  // the CTA's first half slab
   const int slab = hs * H / 2, half0 = hs * H % 2;
-  const int n0 = (blockIdx.x % n_ctiles) * tn;
   const int tid = threadIdx.x;
   const int wg = tid / kWarpgroup, w = (tid % kWarpgroup) / 32, g = (tid % 32) / 4,
             t = tid % 4;
+  const int n0 = (blockIdx.x % n_ctiles) * tn + kTileN * wg;  // the warpgroup's columns
   const int p0 = slab_ptr[slab];
   const int nblk = slab_ptr[slab + 1] - p0;
   const int items = nblk * nch;  // (block, chunk) in pack order
 
   if (tid == 0) {
-    for (int s = 0; s < kStagesK1; ++s) sx_async::mbar_init(&full[s], blockDim.x + 1);
+    for (int s = 0; s < kStagesK1; ++s) {
+      sx_async::mbar_init(&full[s], blockDim.x + 1);
+      freed[s] = 0;
+    }
     sx_async::mbar_fence_init();
   }
   __syncthreads();
 
-  // The block of the item being issued and the next one's, read a block ahead.
+  // Chunk q's copies into its stage (every thread, q ascending): this
+  // warpgroup's B rows, and with `tiles` the hi and lo tiles (one bulk
+  // copy). The block of the chunk and the next block's are read a block
+  // ahead.
   int cur = -1, blk = 0, row = 0;
   int nxt_blk = nblk ? slab_blocks[p0] : 0, nxt_row = nblk ? slab_rows[p0] : 0;
-  auto issue = [&](int q) {
+  auto issue = [&](int q, bool tiles) {
     if (q / nch != cur) {
       cur = q / nch;
       blk = nxt_blk;
@@ -204,100 +246,115 @@ __global__ void __launch_bounds__(2 * kWarpgroup, 1) spmm_slab_tc_kernel(
     const int cidx = q % nch;
     float* img = ring + (q % kStagesK1) * stage;
     uint64_t* bar = &full[q % kStagesK1];
-    if (tid == 0) {
+    if (tiles) {
       const uint32_t bytes = 4u * H * half_img;
       sx_async::mbar_arrive_expect_tx(bar, bytes);
       sx_async::bulk_copy(img, image + (((size_t)blk * nch + cidx) * 2 + half0) * half_img,
                           bytes, bar);
     }
-    copy_b_chunk(img + H * half_img, b + ((size_t)row + (size_t)cidx * ch) * n + n0, ch, n, n0,
-                 tn, b_vec, tid, blockDim.x);
+    copy_b_chunk(img + H * half_img + wg * b_rows, b + ((size_t)row + (size_t)cidx * ch) * n + n0,
+                 ch, n, n0, kTileN, b_vec, tid % kWarpgroup, kWarpgroup);
     sx_async::cp_async_arrive(bar);
   };
-  for (int q = 0; q < items && q < kStagesK1; ++q) issue(q);
+  for (int q = 0; q < items && q < kStagesK1; ++q) issue(q, tid == 0);
 
-  float acc[H][32], cf[H][32], f[SPW][H][32];
-#pragma unroll
-  for (int h = 0; h < H; ++h)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      acc[h][i] = cf[h][i] = 0.f;
-#pragma unroll
-      for (int s = 0; s < SPW; ++s) f[s][h][i] = 0.f;
+  // This warpgroup is done with chunk q: refill its stage with chunk q +
+  // kStagesK1, the tiles by the last warpgroup out.
+  auto release = [&](int q) {
+    if (q + kStagesK1 >= items) return;
+    warpgroup_sync(wg);  // every warp's wgmmas and loads on the stage are done
+    bool last = false;
+    if (tid % kWarpgroup == 0) {
+      __threadfence_block();
+      last = atomicAdd(&freed[q % kStagesK1], 1) % wgs == wgs - 1;
+      __threadfence_block();
     }
+    issue(q + kStagesK1, last);
+  };
 
-  const int nks = ch / 8;
+  // Per half slab h: acc[h] the slab's sum, cf[h] the block's; f[0], f[1]
+  // the two sets a group's products go into, and hi[0 or 1], lo[...] the
+  // two sets of a step's A fragment.
+  float acc[H][32], cf[H][32], f[2][32];
+  uint32_t hi[2][4], lo[2][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) acc[h][i] = cf[h][i] = 0.f;
+    f[0][i] = f[1][i] = 0.f;
+  }
+
+  // A group is step ks of a chunk on half slab h: its three products into
+  // fu, the small ones first, then hi . hi. The step's first group loads and
+  // splits the step's A fragment: the chunk's B rows transposed, rows are
+  // columns 16 w + g (+ 8) of the warpgroup's.
+  auto mma = [&](float (&fu)[32], uint32_t (&hu)[4], uint32_t (&lu)[4], const float* img,
+                 int ks, int h, bool first) {
+    if (first) {
+      const float* brow = img + H * half_img + wg * b_rows + (8 * ks + t) * (kTileN + kBPad) +
+                          16 * w + g;
+      const float x[4] = {brow[0], brow[8], brow[4 * (kTileN + kBPad)],
+                          brow[4 * (kTileN + kBPad) + 8]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        hu[i] = to_tf32(x[i]);
+        lu[i] = to_tf32(__fsub_rn(x[i], __uint_as_float(hu[i])));
+      }
+    }
+    const float* vh = img + h * half_img + ks * kStep;  // the half slab's hi tile
+    const uint64_t dh = smem_desc(vh, 128, 256);
+    const uint64_t dl = smem_desc(vh + NKS * kStep, 128, 256);
+    fence_regs(fu);
+    wgmma_fence();
+    wgmma_tf32(fu, lu, dh, 0);
+    wgmma_tf32(fu, hu, dl, 1);
+    wgmma_tf32(fu, hu, dh, 1);
+    wgmma_commit();
+  };
+  // A group's sums, complete in fu, go into its half's block sum, that into
+  // acc after the block's last step.
+  auto retire = [&](float (&fu)[32], float (&cfh)[32], float (&acch)[32], bool block_end) {
+    fence_regs(fu);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) cfh[i] += fu[i];
+    if (block_end) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        acch[i] += cfh[i];
+        cfh[i] = 0.f;
+      }
+    }
+  };
+
+  // A chunk's NKS * H groups in turn: issue group u, wait for group u - 1
+  // only and add it up while u runs; every register set is named at
+  // compile time, and no wgmma runs past the chunk's end.
   for (int q = 0; q < items; ++q) {
-    sx_async::mbar_wait(&full[q % kStagesK1], (q / kStagesK1) & 1);
     const float* img = ring + (q % kStagesK1) * stage;
-    for (int ks0 = 0; ks0 < nks; ks0 += SPW) {
-      // the A fragments of the group's steps: the chunk's B rows transposed,
-      // rows are columns 64 wg + 16 w + g (+ 8), split into hi and lo
-      uint32_t hi[SPW][4], lo[SPW][4];
+    sx_async::mbar_wait(&full[q % kStagesK1], (q / kStagesK1) & 1);
+    const bool block_end = q % nch == nch - 1;
 #pragma unroll
-      for (int s = 0; s < SPW; ++s) {
-        if (ks0 + s >= nks) break;  // a chunk of fewer than 8 SPW terms
-        const float* brow = img + H * half_img + (8 * (ks0 + s) + t) * (tn + kBPad) +
-                            kTileN * wg + 16 * w + g;
-        const float x[4] = {brow[0], brow[8], brow[4 * (tn + kBPad)],
-                            brow[4 * (tn + kBPad) + 8]};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          hi[s][i] = to_tf32(x[i]);
-          lo[s][i] = to_tf32(__fsub_rn(x[i], __uint_as_float(hi[s][i])));
-        }
-      }
-      // per step and half slab the three products into f[s][h] from 0, the
-      // small ones first, then hi . hi; no other instruction touches f while
-      // the tensor cores run. Then the steps go into the block's sum cf in
-      // order.
-      wgmma_fence();
-#pragma unroll
-      for (int s = 0; s < SPW; ++s) {
-        if (ks0 + s < nks) {
-#pragma unroll
-          for (int h = 0; h < H; ++h) {
-            const float* vh = img + h * half_img + (ks0 + s) * 8 * kSlabRows;
-            const uint64_t dh = smem_desc(vh, 128, 256);
-            const uint64_t dl = smem_desc(vh + kSlabRows * ch, 128, 256);
-            wgmma_tf32(f[s][h], lo[s], dh, 0);
-            wgmma_tf32(f[s][h], hi[s], dl, 1);
-            wgmma_tf32(f[s][h], hi[s], dh, 1);
-          }
-        }
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int s = 0; s < SPW; ++s) {
-        if (ks0 + s < nks) {
-#pragma unroll
-          for (int h = 0; h < H; ++h)
-#pragma unroll
-            for (int i = 0; i < 32; ++i) cf[h][i] += f[s][h][i];
-        }
+    for (int u = 0; u <= NKS * H; ++u) {
+      if (u < NKS * H) mma(f[u % 2], hi[u / H % 2], lo[u / H % 2], img, u / H, u % H, u % H == 0);
+      if (u > 0) {
+        if (u < NKS * H)
+          wgmma_wait<1>();
+        else
+          wgmma_wait<0>();
+        retire(f[(u - 1) % 2], cf[(u - 1) % H], acc[(u - 1) % H],
+               block_end && (u - 1) / H == NKS - 1);
       }
     }
-    if (q % nch == nch - 1) {  // the block's contraction goes in
-#pragma unroll
-      for (int h = 0; h < H; ++h)
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          acc[h][i] += cf[h][i];
-          cf[h][i] = 0.f;
-        }
-    }
-    __syncthreads();  // every thread and wgmma is done with the stage
-    if (q + kStagesK1 < items) issue(q + kStagesK1);
+    release(q);
   }
 
   // acc[h][4 i + e] is C[row, col]: row 8 i + 2 t + e % 2 of half slab
-  // half0 + h, column 64 wg + 16 w + g + 8 (e / 2) of the tile
+  // half0 + h, column 16 w + g + 8 (e / 2) of the warpgroup's
 #pragma unroll
   for (int h = 0; h < H; ++h) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      const int col = n0 + kTileN * wg + 16 * w + g + 8 * ((i % 4) / 2);
+      const int col = n0 + 16 * w + g + 8 * ((i % 4) / 2);
       if (col < n) {
         const size_t r = (size_t)slab * MSLAB + (half0 + h) * kSlabRows + 8 * (i / 4) +
                          2 * t + i % 2;
@@ -410,7 +467,7 @@ __global__ void __launch_bounds__(kWarpgroup) spmm_slab_precise_kernel(
 
 // K2 (n <= 32): a CTA owns half a slab, kSlabRows = 64 rows, and all n
 // columns; it visits only its slab's blocks, listed by the host scan
-// slab_visits (slab_ptr / slab_blocks / slab_rows, ops/launch.py) in pack
+// slab_visits (slab_ptr / slab_blocks / slab_rows, ops/spmm_slab.py) in pack
 // order, and
 // streams them through a ring of kStages stages in dynamic shared memory:
 // a stage holds one block's (bk, 64) values and its bk B rows (bk x np
@@ -594,16 +651,20 @@ extern "C" int spmm_slab_launch(
   // the wrapper's map (ops/spmm_slab.py:slab_launch) must be this kernel's
   const int ch = block_k < kChunk ? block_k : kChunk;
   const int wgs = threads / kWarpgroup, tn = wgs * kTileN;
-  const size_t per_stage = halves ? (size_t)halves * 2 * kSlabRows * ch + ch * (tn + kBPad)
+  const size_t per_stage = halves ? (size_t)ch * (halves * 2 * kSlabRows + wgs * (kTileN + kBPad))
                                   : (size_t)ch * (kSlabRows + kTileN + kBPad);
-  const size_t need = kStagesK1 * (4 * per_stage + 8);
+  // a stage beside its mbarrier; the tensor cores' ring also a counter a stage
+  const size_t need = kStagesK1 * (4 * per_stage + 8 + (halves ? 4 : 0));
   const long long ctas = (long long)n_slabs * (2 / (halves ? halves : 1)) * ((n + tn - 1) / tn);
   if (n < 1 || block_k % 8 || threads % kWarpgroup || wgs < 1 || wgs > (halves ? 2 : 1) ||
       grid != ctas || (size_t)smem != need)
     return cudaErrorInvalidValue;
-  auto kernel = halves == 2   ? spmm_slab_tc_kernel<2, 1>
-                : halves == 1 ? spmm_slab_tc_kernel<1, 4>
-                              : spmm_slab_precise_kernel;
+  // the tensor cores' kernel by tile shape and steps a chunk
+  void (*const tc[2][3])(const float*, const int*, const int*, const int*, const float*,
+                         const float*, float*, int, int, float, float, int, int) = {
+      {spmm_slab_tc_kernel<1, 1>, spmm_slab_tc_kernel<1, 2>, spmm_slab_tc_kernel<1, 4>},
+      {spmm_slab_tc_kernel<2, 1>, spmm_slab_tc_kernel<2, 2>, spmm_slab_tc_kernel<2, 4>}};
+  auto kernel = halves ? tc[halves - 1][ch == 8 ? 0 : ch == 16 ? 1 : 2] : spmm_slab_precise_kernel;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;

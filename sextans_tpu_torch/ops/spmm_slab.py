@@ -63,7 +63,7 @@ SLAB_THREADS = 128  # a warpgroup
 
 # K1's tiles (csrc/spmm_slab.cu: kChunk, kStagesK1, kTileN, kBPad): a ring
 # of four stages of 32 terms of a block (block_k if fewer); 64 columns a
-# warpgroup, B rows at a stride of the tile's columns + 8 floats
+# warpgroup, B rows at a stride of those columns + 8 floats
 SLAB_CHUNK = 32
 SLAB_STAGES = 4
 SLAB_TILE_N = 64
@@ -79,14 +79,17 @@ def slab_launch(n: int, n_slabs: int, block_k: int, precise: int = 0) -> Launch:
     per H half slabs (64 H rows) and 64 W columns, (H, W) = (2, 2) where
     ``n_slabs * ceil(n / 128)`` CTAs fill the card four times over, else
     (1, 1); a stage holds a chunk of 32 terms of a block, its hi and lo
-    tiles for the CTA's rows (:func:`slab_image`) and its 32 B rows at the
-    CTA's columns. Precise mode contracts on FFMA: 128 threads per half slab
-    and 64 columns, each over 8 rows and 4 columns; a stage holds the
-    chunk's values for the half slab and its B rows. Either way a ring of
-    four stages, each beside an 8-byte mbarrier, and the column tiles of a
-    slab adjacent in the grid. ``lanes`` is the rows and ``cols`` the
-    columns of a CTA. A stage holds at most 32 terms whatever block_k, so
-    the ring always fits a CTA: at most 200,736 bytes."""
+    tiles for the CTA's rows (:func:`slab_image`) and each warpgroup's 32 B
+    rows at its 64 columns; each warpgroup keeps one 8-term step on the
+    tensor cores while it adds up the one before (the overlapped mainloop,
+    counted as ``launch.spmm_slab_padded.overlap``), and a stage is freed by
+    a counter beside its mbarrier. Precise mode contracts on FFMA: 128
+    threads per half slab and 64 columns, each over 8 rows and 4 columns; a
+    stage holds the chunk's values for the half slab and its B rows. Either
+    way a ring of four stages, each beside an 8-byte mbarrier, and the
+    column tiles of a slab adjacent in the grid. ``lanes`` is the rows and
+    ``cols`` the columns of a CTA. A stage holds at most 32 terms whatever
+    block_k, so the ring always fits a CTA: at most 204,848 bytes."""
     if n < 1:
         raise ValueError(f"spmm_slab takes n >= 1, got {n}")
     if block_k % 8:
@@ -96,7 +99,8 @@ def slab_launch(n: int, n_slabs: int, block_k: int, precise: int = 0) -> Launch:
     wide = tc and n_slabs * cdiv(n, 2 * SLAB_TILE_N) >= SLAB_WIDE_CTAS
     rows, cols = (MSLAB, 2 * SLAB_TILE_N) if wide else (SKINNY_ROWS, SLAB_TILE_N)
     values = 2 * rows if tc else rows  # floats of a term: hi and lo tiles, or the values
-    smem = SLAB_STAGES * (4 * ch * (values + cols + SLAB_B_PAD) + 8)
+    pad = SLAB_B_PAD * (cols // SLAB_TILE_N)  # each warpgroup's B rows are padded
+    smem = SLAB_STAGES * (4 * ch * (values + cols + pad) + 8 + (4 if tc else 0))
     ctas = n_slabs * (MSLAB // rows) * cdiv(n, cols)
     if ctas >= 2**31:
         raise ValueError(f"spmm_slab: {ctas} CTAs exceed the grid")
@@ -316,6 +320,8 @@ def spmm_slab_padded(
             c_padded, alpha, beta, ranges=ranges, image=image, **kw,
         )
         count("launch.spmm_slab_padded")
+        if not precise:  # on the tensor cores, through the overlapped mainloop
+            count("launch.spmm_slab_padded.overlap")
         return out
 
 

@@ -23,7 +23,8 @@ counter of the same name. Names:
   plan made: pads and the gathers of a reordered pack), ``plan.in_place``
   (the calls that handed the ELL gather kernel C and the output unpadded);
   ``launch.<wrapper>``, the kernel launches of each wrapper on a card
-  (:func:`launches`); ``pack_s``, ``upload_s`` and ``library_s``, host seconds of the packers, of the upload to the device
+  (:func:`launches`), and ``launch.spmm_slab_padded.overlap``, those of K1
+  through its overlapped tensor-core mainloop; ``pack_s``, ``upload_s`` and ``library_s``, host seconds of the packers, of the upload to the device
   and of loading (or compiling) the kernel library; ``sddmm.entries`` and
   ``sddmm.b_rows``, the entries of the SDDMM's host plans and the B rows
   their tiles stage a call (their ratio is each staged row's reuse);

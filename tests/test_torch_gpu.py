@@ -18,6 +18,10 @@ K7) and the gather probes' kernels (``csrc/gather_probe.cu``) in every mode.
 
 import torch_cpu  # noqa: F401  one torch thread per xdist worker
 
+import functools
+import re
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +42,7 @@ from sextans_tpu_torch.ops.spmm_ell import spmm_ell_gather_padded, spmm_ell_gath
 from sextans_tpu_torch.ops.launch import SharedMemoryError
 from sextans_tpu_torch.ops.spmm_slab import (
     SKINNY_STAGES,
+    slab_launch,
     slab_visits,
     spmm_slab_padded,
     spmm_slab_padded_ref,
@@ -45,7 +50,7 @@ from sextans_tpu_torch.ops.spmm_slab import (
 )
 from sextans_tpu_torch.probes import dma_gather, ell_issue
 from sextans_tpu_torch.utils.matrices import circuit_like, fem_like, stencil_3d
-from sextans_tpu_torch.utils.profiling import launches
+from sextans_tpu_torch.utils.profiling import counters, launches
 
 pytestmark = pytest.mark.gpu
 
@@ -94,12 +99,14 @@ def _check(kernel, plain, cuda, packed, n, with_c, precise=0, poison=None):
               group_blocks=cfg.group_blocks, with_c=with_c, precise=precise)
     if kernel is spmm_slab_padded:  # K1's operand tiles, made where the plan uploads
         kw["image"] = pl.image
-    before = launches(kernel)
+    before, overlap = launches(kernel), _overlap()
     got = kernel(*pl.arrays, b, c, ALPHA, BETA, ranges=pl.ranges, **kw)
     kw.pop("image", None)
     want = plain(*pl.arrays, b, c, ALPHA, BETA, **kw)
     torch.cuda.synchronize()
     assert launches(kernel) == before + 1
+    # K1 on the tensor cores goes through its overlapped mainloop, every call
+    assert _overlap() == overlap + (kernel is spmm_slab_padded and not precise)
     assert got.shape == want.shape == (packed.m_padded, n) and got.device == cuda
     finite = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), finite)
@@ -108,6 +115,10 @@ def _check(kernel, plain, cuda, packed, n, with_c, precise=0, poison=None):
         assert torch.equal(got.nan_to_num(), want.nan_to_num())
     tol = 4 * np.spacing(np.float32(want[finite].abs().max().item()))
     assert (got[finite] - want[finite]).abs().max().item() <= tol
+
+
+def _overlap():
+    return counters().get("launch.spmm_slab_padded.overlap", 0)
 
 
 BLOCK_KINDS = ["banded", "empty_mtiles", "long_stripe", "nonfinite_pads"]
@@ -1046,6 +1057,84 @@ def test_slab_kernel_streams_long_slabs(cuda, kind, bk, n, with_c, precise):
                precise=precise)
     else:
         _check_slab_f64(cuda, coo, packed, n, with_c)
+
+
+@functools.lru_cache(maxsize=None)
+def _whole_slab_pack(bk):
+    """A pack whose 529 slabs give the whole-slab tiles even at N <= 128
+    (``slab_launch``): a band 90 columns wide, six entries a row, and slabs
+    8-15 without a block."""
+    m, k = 529 * 128, 3000
+    base = tx.COOMatrix.random(m, k, 6 * m, seed=5, banded=True, bandwidth=90)
+    keep = (base.rows < 1024) | (base.rows >= 2048)
+    coo = tx.COOMatrix((m, k), base.rows[keep], base.cols[keep], base.vals[keep])
+    cfg = tx.SpmmConfig(tile_m=1024, window_k=1024, block_k=bk, group_blocks=max(1, 128 // bk))
+    return tx.pack_mxu(coo, cfg)
+
+
+@pytest.mark.parametrize("with_c", [True, False])
+@pytest.mark.parametrize("variant,bk,n", [
+    ("half", 8, 37), ("half", 16, 100), ("half", 32, 64), ("half", 64, 100),
+    ("whole", 8, 100), ("whole", 16, 512), ("whole", 32, 100), ("whole", 64, 200),
+    ("whole", 128, 100)])
+def test_slab_kernel_overlap_ragged_edges(cuda, variant, bk, n, with_c):
+    """K1's overlapped mainloop at its edges, against its plain version:
+    chunks of one, two and four 8-term steps (block_k 8, 16, and 32 or
+    more), slabs without a block (beta * C) and slabs of more chunks than
+    the ring has stages, N whose last column tile is partly outside, with
+    and without C, in both tile shapes."""
+    if variant == "half":
+        cfg = tx.SpmmConfig(tile_m=256, window_k=512, block_k=bk, group_blocks=4)
+        packed = tx.pack_mxu(_matrix("empty_mtiles"), cfg)
+    else:
+        packed = _whole_slab_pack(bk)
+    blocks = np.diff(slab_visits(packed)[0])
+    assert (blocks == 0).any() and blocks.max() * max(1, bk // 32) > 4
+    go = slab_launch(n, packed.m_padded // 128, bk)
+    assert go.threads == {"half": 128, "whole": 256}[variant]
+    _check(spmm_slab_padded, spmm_slab_padded_ref, cuda, packed, n, with_c=with_c)
+
+
+def test_k1_wgmmas_are_not_serialised(record_property, tmp_path):
+    """ptxas keeps K1's wgmmas in flight: ``csrc/spmm_slab.cu`` compiled as
+    ``runtime/build.py`` compiles it, with ``-Xptxas -v``, draws no note
+    that it serialises the wgmmas (C7514, C7515: another instruction may
+    read or write a running wgmma's registers) for any
+    ``spmm_slab_tc_kernel`` instantiation; each instantiation's registers
+    and spills are recorded."""
+    from sextans_tpu_torch.runtime import build
+
+    try:
+        nvcc = build.find_nvcc()
+    except RuntimeError as err:
+        pytest.skip(str(err))
+    src = build.CSRC_DIR / "spmm_slab.cu"
+    proc = subprocess.run(
+        [nvcc, *build.NVCC_FLAGS, "-I", str(build.CSRC_DIR), "-Xptxas", "-v", "-c",
+         "-o", str(tmp_path / "spmm_slab.o"), str(src)], capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    assert proc.returncode == 0, log
+    serialised = [line for line in log.splitlines()
+                  if "serialized" in line and "spmm_slab_tc_kernel" in line]
+    assert not serialised, "\n".join(serialised)
+    # ptxas names a kernel, then gives its spills and registers
+    seen, name = {}, None
+    for line in log.splitlines():
+        named = re.search(r"(?:Compiling entry function '|Function properties for )([^' ]+)",
+                          line)
+        if named:
+            name = named.group(1)
+        elif name and "spmm_slab_tc_kernel" in name:
+            if "spill stores" in line:
+                seen.setdefault(name, {})["spills"] = line.strip()
+            elif "Used" in line and "registers" in line:
+                seen.setdefault(name, {})["registers"] = int(
+                    line.split("Used", 1)[1].split("registers")[0])
+    # two tile shapes by chunks of one, two and four steps
+    assert len(seen) == 6 and all("registers" in v for v in seen.values()), log
+    for kernel, info in seen.items():
+        record_property(kernel, str(info))
+        print(f"{kernel}: {info}")
 
 
 @pytest.mark.parametrize("precise", [0, 1])

@@ -29,6 +29,9 @@ and the DIA kernels (K6, K7), on the CPU.
 
 import torch_cpu  # noqa: F401  one torch thread per xdist worker
 
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -406,14 +409,16 @@ def test_slab_image_lays_out_k_major_tiles():
 def test_slab_launch_map_and_its_ring():
     # synthetic4704 at bench.py's slab config: 40 slabs; at N = 512 the wide
     # tiles would give 160 CTAs, so half a slab by 64 columns: 640 CTAs of
-    # one warpgroup, four stages of 32 terms (hi and lo tiles and B rows)
+    # one warpgroup, four stages of 32 terms (hi and lo tiles and B rows),
+    # each beside its mbarrier and the counter that frees it
     go = slab_launch(512, 40, 128)
     assert (go.lanes, go.cols, go.threads, go.grid) == (64, 64, 128, (640, 1))
-    assert go.smem == 4 * (4 * 32 * (128 + 64 + 8) + 8) == 102432
-    # cant_like: 496 slabs, 1,984 CTAs of a whole slab by 128 columns
+    assert go.smem == 4 * (4 * 32 * (128 + 64 + 8) + 8 + 4) == 102448
+    # cant_like: 496 slabs, 1,984 CTAs of a whole slab by 128 columns; each
+    # warpgroup's 64 columns of B rows padded by 8 floats
     go = slab_launch(512, 496, 128)
     assert (go.lanes, go.cols, go.threads, go.grid) == (128, 128, 256, (1984, 1))
-    assert go.smem == 4 * (4 * 32 * (256 + 128 + 8) + 8) == 200736 <= SMEM_LIMIT
+    assert go.smem == 4 * (4 * 32 * (256 + 128 + 16) + 8 + 4) == 204848 <= SMEM_LIMIT
     # ragged N: the last column tile is partly outside
     assert slab_launch(100, 40, 128).grid == (40 * 2 * 2, 1)
     assert slab_launch(37, 40, 128).grid == (40 * 2, 1)
@@ -426,11 +431,37 @@ def test_slab_launch_map_and_its_ring():
         for n_slabs in (1, 40, 496):
             for precise in (0, 1):
                 assert slab_launch(512, n_slabs, bk, precise).smem <= SMEM_LIMIT
-    assert slab_launch(512, 40, 8).smem == 4 * (4 * 8 * 200 + 8)
+    assert slab_launch(512, 40, 8).smem == 4 * (4 * 8 * 200 + 8 + 4)
     with pytest.raises(ValueError, match="block_k % 8"):
         slab_launch(512, 40, 4)
     with pytest.raises(ValueError, match="n >= 1"):
         slab_launch(0, 40, 128)
+
+
+@pytest.mark.parametrize("cell,tiles", [
+    # the cantilever stand-in's 62,451 rows in 61 M-tiles of 1,024: 488 slabs,
+    # 1,952 CTAs of a whole slab by 128 columns (the training cell runs A and
+    # its transpose, of the same square shape)
+    ("cant_mxu_n512.repeat", (128, 128, 256, (488 * 4, 1))),
+    ("cant_mxu_n512.train", (128, 128, 256, (488 * 4, 1))),
+    # nasa4704's 4,704 rows in 5 M-tiles: 40 slabs, whose 160 whole-slab CTAs
+    # would not fill the card four times over, so 640 CTAs of half a slab
+    ("nasa4704_mxu_n512.repeat", (64, 64, 128, (40 * 2 * 8, 1))),
+])
+def test_slab_launch_at_the_mxu_cells(cell, tiles):
+    """The tile shape slab_launch picks for K1 in each mxu cell of the
+    benchmark (``BENCHMARK.json``, ``bench_torch/configs``): plain mode, N =
+    512, block_k 128. Both shapes run the overlapped mainloop."""
+    root = Path(__file__).resolve().parent.parent
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    config = next(w["config"] for w in bench["workloads"] if w["name"] == cell)
+    cfg = json.loads((root / "bench_torch" / "configs" / f"{config}.json").read_text())
+    assert cfg["backend"] == "mxu" and cfg["spmm_config"]["block_k"] == 128
+    slab = cfg["spmm_config"]
+    n_slabs = -(-cfg["rows"] // slab["tile_m"]) * slab["tile_m"] // MSLAB
+    go = slab_launch(cfg["n"], n_slabs, slab["block_k"])
+    assert (go.lanes, go.cols, go.threads, go.grid) == tiles
+    assert go.smem == (204848 if go.threads == 256 else 102448) <= SMEM_LIMIT
 
 
 BENCH_SLAB = dict(tile_m=1024, window_k=4096, block_k=128, group_blocks=8)

@@ -4,7 +4,7 @@ K7) at their measured shapes, to compare two trees of the repository on one
 card, K6's time under run plans cut finer by hand, and K5's 4- and 16-byte
 loads.
 
-    python3 tools/kernel_times.py ROOT [--pace] [--vec]
+    python3 tools/kernel_times.py ROOT [--pace] [--vec] [--k1]
 
 imports ``sextans_tpu_torch`` from the tree at ROOT (a checkout of any
 commit since ``DiaRuns`` holds its offsets), builds its kernels and prints
@@ -31,6 +31,10 @@ runs. The cases:
   device op of the plan's call (an earlier tree folds in PyTorch after
   the kernel), plain and precise, at N = 512, 16 and 13 (4-byte loads) on
   synthetic4704 and N = 512 on cant_like.
+
+``--k1`` times K1 alone, plain and precise, on synthetic4704, cant_like
+and the benchmark's cant stand-in (``fem_like(62451, dofs=3,
+neighbors=22, bandwidth=661, seed=13)``), and stops there.
 
 ``--vec`` times K5 in a tree that has ``ELL_VEC4_MIN_N`` both ways at every
 N that takes them: 16-byte loads (a thread a 4-column chunk) and 4-byte
@@ -85,7 +89,7 @@ def device_ms(fn, symbol: str) -> float:
 
 def main(argv) -> int:
     flags = argv[1:]
-    if not argv or any(f not in ("--pace", "--vec") for f in flags):
+    if not argv or any(f not in ("--pace", "--vec", "--k1") for f in flags):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(argv[0]).resolve()))
@@ -108,8 +112,13 @@ def main(argv) -> int:
     slab_cfg = sx.SpmmConfig(tile_m=1024, window_k=4096, block_k=128, group_blocks=8,
                              chunk_unroll=2)
     cant = fem_like(62451, dofs=3, neighbors=21, seed=2)
-    for tag, coo in (("synthetic4704", synth), ("cant_like", cant)):
-        for n, precise in ((512, 0), (512, 1), (16, 0)):
+    k1_only = "--k1" in flags
+    mats = [("synthetic4704", synth), ("cant_like", cant)]
+    if k1_only:
+        mats.append(("cant_stand_in", fem_like(62451, dofs=3, neighbors=22, bandwidth=661,
+                                               seed=13)))
+    for tag, coo in mats:
+        for n, precise in ((512, 0), (512, 1)) + (() if k1_only else ((16, 0),)):
             rng = np.random.default_rng(0)
             b = rng.standard_normal((coo.shape[1], n)).astype(np.float32)
             c = rng.standard_normal((coo.shape[0], n)).astype(np.float32)
@@ -122,6 +131,8 @@ def main(argv) -> int:
                 "spmm_slab" if n > 32 else "spmm_slab_skinny_kernel"))
             del pl, b_p, c_p
             torch.cuda.empty_cache()
+    if k1_only:
+        return 0
 
     from sextans_tpu_torch.ops import spmm_ell
 
