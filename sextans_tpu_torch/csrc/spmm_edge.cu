@@ -5,7 +5,7 @@
 // (the Pallas TPU kernel K4). On the TPU the chunks of an M-tile ran in order
 // along a sequential grid axis and the accumulator lived in VMEM across grid
 // steps. That order matters only among the runs that flush into one row, so
-// here a host scan at upload (ops/launch.py:row_runs) lists each padded
+// here a host scan at upload (ops/spmm_edge.py:row_runs) lists each padded
 // output row's runs in pack order, as slot ranges [start, stop] inside one
 // chunk, and each row is summed by its own threads, in registers.
 //
@@ -24,6 +24,12 @@
 // chunk boundary is two runs: the packer forces row_end on each chunk's last
 // slot. Slots after a chunk's last row_end (the all-padding chunks of empty
 // M-tiles) are in no run, as the TPU kernel drops their register.
+//
+// B, C and out: B as the caller's (K or more rows; a slot reads row
+// kw * window_k + col, below K for every slot of a pack from pack_edge),
+// or padded to whole K-windows; C and out at m_rows rows, the caller's M
+// (SpmmPlan's call, ops/spmm_edge.py:edge_in_place) or m_padded. A row at
+// or past m_rows holds no entry and is not computed.
 //
 // Thread map (ops/spmm_edge.py:edge_launch): a thread owns one row at four
 // consecutive columns, reads B as 16-byte loads where N % 4 == 0 (VEC), and
@@ -53,6 +59,18 @@
 // final rounding. A masked pad adds nothing, its error included; an unmasked
 // pad adds 0 * B[window row] and its error, as on the TPU. The TPU's L lane
 // pairs summed at the flush become one pair here (its edges one by one).
+//
+// Level 2 promises each element the f32 nearest to its exact value, which
+// the pair alone does not give where the terms cancel or the sum lies near
+// a rounding boundary (on the cant stand-in at N = 512, 46 elements of a
+// product). So at level 2 the step sums its two errors first (comp -=
+// fl(e + pe), df32.cuh:acc_step_bounded), a third register per column
+// gathers a bound on the pair's error, and the epilogue
+// (checked_epilogue) keeps its result wherever that bound shows it is the
+// nearest f32. It lists each other element, and a second kernel
+// (spmm_edge_nearest_kernel) sums those again from f64 in the same order
+// (nearest_element), so that K4's threads carry only the pair and its
+// bound.
 
 #include <cuda_runtime.h>
 
@@ -62,7 +80,13 @@ namespace {
 
 constexpr int kColShift = 2;
 constexpr unsigned kColMask = (1u << 15) - 1;
-constexpr int kSub = 16;  // B-row loads a lane issues before their FMAs
+// B-row loads a lane issues before their FMAs. At level 2 8, not 16: with
+// the bound's registers 16 took 141 registers, one CTA an SM, and 3.5 ms
+// a product on the cant stand-in at N = 512 (a register cap of 128 that
+// spilled, 2.6 ms); 8 take 88, and K4 the 1.88 ms it took without the
+// bound.
+constexpr int kSubPlain = 16;
+constexpr int kSubPrecise2 = 8;
 
 // The lane-group mask of a lane: LANES consecutive lanes share a row.
 template <int LANES>
@@ -86,6 +110,43 @@ __device__ __forceinline__ float& at(float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
+// Level 2's sum of one output element over its row's runs again, from f64,
+// by a whole warp: the lanes load 32 slots at a time (a pad adds nothing:
+// the element is summed again only where its f32 sum was finite, and there
+// a pad's 0 * B is 0) with each product v * B exact, and lane 0 adds them
+// by two_sum into an f64 pair in pack order; then nearest_epilogue. `bcol`
+// is B's column of the element. Returns the f32 in lane 0.
+__device__ __forceinline__ float nearest_element(
+    const float* __restrict__ vals, const int* __restrict__ meta,
+    const int* __restrict__ chunk_kwin, const int* __restrict__ run_start,
+    const int* __restrict__ run_stop, int q0, int q1, const float* __restrict__ bcol, int n,
+    int window_k, int edge_chunk, float alpha, float beta, float cin, bool with_c) {
+  const int lane = threadIdx.x & 31;
+  double acc = 0.0, comp = 0.0;
+  for (int q = q0; q < q1; ++q) {
+    const int s0 = run_start[q], s1 = run_stop[q];
+    const float* bwin = bcol + (size_t)chunk_kwin[s0 / edge_chunk] * window_k * n;
+    for (int e0 = s0; e0 <= s1; e0 += 32) {
+      const int e = e0 + lane;
+      const unsigned w = e <= s1 ? (unsigned)__ldg(meta + e) : 1u;
+      const double p = (w & 1u) ? 0.0
+          : __dmul_rn((double)__ldg(vals + e),
+                      (double)__ldg(bwin + (size_t)((w >> kColShift) & kColMask) * n));
+      const unsigned real = __ballot_sync(0xffffffffu, !(w & 1u));
+      for (int j = 0; j < 32; ++j) {
+        const double pj = __shfl_sync(0xffffffffu, p, j);
+        if (lane == 0 && ((real >> j) & 1u)) {
+          double t, err;
+          sx_df32::two_sum(acc, pj, t, err);
+          acc = t;
+          comp = __dsub_rn(comp, err);
+        }
+      }
+    }
+  }
+  return sx_df32::nearest_epilogue(acc, comp, alpha, beta, cin, with_c);
+}
+
 // The plain kernel at N > 16 is held to 85 registers, so that three CTAs of
 // 256 threads share an SM: more rows in flight beat more loads per row
 // there (on cant_like at N = 512). The other maps keep what they use.
@@ -97,25 +158,28 @@ __global__ void __launch_bounds__(256, LANES == 32 && PRECISE == 0 ? 3 : 1) spmm
     const int* __restrict__ row_ptr,       // (m_padded + 1,)
     const int* __restrict__ run_start,     // (runs,)
     const int* __restrict__ run_stop,      // (runs,)
-    const float* __restrict__ b,           // (k_padded, n)
-    const float* __restrict__ c,           // (m_padded, n) or null
-    float* __restrict__ out,               // (m_padded, n)
-    int m_padded, int n, int window_k, int edge_chunk, float alpha, float beta,
+    const float* __restrict__ b,           // (K or k_padded, n)
+    const float* __restrict__ c,           // (m_rows, n) or null
+    float* __restrict__ out,               // (m_rows, n)
+    unsigned* __restrict__ unsure,         // level 2: a count, then the elements listed
+    int m_rows, int n, int window_k, int edge_chunk, float alpha, float beta,
     int with_c) {
   // (meta, val) pairs a lane loads per batch, so that a batch holds at
   // least 16 slots
+  constexpr int kSub = PRECISE == 2 ? kSubPrecise2 : kSubPlain;
   constexpr int kPairs = LANES >= 16 ? 1 : 16 / LANES;
   constexpr int kBatch = LANES * kPairs;
   const int lane = threadIdx.x & 31;
   const int gl = lane & (LANES - 1);
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / LANES;
-  if (row >= m_padded) return;  // the row's whole lane group leaves
+  if (row >= m_rows) return;  // the row's whole lane group leaves
   const unsigned mask = group_mask<LANES>(lane);
   const int col = (blockIdx.y * LANES + gl) * 4;
   const bool live = col < n;
 
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   float4 comp = acc;
+  float4 bound = acc;
   const int q1 = row_ptr[row + 1];
   for (int q = row_ptr[row]; q < q1; ++q) {
     const int s0 = run_start[q];
@@ -173,7 +237,7 @@ __global__ void __launch_bounds__(256, LANES == 32 && PRECISE == 0 ? 3 : 1) spmm
             } else {
               float p, pe;
               sx_df32::two_prod(v, x, p, pe);
-              sx_df32::acc_step(at(reg, k), at(regc, k), p, pe);
+              sx_df32::acc_step_bounded(at(reg, k), at(regc, k), at(bound, k), p, pe);
             }
           }
         }
@@ -183,9 +247,11 @@ __global__ void __launch_bounds__(256, LANES == 32 && PRECISE == 0 ? 3 : 1) spmm
     for (int k = 0; k < 4; ++k) {
       if constexpr (PRECISE == 0) {
         at(acc, k) = __fadd_rn(at(acc, k), at(reg, k));
-      } else {
+      } else if constexpr (PRECISE == 1) {
         sx_df32::acc_step(at(acc, k), at(comp, k), at(reg, k));
         at(comp, k) = __fadd_rn(at(comp, k), at(regc, k));
+      } else {
+        sx_df32::flush_bounded(at(acc, k), at(comp, k), at(bound, k), at(reg, k), at(regc, k));
       }
     }
   }
@@ -198,10 +264,16 @@ __global__ void __launch_bounds__(256, LANES == 32 && PRECISE == 0 ? 3 : 1) spmm
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const float a = at(acc, k);
-    if constexpr (PRECISE == 0)
+    if constexpr (PRECISE == 0) {
       at(res, k) = with_c ? __fmaf_rn(alpha, a, __fmul_rn(beta, at(cin, k))) : __fmul_rn(alpha, a);
-    else
+    } else if constexpr (PRECISE == 1) {
       at(res, k) = sx_df32::epilogue(a, at(comp, k), at(cin, k), alpha, beta, with_c);
+    } else {
+      bool sure;
+      at(res, k) = sx_df32::checked_epilogue(a, at(comp, k), at(bound, k), at(cin, k), alpha,
+                                             beta, with_c, sure);
+      if (!sure && col + k < n) unsure[1 + atomicAdd(unsure, 1u)] = (unsigned)(base + k);
+    }
   }
   if constexpr (VEC) {
     *reinterpret_cast<float4*>(out + base) = res;
@@ -209,6 +281,31 @@ __global__ void __launch_bounds__(256, LANES == 32 && PRECISE == 0 ? 3 : 1) spmm
 #pragma unroll
     for (int k = 0; k < 4; ++k)
       if (col + k < n) out[base + k] = at(res, k);
+  }
+}
+
+// Level 2's second pass, one wave of warps: spmm_edge_kernel listed the
+// elements its check is not sure of (unsure[0] of them, in unsure[1..]), and
+// the warps deal them out, one at a time a warp, each summed again by the
+// whole warp (nearest_element) into out. They are few (about 1.6e-4 of the
+// elements on the cant stand-in at N = 512, fewer than the warps), so this
+// pass costs about one element's walk.
+__global__ void __launch_bounds__(256) spmm_edge_nearest_kernel(
+    const float* __restrict__ vals, const int* __restrict__ meta,
+    const int* __restrict__ chunk_kwin, const int* __restrict__ row_ptr,
+    const int* __restrict__ run_start, const int* __restrict__ run_stop,
+    const float* __restrict__ b, const float* __restrict__ c, float* __restrict__ out,
+    const unsigned* __restrict__ unsure, int n, int window_k, int edge_chunk, float alpha,
+    float beta, int with_c) {
+  const unsigned warps = gridDim.x * (blockDim.x / 32);
+  const unsigned count = unsure[0];
+  for (unsigned i = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32; i < count; i += warps) {
+    const size_t e = unsure[1 + i];
+    const int row = (int)(e / n), col = (int)(e % n);
+    const float y = nearest_element(vals, meta, chunk_kwin, run_start, run_stop, row_ptr[row],
+                                    row_ptr[row + 1], b + col, n, window_k, edge_chunk, alpha,
+                                    beta, with_c ? c[e] : 0.f, with_c);
+    if ((threadIdx.x & 31) == 0) out[e] = y;
   }
 }
 
@@ -235,19 +332,34 @@ auto pick(int precise, int lanes, int vec) {
 extern "C" int spmm_edge_launch(
     const void* vals, const void* meta, const void* chunk_kwin,
     const void* row_ptr, const void* run_start, const void* run_stop,
-    const void* b, const void* c, void* out, int m_padded, int n, int window_k,
+    const void* b, const void* c, void* out, void* unsure, int m_rows, int n, int window_k,
     int edge_chunk, float alpha, float beta, int with_c, int masked,
     int precise, int lanes, int vec, int threads, int grid_x, int grid_y,
-    void* stream) {
+    int nearest_grid, void* stream) {
   if (precise < 0 || precise > 2 || (lanes != 4 && lanes != 32) || threads % 32 ||
-      (long long)grid_x * (threads / lanes) < m_padded ||
-      (long long)grid_y * lanes * 4 < n)
+      (long long)grid_x * (threads / lanes) < m_rows ||
+      (long long)grid_y * lanes * 4 < n ||
+      (precise == 2 && (!unsure || nearest_grid < 1 || (long long)m_rows * n >= (1ll << 32))))
     return cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (precise == 2) {  // the count of the list
+    const cudaError_t err = cudaMemsetAsync(unsure, 0, sizeof(unsigned), st);
+    if (err != cudaSuccess) return err;
+  }
   auto kernel = masked ? pick<true>(precise, lanes, vec) : pick<false>(precise, lanes, vec);
-  kernel<<<dim3(grid_x, grid_y), threads, 0, (cudaStream_t)stream>>>(
+  kernel<<<dim3(grid_x, grid_y), threads, 0, st>>>(
       (const float*)vals, (const int*)meta, (const int*)chunk_kwin,
       (const int*)row_ptr, (const int*)run_start, (const int*)run_stop,
-      (const float*)b, (const float*)c, (float*)out, m_padded, n, window_k,
-      edge_chunk, alpha, beta, with_c);
+      (const float*)b, (const float*)c, (float*)out, (unsigned*)unsure, m_rows, n,
+      window_k, edge_chunk, alpha, beta, with_c);
+  if (precise == 2) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    spmm_edge_nearest_kernel<<<nearest_grid, 256, 0, st>>>(
+        (const float*)vals, (const int*)meta, (const int*)chunk_kwin,
+        (const int*)row_ptr, (const int*)run_start, (const int*)run_stop,
+        (const float*)b, (const float*)c, (float*)out, (const unsigned*)unsure, n, window_k,
+        edge_chunk, alpha, beta, with_c);
+  }
   return cudaGetLastError();
 }

@@ -14,6 +14,16 @@ wherever that is exact (no overflow in the split, no underflow).
 :func:`~sextans_tpu_torch.ops.launch.add_rows_in_order`: a Neumaier step per
 row visit, in visit order.
 
+``acc_step_bounded``, ``add_rows_bounded``, ``checked_epilogue``,
+``nearest_f32`` and ``nearest_epilogue`` are the twins of ``csrc/df32.cuh``'s
+level 2 with a rounding check (the edge kernel K4): the pair's steps also
+gather a bound on its error, the epilogue says where its f32 may not be the
+nearest one, and those elements are summed again from f64. The pair and
+the result take the kernel's roundings; the bound is gathered in another
+order (a run's own, then its flush) and without the kernel's pad steps.
+Each bound is rigorous, so wherever either is sure its f32 is the nearest
+one, and the outputs agree to the bit.
+
 ``eft_probe_pairs`` and ``eft_probe_chain`` are the twin of the TPU probe P3
 (``benchmarks/scratch/mosaic_eft_probe.py``): on a CUDA tensor each
 launches its kernel in ``csrc/df32_probe.cu``, on a CPU tensor it runs its
@@ -38,6 +48,11 @@ __all__ = [
     "acc_step",
     "compensated_epilogue",
     "add_rows_compensated",
+    "acc_step_bounded",
+    "add_rows_bounded",
+    "checked_epilogue",
+    "nearest_f32",
+    "nearest_epilogue",
     "probe_inputs",
     "eft_probe_pairs",
     "eft_probe_pairs_ref",
@@ -108,6 +123,102 @@ def add_rows_compensated(acc: torch.Tensor, comp: torch.Tensor, index: torch.Ten
         t, c = acc_step(acc[rows], comp[rows], x[sel], None if xerr is None else xerr[sel])
         acc[rows] = t
         comp[rows] = c
+
+
+# ---- level 2 with a rounding check (csrc/df32.cuh, K4) ----
+
+def acc_step_bounded(acc, comp, bound, p, pe):
+    """``(acc, comp) += p + pe`` with the step's two errors summed first,
+    ``comp' = comp - fl(e + pe)``, and ``bound + |comp'|``: over a run of
+    such steps from ``comp = 0`` the pair's error is at most 3.0001 * 2**-24
+    * the bound's gain (``df32.cuh:acc_step_bounded``, which adds ``|comp'|``
+    to the bound in the other order)."""
+    t, e = two_sum(acc, p)
+    c = comp - (e + pe)
+    return t, c, bound + c.abs()
+
+
+def add_rows_bounded(acc: torch.Tensor, comp: torch.Tensor, bound: torch.Tensor,
+                     index: torch.Tensor, x: torch.Tensor, xc: torch.Tensor,
+                     xb: torch.Tensor) -> None:
+    """Each run's flush into its row, in visit order, in place: ``acc_step``
+    of the run's sum ``x``, then ``comp + xc``; the row's bound gathers the
+    run's own bound ``xb`` and the magnitudes of those two roundings (the
+    kernel's ``df32.cuh:flush_bounded`` has its run's steps in the row's
+    bound already)."""
+    if index.numel() == 0:
+        return
+    for sel in rank_groups(index):
+        rows = index[sel]
+        t, e = two_sum(acc[rows], x[sel])
+        c1 = comp[rows] - e
+        c2 = c1 + xc[sel]
+        acc[rows] = t
+        comp[rows] = c2
+        bound[rows] = ((bound[rows] + xb[sel]) + c1.abs()) + c2.abs()
+
+
+def checked_epilogue(alpha, total, comp, bound, beta=None, cin=None):
+    """:func:`compensated_epilogue`'s result ``r``, to the bit, and where
+    ``r`` may not be the f32 nearest to ``alpha * (total - comp) + beta *
+    cin`` when the pair is the exact sum to within ``2**-22 * bound``: ``r +
+    d`` is the epilogue's sum before its rounding, each of its roundings is
+    at most 2**-24 of its result, and ``r`` is sure where ``|d|`` and those
+    errors stay under half the gap to ``r``'s nearer neighbour. A
+    non-finite ``r`` reads as sure (``df32.cuh:checked_epilogue``)."""
+    a = torch.tensor(f32(alpha), dtype=torch.float32, device=total.device)
+    p, pe = two_prod(a, total)
+    ac = a * comp
+    err = pe - ac
+    s, tail = p, err
+    slack = ac.abs() + err.abs()
+    if beta is not None and cin is not None:
+        bt = torch.tensor(f32(beta), dtype=torch.float32, device=total.device)
+        q, qe = two_prod(bt, cin)
+        s, se = two_sum(p, q)
+        t1 = err + qe
+        tail = t1 + se
+        slack = (slack + t1.abs()) + tail.abs()
+    r, d = two_sum(s, tail)
+    margin = d.abs() + (a.abs() * bound + slack) * 2.0**-22
+    bits = r.view(torch.int32)
+    ef = (bits >> 23) & 0xFF
+    shift = torch.where((bits & 0x7FFFFF) != 0, 24, 25)
+    half_gap = torch.where(ef > shift, (ef - shift) << 23, 0).to(torch.int32).view(torch.float32)
+    return r, (margin >= half_gap) & (margin > 0)
+
+
+def _prod_err(a: float, x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``a * x - p`` exactly, for an f32 ``a``, an f64 ``x`` and ``p =
+    fl(a * x)``: the residual of an FMA, by Dekker's product with ``x``
+    split into halves of 26 bits (each product with ``a`` is exact)."""
+    c = 134217729.0 * x  # 2**27 + 1
+    hi = c - (c - x)
+    return (a * hi - p) + a * (x - hi)
+
+
+def nearest_f32(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """The f32 nearest to ``hi + lo`` (f64): their sum rounded to odd, then
+    to f32, which with 53 >= 24 + 2 bits is one rounding."""
+    z, zl = two_sum(hi, lo)
+    bits = z.view(torch.int64)
+    step = torch.where((zl > 0) == (z > 0), 1, -1)
+    bits = torch.where((zl != 0) & ((bits & 1) == 0), bits + step, bits)
+    return bits.view(torch.float64).float()
+
+
+def nearest_epilogue(acc: torch.Tensor, comp: torch.Tensor, alpha, beta=None,
+                     cin=None) -> torch.Tensor:
+    """``alpha * (acc - comp) + beta * cin`` (or without C) for f64 pairs,
+    rounded once to f32 (``df32.cuh:nearest_epilogue``)."""
+    a = f32(alpha)
+    p = a * acc
+    lo = _prod_err(a, acc, p) - a * comp
+    hi = p
+    if beta is not None and cin is not None:
+        hi, se = two_sum(p, f32(beta) * cin.double())
+        lo = lo + se
+    return nearest_f32(hi, lo)
 
 
 # ---- P3's twin: the EFT probe ----

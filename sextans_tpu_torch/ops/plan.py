@@ -4,9 +4,9 @@ The PyTorch counterpart of ``sextans_tpu.ops.plan.SpmmPlan``: the packed
 arrays and the host scan that their kernels walk are uploaded once
 (memoized on the packed object per device); each call pads B to
 ``k_padded`` and C to ``m_padded``, runs one kernel and slices the result,
-except on the ``ell_pallas`` route, whose kernel takes the caller's B and C
-where they lie (``k_padded`` is K there) and writes an (M, N) output. N is
-not padded: the kernels mask a ragged last column chunk.
+except on the ``ell_pallas`` and ``edge`` routes, whose kernels take the
+caller's B and C where they lie (at K and M rows) and write an (M, N)
+output. N is not padded: the kernels mask a ragged last column chunk.
 
 ``FORMAT_TABLE`` gives each format's packer, pack type, upload and
 backends, which keep the JAX package's names so that flags read the same:
@@ -35,7 +35,7 @@ from sextans_tpu_torch.format.pack_ell import PackedSpMatrixELL, pack_ell
 from sextans_tpu_torch.format.pack_mxu import PackedSpMatrixMXU, pack_mxu
 from sextans_tpu_torch.ops.launch import PackHost, need, put, put_scan
 from sextans_tpu_torch.ops.spmm_block import BLOCK_HOST, block_ref_runner, block_runner
-from sextans_tpu_torch.ops.spmm_edge import EDGE_HOST, edge_runner
+from sextans_tpu_torch.ops.spmm_edge import EDGE_HOST, edge_in_place, edge_runner
 from sextans_tpu_torch.ops.spmm_ell import ELL_HOST, ell_gather_runner, ell_in_place, ell_runner
 from sextans_tpu_torch.ops.spmm_slab import SLAB_HOST, k1_image, slab_runner
 from sextans_tpu_torch.utils.profiling import annotate, count, timed
@@ -48,7 +48,8 @@ class Engine(NamedTuple):
     """A backend, from its kernel's module: ``runner(packed, n, ranges,
     image)`` gives the plan's ``run``; ``image(config, n, device)``, the
     maker of the kernel's operand tiles or None; ``in_place(packed)``,
-    whether a call's C and output keep the caller's M rows."""
+    whether a call's B keeps the caller's K rows and its C and output the
+    caller's M rows."""
 
     runner: Callable
     servable: bool = True
@@ -71,7 +72,8 @@ FORMAT_TABLE = {
                   {"pallas": Engine(block_runner), "xla": Engine(block_ref_runner)}),
     "mxu": Format(pack_mxu, PackedSpMatrixMXU, SLAB_HOST,
                   {"mxu": Engine(slab_runner, image=k1_image)}),
-    "edge": Format(pack_edge, PackedSpMatrixEdge, EDGE_HOST, {"edge": Engine(edge_runner)}),
+    "edge": Format(pack_edge, PackedSpMatrixEdge, EDGE_HOST,
+                   {"edge": Engine(edge_runner, in_place=edge_in_place)}),
     "ell": Format(pack_ell, PackedSpMatrixELL, ELL_HOST,
                   {"ell_pallas": Engine(ell_gather_runner, servable=False, in_place=ell_in_place),
                    "ell": Engine(ell_runner)}),
@@ -200,23 +202,25 @@ class SpmmPlan:
             inv = np.empty(self.m, dtype=np.int64)
             inv[packed.row_perm] = np.arange(self.m)
             self._inv_row = as_index(inv)
-        # the rows of a call's C and output: the caller's where the kernel
-        # takes them so (K5), else m_padded
+        # the rows of a call's B, C and output: the caller's where the
+        # kernel takes them so (K4, K5), else k_padded and m_padded
         self._in_place = bool(engine.in_place and engine.in_place(packed))
+        self._b_rows = self.k if self._in_place else self.k_padded
         self._c_rows = self.m if self._in_place else packed.m_padded
         # the bytes of B, and of B and C, that a call makes (pads and gathers)
-        b_bytes = (4 * self.k_padded * n
-                   if self.k_padded > self.k or packed.col_perm is not None else 0)
+        b_bytes = (4 * self._b_rows * n
+                   if self._b_rows > self.k or packed.col_perm is not None else 0)
         c_bytes = (4 * self._c_rows * n
                    if self._c_rows > self.m or packed.row_perm is not None else 0)
         self._pad_bytes = (b_bytes, b_bytes + c_bytes)
 
-    def pad_b(self, b) -> torch.Tensor:
-        """B as the kernel takes it: column-permuted, padded to k_padded."""
+    def pad_b(self, b, rows: Optional[int] = None) -> torch.Tensor:
+        """B as the kernel takes it: column-permuted, padded to ``rows``
+        (k_padded by default)."""
         b = dense_operand(b, (self.k, self.n), "B", self.device)
         if self._col_perm is not None:  # A was packed as A[:, col_perm]
             b = b[self._col_perm]
-        return _pad_rows(b, self.k_padded)
+        return _pad_rows(b, self.k_padded if rows is None else rows)
 
     def pad_c(self, c, rows: Optional[int] = None) -> torch.Tensor:
         """C as the kernel takes it: row-permuted, padded to ``rows``
@@ -256,8 +260,8 @@ class SpmmPlan:
     def __call__(self, b, alpha=1.0, beta=0.0, c=None) -> torch.Tensor:
         """``alpha * A @ b + beta * c`` (M, N), inside the span
         ``sx.plan.call``. Counts ``plan.calls``, ``plan.pad_bytes`` and, on
-        the ``ell_pallas`` route, whose C and output have M rows,
-        ``plan.in_place`` (``utils/profiling.py``)."""
+        the ``ell_pallas`` and ``edge`` routes, whose B has K rows and C and
+        output M rows, ``plan.in_place`` (``utils/profiling.py``)."""
         with_c = c is not None
         if not with_c:
             if float(beta) != 0.0:
@@ -268,7 +272,7 @@ class SpmmPlan:
         if self._in_place:
             count("plan.in_place")
         with annotate("sx.plan.call"):
-            b_p = self.pad_b(b)
+            b_p = self.pad_b(b, self._b_rows)
             c_p = self.pad_c(c, self._c_rows) if with_c else self.no_c(self._c_rows)
             return self.unpad(self._run(*self.arrays, b_p, c_p, alpha, beta, with_c=with_c))
 

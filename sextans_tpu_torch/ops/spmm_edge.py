@@ -5,13 +5,15 @@
 hand-written kernel in ``csrc/spmm_edge.cu``; on a CPU tensor it runs the
 plain PyTorch version ``spmm_edge_padded_ref``. Any other device raises.
 Both take ``precise`` (``SpmmConfig.precise``): 1 and 2 run the TPU
-kernel's compensated levels, with ``ops/df32.py`` in the plain version.
+kernel's compensated levels, with ``ops/df32.py`` in the plain version; 2
+adds a check of each element's rounding, and sums the elements it is not
+sure of again from f64, so that each is the f32 nearest to its exact value.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,9 +21,14 @@ import torch
 from sextans_tpu_torch.format.pack_edge import COL_SHIFT, PAD_BIT, ROW_END, ROW_SHIFT
 from sextans_tpu_torch.ops.df32 import (
     acc_step,
+    acc_step_bounded,
+    add_rows_bounded,
     add_rows_compensated,
+    checked_epilogue,
     compensated_epilogue,
+    nearest_epilogue,
     two_prod,
+    two_sum,
 )
 from sextans_tpu_torch.ops.launch import (
     Launch,
@@ -41,7 +48,7 @@ from sextans_tpu_torch.runtime.build import build_kernels, check_launch
 from sextans_tpu_torch.utils.profiling import annotate, count
 
 __all__ = ["spmm_edge_padded", "spmm_edge_padded_ref", "edge_launch", "row_runs",
-           "check_edge_pack", "COL_MASK", "EDGE_HOST", "edge_runner"]
+           "check_edge_pack", "COL_MASK", "EDGE_HOST", "edge_runner", "edge_in_place"]
 
 # The column field of an edge's meta word, after the shift by COL_SHIFT.
 COL_MASK = (1 << (ROW_SHIFT - COL_SHIFT)) - 1
@@ -52,6 +59,9 @@ COL_MASK = (1 << (ROW_SHIFT - COL_SHIFT)) - 1
 # 1 GB.
 _REF_CHUNK_BYTES = 256 << 20
 _REF_PRECISE_CHUNK_BYTES = 1 << 30
+# CTAs of 256 threads an SM of level 2's second kernel, whose warps deal
+# out the listed elements: at its 40 registers six fit an SM, one wave
+_NEAREST_CTAS_PER_SM = 6
 
 
 def spmm_edge_padded_ref(
@@ -70,6 +80,8 @@ def spmm_edge_padded_ref(
     masked: bool = False,
     with_c: bool = True,
     precise: int = 0,
+    m: Optional[int] = None,
+    k: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version, rounding as the kernel does: decode the meta
     words into (row, B row) indices; sum each row run (the edges up to and
@@ -78,18 +90,25 @@ def spmm_edge_padded_ref(
     then ``fma(alpha, acc, beta * C)``. With ``masked`` a pad slot is
     skipped; without it, it adds ``0 * B``, which changes a sum only where B
     is not finite. Works in chunks of chunks so that its temporaries stay
-    bounded.
+    bounded. B may come padded to whole K-windows or at its K rows, C padded
+    to m_padded or at its M rows: the result has C's rows (``m`` and ``k``,
+    the kernel wrapper's, change nothing here).
 
     With ``precise`` each run is a compensated pair: per edge the product
     (level 2 with its ``two_prod`` error) goes in by ``acc_step``; each
     flush is an ``acc_step`` of the run's sum into its row's pair, in pack
     order, and then adds the run's compensation; the epilogue is the
-    compensated one."""
+    compensated one. Level 2 takes the bounded steps of ``ops/df32.py``:
+    the epilogue checks each element's f32 against the bound, and sums each
+    element it is not sure of again from f64
+    (:func:`_nearest_elements`), so that every finite element is the f32
+    nearest to its exact value."""
     nc, E = vals.shape[0], edge_chunk
-    m_padded, n = c_padded.shape
+    m_rows, n = c_padded.shape
     device = vals.device
-    acc = torch.zeros((m_padded, n), dtype=torch.float32, device=device)
+    acc = torch.zeros((m_rows, n), dtype=torch.float32, device=device)
     comp = torch.zeros_like(acc) if precise else None
+    bound = torch.zeros_like(acc) if precise == 2 else None
     w = meta.view(nc, E).long()
     row = chunk_mtile[:nc].long()[:, None] * tile_m + (w >> ROW_SHIFT)
     brow = chunk_kwin.long()[:, None] * window_k + ((w >> COL_SHIFT) & COL_MASK)
@@ -118,6 +137,7 @@ def spmm_edge_padded_ref(
         pos = pos - pos[first][run]  # place of each edge in its run
         regs = torch.zeros((int(e_stop.sum()), n), dtype=torch.float32, device=device)
         regc = torch.zeros_like(regs) if precise else None
+        regb = torch.zeros_like(regs) if precise == 2 else None
         # the runs' p-th real edges, for p = 0, 1, ...: one step each
         edges = torch.nonzero(e_real).squeeze(1)
         edges = edges[torch.argsort(pos[edges], stable=True)]
@@ -128,8 +148,11 @@ def spmm_edge_padded_ref(
                 regs[r] = fma_f32(e_v[sel, None], b_padded[e_b[sel]], regs[r])
                 continue
             vb = (e_v[sel, None], b_padded[e_b[sel]])
-            p, pe = two_prod(*vb) if precise >= 2 else (vb[0] * vb[1], None)
-            regs[r], regc[r] = acc_step(regs[r], regc[r], p, pe)
+            if precise == 1:
+                regs[r], regc[r] = acc_step(regs[r], regc[r], vb[0] * vb[1])
+            else:
+                regs[r], regc[r], regb[r] = acc_step_bounded(regs[r], regc[r], regb[r],
+                                                             *two_prod(*vb))
         if not masked:
             # an unmasked pad adds 0 * B (and, precise, its error 0 * B - p):
             # a register starts at +0 and never turns -0, so that changes
@@ -138,20 +161,61 @@ def spmm_edge_padded_ref(
             if bool(hit.any()):
                 for r in (regs, regc) if precise else (regs,):
                     r.index_put_((run[hit],), 0.0 * b_padded[e_b[hit]], accumulate=True)
-        flush = end[g0:g1].reshape(-1)[e_stop]
-        rows = row[g0:g1].reshape(-1)[e_stop][flush]
-        if precise:
+        into = row[g0:g1].reshape(-1)[e_stop]
+        # a row past C's (the padding of the last M-tile) holds no entry
+        flush = end[g0:g1].reshape(-1)[e_stop] & (into < m_rows)
+        rows = into[flush]
+        if precise == 2:
+            add_rows_bounded(acc, comp, bound, rows, regs[flush], regc[flush], regb[flush])
+        elif precise:
             # acc_step(acc, comp, reg), then comp + regc: subtracting -regc
             # is the same add, to the bit
             add_rows_compensated(acc, comp, rows, regs[flush], -regc[flush])
         else:
             add_rows_in_order(acc, rows, regs[flush])
+    cin = (beta, c_padded) if with_c else (None, None)
+    if precise == 2:
+        out, unsure = checked_epilogue(alpha, acc, comp, bound, *cin)
+        _nearest_elements(out, unsure, v.reshape(-1), brow.reshape(-1), row.reshape(-1),
+                          real.reshape(-1), b_padded, alpha, *cin)
+        return out
     if precise:
-        return compensated_epilogue(alpha, acc, comp, beta if with_c else None,
-                                    c_padded if with_c else None)
+        return compensated_epilogue(alpha, acc, comp, *cin)
     if not with_c:
         return acc * f32(alpha)
     return fma_f32(torch.full_like(acc, f32(alpha)), acc, c_padded * f32(beta))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The card's SMs, which size the second kernel's one wave."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _nearest_elements(out, unsure, v, brow, row, real, b_padded, alpha, beta, cin) -> None:
+    """Level 2's elements whose f32 the check left unsure, in place, as the
+    kernel's ``nearest_element`` sums them: each product ``v * B`` exact in
+    f64, ``two_sum`` into an f64 pair over the row's real slots in pack
+    order, then ``nearest_epilogue``. ``v``, ``brow``, ``row`` and ``real``
+    are per slot of the pack."""
+    rows, cols = torch.nonzero(unsure, as_tuple=True)
+    if rows.numel() == 0:
+        return
+    slots = torch.nonzero(real & torch.isin(row, rows)).squeeze(1)
+    srow, order = torch.sort(row[slots], stable=True)
+    slots = slots[order]
+    first = torch.searchsorted(srow, rows)
+    count = torch.searchsorted(srow, rows, right=True) - first
+    acc = torch.zeros(rows.numel(), dtype=torch.float64, device=out.device)
+    comp = torch.zeros_like(acc)
+    for k in range(int(count.max())):
+        live = torch.nonzero(count > k).squeeze(1)
+        e = slots[first[live] + k]
+        t, err = two_sum(acc[live], v[e].double() * b_padded[brow[e], cols[live]].double())
+        acc[live] = t
+        comp[live] = comp[live] - err
+    out[rows, cols] = nearest_epilogue(acc, comp, alpha, beta,
+                                       None if cin is None else cin[rows, cols])
 
 
 def edge_launch(n: int, m_padded: int) -> Launch:
@@ -166,17 +230,38 @@ def edge_launch(n: int, m_padded: int) -> Launch:
 
 
 def _check_edge_operands(vals, meta, chunk_mtile, chunk_kwin, b_padded, c_padded,
-                         ranges, *, tile_m, window_k, edge_chunk, with_c):
+                         ranges, *, tile_m, window_k, edge_chunk, with_c, m, k):
+    """Checks a launch's operands; returns ``(rows, n)``, C's and the
+    output's rows and N. Without ``m`` and ``k`` B and C are padded to whole
+    K-windows and M-tiles; with them B has at least ``k`` rows and C from
+    ``m`` to ``m_padded``."""
     device = vals.device
     nc = vals.shape[0]
     need(vals, "vals", torch.float32, (nc, 1, edge_chunk), device)
     need(meta, "meta", torch.int32, (nc, 1, edge_chunk), device)
     need(chunk_mtile, "chunk_mtile", torch.int32, (nc + 1,), device)
     need(chunk_kwin, "chunk_kwin", torch.int32, (nc,), device)
-    m_padded, n = check_dense(b_padded, c_padded, tile_m=tile_m,
-                              window_k=window_k, with_c=with_c, device=device)
+    if m is None:
+        m_padded, n = check_dense(b_padded, c_padded, tile_m=tile_m,
+                                  window_k=window_k, with_c=with_c, device=device)
+        rows = m_padded
+    else:
+        if b_padded.dim() != 2 or c_padded.dim() != 2:
+            raise ValueError("b_padded and c_padded must be 2-D")
+        m_padded = ranges[0].shape[0] - 1
+        rows, n = c_padded.shape[0], b_padded.shape[1]
+        if b_padded.shape[0] < k or not m <= rows <= m_padded:
+            raise ValueError(f"B must have at least {k} rows and C from {m} to {m_padded}, "
+                             f"got {tuple(b_padded.shape)} and {tuple(c_padded.shape)}")
+        need(b_padded, "b_padded", torch.float32, tuple(b_padded.shape), device)
+        if with_c:
+            need(c_padded, "c_padded", torch.float32, (rows, n), device)
+        elif tuple(c_padded.shape) != (rows, n):
+            raise ValueError(f"c_padded must have shape {(rows, n)}")
+        if n == 0 or n > 65535 * 8:
+            raise ValueError(f"N must be in [1, {65535 * 8}], got {n}")
     check_csr(ranges[0], ranges[1:], ("row_ptr", "run_start", "run_stop"), m_padded, device)
-    return m_padded, n
+    return rows, n
 
 
 def spmm_edge_padded(
@@ -196,9 +281,14 @@ def spmm_edge_padded(
     masked: bool = False,
     with_c: bool = True,
     precise: int = 0,
+    m: Optional[int] = None,
+    k: Optional[int] = None,
 ) -> torch.Tensor:
-    """``alpha * A @ B + beta * C`` on padded operands; returns the padded
-    (m_padded, n) result.
+    """``alpha * A @ B + beta * C``; returns a result of C's rows.
+
+    B and C come padded to whole K-windows and M-tiles, or, with ``m`` and
+    ``k`` (the pack's M and K, where :func:`edge_in_place` holds), as the
+    caller's: B of at least K rows, C of M to m_padded rows.
 
     ``ranges`` is ``(row_ptr, run_start, run_stop)`` from
     :func:`row_runs`, on the same device: the
@@ -208,7 +298,9 @@ def spmm_edge_padded(
     one by one, so ``edge_lanes`` needs no argument: it changes only where
     the pack puts its pads. ``precise`` is ``SpmmConfig.precise`` (0, 1 or
     2); at 1 and 2 each row's compensation stays in registers beside its
-    sum.
+    sum. At 2 the kernel lists the elements whose f32 its check is not sure
+    of, and a second kernel sums those again from f64 (one launch of K4 in
+    ``launch.spmm_edge_padded`` all the same).
     """
     with annotate("sx.kernel.spmm_edge_padded"):
         precise = int(precise)
@@ -223,24 +315,31 @@ def spmm_edge_padded(
             raise ValueError(f"spmm_edge runs on cpu or cuda, not {vals.device}")
         if precise not in (0, 1, 2):
             raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
-        m_padded, n = _check_edge_operands(
-            vals, meta, chunk_mtile, chunk_kwin, b_padded, c_padded, ranges, **kw)
-        out = torch.empty((m_padded, n), dtype=torch.float32, device=vals.device)
+        rows, n = _check_edge_operands(
+            vals, meta, chunk_mtile, chunk_kwin, b_padded, c_padded, ranges, m=m, k=k, **kw)
+        out = torch.empty((rows, n), dtype=torch.float32, device=vals.device)
         dense = (b_padded, out, c_padded) if with_c else (b_padded, out)
         vec = int(n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in dense))
-        go = edge_launch(n, m_padded)
+        go = edge_launch(n, rows)
+        # level 2: the count and the list of the elements the check is not
+        # sure of, room for every element (the kernel zeroes the count)
+        unsure = (torch.empty(1 + rows * n, dtype=torch.int32, device=vals.device)
+                  if precise == 2 else None)
         lib = build_kernels()
         with torch.cuda.device(vals.device):
             err = lib.spmm_edge_launch(
                 vals.data_ptr(), meta.data_ptr(), chunk_kwin.data_ptr(),
                 *(r.data_ptr() for r in ranges), b_padded.data_ptr(),
-                c_padded.data_ptr() if with_c else None, out.data_ptr(), m_padded, n,
+                c_padded.data_ptr() if with_c else None, out.data_ptr(),
+                None if unsure is None else unsure.data_ptr(), rows, n,
                 window_k, edge_chunk, float(alpha), float(beta), int(with_c),
                 int(masked), precise, go.lanes, vec, go.threads, *go.grid,
-                stream_of(vals.device),
+                _NEAREST_CTAS_PER_SM * _sm_count(vals.device), stream_of(vals.device),
             )
         check_launch(lib, "spmm_edge", err)
         count("launch.spmm_edge_padded")
+        if precise:
+            count(f"launch.spmm_edge_padded.precise{precise}")
         return out
 
 
@@ -309,17 +408,55 @@ def check_edge_pack(packed) -> None:
         raise ValueError(f"an edge's column is outside [0, window_k={cfg.window_k})")
 
 
+def _edge_checked(packed, live) -> None:
+    """:func:`check_edge_pack`; counts ``edge.entries`` and ``edge.slots``,
+    the pack's nnz and its chunks' slots."""
+    check_edge_pack(packed)
+    count("edge.entries", packed.nnz)
+    count("edge.slots", packed.n_chunks * packed.config.edge_chunk)
+
+
+def _edge_scan(packed, live):
+    """:func:`row_runs`; counts ``edge.runs`` and ``edge.rows``, its runs
+    and the padded rows that have at least one: their ratio is the flushes
+    a row pays."""
+    ptr, start, stop = row_runs(packed)
+    count("edge.runs", start.size)
+    count("edge.rows", int(np.count_nonzero(np.diff(ptr))))
+    return ptr, start, stop
+
+
 # the pads are marked in meta: the scan reads no values
 EDGE_HOST = PackHost(
-    check=lambda packed, live: check_edge_pack(packed),
+    check=_edge_checked,
     arrays=lambda packed: ((packed.vals, np.float32), (packed.meta, np.int32),
                            (packed.chunk_mtile, np.int32), (packed.chunk_kwin, np.int32)),
-    scan=lambda packed, live: row_runs(packed))
+    scan=_edge_scan)
+
+
+def edge_in_place(packed) -> bool:
+    """Whether ``SpmmPlan.__call__`` gives K4 the caller's B at its K rows
+    and C and the output at its M rows: where every slot reads a B row
+    below K (a pack from ``pack_edge`` does: its real slots read their own
+    columns and its pads the first column of a K-window that holds one).
+    Worked out once a pack."""
+    memo = packed.__dict__.setdefault("_dev_cache", {})
+    if "in_place" not in memo:
+        cfg = packed.config
+        nc = packed.n_chunks
+        w = packed.meta.reshape(nc, -1).view(np.uint32)
+        reads = (packed.chunk_kwin[:nc, None].astype(np.int64) * cfg.window_k
+                 + ((w >> COL_SHIFT) & COL_MASK))
+        memo["in_place"] = bool(packed.k >= 1 and reads.max() < packed.k)
+    return memo["in_place"]
 
 
 def edge_runner(packed, n: int, ranges, image=None):
-    """K4 (backend ``edge``) bound as ``SpmmPlan`` runs it."""
+    """K4 (backend ``edge``) bound as ``SpmmPlan`` runs it: with the pack's
+    M and K where :func:`edge_in_place` holds, so that it takes B and C as
+    they lie."""
     cfg = packed.config
+    shape = dict(m=packed.m, k=packed.k) if edge_in_place(packed) else {}
     return functools.partial(spmm_edge_padded, tile_m=cfg.tile_m, window_k=cfg.window_k,
                              edge_chunk=cfg.edge_chunk, masked=cfg.edge_masked, ranges=ranges,
-                             precise=int(cfg.precise))
+                             precise=int(cfg.precise), **shape)

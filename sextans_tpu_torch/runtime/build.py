@@ -55,10 +55,10 @@ _SIGNATURES = {
     # n_slabs n block_k alpha beta
     # with_c precise b_bulk threads grid smem stream
     "spmm_slab_skinny_launch": [_P] * 7 + [_I] * 3 + [_F, _F] + [_I] * 6 + [_P],
-    # vals meta chunk_kwin row_ptr run_start run_stop b c out
+    # vals meta chunk_kwin row_ptr run_start run_stop b c out unsure
     # m_padded n window_k edge_chunk alpha beta
-    # with_c masked precise lanes vec threads grid_x grid_y stream
-    "spmm_edge_launch": [_P] * 9 + [_I] * 4 + [_F, _F] + [_I] * 8 + [_P],
+    # with_c masked precise lanes vec threads grid_x grid_y nearest_grid stream
+    "spmm_edge_launch": [_P] * 10 + [_I] * 4 + [_F, _F] + [_I] * 9 + [_P],
     # vals cols tile_ptr rows members long_ptr long_rows long_virt b c out scratch
     # n_tiles r_slots n n_long m_rows alpha beta with_c precise vec lanes group_max stream
     "spmm_ell_launch": [_P] * 12 + [_I] * 5 + [_F, _F] + [_I] * 5 + [_P],

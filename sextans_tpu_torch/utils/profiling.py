@@ -21,10 +21,13 @@ counter of the same name. Names:
   themselves;
 * counters: ``plan.calls``, ``plan.pad_bytes`` (bytes of the B and C the
   plan made: pads and the gathers of a reordered pack), ``plan.in_place``
-  (the calls that handed the ELL gather kernel C and the output unpadded);
+  (the calls that handed the ELL gather kernel or the edge kernel B, C
+  and the output unpadded);
   ``launch.<wrapper>``, the kernel launches of each wrapper on a card
-  (:func:`launches`), and ``launch.spmm_slab_padded.overlap``, those of K1
-  through its overlapped tensor-core mainloop; ``pack_s``, ``upload_s`` and ``library_s``, host seconds of the packers, of the upload to the device
+  (:func:`launches`), ``launch.spmm_slab_padded.overlap``, those of K1
+  through its overlapped tensor-core mainloop, and
+  ``launch.spmm_edge_padded.precise1`` and ``.precise2``, those of K4 at
+  each precise level; ``pack_s``, ``upload_s`` and ``library_s``, host seconds of the packers, of the upload to the device
   and of loading (or compiling) the kernel library; ``sddmm.entries`` and
   ``sddmm.b_rows``, the entries of the SDDMM's host plans and the B rows
   their tiles stage a call (their ratio is each staged row's reuse);
@@ -32,7 +35,10 @@ counter of the same name. Names:
   pack's entries, slots (padded rows times R), padded rows and the virtual
   rows its plans fold, once a pack at upload; ``ell.tiles`` and
   ``ell.tile_rows``, K5's tiles and the logical rows they hold
-  (``ops/spmm_ell.py:ell_tiles``).
+  (``ops/spmm_ell.py:ell_tiles``); ``edge.entries`` and ``edge.slots``, an
+  edge pack's entries and its chunks' slots, once a pack at upload;
+  ``edge.runs`` and ``edge.rows``, the runs of K4's host scan and the padded
+  rows that have one, once a pack and device (``ops/spmm_edge.py:row_runs``).
 """
 
 from __future__ import annotations

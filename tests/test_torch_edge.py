@@ -32,7 +32,15 @@ from sextans_tpu.ops.plan import SpmmPlan as RefPlan
 from sextans_tpu.utils.config import SpmmConfig as RefConfig
 from sextans_tpu_torch.format.convert import from_reference
 from sextans_tpu_torch.format.pack_edge import COL_SHIFT, PAD_BIT, ROW_END, ROW_SHIFT
-from sextans_tpu_torch.ops.df32 import acc_step, compensated_epilogue, two_prod
+from sextans_tpu_torch.ops.df32 import (
+    acc_step,
+    acc_step_bounded,
+    checked_epilogue,
+    compensated_epilogue,
+    nearest_epilogue,
+    two_prod,
+    two_sum,
+)
 from sextans_tpu_torch.ops.launch import fma_f32
 from sextans_tpu_torch.ops.spmm_edge import (
     COL_MASK,
@@ -271,8 +279,14 @@ def test_row_runs_cover_every_real_slot_in_pack_order(matrix, lanes, masked):
 def _walk_rows(port, ranges, b_p, c_p, alpha, beta, masked, precise):
     """The edge kernel's loop over its lists, vectorised: each row's q-th
     run in one step, its t-th slot in one sub-step (``fma_f32``, or the
-    product into ``acc_step`` at the precise levels), the flush, then the
-    kernel's epilogue."""
+    product into ``acc_step`` at level 1 and ``acc_step_bounded`` at level
+    2, whose bound the row keeps across its runs, pad steps included, as
+    the kernel's does), the flush, then the kernel's epilogue; at level 2
+    each element the check leaves unsure is summed again from f64 over its
+    row's lists, slot by slot, as the kernel's ``nearest_element`` does.
+    The plain version gathers its bound in another order, so at level 2
+    this also holds that its outputs do not depend on which rigorous bound
+    decides."""
     E, wk = CFG["edge_chunk"], CFG["window_k"]
     ptr, start, stop = ranges
     counts = np.diff(ptr)
@@ -283,11 +297,13 @@ def _walk_rows(port, ranges, b_p, c_p, alpha, beta, masked, precise):
     pad = (w & PAD_BIT) != 0
     acc = torch.zeros((port.m_padded, b_p.shape[1]))
     comp = torch.zeros_like(acc)
+    bound = torch.zeros_like(acc)
     for q in range(counts.max(initial=0)):
         rows = np.flatnonzero(counts > q)
         s0, s1 = start[ptr[rows] + q], stop[ptr[rows] + q]
         reg = torch.zeros((rows.size, b_p.shape[1]))
         regc = torch.zeros_like(reg)
+        rb = torch.from_numpy(rows)
         for t in range(int((s1 - s0).max()) + 1):
             slot = s0 + t
             sel = np.flatnonzero((slot <= s1) & ~(masked & pad[np.minimum(slot, w.size - 1)]))
@@ -295,17 +311,39 @@ def _walk_rows(port, ranges, b_p, c_p, alpha, beta, masked, precise):
             x, b = v[slot][:, None], b_p[brow[slot]]
             if precise == 0:
                 reg[sel] = fma_f32(x, b, reg[sel])
-                continue
-            p, pe = two_prod(x, b) if precise == 2 else (x * b, None)
-            reg[sel], regc[sel] = acc_step(reg[sel], regc[sel], p, pe)
+            elif precise == 1:
+                reg[sel], regc[sel] = acc_step(reg[sel], regc[sel], x * b)
+            else:
+                on = rb[sel]
+                reg[sel], regc[sel], bound[on] = acc_step_bounded(reg[sel], regc[sel],
+                                                                  bound[on], *two_prod(x, b))
         if precise == 0:
             acc[rows] = acc[rows] + reg
-        else:
+        elif precise == 1:
             acc[rows], comp[rows] = acc_step(acc[rows], comp[rows], reg)
             comp[rows] = comp[rows] + regc
-    if precise:
+        else:
+            t, e = two_sum(acc[rb], reg)
+            c1 = comp[rb] - e
+            acc[rb], comp[rb] = t, c1 + regc
+            bound[rb] = (bound[rb] + c1.abs()) + comp[rb].abs()
+    if precise == 1:
         return compensated_epilogue(alpha, acc, comp, beta, c_p)
-    return fma_f32(torch.full_like(acc, np.float32(alpha)), acc, c_p * np.float32(beta))
+    if precise == 0:
+        return fma_f32(torch.full_like(acc, np.float32(alpha)), acc, c_p * np.float32(beta))
+    out, unsure = checked_epilogue(alpha, acc, comp, bound, beta, c_p)
+    for i, j in torch.nonzero(unsure).tolist():
+        pair = [0.0, 0.0]
+        for q in range(ptr[i], ptr[i + 1]):
+            for slot in range(start[q], stop[q] + 1):
+                if not pad[slot]:
+                    p = float(v[slot]) * float(b_p[brow[slot], j])  # exact in f64
+                    t, e = two_sum(torch.tensor(pair[0], dtype=torch.float64),
+                                   torch.tensor(p, dtype=torch.float64))
+                    pair = [float(t), pair[1] - float(e)]
+        out[i, j] = nearest_epilogue(*(torch.tensor([x], dtype=torch.float64) for x in pair),
+                                     alpha, beta, c_p[i:i + 1, j])[0]
+    return out
 
 
 @pytest.mark.parametrize("precise", [0, 1, 2])

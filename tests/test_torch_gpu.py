@@ -654,6 +654,83 @@ def test_edge_kernel_precise_unmasked_pads_with_nonfinite_b(cuda, precise):
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
 
 
+@pytest.mark.parametrize("precise", [0, 1, 2])
+@pytest.mark.parametrize("n", [16, 96])
+def test_edge_plan_counts_its_level_and_level_2_is_correctly_rounded(cuda, n, precise):
+    """K4 through the plan at each level, with C and without: one
+    ``launch.spmm_edge_padded.precise<L>`` a launch at level L and none at
+    another; at level 2 every element of this small product is the f32
+    nearest to its exact value (none above its own f32 representation
+    floor)."""
+    coo = fem_like(600, dofs=3, neighbors=5, seed=2)
+    cfg = tx.SpmmConfig(tile_m=128, window_k=256, edge_chunk=256, precise=precise)
+    rng = np.random.default_rng(n)
+    b = rng.standard_normal((coo.shape[1], n)).astype(np.float32)
+    c = rng.standard_normal((coo.shape[0], n)).astype(np.float32)
+    pl = tx.plan(tx.pack_edge(coo, cfg), n, "edge", device=cuda)
+    before = counters()
+    outs = [pl(b, ALPHA, BETA, c), pl(b, ALPHA)]
+    torch.cuda.synchronize()
+    after = counters()
+    grew = lambda name: after.get(name, 0) - before.get(name, 0)  # noqa: E731
+    assert grew("launch.spmm_edge_padded") == 2
+    for level in (1, 2):
+        assert grew(f"launch.spmm_edge_padded.precise{level}") == 2 * (level == precise)
+    if precise != 2:
+        return
+    csr = tx.CSRMatrix.from_coo(coo)
+    for got, exact in zip(outs, (tx.golden_spmm_exact(csr, b, ALPHA, BETA, c),
+                                 tx.golden_spmm_exact(csr, b, ALPHA))):
+        floor = np.abs(exact.astype(np.float32).astype(np.float64) - exact)
+        err = np.abs(got.cpu().numpy().astype(np.float64) - exact)
+        assert int((err > floor).sum()) == 0
+
+
+@pytest.mark.parametrize("precise", [0, 2])
+@pytest.mark.parametrize("n", [16, 96])
+@pytest.mark.parametrize("with_c", [True, False])
+def test_edge_plan_in_place_equals_the_padded_kernel(cuda, with_c, n, precise):
+    """The plan's edge route hands K4 B at its K rows and C and the output
+    at M rows (the last K-window and M-tile ragged): the padded launch's
+    rows, to the bit, and ``plan.in_place`` counted."""
+    coo = tx.COOMatrix.random(1000, 1100, 9000, seed=8, banded=True, bandwidth=300)
+    cfg = tx.SpmmConfig(tile_m=256, window_k=256, edge_chunk=136, edge_lanes=4,
+                        precise=precise)
+    packed = tx.pack_edge(coo, cfg)
+    assert packed.k_padded > coo.shape[1] and packed.m_padded > coo.shape[0]
+    pl = tx.plan(packed, n, "edge", device=cuda)
+    rng = np.random.default_rng(n)
+    b = rng.standard_normal((coo.shape[1], n)).astype(np.float32)
+    c = rng.standard_normal((coo.shape[0], n)).astype(np.float32)
+    before = counters().get("plan.in_place", 0)
+    got = pl(b, ALPHA, BETA, c) if with_c else pl(b, ALPHA)
+    c_p = pl.pad_c(c) if with_c else pl.no_c()
+    want = spmm_edge_padded(*pl.arrays, pl.pad_b(b), c_p, ALPHA, BETA if with_c else 0.0,
+                            tile_m=cfg.tile_m, window_k=cfg.window_k, edge_chunk=cfg.edge_chunk,
+                            ranges=pl.ranges, with_c=with_c, precise=precise)
+    torch.cuda.synchronize()
+    assert counters().get("plan.in_place", 0) == before + 1
+    assert got.shape == (coo.shape[0], n) and torch.equal(got, want[: coo.shape[0]])
+
+
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("n", [8, 40])
+@pytest.mark.parametrize("with_c", [True, False])
+def test_edge_kernel_level_2_where_its_sums_cancel(cuda, with_c, n, lanes):
+    """K4 at level 2 on rows whose sums cancel by about 2**24, where the
+    check sends most elements back to be summed again from f64: the plain
+    version's bits (which ``test_torch_edge_config.py`` holds to exact
+    rationals), through the plan on the card."""
+    from test_torch_edge_config import cancelling_plan
+
+    plan, coo, b, c = cancelling_plan(lanes, n, device=cuda)
+    cpu = cancelling_plan(lanes, n)[0]
+    args = (b, ALPHA, BETA, c) if with_c else (b, ALPHA)
+    got = plan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), cpu(*args))
+
+
 def test_eft_probe_twin_on_card(cuda):
     a, b, v, bb = df32.probe_inputs(0)
     pairs_before, chain_before = launches(df32.eft_probe_pairs), launches(df32.eft_probe_chain)
