@@ -25,11 +25,12 @@ Phases (each prints its lines; any failure exits non-zero):
    grid; K2's its grid (two CTAs a slab), threads, stages and shared memory
    a CTA, and how many slabs hold blocks; K1's the same and its contraction
    and tile; K6's and K7's their run plan (runs of diagonals, their widest
-   span), tiles, threads and shared memory a CTA. K5 runs twice: on padded
-   C and output, as ``SpmmPlan.repeat`` and serving give them, and on the
-   (M, N) C and output that ``SpmmPlan.__call__`` gives it, to the bit
-   against its plain version and the padded call's rows; its time is the
-   latter's.
+   span), tiles, threads and shared memory a CTA. K1, K2, K4 and K5 run
+   twice: on padded B, C and output, as ``SpmmPlan.repeat`` and serving
+   give them, and on the (K, N) B and (M, N) C and output that
+   ``SpmmPlan.__call__`` gives them, to the bit against the padded call's
+   rows and against their plain version on the same shapes at their
+   tolerance; their time is the latter's.
 3. The main path end to end: write_mtx -> read_mtx -> the backend's packer
    -> plan(device="cuda") -> verify against golden_spmm, and max-abs against
    golden_spmm_exact in ulp of max|C| (bar: 4 ulp), for pallas, mxu, edge
@@ -287,6 +288,8 @@ def kernel_calls(pl, n, precise=None):
     packed, cfg = pl.packed, pl.packed.config
     extra = dict(ranges=pl.ranges)
     level = dict(precise=int(cfg.precise if precise is None else precise))
+    if pl.backend == "mxu" or pl._in_place and pl.backend == "edge":
+        extra.update(m=packed.m, k=packed.k)  # B and C may lie at K and M rows
     if pl.backend == "ell_pallas":
         name, kernel, plain = "spmm_ell", spmm_ell_gather_padded, spmm_ell_gather_padded_ref
         kw = dict(m_base=packed.m_base)
@@ -874,9 +877,9 @@ def main() -> int:
         """Hold ``pl``'s kernel against its plain version on the card (to
         the bit with ``exact``, and always for K4; K3 within 1 ulp) and
         time both beside the library call and the bound; at a precise
-        level, also beside the same kernel in plain mode. K5 runs on the
-        padded shapes and on the (M, N) ones that ``SpmmPlan.__call__`` gives
-        it, and is timed on the latter."""
+        level, also beside the same kernel in plain mode. A kernel that
+        ``SpmmPlan.__call__`` hands B and C in place (K1, K2, K4, K5) runs on
+        the padded shapes and on those, and is timed on the latter."""
         n = pl.n
         b_p, c_p = pl.pad_b(b_dev), pl.pad_c(c_dev)
         name, run_kernel, run_plain = kernel_calls(pl, n)
@@ -888,34 +891,38 @@ def main() -> int:
                 if name == "spmm_block" else ULP_BAR)
         tol = ulps * float(np.spacing(np.float32(want.abs().max().item())))
         ok = bool(torch.isfinite(got).all().item()) and err <= tol
-        # K5 as SpmmPlan.__call__ launches it: the caller's (M, N) C and an
-        # (M, N) output, to the bit against its plain version on the same
-        # shapes and against the padded call's real rows; timed as "kernel"
-        c_m = pl.pad_c(c_dev, pl.m) if name == "spmm_ell" and pl._in_place else None
+        # the kernel as SpmmPlan.__call__ launches it: the caller's (K, N) B
+        # and (M, N) C and an (M, N) output, to the bit against the padded
+        # call's real rows and against its plain version on the same shapes
+        # at the same bar; timed as "kernel"
+        b_m, c_m = pl.operands(b_dev, c_dev) if pl._in_place else (b_p, None)
         if c_m is not None:
-            got_m = run_kernel(b_p, c_m)
-            ok = ok and (tuple(got_m.shape) == (pl.m, n) and torch.equal(got_m, got[: pl.m])
-                         and torch.equal(got_m, run_plain(b_p, c_m)))
-            del got_m
+            got_m, want_m = run_kernel(b_m, c_m), run_plain(b_m, c_m)
+            ok = ok and (tuple(got_m.shape) == tuple(want_m.shape) == (pl.m, n)
+                         and torch.equal(got_m, got[: pl.m])
+                         and bool(torch.isfinite(got_m).all().item())
+                         and (got_m - want_m).abs().max().item() <= tol)
+            del got_m, want_m
         del got, want
         library = library_call(coo)
         fns = {"plain": lambda: run_plain(b_p, c_p), "kernel": lambda: run_kernel(b_p, c_p),
                "library": lambda: library(b_dev, c_dev)}
         if c_m is not None:
             fns["padded"] = fns["kernel"]
-            fns["kernel"] = lambda: run_kernel(b_p, c_m)
+            fns["kernel"] = lambda: run_kernel(b_m, c_m)
         if slow_plain:  # timed once, above
             del fns["plain"]
         if pl.packed.config.precise:
             run_mode0 = kernel_calls(pl, n, precise=0)[1]
-            fns["mode0"] = lambda: run_mode0(b_p, c_p if c_m is None else c_m)
+            fns["mode0"] = lambda: run_mode0(b_m, c_p if c_m is None else c_m)
         ms = {"plain": plain_ms, **abba_ms(fns, iters, rounds)}
         bound_ms, bound_by = bound(coo.nnz, *coo.shape, n)
         mode0 = (f" (plain mode {ms['mode0']:.4f} ms, x{ms['kernel'] / ms['mode0']:.2f})"
                  if "mode0" in ms else "")
         if "padded" in ms:
-            mode0 += (f" on (M, N) C and out, to the bit against its plain version and the "
-                      f"padded call (padded C and out {ms['padded']:.4f} ms)")
+            mode0 += (f" on (K, N) B and (M, N) C and out, to the bit against the padded "
+                      f"call and within the bar against its plain version (padded B, C and "
+                      f"out {ms['padded']:.4f} ms)")
         grid = ""
         if name in ("spmm_block", "spmm_edge"):
             go = (block_launch(n, pl.packed.m_padded // 8) if name == "spmm_block"

@@ -11,6 +11,21 @@
 // through a ring in shared memory, one mbarrier a stage. A slab that gets no
 // block still writes beta * C.
 //
+// The ragged edges are the kernels' own: B holds k_rows rows and C and out
+// m_rows rows (SpmmPlan's call hands them the caller's K and M,
+// ops/spmm_slab.py:slab_in_place; a padded caller k_padded and m_padded). A
+// B row at or past k_rows lands in shared memory as +0.0, by a cp.async that
+// copies 0 bytes and fills the rest with zeros, which are the bits a padded
+// B's zero rows gave; no row at or past m_rows is read from C or written, and
+// a CTA whose rows all lie there returns at once. K1 on the tensor cores
+// checks only in its edge slabs (ops/spmm_slab.py:slab_edges), whose CTAs are
+// a grid of their own, spmm_slab_tc_kernel_edge, launched first; the other
+// CTAs' grid, spmm_slab_tc_kernel, starts beside it (programmatic dependent
+// launch) and runs the mainloop with no check. On an H100 the same checks in
+// every CTA of one kernel, or a branch to them, made K1 3-14 % slower on the
+// cant stand-in: ptxas schedules K1's mainloop at 252-255 registers, and any
+// more code in the kernel moved it (PERF.md).
+//
 // Layout: vals[g, i*bk + kk, mm] = A[slab row mm, window col bcol + kk], so a
 // block is a (bk, 128) row-major tile; the global B row of kk is
 // group_kwin[g] * window_k + bcol[g, i] + kk. Pad slots hold zeros with
@@ -122,6 +137,36 @@ __device__ __forceinline__ void copy_b_chunk(float* bs, const float* bsrc, int r
   }
 }
 
+// The same, the rows at or past `valid` (B's end) as zeros, read from
+// nowhere (b, B's start, only names an address).
+__device__ __forceinline__ void copy_b_chunk_zfill(float* bs, const float* bsrc, const float* b,
+                                                   int rows, int valid, int n, int n0, int tn,
+                                                   int b_vec, int tid, int threads) {
+  const int stride = tn + kBPad;
+  if (b_vec) {
+    for (int e = tid; e < rows * (tn / 4); e += threads) {
+      const int kk = e / (tn / 4), q4 = 4 * (e % (tn / 4));
+      const bool in = kk < valid;
+      if (n0 + q4 < n)
+        sx_async::cp_async16_zfill(bs + kk * stride + q4, in ? bsrc + (size_t)kk * n + q4 : b,
+                                   in ? 16u : 0u);
+    }
+  } else {
+    for (int e = tid; e < rows * tn; e += threads) {
+      const int kk = e / tn, col = e % tn;
+      const bool in = kk < valid;
+      if (n0 + col < n)
+        sx_async::cp_async4_zfill(bs + kk * stride + col, in ? bsrc + (size_t)kk * n + col : b,
+                                  in ? 4u : 0u);
+    }
+  }
+}
+
+// The rows of B's `rows` from `row0` on that lie below k_rows.
+__device__ __forceinline__ int rows_below(int k_rows, int row0, int rows) {
+  return max(0, min(rows, k_rows - row0));
+}
+
 // ---- K1 on the tensor cores: wgmma m64n64k8 .tf32, 3xTF32 ----
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {  // round to nearest, ties away
@@ -186,17 +231,16 @@ __device__ __forceinline__ void fence_regs(float (&r)[32]) {
 // = 128 W), warpgroup wg on columns 64 wg ..; H is 1 or 2. A stage holds
 // the chunk's hi and lo tiles for the CTA's half slabs as slab_image lays
 // them out, then each warpgroup's B rows at its own columns, row stride
-// kTileN + kBPad.
-template <int H, int NKS>
-__global__ void __launch_bounds__(2 * kWarpgroup, 1) spmm_slab_tc_kernel(
-    const float* __restrict__ image,       // slab_image: (ng * G, chunks, 2, 2, ch / 8, 512)
-    const int* __restrict__ slab_ptr,      // (n_slabs + 1,)
-    const int* __restrict__ slab_blocks,   // (ng * G,) flat block indices
-    const int* __restrict__ slab_rows,     // (ng * G,) each block's first B row
-    const float* __restrict__ b,           // (k_padded, n)
-    const float* __restrict__ c,           // (m_padded, n) or null
-    float* __restrict__ out,               // (m_padded, n)
-    int n, int block_k, float alpha, float beta, int with_c, int b_vec) {
+// kTileN + kBPad. EDGE (spmm_slab_tc_kernel_edge): the CTA copies B with
+// zfill and checks each output row, and `cta` is its place in
+// spmm_slab_tc_kernel's grid; without it (spmm_slab_tc_kernel) it does
+// neither and is that grid's CTA blockIdx.x.
+template <int H, int NKS, bool EDGE>
+__device__ __forceinline__ void tc_cta(
+    int cta, const float* __restrict__ image, const int* __restrict__ slab_ptr,
+    const int* __restrict__ slab_blocks, const int* __restrict__ slab_rows,
+    const float* __restrict__ b, const float* __restrict__ c, float* __restrict__ out, int n,
+    int m_rows, int k_rows, int block_k, float alpha, float beta, int with_c, int b_vec) {
   extern __shared__ float4 smem4[];
   constexpr int kStep = 8 * kSlabRows;  // floats of a half slab's tile a step
   const int wgs = blockDim.x / kWarpgroup, tn = wgs * kTileN;
@@ -208,12 +252,14 @@ __global__ void __launch_bounds__(2 * kWarpgroup, 1) spmm_slab_tc_kernel(
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStagesK1 * stage);
   int* freed = reinterpret_cast<int*>(full + kStagesK1);  // warpgroups out of a stage
   const int n_ctiles = (n + tn - 1) / tn;
-  const int hs = blockIdx.x / n_ctiles;  // the CTA's first half slab
+  // the CTA's half slab (H = 1) or slab (H = 2)
+  const int hs = (EDGE ? cta : blockIdx.x) / n_ctiles;
   const int slab = hs * H / 2, half0 = hs * H % 2;
   const int tid = threadIdx.x;
   const int wg = tid / kWarpgroup, w = (tid % kWarpgroup) / 32, g = (tid % 32) / 4,
             t = tid % 4;
-  const int n0 = (blockIdx.x % n_ctiles) * tn + kTileN * wg;  // the warpgroup's columns
+  // the warpgroup's columns
+  const int n0 = ((EDGE ? cta : blockIdx.x) % n_ctiles) * tn + kTileN * wg;
   const int p0 = slab_ptr[slab];
   const int nblk = slab_ptr[slab + 1] - p0;
   const int items = nblk * nch;  // (block, chunk) in pack order
@@ -252,8 +298,13 @@ __global__ void __launch_bounds__(2 * kWarpgroup, 1) spmm_slab_tc_kernel(
       sx_async::bulk_copy(img, image + (((size_t)blk * nch + cidx) * 2 + half0) * half_img,
                           bytes, bar);
     }
-    copy_b_chunk(img + H * half_img + wg * b_rows, b + ((size_t)row + (size_t)cidx * ch) * n + n0,
-                 ch, n, n0, kTileN, b_vec, tid % kWarpgroup, kWarpgroup);
+    float* bs = img + H * half_img + wg * b_rows;
+    const float* bsrc = b + ((size_t)row + (size_t)cidx * ch) * n + n0;
+    if constexpr (EDGE)
+      copy_b_chunk_zfill(bs, bsrc, b, ch, rows_below(k_rows, row + cidx * ch, ch), n, n0,
+                         kTileN, b_vec, tid % kWarpgroup, kWarpgroup);
+    else
+      copy_b_chunk(bs, bsrc, ch, n, n0, kTileN, b_vec, tid % kWarpgroup, kWarpgroup);
     sx_async::cp_async_arrive(bar);
   };
   for (int q = 0; q < items && q < kStagesK1; ++q) issue(q, tid == 0);
@@ -358,12 +409,78 @@ __global__ void __launch_bounds__(2 * kWarpgroup, 1) spmm_slab_tc_kernel(
       if (col < n) {
         const size_t r = (size_t)slab * MSLAB + (half0 + h) * kSlabRows + 8 * (i / 4) +
                          2 * t + i % 2;
+        if (EDGE && r >= (size_t)m_rows) continue;
         const size_t idx = r * n + col;
         out[idx] = with_c ? __fmaf_rn(alpha, acc[h][i], __fmul_rn(beta, c[idx]))
                           : __fmul_rn(alpha, acc[h][i]);
       }
     }
   }
+}
+
+// Whether ascending list[0 .. count) holds x.
+__device__ __forceinline__ bool listed(const int* __restrict__ list, int count, int x) {
+  int lo = 0, hi = count;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (list[mid] < x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo < count && list[lo] == x;
+}
+
+// Programmatic dependent launch (sm_90): let the grid launched after this
+// one start, or wait until the grid launched before this one has completed
+// and its writes are visible (at once where none was).
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void wait_prerequisite() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// K1 over every slab but the edge slabs (`edges`, ascending, n_edges of
+// them: slab_edges in ops/spmm_slab.py), which spmm_slab_tc_kernel_edge
+// takes. That grid runs first and lets this one start at once; this one's
+// last CTA waits for it, so that the product is whole when this grid is.
+template <int H, int NKS>
+__global__ void __launch_bounds__(2 * kWarpgroup, 1) spmm_slab_tc_kernel(
+    const float* __restrict__ image,       // slab_image: (ng * G, chunks, 2, 2, ch / 8, 512)
+    const int* __restrict__ slab_ptr,      // (n_slabs + 1,)
+    const int* __restrict__ slab_blocks,   // (ng * G,) flat block indices
+    const int* __restrict__ slab_rows,     // (ng * G,) each block's first B row
+    const float* __restrict__ b,           // (k_rows, n)
+    const float* __restrict__ c,           // (m_rows, n) or null
+    float* __restrict__ out,               // (m_rows, n)
+    int n, int m_rows, int k_rows, int block_k, float alpha, float beta, int with_c,
+    int b_vec, const int* __restrict__ edges, int n_edges) {
+  if (blockIdx.x == gridDim.x - 1) wait_prerequisite();
+  const int tn = blockDim.x / kWarpgroup * kTileN;
+  if (listed(edges, n_edges, blockIdx.x / ((n + tn - 1) / tn) * H / 2)) return;
+  tc_cta<H, NKS, false>(blockIdx.x, image, slab_ptr, slab_blocks, slab_rows, b, c, out, n,
+                        m_rows, k_rows, block_k, alpha, beta, with_c, b_vec);
+}
+
+// K1 over the CTAs of the edge slabs: those that hold a row at or past
+// m_rows or a block whose rows pass k_rows. CTA i takes the (i % per)-th CTA
+// of slab edges[i / per], per CTAs a slab as in spmm_slab_tc_kernel's grid.
+template <int H, int NKS>
+__global__ void __launch_bounds__(2 * kWarpgroup, 1) spmm_slab_tc_kernel_edge(
+    const float* __restrict__ image, const int* __restrict__ slab_ptr,
+    const int* __restrict__ slab_blocks, const int* __restrict__ slab_rows,
+    const float* __restrict__ b, const float* __restrict__ c, float* __restrict__ out, int n,
+    int m_rows, int k_rows, int block_k, float alpha, float beta, int with_c, int b_vec,
+    const int* __restrict__ edges, int n_edges) {
+  launch_dependents();
+  const int tn = blockDim.x / kWarpgroup * kTileN, n_ctiles = (n + tn - 1) / tn;
+  const int per = 2 / H * n_ctiles;
+  const int cta = edges[blockIdx.x / per] * per + blockIdx.x % per;
+  const int hs = cta / n_ctiles;  // the CTA's half slab (H = 1) or slab (H = 2)
+  if ((long long)hs * H * kSlabRows >= m_rows) return;  // rows past C's
+  tc_cta<H, NKS, true>(cta, image, slab_ptr, slab_blocks, slab_rows, b, c, out, n, m_rows,
+                       k_rows, block_k, alpha, beta, with_c, b_vec);
 }
 
 // ---- K1 in precise mode, on FFMA: half a slab by 64 columns a CTA, each
@@ -374,10 +491,11 @@ __global__ void __launch_bounds__(kWarpgroup) spmm_slab_precise_kernel(
     const int* __restrict__ slab_ptr,      // (n_slabs + 1,)
     const int* __restrict__ slab_blocks,   // (ng * G,) flat block indices
     const int* __restrict__ slab_rows,     // (ng * G,) each block's first B row
-    const float* __restrict__ b,           // (k_padded, n)
-    const float* __restrict__ c,           // (m_padded, n) or null
-    float* __restrict__ out,               // (m_padded, n)
-    int n, int block_k, float alpha, float beta, int with_c, int b_vec) {
+    const float* __restrict__ b,           // (k_rows, n)
+    const float* __restrict__ c,           // (m_rows, n) or null
+    float* __restrict__ out,               // (m_rows, n)
+    int n, int m_rows, int k_rows, int block_k, float alpha, float beta, int with_c,
+    int b_vec) {
   extern __shared__ float4 smem4[];
   const int ch = min(kChunk, block_k), nch = block_k / ch;
   const int stage = ch * (kSlabRows + kTileN + kBPad);  // floats a stage
@@ -386,6 +504,7 @@ __global__ void __launch_bounds__(kWarpgroup) spmm_slab_precise_kernel(
   const int n_ctiles = (n + kTileN - 1) / kTileN;
   const int hs = blockIdx.x / n_ctiles;
   const int slab = hs / 2, half = hs % 2;
+  if ((long long)slab * MSLAB + half * kSlabRows >= m_rows) return;  // rows past C's
   const int n0 = (blockIdx.x % n_ctiles) * kTileN;
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // columns tx*4 .. tx*4+3
@@ -409,8 +528,9 @@ __global__ void __launch_bounds__(kWarpgroup) spmm_slab_precise_kernel(
       const int kk = e / (kSlabRows / 4), q4 = 4 * (e % (kSlabRows / 4));
       sx_async::cp_async16(vs + kk * kSlabRows + q4, vsrc + (size_t)kk * MSLAB + q4);
     }
-    copy_b_chunk(vs + ch * kSlabRows, b + (row + (size_t)cidx * ch) * n + n0, ch, n, n0,
-                 kTileN, b_vec, tid, kWarpgroup);
+    copy_b_chunk_zfill(vs + ch * kSlabRows, b + (row + (size_t)cidx * ch) * n + n0, b, ch,
+                       rows_below(k_rows, (int)row + cidx * ch, ch), n, n0, kTileN, b_vec, tid,
+                       kWarpgroup);
     sx_async::cp_async_arrive(&full[q % kStagesK1]);
   };
   for (int q = 0; q < items && q < kStagesK1; ++q) issue(q);
@@ -455,7 +575,7 @@ __global__ void __launch_bounds__(kWarpgroup) spmm_slab_precise_kernel(
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int col = n0 + tx * 4 + jj;
-      if (col < n) {
+      if (col < n && row0 + r < (size_t)m_rows) {
         const size_t idx = (row0 + r) * n + col;
         out[idx] = with_c
             ? sx_df32::compensated_epilogue(alpha, acc[r][jj], comp[r][jj], beta, c[idx])
@@ -488,8 +608,11 @@ __global__ void __launch_bounds__(kWarpgroup) spmm_slab_precise_kernel(
 // B is 16-byte aligned (b_bulk), which on an H100 made K2 3-4 % faster than
 // 16-byte cp.async of the same run (tools/kernel_times.py, PERF.md);
 // otherwise the run does not start on a 16-byte boundary for every block,
-// and the threads copy it with 4-byte cp.async beside the values. After a block, one __syncthreads frees its
-// stage, and the copy of the block kStages further on starts.
+// and the threads copy it with 4-byte cp.async beside the values. Where the
+// run passes B's end (k_rows), the bulk copy stops there and the threads
+// fill the rest with zeros (zfill cp.async). After a block, one
+// __syncthreads frees its stage, and the copy of the block kStages further
+// on starts.
 //
 // What bounds it on the H100: each value feeds n flops, so the slab
 // format's bytes (values at ~5 % fill) bound it where the slabs fill the
@@ -504,10 +627,11 @@ __global__ void __launch_bounds__(256) spmm_slab_skinny_kernel(
     const int* __restrict__ slab_ptr,      // (n_slabs + 1,)
     const int* __restrict__ slab_blocks,   // (ng * G,) flat block indices
     const int* __restrict__ slab_rows,     // (ng * G,) each block's first B row
-    const float* __restrict__ b,           // (k_padded, n)
-    const float* __restrict__ c,           // (m_padded, n) or null
-    float* __restrict__ out,               // (m_padded, n)
-    int n, int block_k, float alpha, float beta, int with_c, int b_bulk) {
+    const float* __restrict__ b,           // (k_rows, n)
+    const float* __restrict__ c,           // (m_rows, n) or null
+    float* __restrict__ out,               // (m_rows, n)
+    int n, int m_rows, int k_rows, int block_k, float alpha, float beta, int with_c,
+    int b_bulk) {
   extern __shared__ float4 smem4[];
   const int np = (n + 3) & ~3;
   const int stage = block_k * (kSlabRows + np);  // floats a stage
@@ -515,6 +639,7 @@ __global__ void __launch_bounds__(256) spmm_slab_skinny_kernel(
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * stage);
   const int slab = blockIdx.x / (MSLAB / kSlabRows);
   const int half = blockIdx.x % (MSLAB / kSlabRows);
+  if ((long long)slab * MSLAB + half * kSlabRows >= m_rows) return;  // rows past C's
   const int tid = threadIdx.x;
   const int nq = (n + 3) / 4;
   const int q = tid % nq, rp = tid / nq;
@@ -534,18 +659,25 @@ __global__ void __launch_bounds__(256) spmm_slab_skinny_kernel(
     float* bs = vs + block_k * kSlabRows;
     const size_t blk = slab_blocks[p0 + j];
     const float* vsrc = vals + blk * block_k * MSLAB + half * kSlabRows;
-    const float* bsrc = b + (size_t)slab_rows[p0 + j] * n;
+    const int row = slab_rows[p0 + j];
+    const float* bsrc = b + (size_t)row * n;
+    const int valid = rows_below(k_rows, row, block_k);  // the rows past B's are zeros
     if (b_bulk && tid == 0) {
-      sx_async::mbar_arrive_expect_tx(&full[st], 4u * block_k * n);
-      sx_async::bulk_copy(bs, bsrc, 4u * block_k * n, &full[st]);
+      sx_async::mbar_arrive_expect_tx(&full[st], 4u * valid * n);
+      if (valid) sx_async::bulk_copy(bs, bsrc, 4u * valid * n, &full[st]);
     }
     for (int e = tid; e < block_k * (kSlabRows / 4); e += blockDim.x) {
       const int kk = e / (kSlabRows / 4), q4 = 4 * (e % (kSlabRows / 4));
       sx_async::cp_async16(vs + kk * kSlabRows + q4, vsrc + (size_t)kk * MSLAB + q4);
     }
-    if (!b_bulk) {
-      for (int e = tid; e < block_k * n; e += blockDim.x)
-        sx_async::cp_async4(bs + (e / n) * np + e % n, bsrc + e);
+    if (b_bulk) {  // n % 4 == 0: the rows past B's by 16 bytes
+      for (int e = valid * n + 4 * tid; e < block_k * n; e += 4 * blockDim.x)
+        sx_async::cp_async16_zfill(bs + e, b, 0u);
+    } else {
+      for (int e = tid; e < block_k * n; e += blockDim.x) {
+        const bool in = e / n < valid;
+        sx_async::cp_async4_zfill(bs + (e / n) * np + e % n, in ? bsrc + e : b, in ? 4u : 0u);
+      }
     }
     sx_async::cp_async_arrive(&full[st]);
   };
@@ -624,7 +756,7 @@ __global__ void __launch_bounds__(256) spmm_slab_skinny_kernel(
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int col = 4 * q + jj;
-      if (col < n) {
+      if (col < n && row + r < (size_t)m_rows) {
         const size_t idx = (row + r) * n + col;
         if constexpr (PRECISE)
           out[idx] = with_c
@@ -642,11 +774,15 @@ __global__ void __launch_bounds__(256) spmm_slab_skinny_kernel(
 
 extern "C" int spmm_slab_launch(
     const void* vals, const void* image, const void* slab_ptr, const void* slab_blocks,
-    const void* slab_rows, const void* b, const void* c, void* out, int n_slabs, int n,
-    int block_k, float alpha, float beta, int with_c, int precise, int b_vec, int halves,
-    int threads, int grid, int smem, void* stream) {
+    const void* slab_rows, const void* edges, const void* b, const void* c, void* out,
+    int n_slabs, int n_edges, int n, int m_rows, int k_rows, int block_k, float alpha,
+    float beta, int with_c, int precise, int b_vec, int halves, int threads, int grid, int smem,
+    void* stream) {
   // plain mode on the tensor cores over 1 or 2 half slabs, precise mode on FFMA
   if (precise < 0 || precise > 2 || halves < 0 || halves > 2 || !precise != !!halves)
+    return cudaErrorInvalidValue;
+  if (m_rows < 0 || (long long)m_rows > (long long)n_slabs * MSLAB || k_rows < 0 ||
+      n_edges < 0 || n_edges > n_slabs)
     return cudaErrorInvalidValue;
   // the wrapper's map (ops/spmm_slab.py:slab_launch) must be this kernel's
   const int ch = block_k < kChunk ? block_k : kChunk;
@@ -655,32 +791,78 @@ extern "C" int spmm_slab_launch(
                                   : (size_t)ch * (kSlabRows + kTileN + kBPad);
   // a stage beside its mbarrier; the tensor cores' ring also a counter a stage
   const size_t need = kStagesK1 * (4 * per_stage + 8 + (halves ? 4 : 0));
-  const long long ctas = (long long)n_slabs * (2 / (halves ? halves : 1)) * ((n + tn - 1) / tn);
+  const int per = (2 / (halves ? halves : 1)) * ((n + tn - 1) / tn);  // CTAs a slab
   if (n < 1 || block_k % 8 || threads % kWarpgroup || wgs < 1 || wgs > (halves ? 2 : 1) ||
-      grid != ctas || (size_t)smem != need)
+      grid != (long long)n_slabs * per || (size_t)smem != need)
     return cudaErrorInvalidValue;
-  // the tensor cores' kernel by tile shape and steps a chunk
-  void (*const tc[2][3])(const float*, const int*, const int*, const int*, const float*,
-                         const float*, float*, int, int, float, float, int, int) = {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!halves) {  // precise mode: one kernel, which checks every row itself
+    cudaError_t e = cudaFuncSetAttribute(spmm_slab_precise_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    spmm_slab_precise_kernel<<<grid, threads, smem, st>>>(
+        (const float*)vals, (const int*)slab_ptr, (const int*)slab_blocks, (const int*)slab_rows,
+        (const float*)b, (const float*)c, (float*)out, n, m_rows, k_rows, block_k, alpha, beta,
+        with_c, b_vec);
+    return cudaGetLastError();
+  }
+  // the tensor cores' kernels by tile shape and steps a chunk: the edge
+  // slabs' CTAs first, then every other CTA, launched to start at once
+  using Tc = void (*)(const float*, const int*, const int*, const int*, const float*,
+                      const float*, float*, int, int, int, int, float, float, int, int,
+                      const int*, int);
+  const Tc tc[2][3] = {
       {spmm_slab_tc_kernel<1, 1>, spmm_slab_tc_kernel<1, 2>, spmm_slab_tc_kernel<1, 4>},
       {spmm_slab_tc_kernel<2, 1>, spmm_slab_tc_kernel<2, 2>, spmm_slab_tc_kernel<2, 4>}};
-  auto kernel = halves ? tc[halves - 1][ch == 8 ? 0 : ch == 16 ? 1 : 2] : spmm_slab_precise_kernel;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const Tc tc_edge[2][3] = {
+      {spmm_slab_tc_kernel_edge<1, 1>, spmm_slab_tc_kernel_edge<1, 2>,
+       spmm_slab_tc_kernel_edge<1, 4>},
+      {spmm_slab_tc_kernel_edge<2, 1>, spmm_slab_tc_kernel_edge<2, 2>,
+       spmm_slab_tc_kernel_edge<2, 4>}};
+  const int which = ch == 8 ? 0 : ch == 16 ? 1 : 2;
+  const float* img = (const float*)image;
+  const int *ptr = (const int*)slab_ptr, *blocks = (const int*)slab_blocks,
+            *rows = (const int*)slab_rows, *edge_list = (const int*)edges;
+  cudaError_t e;
+  if (n_edges) {
+    const Tc k = tc_edge[halves - 1][which];
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    k<<<n_edges * per, threads, smem, st>>>(img, ptr, blocks, rows, (const float*)b,
+                                            (const float*)c, (float*)out, n, m_rows, k_rows,
+                                            block_k, alpha, beta, with_c, b_vec, edge_list,
+                                            n_edges);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  const Tc k = tc[halves - 1][which];
+  e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)(halves ? image : vals), (const int*)slab_ptr, (const int*)slab_blocks,
-      (const int*)slab_rows, (const float*)b, (const float*)c, (float*)out, n, block_k, alpha,
-      beta, with_c, b_vec);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = n_edges ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, k, img, ptr, blocks, rows, (const float*)b, (const float*)c,
+                         (float*)out, n, m_rows, k_rows, block_k, alpha, beta, with_c, b_vec,
+                         edge_list, n_edges);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 extern "C" int spmm_slab_skinny_launch(
     const void* vals, const void* slab_ptr, const void* slab_blocks, const void* slab_rows,
-    const void* b, const void* c, void* out, int n_slabs, int n, int block_k, float alpha,
-    float beta, int with_c, int precise, int b_bulk, int threads, int grid, int smem,
-    void* stream) {
+    const void* b, const void* c, void* out, int n_slabs, int n, int m_rows, int k_rows,
+    int block_k, float alpha, float beta, int with_c, int precise, int b_bulk, int threads,
+    int grid, int smem, void* stream) {
   if (precise < 0 || precise > 2) return cudaErrorInvalidValue;
+  if (m_rows < 0 || (long long)m_rows > (long long)n_slabs * MSLAB || k_rows < 0)
+    return cudaErrorInvalidValue;
   // the wrapper's map (ops/spmm_slab.py:slab_skinny_launch) must be this kernel's
   const int np = (n + 3) & ~3;
   const size_t need = (size_t)kStages * (4 * (size_t)block_k * (kSlabRows + np) + 8);
@@ -696,6 +878,7 @@ extern "C" int spmm_slab_skinny_launch(
   if (e != cudaSuccess) return e;
   kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       (const float*)vals, (const int*)slab_ptr, (const int*)slab_blocks, (const int*)slab_rows,
-      (const float*)b, (const float*)c, (float*)out, n, block_k, alpha, beta, with_c, b_bulk);
+      (const float*)b, (const float*)c, (float*)out, n, m_rows, k_rows, block_k, alpha, beta,
+      with_c, b_bulk);
   return cudaGetLastError();
 }

@@ -121,9 +121,9 @@ class SpmmValueOp:
     @staticmethod
     def _product(plan: SpmmPlan, pv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """``A @ b`` for packed values ``pv``, unscaled, through ``plan``'s
-        kernel (alpha 1, no C)."""
-        return plan.unpad(plan.run_values(pv, plan.pad_b(b), plan.no_c(), 1.0, 0.0,
-                                          with_c=False))
+        kernel (alpha 1, no C), B and the output at the rows its calls take
+        (:meth:`~sextans_tpu_torch.ops.plan.SpmmPlan.operands`)."""
+        return plan.unpad(plan.run_values(pv, *plan.operands(b), 1.0, 0.0, with_c=False))
 
     def ab(self, vals: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """``A(vals) @ b`` through the pack's kernel."""

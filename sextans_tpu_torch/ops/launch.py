@@ -164,14 +164,35 @@ def check_dense(
     return m_padded, n
 
 
+def check_in_place(b, c, *, m: int, k: int, m_padded: int, with_c: bool,
+                   device) -> Tuple[int, int]:
+    """Check the B and C of a launch whose kernel masks the ragged edges
+    itself: B of at least ``k`` rows, C from ``m`` to ``m_padded`` rows (the
+    output takes C's); returns ``(rows, n)``, C's rows and N. ``c`` is as in
+    :func:`check_dense`."""
+    if b.dim() != 2 or c.dim() != 2:
+        raise ValueError("b_padded and c_padded must be 2-D")
+    rows, n = c.shape[0], b.shape[1]
+    if b.shape[0] < k or not m <= rows <= m_padded:
+        raise ValueError(f"B must have at least {k} rows and C from {m} to {m_padded}, "
+                         f"got {tuple(b.shape)} and {tuple(c.shape)}")
+    need(b, "b_padded", torch.float32, tuple(b.shape), device)
+    if with_c:
+        need(c, "c_padded", torch.float32, (rows, n), device)
+    elif tuple(c.shape) != (rows, n):
+        raise ValueError(f"c_padded must have shape {(rows, n)}")
+    if n == 0 or n > 65535 * 8:
+        raise ValueError(f"N must be in [1, {65535 * 8}], got {n}")
+    return rows, n
+
+
 def check_operands(
-    vals, idx, bcol, group_mtile, group_kwin, b_padded, c_padded,
-    *, vals_shape_per_group: Tuple[int, int], tile_m: int, window_k: int,
-    group_blocks: int, with_c: bool,
-) -> Tuple[int, int]:
-    """Check the pack and dense operands of a block or slab launch; returns
-    ``(m_padded, n)``. ``c_padded`` is as in :func:`check_dense`. Each
-    wrapper checks its own ``ranges``.
+    vals, idx, bcol, group_mtile, group_kwin,
+    *, vals_shape_per_group: Tuple[int, int], group_blocks: int,
+) -> None:
+    """Check the pack operands of a block or slab launch. Each wrapper
+    checks its own B and C (:func:`check_dense`, :func:`check_in_place`)
+    and its own ``ranges``.
     """
     device = vals.device
     ng = vals.shape[0]
@@ -181,11 +202,8 @@ def check_operands(
     need(bcol, "bcol", torch.int32, (ng, G), device)
     need(group_mtile, "group_mtile", torch.int32, (ng + 1,), device)
     need(group_kwin, "group_kwin", torch.int32, (ng,), device)
-    m_padded, n = check_dense(b_padded, c_padded, tile_m=tile_m,
-                              window_k=window_k, with_c=with_c, device=device)
     if vals.data_ptr() % 16:
         raise ValueError("vals must be 16-byte aligned")
-    return m_padded, n
 
 
 class Launch(NamedTuple):

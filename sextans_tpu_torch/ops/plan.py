@@ -2,11 +2,14 @@
 
 The PyTorch counterpart of ``sextans_tpu.ops.plan.SpmmPlan``: the packed
 arrays and the host scan that their kernels walk are uploaded once
-(memoized on the packed object per device); each call pads B to
-``k_padded`` and C to ``m_padded``, runs one kernel and slices the result,
-except on the ``ell_pallas`` and ``edge`` routes, whose kernels take the
-caller's B and C where they lie (at K and M rows) and write an (M, N)
-output. N is not padded: the kernels mask a ragged last column chunk.
+(memoized on the packed object per device). On the ``mxu``, ``edge`` and
+``ell_pallas`` routes each call hands the kernel the caller's B and C
+where they lie (at K and M rows) and takes back an (M, N) output: the
+kernels mask the ragged last K-window and M-tile themselves. The
+``pallas``, ``xla`` and ``ell`` routes pad B to ``k_padded`` and C to
+``m_padded``, run one kernel and slice the result. N is not padded: the
+kernels mask a ragged last column chunk. ``repeat`` carries the padded C,
+as the JAX package does.
 
 ``FORMAT_TABLE`` gives each format's packer, pack type, upload and
 backends, which keep the JAX package's names so that flags read the same:
@@ -37,7 +40,7 @@ from sextans_tpu_torch.ops.launch import PackHost, need, put, put_scan
 from sextans_tpu_torch.ops.spmm_block import BLOCK_HOST, block_ref_runner, block_runner
 from sextans_tpu_torch.ops.spmm_edge import EDGE_HOST, edge_in_place, edge_runner
 from sextans_tpu_torch.ops.spmm_ell import ELL_HOST, ell_gather_runner, ell_in_place, ell_runner
-from sextans_tpu_torch.ops.spmm_slab import SLAB_HOST, k1_image, slab_runner
+from sextans_tpu_torch.ops.spmm_slab import SLAB_HOST, k1_image, slab_in_place, slab_runner
 from sextans_tpu_torch.utils.profiling import annotate, count, timed
 
 __all__ = ["SpmmPlan", "BACKENDS", "BACKEND_FORMATS", "PACKS", "FORMATS", "FORMAT_TABLE",
@@ -71,7 +74,7 @@ FORMAT_TABLE = {
     "vpu": Format(pack, PackedSpMatrix, BLOCK_HOST,
                   {"pallas": Engine(block_runner), "xla": Engine(block_ref_runner)}),
     "mxu": Format(pack_mxu, PackedSpMatrixMXU, SLAB_HOST,
-                  {"mxu": Engine(slab_runner, image=k1_image)}),
+                  {"mxu": Engine(slab_runner, image=k1_image, in_place=slab_in_place)}),
     "edge": Format(pack_edge, PackedSpMatrixEdge, EDGE_HOST,
                    {"edge": Engine(edge_runner, in_place=edge_in_place)}),
     "ell": Format(pack_ell, PackedSpMatrixELL, ELL_HOST,
@@ -203,7 +206,7 @@ class SpmmPlan:
             inv[packed.row_perm] = np.arange(self.m)
             self._inv_row = as_index(inv)
         # the rows of a call's B, C and output: the caller's where the
-        # kernel takes them so (K4, K5), else k_padded and m_padded
+        # kernel takes them so (K1, K2, K4, K5), else k_padded and m_padded
         self._in_place = bool(engine.in_place and engine.in_place(packed))
         self._b_rows = self.k if self._in_place else self.k_padded
         self._c_rows = self.m if self._in_place else packed.m_padded
@@ -236,12 +239,20 @@ class SpmmPlan:
         return torch.zeros(1, device=self.device).expand(
             self.packed.m_padded if rows is None else rows, self.n)
 
+    def operands(self, b, c=None):
+        """``(B, C)`` as this plan's kernel takes them in a call: at the
+        caller's K and M rows where the kernel masks the ragged edges
+        itself, else padded (:meth:`pad_b`, :meth:`pad_c`); without ``c``
+        the :meth:`no_c` view of C's shape."""
+        return (self.pad_b(b, self._b_rows),
+                self.no_c(self._c_rows) if c is None else self.pad_c(c, self._c_rows))
+
     def run_values(self, pv: torch.Tensor, b_p, c_p, alpha, beta, *,
                    with_c: bool = True) -> torch.Tensor:
         """The plan's kernel over ``pv``, packed values given at this call
         (the pack's values' shape, f32, on the plan's device), in place of
-        the uploaded ones: padded B and C in (:meth:`pad_b`, :meth:`pad_c`,
-        or :meth:`no_c` with ``with_c=False``), the padded output out. Where
+        the uploaded ones: B and C in as :meth:`operands` gives them (or
+        padded), an output of C's rows out. Where
         K1 runs on the tensor cores, its operand tiles are made from ``pv``
         for this call (:func:`~sextans_tpu_torch.ops.spmm_slab.slab_image`)."""
         need(pv, "pv", torch.float32, self.arrays[0].shape, self.device)
@@ -260,8 +271,8 @@ class SpmmPlan:
     def __call__(self, b, alpha=1.0, beta=0.0, c=None) -> torch.Tensor:
         """``alpha * A @ b + beta * c`` (M, N), inside the span
         ``sx.plan.call``. Counts ``plan.calls``, ``plan.pad_bytes`` and, on
-        the ``ell_pallas`` and ``edge`` routes, whose B has K rows and C and
-        output M rows, ``plan.in_place`` (``utils/profiling.py``)."""
+        the ``mxu``, ``edge`` and ``ell_pallas`` routes, whose B has K rows
+        and C and output M rows, ``plan.in_place`` (``utils/profiling.py``)."""
         with_c = c is not None
         if not with_c:
             if float(beta) != 0.0:
@@ -272,8 +283,7 @@ class SpmmPlan:
         if self._in_place:
             count("plan.in_place")
         with annotate("sx.plan.call"):
-            b_p = self.pad_b(b, self._b_rows)
-            c_p = self.pad_c(c, self._c_rows) if with_c else self.no_c(self._c_rows)
+            b_p, c_p = self.operands(b, c)
             return self.unpad(self._run(*self.arrays, b_p, c_p, alpha, beta, with_c=with_c))
 
     def repeat(self, b, alpha=1.0, beta=0.0, c=None, times: int = 1) -> torch.Tensor:

@@ -30,6 +30,7 @@ from sextans_tpu_torch.ops.launch import (
     SharedMemoryError,
     add_rows_in_order,
     check_csr,
+    check_dense,
     check_int32,
     check_operands,
     check_owner_tiles,
@@ -202,11 +203,10 @@ def spmm_block_padded(
             )
         if vals.device.type != "cuda":
             raise ValueError(f"spmm_block runs on cpu or cuda, not {vals.device}")
-        m_padded, n = check_operands(
-            vals, qrow, bcol, group_mtile, group_kwin, b_padded, c_padded,
-            vals_shape_per_group=(8, group_blocks * block_k), tile_m=tile_m,
-            window_k=window_k, group_blocks=group_blocks, with_c=with_c,
-        )
+        check_operands(vals, qrow, bcol, group_mtile, group_kwin,
+                       vals_shape_per_group=(8, group_blocks * block_k), group_blocks=group_blocks)
+        m_padded, n = check_dense(b_padded, c_padded, tile_m=tile_m, window_k=window_k,
+                                  with_c=with_c, device=vals.device)
         n_stripes = m_padded // 8
         check_csr(ranges[0], ranges[1:], ("stripe_ptr", "visits"), n_stripes, vals.device)
         if precise not in (0, 1, 2):

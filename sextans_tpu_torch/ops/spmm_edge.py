@@ -36,6 +36,7 @@ from sextans_tpu_torch.ops.launch import (
     add_rows_in_order,
     check_csr,
     check_dense,
+    check_in_place,
     check_int32,
     check_owner_tiles,
     csr_ptr,
@@ -246,20 +247,9 @@ def _check_edge_operands(vals, meta, chunk_mtile, chunk_kwin, b_padded, c_padded
                                   window_k=window_k, with_c=with_c, device=device)
         rows = m_padded
     else:
-        if b_padded.dim() != 2 or c_padded.dim() != 2:
-            raise ValueError("b_padded and c_padded must be 2-D")
         m_padded = ranges[0].shape[0] - 1
-        rows, n = c_padded.shape[0], b_padded.shape[1]
-        if b_padded.shape[0] < k or not m <= rows <= m_padded:
-            raise ValueError(f"B must have at least {k} rows and C from {m} to {m_padded}, "
-                             f"got {tuple(b_padded.shape)} and {tuple(c_padded.shape)}")
-        need(b_padded, "b_padded", torch.float32, tuple(b_padded.shape), device)
-        if with_c:
-            need(c_padded, "c_padded", torch.float32, (rows, n), device)
-        elif tuple(c_padded.shape) != (rows, n):
-            raise ValueError(f"c_padded must have shape {(rows, n)}")
-        if n == 0 or n > 65535 * 8:
-            raise ValueError(f"N must be in [1, {65535 * 8}], got {n}")
+        rows, n = check_in_place(b_padded, c_padded, m=m, k=k, m_padded=m_padded,
+                                 with_c=with_c, device=device)
     check_csr(ranges[0], ranges[1:], ("row_ptr", "run_start", "run_stop"), m_padded, device)
     return rows, n
 

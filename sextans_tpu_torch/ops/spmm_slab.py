@@ -15,6 +15,13 @@ counterpart on the card. ``precise`` 1 and 2 (one level here, as in the TPU
 slab kernels) contract on FFMA, compensate the sum of a block's
 contraction every 8 terms (where the TPU stepped once per block visit) and
 the epilogue, with ``ops/df32.py`` in the plain version.
+
+The wrappers take B of at least ``k`` rows and C of ``m`` to m_padded
+rows, and return an output of C's rows: ``SpmmPlan`` binds the pack's M and
+K and hands the caller's B and C where they lie; serving and ``repeat``
+hand them padded. The kernels zero B's rows past its end in shared memory
+and write no row past C's, so every output row is the padded call's to the
+bit.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sextans_tpu_torch.ops.df32 import add_rows_compensated, compensated_epilogue
 from sextans_tpu_torch.ops.launch import (
@@ -33,6 +41,7 @@ from sextans_tpu_torch.ops.launch import (
     SharedMemoryError,
     add_rows_in_order,
     check_csr,
+    check_in_place,
     check_int32,
     check_operands,
     check_owner_tiles,
@@ -50,7 +59,7 @@ from sextans_tpu_torch.utils.profiling import annotate, count
 
 __all__ = ["spmm_slab_padded", "spmm_slab_skinny_padded", "spmm_slab_padded_ref",
            "slab_launch", "slab_skinny_launch", "slab_image", "tf32_rna", "slab_visits",
-           "SLAB_HOST", "slab_runner", "k1_image"]
+           "SLAB_HOST", "slab_runner", "k1_image", "slab_in_place", "slab_edges"]
 
 MSLAB = 128
 SKINNY_MAX_N = 32
@@ -172,8 +181,8 @@ def spmm_slab_padded_ref(
     bcol: torch.Tensor,  # (ng, G) i32
     group_mtile: torch.Tensor,  # (ng+1,) i32
     group_kwin: torch.Tensor,  # (ng,) i32
-    b_padded: torch.Tensor,  # (k_padded, n) f32
-    c_padded: torch.Tensor,  # (m_padded, n) f32
+    b_padded: torch.Tensor,  # (k_padded, n) f32, or at least K rows
+    c_padded: torch.Tensor,  # (m_padded, n) f32, or M to m_padded rows
     alpha: float,
     beta: float,
     *,
@@ -183,6 +192,8 @@ def spmm_slab_padded_ref(
     group_blocks: int,
     with_c: bool = True,
     precise: int = 0,
+    m: Optional[int] = None,
+    k: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version: ``einsum`` of each (bk, 128) slab with its
     gathered bk B rows, the (128, n) products added into their 128-row slabs
@@ -190,16 +201,24 @@ def spmm_slab_padded_ref(
     block's contraction is cut into bk / 8 contractions of 8 terms, each
     goes in by one Neumaier step in pack order, and the epilogue is the
     compensated one. Works in chunks of groups. Contractions are full f32
-    (see :func:`~sextans_tpu_torch.ops.launch.no_tf32`)."""
+    (see :func:`~sextans_tpu_torch.ops.launch.no_tf32`). B's rows past its
+    own read as zeros, and the result has C's rows, as in the kernels
+    (``m`` and ``k``, the kernel wrapper's, change nothing here)."""
     ng = vals.shape[0]
     G, bk = group_blocks, block_k
-    m_padded, n = c_padded.shape
+    m_rows, n = c_padded.shape
     device = vals.device
-    acc = torch.zeros((m_padded // MSLAB, MSLAB, n), dtype=torch.float32, device=device)
-    comp = torch.zeros_like(acc) if precise else None
     vblk = vals.view(ng, G, bk, MSLAB)
     slab = group_mtile[:ng].long()[:, None] * (tile_m // MSLAB) + qm.long()
     col0 = group_kwin.long()[:, None] * window_k + bcol.long()
+    # the slabs the blocks add into, and C's, whichever reach further; the
+    # B rows they read, past B's own as zeros
+    n_slabs = max(-(-m_rows // MSLAB), int(slab.max()) + 1 if ng else 0)
+    b_rows = int(col0.max()) + bk if ng else 0
+    if b_rows > b_padded.shape[0]:
+        b_padded = F.pad(b_padded, (0, 0, 0, b_rows - b_padded.shape[0]))
+    acc = torch.zeros((n_slabs, MSLAB, n), dtype=torch.float32, device=device)
+    comp = torch.zeros_like(acc) if precise else None
     jj = torch.arange(bk, device=device)
     if precise:  # sub contractions a block, ~8 f32-sized temporaries each
         sub = max(1, bk // 8)
@@ -219,10 +238,11 @@ def spmm_slab_padded_ref(
         else:
             contrib = torch.einsum("gskm,gskn->gsmn", vblk[g0:g1], brows)
             add_rows_in_order(acc, slab[g0:g1].reshape(-1), contrib.reshape(-1, MSLAB, n))
+    acc = acc.view(-1, n)[:m_rows]
     if precise:
-        return compensated_epilogue(alpha, acc.view(m_padded, n), comp.view(m_padded, n),
+        return compensated_epilogue(alpha, acc, comp.view(-1, n)[:m_rows],
                                     beta if with_c else None, c_padded if with_c else None)
-    out = acc.view(m_padded, n) * f32(alpha)
+    out = acc * f32(alpha)
     if with_c:
         out = out + c_padded * f32(beta)
     return out
@@ -230,18 +250,17 @@ def spmm_slab_padded_ref(
 
 def _launch(entry: str, vals, qm, bcol, group_mtile, group_kwin, b_padded,
             c_padded, alpha, beta, *, tile_m, window_k, block_k, group_blocks,
-            ranges, with_c, precise, image=None):
-    m_padded, n = check_operands(
-        vals, qm, bcol, group_mtile, group_kwin, b_padded, c_padded,
-        vals_shape_per_group=(group_blocks * block_k, MSLAB), tile_m=tile_m,
-        window_k=window_k, group_blocks=group_blocks, with_c=with_c,
-    )
+            ranges, with_c, precise, m, k, image=None):
+    check_operands(vals, qm, bcol, group_mtile, group_kwin,
+                   vals_shape_per_group=(group_blocks * block_k, MSLAB), group_blocks=group_blocks)
+    n_slabs = ranges[0].shape[0] - 1  # the scan's slabs: C's rows are at most theirs
+    rows, n = check_in_place(b_padded, c_padded, m=m, k=k, m_padded=n_slabs * MSLAB,
+                             with_c=with_c, device=vals.device)
     if tile_m % MSLAB or block_k % 8:
         raise ValueError("the slab format needs tile_m % 128 == 0 and block_k % 8 == 0")
     if precise not in (0, 1, 2):
         raise ValueError(f"precise must be 0, 1 or 2, got {precise}")
     skinny = entry == "spmm_slab_skinny_launch"
-    n_slabs = m_padded // MSLAB
     n_blocks = vals.shape[0] * group_blocks
     # slab_visits lists every block once (the kernels skip the parked ones)
     if check_csr(ranges[0], ranges[1:], ("slab_ptr", "slab_blocks", "slab_rows"), n_slabs,
@@ -259,22 +278,28 @@ def _launch(entry: str, vals, qm, bcol, group_mtile, group_kwin, b_padded,
                                  "device in plain mode")
             need(image, "image", torch.float32, (n_blocks, block_k // ch, 2, 2, ch // 8, 512),
                  vals.device)
-    out = torch.empty((m_padded, n), dtype=torch.float32, device=vals.device)
+        # the tensor cores' edge slabs run apart; FFMA checks every CTA's edges itself
+        edges = slab_edges(ranges, m, k, block_k) if halves else None
+    out = torch.empty((rows, n), dtype=torch.float32, device=vals.device)
     lib = build_kernels()
     c_ptr = c_padded.data_ptr() if with_c else None
     b_vec = n % 4 == 0 and b_padded.data_ptr() % 16 == 0
+    b_rows = b_padded.shape[0]  # the kernels read B's own rows, the rest as zeros
     with torch.cuda.device(vals.device):
         if skinny:
             err = lib.spmm_slab_skinny_launch(
                 vals.data_ptr(), *(r.data_ptr() for r in ranges), b_padded.data_ptr(), c_ptr,
-                out.data_ptr(), n_slabs, n, block_k, float(alpha), float(beta), int(with_c),
-                precise, int(b_vec), go.threads, go.grid[0], go.smem, stream_of(vals.device))
+                out.data_ptr(), n_slabs, n, rows, b_rows, block_k, float(alpha), float(beta),
+                int(with_c), precise, int(b_vec), go.threads, go.grid[0], go.smem,
+                stream_of(vals.device))
         else:
+            n_edges = 0 if edges is None else edges.numel()
             err = lib.spmm_slab_launch(
                 vals.data_ptr(), image.data_ptr() if halves else None,
-                *(r.data_ptr() for r in ranges), b_padded.data_ptr(), c_ptr, out.data_ptr(),
-                n_slabs, n, block_k, float(alpha), float(beta), int(with_c), precise,
-                int(b_vec), halves, go.threads, go.grid[0], go.smem, stream_of(vals.device))
+                *(r.data_ptr() for r in ranges), edges.data_ptr() if n_edges else None,
+                b_padded.data_ptr(), c_ptr, out.data_ptr(), n_slabs, n_edges, n, rows, b_rows,
+                block_k, float(alpha), float(beta), int(with_c), precise, int(b_vec), halves,
+                go.threads, go.grid[0], go.smem, stream_of(vals.device))
     check_launch(lib, entry, err)
     return out
 
@@ -295,16 +320,18 @@ def spmm_slab_padded(
     block_k: int,
     group_blocks: int,
     ranges: Tuple[torch.Tensor, ...],
+    m: int,
+    k: int,
     image: Optional[torch.Tensor] = None,
     with_c: bool = True,
     precise: int = 0,
 ) -> torch.Tensor:
-    """``alpha * A @ B + beta * C`` on padded operands, any n; returns the
-    padded (m_padded, n) result. ``ranges`` is the slab's blocks
-    (:func:`slab_visits`); on a CUDA device
-    ``image`` is :func:`slab_image` of ``vals`` (the plain version on the
-    CPU does not read it). ``with_c`` and ``precise`` are as in
-    :func:`~sextans_tpu_torch.ops.spmm_block.spmm_block_padded`."""
+    """``alpha * A @ B + beta * C``, any n, on B of at least ``k`` rows and
+    C of ``m`` to m_padded rows; returns a result of C's rows (the module
+    docstring). ``ranges`` is the slab's blocks (:func:`slab_visits`); on a
+    CUDA device ``image`` is :func:`slab_image` of ``vals`` (the plain
+    version on the CPU does not read it). ``with_c`` and ``precise`` are as
+    in :func:`~sextans_tpu_torch.ops.spmm_block.spmm_block_padded`."""
     with annotate("sx.kernel.spmm_slab_padded"):
         kw = dict(tile_m=tile_m, window_k=window_k, block_k=block_k,
                   group_blocks=group_blocks, with_c=with_c, precise=int(precise))
@@ -317,7 +344,7 @@ def spmm_slab_padded(
             raise ValueError(f"spmm_slab runs on cpu or cuda, not {vals.device}")
         out = _launch(
             "spmm_slab_launch", vals, qm, bcol, group_mtile, group_kwin, b_padded,
-            c_padded, alpha, beta, ranges=ranges, image=image, **kw,
+            c_padded, alpha, beta, ranges=ranges, image=image, m=m, k=k, **kw,
         )
         count("launch.spmm_slab_padded")
         if not precise:  # on the tensor cores, through the overlapped mainloop
@@ -341,13 +368,14 @@ def spmm_slab_skinny_padded(
     block_k: int,
     group_blocks: int,
     ranges: Tuple[torch.Tensor, ...],
+    m: int,
+    k: int,
     with_c: bool = True,
     precise: int = 0,
 ) -> torch.Tensor:
     """The same product for n <= 32, with all n columns in one CUDA block
     per half slab, over the slab's blocks (``ranges`` =
-    :func:`slab_visits`); returns the padded
-    (m_padded, n) result."""
+    :func:`slab_visits`); returns a result of C's rows."""
     with annotate("sx.kernel.spmm_slab_skinny_padded"):
         kw = dict(tile_m=tile_m, window_k=window_k, block_k=block_k,
                   group_blocks=group_blocks, with_c=with_c, precise=int(precise))
@@ -362,7 +390,7 @@ def spmm_slab_skinny_padded(
             raise ValueError(f"spmm_slab_skinny runs on cpu or cuda, not {vals.device}")
         out = _launch(
             "spmm_slab_skinny_launch", vals, qm, bcol, group_mtile, group_kwin,
-            b_padded, c_padded, alpha, beta, ranges=ranges, **kw,
+            b_padded, c_padded, alpha, beta, ranges=ranges, m=m, k=k, **kw,
         )
         count("launch.spmm_slab_skinny_padded")
         return out
@@ -436,10 +464,43 @@ SLAB_HOST = PackHost(
     scan=slab_visits)
 
 
+def slab_edges(ranges, m: int, k: int, block_k: int) -> torch.Tensor:
+    """The edge slabs of K1 on the tensor cores where B holds ``k`` rows and
+    C ``m``: each slab that holds a row at or past m, or one of whose listed
+    blocks (``ranges``, :func:`slab_visits`) reads a row at or past k,
+    ascending, as an int32 tensor on ``ranges``' device. Their CTAs run
+    apart, with the checks that would cost every other CTA time
+    (``csrc/spmm_slab.cu``: spmm_slab_tc_kernel_edge). The list holds for B
+    and C of more rows too, the padded ones included. Made once for each
+    ``(m, k, block_k)`` and memoised on ``ranges[0]`` (the copy of the scan
+    to the host waits for the device)."""
+    memo = ranges[0].__dict__.setdefault("_slab_edges", {})
+    key = (m, k, block_k)
+    if key not in memo:
+        ptr = ranges[0].cpu().numpy().astype(np.int64)
+        rows = ranges[2].cpu().numpy()[: ptr[-1]].astype(np.int64)
+        n_slabs = ptr.size - 1
+        slab = np.repeat(np.arange(n_slabs), np.diff(ptr))
+        edge = np.arange(n_slabs) * MSLAB + MSLAB > m
+        edge[slab[rows + block_k > k]] = True
+        memo[key] = torch.as_tensor(np.flatnonzero(edge).astype(np.int32),
+                                    device=ranges[0].device)
+    return memo[key]
+
+
+def slab_in_place(packed) -> bool:
+    """Whether ``SpmmPlan.__call__`` gives K1 and K2 the caller's B at its K
+    rows and C and the output at its M rows: always, since the kernels zero
+    B's rows past K and write no row past M themselves."""
+    return True
+
+
 def slab_runner(packed, n: int, ranges, image=None):
     """K1 (backend ``mxu``), or K2 for N <= ``SKINNY_MAX_N``, bound as
-    ``SpmmPlan`` runs it; K1 reads ``image`` (:func:`k1_image`)."""
-    kw = dict(ranges=ranges, precise=int(packed.config.precise), **group_static(packed.config))
+    ``SpmmPlan`` runs it: with the pack's M and K, so that it takes B and C
+    as they lie; K1 reads ``image`` (:func:`k1_image`)."""
+    kw = dict(ranges=ranges, precise=int(packed.config.precise), m=packed.m, k=packed.k,
+              **group_static(packed.config))
     if n > SKINNY_MAX_N:
         return functools.partial(spmm_slab_padded, image=image, **kw)
     return functools.partial(spmm_slab_skinny_padded, **kw)

@@ -47,14 +47,14 @@ _SIGNATURES = {
     # n_stripes n window_k block_k group_blocks alpha beta
     # with_c precise lanes vec threads grid_x grid_y smem stream
     "spmm_block_launch": [_P] * 8 + [_I] * 5 + [_F, _F] + [_I] * 8 + [_P],
-    # vals image slab_ptr slab_blocks slab_rows b c out
-    # n_slabs n block_k alpha beta
+    # vals image slab_ptr slab_blocks slab_rows edges b c out
+    # n_slabs n_edges n m_rows k_rows block_k alpha beta
     # with_c precise b_vec halves threads grid smem stream
-    "spmm_slab_launch": [_P] * 8 + [_I] * 3 + [_F, _F] + [_I] * 7 + [_P],
+    "spmm_slab_launch": [_P] * 9 + [_I] * 6 + [_F, _F] + [_I] * 7 + [_P],
     # vals slab_ptr slab_blocks slab_rows b c out
-    # n_slabs n block_k alpha beta
+    # n_slabs n m_rows k_rows block_k alpha beta
     # with_c precise b_bulk threads grid smem stream
-    "spmm_slab_skinny_launch": [_P] * 7 + [_I] * 3 + [_F, _F] + [_I] * 6 + [_P],
+    "spmm_slab_skinny_launch": [_P] * 7 + [_I] * 5 + [_F, _F] + [_I] * 6 + [_P],
     # vals meta chunk_kwin row_ptr run_start run_stop b c out unsure
     # m_padded n window_k edge_chunk alpha beta
     # with_c masked precise lanes vec threads grid_x grid_y nearest_grid stream

@@ -21,8 +21,8 @@ counter of the same name. Names:
   themselves;
 * counters: ``plan.calls``, ``plan.pad_bytes`` (bytes of the B and C the
   plan made: pads and the gathers of a reordered pack), ``plan.in_place``
-  (the calls that handed the ELL gather kernel or the edge kernel B, C
-  and the output unpadded);
+  (the calls that handed the slab kernels, the edge kernel or the ELL
+  gather kernel B, C and the output unpadded);
   ``launch.<wrapper>``, the kernel launches of each wrapper on a card
   (:func:`launches`), ``launch.spmm_slab_padded.overlap``, those of K1
   through its overlapped tensor-core mainloop, and

@@ -102,8 +102,8 @@ def test_in_place_call_equals_the_padded_route(kind, with_c, precise):
 def test_in_place_counters_and_no_pad_bytes(kind, monkeypatch):
     """Three calls with C and two without: each counted in ``plan.calls``
     and ``plan.in_place``, and none makes a padded byte. The slab route on
-    the same matrix pads as it did, and the plain ``ell`` engine keeps its
-    C pad (its B has K rows already, and is not copied)."""
+    the same matrix takes B and C in place too, and the plain ``ell``
+    engine keeps its C pad (its B has K rows already, and is not copied)."""
     coo, packed = _pack(kind)
     monkeypatch.setattr(profiling, "_COUNTERS", {})
     b, c = _operands(*coo.shape)
@@ -115,14 +115,18 @@ def test_in_place_counters_and_no_pad_bytes(kind, monkeypatch):
     got = tx.counters()
     assert (got["plan.calls"], got["plan.in_place"], got["plan.pad_bytes"]) == (5, 5, 0)
     cfg = tx.SpmmConfig(tile_m=128, window_k=256, block_k=8, group_blocks=8)
-    for other in (tx.plan(tx.pack_mxu(coo, cfg), N, "mxu", device="cpu"),
-                  tx.plan(packed, N, "ell", device="cpu")):
-        monkeypatch.setattr(profiling, "_COUNTERS", {})
-        other(b, ALPHA, BETA, c)
-        other(b, ALPHA)
-        kp, mp = other.packed.k_padded, other.packed.m_padded
-        b_bytes = 4 * N * kp if kp > coo.shape[1] else 0
-        assert tx.counters() == {"plan.calls": 2, "plan.pad_bytes": 2 * b_bytes + 4 * N * mp}
+    slab = tx.plan(tx.pack_mxu(coo, cfg), N, "mxu", device="cpu")
+    assert slab.packed.k_padded > coo.shape[1] and slab.packed.m_padded > coo.shape[0]
+    monkeypatch.setattr(profiling, "_COUNTERS", {})
+    slab(b, ALPHA, BETA, c)
+    slab(b, ALPHA)
+    assert tx.counters() == {"plan.calls": 2, "plan.in_place": 2, "plan.pad_bytes": 0}
+    ell = tx.plan(packed, N, "ell", device="cpu")
+    monkeypatch.setattr(profiling, "_COUNTERS", {})
+    ell(b, ALPHA, BETA, c)
+    ell(b, ALPHA)
+    assert ell.packed.k_padded == coo.shape[1]
+    assert tx.counters() == {"plan.calls": 2, "plan.pad_bytes": 4 * N * ell.packed.m_padded}
 
 
 @pytest.mark.parametrize("counters,want", [

@@ -97,10 +97,13 @@ def _check(kernel, plain, cuda, packed, n, with_c, precise=0, poison=None):
     cfg = packed.config
     kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k, block_k=cfg.block_k,
               group_blocks=cfg.group_blocks, with_c=with_c, precise=precise)
+    shape = {}
+    if kernel is not spmm_block_padded:  # the slab kernels' rows: the padded ones, one grid
+        shape = dict(m=packed.m_padded, k=packed.k_padded)
     if kernel is spmm_slab_padded:  # K1's operand tiles, made where the plan uploads
         kw["image"] = pl.image
     before, overlap = launches(kernel), _overlap()
-    got = kernel(*pl.arrays, b, c, ALPHA, BETA, ranges=pl.ranges, **kw)
+    got = kernel(*pl.arrays, b, c, ALPHA, BETA, ranges=pl.ranges, **shape, **kw)
     kw.pop("image", None)
     want = plain(*pl.arrays, b, c, ALPHA, BETA, **kw)
     torch.cuda.synchronize()
@@ -1001,7 +1004,8 @@ def test_slab_skinny_kernel_takes_misaligned_b(cuda, n):
     shifted = torch.empty(b.numel() + 1, device=cuda)[1:].view(b.shape)
     shifted.copy_(b)
     assert shifted.data_ptr() % 16  # 4-byte copies of B instead of one bulk copy
-    kw = dict(tile_m=256, window_k=512, block_k=32, group_blocks=4, ranges=pl.ranges)
+    kw = dict(tile_m=256, window_k=512, block_k=32, group_blocks=4, ranges=pl.ranges,
+              m=packed.m, k=packed.k)
     got = spmm_slab_skinny_padded(*pl.arrays, shifted, c, ALPHA, BETA, **kw)
     want = spmm_slab_skinny_padded(*pl.arrays, b, c, ALPHA, BETA, **kw)
     torch.cuda.synchronize()
@@ -1019,7 +1023,8 @@ def test_slab_skinny_refuses_a_ring_that_does_not_fit(cuda):
     with pytest.raises(SharedMemoryError, match="shared memory"):
         spmm_slab_skinny_padded(vals, idx, idx, torch.tensor([0, -1], **i32),
                                 torch.zeros(1, **i32), b, c, 1.0, 0.0, tile_m=128,
-                                window_k=bk, block_k=bk, group_blocks=1, ranges=ranges)
+                                window_k=bk, block_k=bk, group_blocks=1, ranges=ranges,
+                                m=128, k=bk)
     assert launches(spmm_slab_skinny_padded) == before
 
 
@@ -1207,8 +1212,10 @@ def test_k1_wgmmas_are_not_serialised(record_property, tmp_path):
             elif "Used" in line and "registers" in line:
                 seen.setdefault(name, {})["registers"] = int(
                     line.split("Used", 1)[1].split("registers")[0])
-    # two tile shapes by chunks of one, two and four steps
-    assert len(seen) == 6 and all("registers" in v for v in seen.values()), log
+    # two tile shapes by chunks of one, two and four steps, each a kernel for
+    # the edge slabs and one for the other slabs
+    assert len(seen) == 12 and all("registers" in v for v in seen.values()), log
+    assert sum("spmm_slab_tc_kernel_edge" in name for name in seen) == 6, log
     for kernel, info in seen.items():
         record_property(kernel, str(info))
         print(f"{kernel}: {info}")
@@ -1239,7 +1246,7 @@ def test_slab_kernel_takes_misaligned_b(cuda, n):
     shifted.copy_(b)
     assert shifted.data_ptr() % 16  # 4-byte copies of B's rows instead of 16-byte ones
     kw = dict(tile_m=256, window_k=512, block_k=32, group_blocks=4, ranges=pl.ranges,
-              image=pl.image)
+              image=pl.image, m=packed.m, k=packed.k)
     got = spmm_slab_padded(*pl.arrays, shifted, c, ALPHA, BETA, **kw)
     want = spmm_slab_padded(*pl.arrays, b, c, ALPHA, BETA, **kw)
     torch.cuda.synchronize()
@@ -1253,7 +1260,8 @@ def test_slab_kernel_needs_its_image_and_slab_lists(cuda):
     assert pl.image is not None and tx.plan(packed, 16, "mxu", device=cuda).image is None
     b = pl.pad_b(np.ones((packed.k, 40), np.float32))
     c = pl.pad_c(np.ones((packed.m, 40), np.float32))
-    kw = dict(tile_m=256, window_k=256, block_k=16, group_blocks=8, ranges=pl.ranges)
+    kw = dict(tile_m=256, window_k=256, block_k=16, group_blocks=8, ranges=pl.ranges,
+              m=packed.m, k=packed.k)
     before = launches(spmm_slab_padded)
     with pytest.raises(ValueError, match="image"):
         spmm_slab_padded(*pl.arrays, b, c, 1.0, 0.0, **kw)
@@ -1263,6 +1271,132 @@ def test_slab_kernel_needs_its_image_and_slab_lists(cuda):
         spmm_slab_padded(*pl.arrays, b, c, 1.0, 0.0, **{**kw, "ranges": (
             pl.ranges[0], pl.ranges[1][1:], pl.ranges[2][1:])}, image=pl.image)
     assert launches(spmm_slab_padded) == before
+
+
+# ---- K1 and K2 take B and C where they lie: B at K rows, C and the output
+# at M rows ----
+
+SENTINEL = 12345.0
+
+
+@functools.lru_cache(maxsize=None)
+def _ragged_slab_pack(variant, precise):
+    """K a multiple of neither block_k nor window_k, M not a multiple of
+    128. ``half``: 300 x 250, slab 3 wholly past M; ``whole``: 67,699 x
+    3,000, whose 536 slabs give K1 the whole-slab tiles at N <= 128, the
+    last seven wholly past M."""
+    if variant == "half":
+        coo = tx.COOMatrix.random(300, 250, 3000, seed=3, banded=True, bandwidth=60)
+        cfg = tx.SpmmConfig(tile_m=256, window_k=128, block_k=32, group_blocks=4)
+    else:
+        m = 529 * 128 - 13
+        coo = tx.COOMatrix.random(m, 3000, 6 * m, seed=5, banded=True, bandwidth=90)
+        cfg = tx.SpmmConfig(tile_m=1024, window_k=1024, block_k=32, group_blocks=4)
+    return coo, tx.pack_mxu(coo, cfg.with_(precise=precise))
+
+
+def _padded_kernel_call(pl, b, c, with_c):
+    """The plan's kernel on B and C padded to k_padded and m_padded, bound
+    to those rows: no edge slab, so K1 on the tensor cores runs one grid."""
+    kernel = pl._run.func
+    kw = {**pl._run.keywords, "m": pl.packed.m_padded, "k": pl.k_padded}
+    return kernel(*pl.arrays, pl.pad_b(b), pl.pad_c(c) if with_c else pl.no_c(), ALPHA,
+                  BETA if with_c else 0.0, with_c=with_c, **kw)
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("with_c", [True, False])
+@pytest.mark.parametrize("variant,n", [("half", 13), ("half", 16), ("half", 37), ("half", 100),
+                                       ("whole", 100), ("whole", 512)])
+def test_slab_plan_in_place_equals_the_padded_kernel(cuda, variant, n, with_c, precise,
+                                                     monkeypatch):
+    """SpmmPlan's call hands K1 (plain on the tensor cores, or precise on
+    FFMA) and K2 (N <= 32) B as the first K rows of a tensor whose later
+    rows are NaN and C as the first M rows of another, and takes back an
+    output whose buffer holds a sentinel past row M: the output is finite,
+    the padded call's rows to the bit, and no row past M is written; 16- and
+    4-byte copies of B (N % 4), and ``plan.in_place`` counted."""
+    coo, packed = _ragged_slab_pack(variant, precise)
+    (m, k), kp, mp = coo.shape, packed.k_padded, packed.m_padded
+    pl = tx.plan(packed, n, "mxu", device=cuda)
+    kernel = spmm_slab_skinny_padded if n <= 32 else spmm_slab_padded
+    assert pl._run.func is kernel and (pl._b_rows, pl._c_rows) == (k, m)
+    rng = np.random.default_rng(n)
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(cuda)
+    b_big = torch.full((kp + 64, n), float("nan"), device=cuda)
+    c_big = torch.full((mp + 64, n), float("nan"), device=cuda)
+    b_big[:k], c_big[:m] = b, c
+    out_buf = torch.full((mp, n), SENTINEL, device=cuda)
+    real_empty = torch.empty
+
+    def empty(*size, **kw):  # the wrapper's output: the first M rows of out_buf
+        shape = tuple(size[0]) if len(size) == 1 and isinstance(size[0], (tuple, list)) else size
+        return out_buf[:m] if shape == (m, n) else real_empty(*size, **kw)
+
+    before, in_place = launches(kernel), counters().get("plan.in_place", 0)
+    monkeypatch.setattr(torch, "empty", empty)
+    got = pl(b_big[:k], ALPHA, BETA, c_big[:m]) if with_c else pl(b_big[:k], ALPHA)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert launches(kernel) == before + 1
+    assert counters().get("plan.in_place", 0) == in_place + 1
+    assert got.data_ptr() == out_buf.data_ptr() and got.shape == (m, n)
+    assert bool((out_buf[m:] == SENTINEL).all())
+    assert bool(torch.isfinite(got).all())
+    want = _padded_kernel_call(pl, b, c, with_c)
+    torch.cuda.synchronize()
+    assert want.shape == (mp, n) and torch.equal(got, want[:m])
+    if with_c:  # repeat carries the padded C; a C short of M rows is refused
+        assert torch.equal(pl.repeat(b, ALPHA, BETA, c, times=2), pl(b, ALPHA, BETA, got))
+        with pytest.raises(ValueError, match="rows"):
+            pl._run(*pl.arrays, b, c[: m - 1], ALPHA, BETA)
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("cut", [1, 100])
+@pytest.mark.parametrize("n", [13, 16, 37, 100])
+def test_slab_kernels_read_past_bs_rows_as_zeros(cuda, n, cut, precise):
+    """K1 and K2 handed B of K - ``cut`` rows: the rows past it read as
+    zeros, so the output is the bits of the padded call with those rows
+    zeroed, blocks that straddle B's end and blocks wholly past it (cut 100)
+    alike."""
+    coo, packed = _ragged_slab_pack("half", precise)
+    (m, k), kp = coo.shape, packed.k_padded
+    pl = tx.plan(packed, n, "mxu", device=cuda)
+    rng = np.random.default_rng(cut)
+    b = torch.from_numpy(rng.standard_normal((k - cut, n)).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(cuda)
+    rows = slab_visits(packed)[2]
+    assert (rows + packed.config.block_k > k - cut).any()
+    assert (rows >= k - cut).any() == (cut == 100)
+    zeros = torch.zeros((kp, n), device=cuda)
+    zeros[: k - cut] = b
+    got = pl._run(*pl.arrays, b, c, ALPHA, BETA, k=k - cut)
+    want = pl._run(*pl.arrays, zeros, pl.pad_c(c), ALPHA, BETA)[:m]
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("n", [16, 100])
+@pytest.mark.parametrize("shape", [(300, 0), (0, 200), (0, 0)])
+def test_slab_plan_in_place_on_an_empty_matrix(cuda, shape, n, precise):
+    """A matrix of no rows or no columns goes in place too: with no B rows
+    every block's B reads as zeros, so the output is beta * C, the padded
+    call's bits; with no rows every CTA returns and the output has none."""
+    coo = tx.COOMatrix(shape, [], [], [])
+    cfg = tx.SpmmConfig(tile_m=256, window_k=128, block_k=32, group_blocks=4,
+                        precise=precise)
+    pl = tx.plan(tx.pack_mxu(coo, cfg), n, "mxu", device=cuda)
+    assert pl._in_place
+    rng = np.random.default_rng(n)
+    b = torch.from_numpy(rng.standard_normal((shape[1], n)).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rng.standard_normal((shape[0], n)).astype(np.float32)).to(cuda)
+    got = pl(b, ALPHA, BETA, c)
+    want = _padded_kernel_call(pl, b, c, True)
+    torch.cuda.synchronize()
+    assert got.shape == (shape[0], n) and torch.equal(got, want[: shape[0]])
 
 
 @pytest.mark.parametrize("precise", [0, 1])

@@ -89,7 +89,7 @@ def test_build_flags_target_hopper_and_hash_sources():
     for header in ("df32.cuh", "spmm_block.cuh", "async_copy.cuh"):
         assert (build.CSRC_DIR / header).is_file()
     # every pointer and the stream are c_void_p, so none is cut to 32 bits
-    pointers = {"spmm_block_launch": 8, "spmm_slab_launch": 8,
+    pointers = {"spmm_block_launch": 8, "spmm_slab_launch": 9,
                 "spmm_slab_skinny_launch": 7, "spmm_edge_launch": 10,
                 "spmm_ell_launch": 12, "spmm_dia_launch": 6, "spmm_dia_skinny_launch": 6,
                 "df32_probe_pairs": 6, "df32_probe_chain": 3,

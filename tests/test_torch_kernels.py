@@ -159,8 +159,8 @@ def test_slab_ref_matches_mxu_pallas(m, k, n, nnz, bk, with_c):
     ranges = tuple(torch.from_numpy(a) for a in slab_visits(port))
     got = spmm_slab_padded_ref(*_torch_args(port), tb, tc, ALPHA, beta,
                                with_c=with_c, **_kw(cfg)).numpy()
-    via_wrapper = spmm_slab_padded(*_torch_args(port), tb, tc, ALPHA, beta,
-                                   ranges=ranges, with_c=with_c, **_kw(cfg)).numpy()
+    via_wrapper = spmm_slab_padded(*_torch_args(port), tb, tc, ALPHA, beta, ranges=ranges,
+                                   m=m, k=k, with_c=with_c, **_kw(cfg)).numpy()
     assert via_wrapper.tobytes() == got.tobytes()
     exact = golden_spmm_exact(RefCSR.from_coo(coo), b, ALPHA, beta,
                               c if with_c else None)
@@ -178,8 +178,8 @@ def test_slab_skinny_ref_matches_mxu_ct_route(n):
     b_p, c_p = _padded(ref, b, c, n)
     ranges = tuple(torch.from_numpy(a) for a in slab_visits(port))
     got = spmm_slab_skinny_padded(*_torch_args(port), torch.from_numpy(b_p),
-                                  torch.from_numpy(c_p), ALPHA, BETA,
-                                  ranges=ranges, **_kw(cfg)).numpy()
+                                  torch.from_numpy(c_p), ALPHA, BETA, ranges=ranges,
+                                  m=300, k=400, **_kw(cfg)).numpy()
     exact = golden_spmm_exact(RefCSR.from_coo(coo), b, ALPHA, BETA, c)
     _check(got[:300], [jax_out], exact)
 
@@ -192,8 +192,8 @@ def test_slab_skinny_rejects_wide_n():
     ranges = tuple(torch.from_numpy(a) for a in slab_visits(port))
     with pytest.raises(ValueError, match="n <= 32"):
         spmm_slab_skinny_padded(*_torch_args(port), torch.from_numpy(b),
-                                torch.from_numpy(c), ALPHA, BETA, ranges=ranges,
-                                tile_m=128, window_k=128, block_k=8, group_blocks=4)
+                                torch.from_numpy(c), ALPHA, BETA, ranges=ranges, m=128,
+                                k=128, tile_m=128, window_k=128, block_k=8, group_blocks=4)
 
 
 def test_slab_visits_scan_any_order():
@@ -335,6 +335,7 @@ def test_stripe_walk_gives_the_precise_plain_versions_bits(precise, bk, empty_ti
                                 spmm_slab_skinny_padded])
 def test_wrappers_refuse_other_devices(fn):
     meta = torch.empty((1, 8, 8), device="meta")
+    shape = {} if fn is spmm_block_padded else dict(m=8, k=8)  # the slab wrappers' rows
     with pytest.raises(ValueError, match="cpu or cuda"):
         fn(meta, meta, meta, meta, meta, meta, meta, 1.0, 0.0, tile_m=8,
-           window_k=8, block_k=8, group_blocks=1, ranges=(meta, meta))
+           window_k=8, block_k=8, group_blocks=1, ranges=(meta, meta), **shape)

@@ -306,7 +306,8 @@ def test_slab_walk_matches_the_jax_mxu_route(n):
     assert np.abs(got.numpy() - exact).max() <= tol
     # the wrapper on CPU tensors runs the plain version with the plan's scan
     via = spmm_slab_skinny_padded(*pl.arrays, pl.pad_b(b), pl.pad_c(c), ALPHA, BETA,
-                                  ranges=pl.ranges, **SLAB_CONFIGS[0])[:coo.shape[0]]
+                                  ranges=pl.ranges, m=pl.m, k=pl.k,
+                                  **SLAB_CONFIGS[0])[:coo.shape[0]]
     assert np.abs(via.numpy() - got.numpy()).max() <= tol
     assert [t.tolist() for t in pl.ranges] == [a.tolist() for a in slab_visits(packed)]
 
@@ -482,7 +483,7 @@ def test_slab_visits_are_both_slab_kernels_ranges(cfg, n):
     kw = dict(tile_m=cfg.tile_m, window_k=cfg.window_k, block_k=cfg.block_k,
               group_blocks=cfg.group_blocks)
     kernel = spmm_slab_skinny_padded if n <= 32 else spmm_slab_padded
-    via = kernel(*pl.arrays, b_p, c_p, ALPHA, BETA, ranges=pl.ranges, **kw)
+    via = kernel(*pl.arrays, b_p, c_p, ALPHA, BETA, ranges=pl.ranges, m=pl.m, k=pl.k, **kw)
     assert torch.equal(via, spmm_slab_padded_ref(*pl.arrays, b_p, c_p, ALPHA, BETA, **kw))
 
 

@@ -148,18 +148,25 @@ def test_value_op_step_spans(coo):
     assert len(got["sx.kernel.spmm_slab_padded"]) == 2  # A and A^T
 
 
-def test_plan_counters_are_exact(plan):
+def test_plan_counters_are_exact(coo, plan):
+    """The slab route takes B and C in place: five calls, five in place, no
+    byte made; the block route (``pallas``) on the same matrix pads B and C,
+    and counts each padded byte."""
     b, c = operands(plan)
-    before = tx.counters()
-    for _ in range(3):
-        plan(b, 0.85, -2.06, c)
-    for _ in range(2):
-        plan(b, 0.5)
-    after = tx.counters()
-    kp, mp = plan.packed.k_padded, plan.packed.m_padded
-    assert after["plan.calls"] - before.get("plan.calls", 0) == 5
-    assert (after["plan.pad_bytes"] - before.get("plan.pad_bytes", 0)
-            == 4 * N * (3 * (kp + mp) + 2 * kp))
+    padded = tx.SpmmPlan(tx.pack(coo, CFG), N, "pallas", device="cpu")
+    for pl, in_place in ((plan, 5), (padded, 0)):
+        before = tx.counters()
+        for _ in range(3):
+            pl(b, 0.85, -2.06, c)
+        for _ in range(2):
+            pl(b, 0.5)
+        after = tx.counters()
+        kp, mp = pl.packed.k_padded, pl.packed.m_padded
+        assert kp > pl.k and mp > pl.m
+        made = 4 * N * (3 * (kp + mp) + 2 * kp) if not in_place else 0
+        assert after["plan.calls"] - before.get("plan.calls", 0) == 5
+        assert after.get("plan.in_place", 0) - before.get("plan.in_place", 0) == in_place
+        assert after.get("plan.pad_bytes", 0) - before.get("plan.pad_bytes", 0) == made
 
 
 def test_counters_is_a_copy():
@@ -282,7 +289,7 @@ def test_span_readers_find_nothing_without_the_programs_spans(plan):
         assert harness.load_reader(metric).read(record) is None
 
 
-def test_counter_readers(plan, monkeypatch):
+def test_counter_readers(coo, plan, monkeypatch):
     from bench_torch import harness
 
     monkeypatch.setattr(profiling, "_COUNTERS", {})
@@ -291,7 +298,12 @@ def test_counter_readers(plan, monkeypatch):
     assert harness.load_reader("plan_copy_mb.repeat").read(record) is None
     plan(b, 0.85, -2.06, c)
     plan(b, 0.85, -2.06, c)
-    kp, mp = plan.packed.k_padded, plan.packed.m_padded
+    assert harness.load_reader("plan_copy_mb.repeat").read(record) == 0.0  # in place
+    padded = tx.SpmmPlan(tx.pack(coo, CFG), N, "pallas", device="cpu")
+    monkeypatch.setattr(profiling, "_COUNTERS", {})
+    padded(b, 0.85, -2.06, c)
+    padded(b, 0.85, -2.06, c)
+    kp, mp = padded.packed.k_padded, padded.packed.m_padded
     assert harness.load_reader("plan_copy_mb.repeat").read(record) == 4 * N * (kp + mp) / 1e6
     profiling.count("pack_s", 1.5)
     profiling.count("upload_s", 0.25)

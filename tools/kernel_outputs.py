@@ -21,7 +21,9 @@ matrix (104,756 nnz, seed 42):
   (4-byte loads), with its hub fold, through the plan (an earlier tree
   folds in PyTorch after the kernel, this one in the kernel);
 
-each at precise levels 0, 1 and 2, and
+each at precise levels 0, 1 and 2, K1 and K2 also through the plan's call
+(``SpmmPlan.__call__``: whatever B, C and output rows a tree's plan hands
+its kernel, the (M, N) result), and
 
 * K6 over the diagonal part of ``split_structure(coo, n=N)`` at N = 512
   and 37 (4-byte columns), and K7 at N = 16 and 9, each at levels 0 and 1
@@ -37,10 +39,10 @@ at N = 16. It writes the outputs to OUT (``torch.save``) and prints one line
 per output.
 
 ``compare`` prints, for every output of OUT_A, whether OUT_B holds the same
-bits; K1's plain-mode outputs, which a tree may contract on the tensor
-cores (3xTF32) where another used FFMA, are held instead to within
-``ULP_BAR`` (4) ulp of max|C|, and their difference is printed in those
-ulp. It exits 1 unless every other output is equal and every K1 plain-mode
+bits; K1's plain-mode outputs of a direct launch, which a tree may contract
+on the tensor cores (3xTF32) where another used FFMA, are held instead to
+within ``ULP_BAR`` (4) ulp of max|C|, and their difference is printed in
+those ulp. It exits 1 unless every other output is equal and every such K1
 output is within the bar.
 """
 
@@ -134,13 +136,19 @@ def save(root: str, out: str, full: bool = False) -> int:
                           group_blocks=cfg.group_blocks)
             for with_c in (True, False):
                 before = launches(kernel)
-                if name in ("spmm_slab", "spmm_ell"):  # through the plan: its scan (and tiles)
+                # through the plan: its scan (and tiles), and whatever else a tree binds
+                if name in ("spmm_slab", "spmm_slab_skinny", "spmm_ell"):
                     got = pl._run(*pl.arrays, b_p, c_p, ALPHA, BETA if with_c else 0.0,
                                   with_c=with_c)
                 else:
                     got = kernel(*pl.arrays, b_p, c_p, ALPHA, BETA if with_c else 0.0,
                                  ranges=pl.ranges, with_c=with_c, precise=level, **kw)
                 keep(f"{tag}{name} N={n} precise={level} with_c={with_c}", kernel, before, got)
+                if name.startswith("spmm_slab"):
+                    before = launches(kernel)
+                    got = pl(b, ALPHA, BETA, c) if with_c else pl(b, ALPHA)
+                    keep(f"{tag}{name} N={n} precise={level} with_c={with_c} (plan call)",
+                         kernel, before, got)
             del pl, packed, b_p, c_p
         torch.cuda.empty_cache()
 
