@@ -23,6 +23,14 @@ JAX package's precise composition instead: each part on its own at
 alpha = 1 (the residue's kernel and the DIA kernel compensated), then
 ``beta * C`` and ``alpha`` times each part combined with error-free
 transforms and rounded once per element.
+
+Under a profiler a step is the span ``sx.hybrid.call`` and its head-column
+and hub-row matmuls, with their gather and adds, the span
+``sx.hybrid.dense`` (``utils/profiling.py``); the DIA kernels and the
+residue's plan open their own inside it. ``split_structure`` counts as
+``pack_s`` and the plan's uploads as ``upload_s``; ``hybrid.calls`` counts
+the steps, and the ``hybrid.diag_*``, ``hybrid.dense_*`` and
+``hybrid.residue_entries`` counters each split's parts, once a split.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from sextans_tpu_torch.ops.plan import (
 from sextans_tpu_torch.ops.spmm_dia import dia_plan, spmm_dia, spmm_dia_ref, spmm_dia_skinny
 from sextans_tpu_torch.ops.spmm_slab import SKINNY_MAX_N
 from sextans_tpu_torch.utils.config import SpmmConfig
+from sextans_tpu_torch.utils.profiling import annotate, count, timed
 
 __all__ = ["HybridSplit", "split_structure", "HybridSpmmPlan", "SPLIT_VERSION",
            "DIA_BACKENDS", "check_split"]
@@ -178,6 +187,7 @@ def _cost_based_diag(m: int, n: int) -> int:
     return max(4, int(dia_cycles / max(_residue_edge_cycles(n), 1e-9)))
 
 
+@timed("pack_s")
 def split_structure(
     coo: COOMatrix,
     *,
@@ -351,6 +361,22 @@ def check_split(split) -> None:
         raise ValueError(f"head_rows must ascend strictly within [0, m={m})")
 
 
+def _count_split(split) -> None:
+    """Counts the split's parts once a split, however many plans share it:
+    ``hybrid.diag_entries`` and ``hybrid.diag_slots`` (the nonzeros of
+    ``diag_vals``, and D x M), ``hybrid.dense_entries`` and
+    ``hybrid.dense_slots`` (the nonzeros of the head columns' and hub rows'
+    planes, and M x H + R x K), and ``hybrid.residue_entries``."""
+    if split.__dict__.get("_counted"):
+        return
+    split.__dict__["_counted"] = True
+    count("hybrid.diag_entries", split.diag_nnz)
+    count("hybrid.diag_slots", int(np.size(split.diag_vals)))
+    count("hybrid.dense_entries", split.head_nnz + split.head_row_nnz)
+    count("hybrid.dense_slots", int(np.size(split.head_dense) + np.size(split.head_rows_dense)))
+    count("hybrid.residue_entries", split.residue.nnz)
+
+
 DIA_BACKENDS = ("auto", "pallas", "xla")
 
 
@@ -454,6 +480,13 @@ class HybridSpmmPlan:
                 packed = FORMATS[residue_fmt](split.residue, cfg)
             self.residue_plan = SpmmPlan(packed, n, backend, device=self.device)
 
+        self._upload(split, n, dia_backend)
+
+    @timed("upload_s")
+    def _upload(self, split: HybridSplit, n: int, dia_backend: str) -> None:
+        """Device copies of the split's diagonals (with K6's or K7's run
+        plan), head columns and hub rows; counts the split once."""
+        _count_split(split)
         self._dvals = self._offsets = self._dia = self._runs = None
         self._dia_kw = {}
         if split.diag_offsets.size:
@@ -506,15 +539,16 @@ class HybridSpmmPlan:
             acc = c * f32(beta)
         else:
             acc = torch.zeros((self.m, self.n), dtype=torch.float32, device=self.device)
-        if self._head is not None:
-            with no_tf32():
-                head = torch.matmul(self._head, b[self._head_cols])
-            acc = acc + f32(alpha) * head
-        if self._hrows is not None:
-            with no_tf32():
-                hrows = torch.matmul(self._hrows, b)
-            # head rows are unique, so this adds deterministically
-            acc.index_add_(0, self._hrows_idx, f32(alpha) * hrows)
+        with annotate("sx.hybrid.dense"):
+            if self._head is not None:
+                with no_tf32():
+                    head = torch.matmul(self._head, b[self._head_cols])
+                acc = acc + f32(alpha) * head
+            if self._hrows is not None:
+                with no_tf32():
+                    hrows = torch.matmul(self._hrows, b)
+                # head rows are unique, so this adds deterministically
+                acc.index_add_(0, self._hrows_idx, f32(alpha) * hrows)
         if self.residue_plan is not None:
             acc = self.residue_plan(b, alpha, 1.0, acc)
         return acc
@@ -546,32 +580,40 @@ class HybridSpmmPlan:
             shape = torch.zeros(1, device=self.device).expand(self.m, self.n)
             add(self._dia(self._dvals, self._offsets, b, shape, 1.0, 0.0, with_c=False,
                           precise=1, **self._dia_kw))
-        if self._head is not None:
-            with no_tf32():
-                head = torch.matmul(self._head, b[self._head_cols])
-            add(head)
-        if self._hrows is not None:
-            with no_tf32():
-                hrows = torch.matmul(self._hrows, b)
-            # head rows are unique: set their sums, add their errors
-            p, pe = two_prod(a, hrows)
-            s, e = two_sum(acc[self._hrows_idx], p)
-            acc = acc.index_copy(0, self._hrows_idx, s)
-            resid = resid.index_add(0, self._hrows_idx, pe + e)
+        with annotate("sx.hybrid.dense"):
+            if self._head is not None:
+                with no_tf32():
+                    head = torch.matmul(self._head, b[self._head_cols])
+                add(head)
+            if self._hrows is not None:
+                with no_tf32():
+                    hrows = torch.matmul(self._hrows, b)
+                # head rows are unique: set their sums, add their errors
+                p, pe = two_prod(a, hrows)
+                s, e = two_sum(acc[self._hrows_idx], p)
+                acc = acc.index_copy(0, self._hrows_idx, s)
+                resid = resid.index_add(0, self._hrows_idx, pe + e)
         if self.residue_plan is not None:
             add(self.residue_plan(b, 1.0))
         return acc + resid
 
     def __call__(self, b, alpha=1.0, beta=0.0, c=None) -> torch.Tensor:
-        b, c = self._operands(b, beta, c)
-        return self._step(b, c, alpha, beta)
+        """``alpha * A @ b + beta * c`` (M, N), inside the span
+        ``sx.hybrid.call``; counts ``hybrid.calls``."""
+        with annotate("sx.hybrid.call"):
+            count("hybrid.calls")
+            b, c = self._operands(b, beta, c)
+            return self._step(b, c, alpha, beta)
 
     def repeat(self, b, alpha=1.0, beta=0.0, c=None, times: int = 1) -> torch.Tensor:
         """The whole hybrid step ``times`` times on the current stream, C fed
-        back each time (the reference's rp_time loop)."""
+        back each time (the reference's rp_time loop); each step a span
+        ``sx.hybrid.call`` and a count of ``hybrid.calls``."""
         b, c = self._operands(b, beta, c)
         if c is None:
             c = torch.zeros((self.m, self.n), dtype=torch.float32, device=self.device)
         for _ in range(times):
-            c = self._step(b, c, alpha, beta)
+            with annotate("sx.hybrid.call"):
+                count("hybrid.calls")
+                c = self._step(b, c, alpha, beta)
         return c

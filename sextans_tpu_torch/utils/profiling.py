@@ -15,7 +15,9 @@ counter of the same name. Names:
   wrapper, the output's slice); ``sx.kernel.<wrapper>`` around each kernel
   wrapper K1-K7 and the SDDMM's, on either device; ``sx.autodiff.ab``,
   ``.atg``, ``.sddmm``, ``.scatter`` and ``sx.plan.slab_image`` (a training
-  step).
+  step); ``sx.hybrid.call`` (a ``HybridSpmmPlan`` step) and, inside it,
+  ``sx.hybrid.dense`` (its head-column and hub-row matmuls, their gather
+  and adds).
   A product opens two, one a layer: a recorded span costs the host about
   as much as a pad's own host work, so finer spans would mostly time
   themselves;
@@ -27,8 +29,9 @@ counter of the same name. Names:
   (:func:`launches`), ``launch.spmm_slab_padded.overlap``, those of K1
   through its overlapped tensor-core mainloop, and
   ``launch.spmm_edge_padded.precise1`` and ``.precise2``, those of K4 at
-  each precise level; ``pack_s``, ``upload_s`` and ``library_s``, host seconds of the packers, of the upload to the device
-  and of loading (or compiling) the kernel library; ``sddmm.entries`` and
+  each precise level; ``pack_s``, ``upload_s`` and ``library_s``, host
+  seconds of the packers and ``split_structure``, of the upload to the
+  device and of loading (or compiling) the kernel library; ``sddmm.entries`` and
   ``sddmm.b_rows``, the entries of the SDDMM's host plans and the B rows
   their tiles stage a call (their ratio is each staged row's reuse);
   ``ell.entries``, ``ell.slots``, ``ell.rows`` and ``ell.fold_rows``, an ELL
@@ -38,7 +41,12 @@ counter of the same name. Names:
   (``ops/spmm_ell.py:ell_tiles``); ``edge.entries`` and ``edge.slots``, an
   edge pack's entries and its chunks' slots, once a pack at upload;
   ``edge.runs`` and ``edge.rows``, the runs of K4's host scan and the padded
-  rows that have one, once a pack and device (``ops/spmm_edge.py:row_runs``).
+  rows that have one, once a pack and device (``ops/spmm_edge.py:row_runs``);
+  ``hybrid.calls``, the steps of ``HybridSpmmPlan``; ``hybrid.diag_entries``
+  and ``hybrid.diag_slots``, ``hybrid.dense_entries`` and
+  ``hybrid.dense_slots``, the entries and slots of a hybrid split's
+  diagonal and dense hub planes, and ``hybrid.residue_entries``, once a
+  split at upload (``ops/hybrid.py``).
 """
 
 from __future__ import annotations
