@@ -17,8 +17,10 @@ Phases (each prints its lines; any failure exits non-zero):
    config, edge kernel (K4) at N = 512 and, with ``edge_masked`` and
    ``edge_lanes=4``, at N = 16, ELL gather kernel (K5) at N = 512 and 16, and
    the DIA kernels over the diagonal part of its hybrid split (256
-   diagonals): K6 at N = 512, K7 at N = 16.
-   Tolerance: K4, K6 and K7 to the bit; K3 within
+   diagonals): K6 at N = 512, K7 at N = 16; and the hub kernel
+   (``csrc/hybrid_hub.cu``) over the split's head columns and hub rows at
+   N = 512, on K6's output with C.
+   Tolerance: K4, K6, K7 and the hub kernel to the bit; K3 within
    spacing(f32(max |plain|)) (its plain version contracts each block with a
    matmul); the others 4 * that (K1 contracts in 3xTF32 on the tensor
    cores in plain mode). K3's and K4's rows also print their thread map and
@@ -50,7 +52,14 @@ Phases (each prints its lines; any failure exits non-zero):
    dot products of ~850 terms in 170,998 columns; the worst element's row
    is printed, and whether it is a hub row. On those two, the DIA kernel is
    also held against its plain version and timed beside it and the library
-   call on the diagonal part, as in phase 2. Each run at N > 32 prints K6's
+   call on the diagonal part, as in phase 2; on scircuit_like the hub
+   kernel too, to the bit against its plain version, its launches printed,
+   timed beside its bound (B rows gathered for the hub-row entries, the
+   touched rows of the output read and written) and beside the dense f32
+   GEMMs and adds it replaces (the ``"xla"`` step's hub parts; the
+   ``library_ms`` of its JSON row). Every plain (precise 0) hybrid run
+   launches the hub kernel once a product where its split has head columns
+   or hub rows. Each run at N > 32 prints K6's
    run plan (``dia_runs``: seconds, bytes, runs). Then scircuit_like at N =
    512 through ell_pallas (K5; the default pack's 40 hub rows outgrow a
    tile, so their virtual rows go through the kernel's scratch to its
@@ -85,9 +94,11 @@ Phases (each prints its lines; any failure exits non-zero):
    bit against their plain version; ``HybridSpmmPlan(precise=1)`` with all
    four parts (bar 2.0 and plain mode's ulp on the same inputs). Then full
    width against the f64 oracles of phases 4 and 5: cant_like N = 512
-   through ell_pallas at level 1 (bar 1.0), scircuit_like N = 512 (outside
-   the hub rows no worse than plain mode there; 16 on them, as in plain
-   mode: dot products of ~850 terms that neither package compensates) and
+   through ell_pallas at level 1 (bar 1.0), scircuit_like N = 512 (no worse
+   than plain mode there, over all rows and outside the hub rows: the hub
+   rows' dot products of ~850 terms, which neither package compensates, are
+   summed by the hub kernel as in plain mode, one launch a part; 16 at
+   most) and
    laplace3d_64 N = 16 (the DIA part alone, bar 1.0 and plain mode's ulp)
    through the precise hybrid plan; K5, K6 and K7 each again to the bit
    against their plain version at these shapes, timed beside the same
@@ -265,6 +276,23 @@ def dia_bound(n_diags: int, m: int, k: int, n: int):
 
     flop_ms = 2.0 * n_diags * m * n / PEAK_F32_FLOPS * 1e3
     byte_ms = (4.0 * n_diags * m + 4.0 * k * n + 8.0 * m * n) / PEAK_HBM_BYTES * 1e3
+    return max(flop_ms, byte_ms), "operations" if flop_ms > byte_ms else "bytes"
+
+
+def hub_bound(split, entries: int, rows: int, n: int):
+    """Least milliseconds of the hub pass (``csrc/hybrid_hub.cu``) over
+    ``split``'s head columns and hub rows: each distinct B row its entries
+    name read once (a hub row's columns repeat across the hub rows, and the
+    repeats may come from the L2), each of the ``rows`` touched rows of out
+    read and written once and 8 bytes of list an entry, against 2 flops an
+    entry and column; and its limit."""
+    import numpy as np
+
+    from sextans_tpu_torch.utils.timing import PEAK_F32_FLOPS, PEAK_HBM_BYTES
+
+    b_rows = np.union1d(np.nonzero(split.head_rows_dense)[1], split.head_cols).size
+    flop_ms = 2.0 * entries * n / PEAK_F32_FLOPS * 1e3
+    byte_ms = (4.0 * n * (b_rows + 2 * rows) + 8.0 * entries) / PEAK_HBM_BYTES * 1e3
     return max(flop_ms, byte_ms), "operations" if flop_ms > byte_ms else "bytes"
 
 
@@ -795,6 +823,7 @@ def main() -> int:
 
     import sextans_tpu_torch as sx
     from sextans_tpu_torch.ops import df32
+    from sextans_tpu_torch.ops.hybrid_hub import hub_launch, hybrid_hub, hybrid_hub_ref
     from sextans_tpu_torch.ops.plan import BACKEND_FORMATS
     from sextans_tpu_torch.ops.spmm_block import block_launch, spmm_block_padded, stripe_visits
     from sextans_tpu_torch.ops.spmm_dia import (
@@ -827,7 +856,9 @@ def main() -> int:
         spmm_slab_skinny_padded,
     )
     from sextans_tpu_torch.runtime.build import build_kernels
+    from sextans_tpu_torch.utils.config import cdiv
     from sextans_tpu_torch.utils.matrices import circuit_like, fem_like, stencil_3d
+    from sextans_tpu_torch.utils.profiling import launches as launches_of
     from sextans_tpu_torch.utils.timing import (
         PEAK_F32_FLOPS,
         PEAK_HBM_BYTES,
@@ -1043,16 +1074,72 @@ def main() -> int:
         return name, dict(max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"],
                           bound_ms=bound_ms, bound_by=bound_by, library_ms=ms["library"])
 
+    def check_hub(tag, split, n, iters, rounds=ROUNDS):
+        """Hold the hub kernel of the plain hybrid step (``csrc/hybrid_hub.cu``)
+        against its plain version on the card, to the bit, on the DIA
+        kernel's output with C, plain and compensated (the precise step's
+        sums); time the plain one and its plain version beside its bound and
+        the dense
+        composition it replaces (the head-column and hub-row f32 GEMMs over
+        the split's planes, B's gather, ``acc + alpha * head`` and
+        ``index_add_``: the ``"xla"`` plan's own ``_add_hubs``)."""
+        m, k = split.m, split.k
+        b, c = (torch.as_tensor(x, device="cuda") for x in operands(m, k, n))
+        pl = sx.HybridSpmmPlan(split, n, residue_config=block_cfg, backend="pallas",
+                               device="cuda")
+        lists = pl._hub
+        acc = pl._dia(pl._dvals, pl._offsets, b, c, ALPHA, BETA, **pl._dia_kw)
+        before = launches_of(hybrid_hub)
+        got = hybrid_hub(acc.clone(), b, ALPHA, lists)
+        want, plain_ms = timed_once(lambda: hybrid_hub_ref(acc.clone(), b, ALPHA, lists))
+        torch.cuda.synchronize()
+        ran = launches_of(hybrid_hub) - before
+        err = (got - want).abs().max().item()
+        ok = ran == 1 and bool(torch.isfinite(got).all().item()) and torch.equal(got, want)
+        got = hybrid_hub(acc.clone(), b, ALPHA, lists, precise=1)
+        want = hybrid_hub_ref(acc.clone(), b, ALPHA, lists, precise=1)
+        err_precise = (got - want).abs().max().item()
+        ok = ok and bool(torch.isfinite(got).all().item()) and torch.equal(got, want)
+        del got, want
+        xla = sx.HybridSpmmPlan(split, n, residue_config=block_cfg, backend="pallas",
+                                dia_backend="xla", device="cuda")
+        work = acc.clone()
+        ms = {"plain": plain_ms, **abba_ms(
+            {"kernel": lambda: hybrid_hub(work, b, ALPHA, lists),
+             # a new (M, N) sum where the split has head columns, as here
+             "dense": lambda: xla._add_hubs(acc, b, ALPHA)}, iters, rounds)}
+        del xla
+        hub_entries = split.head_row_nnz
+        bound_ms, bound_by = hub_bound(split, lists.entries, lists.jobs, n)
+        go = hub_launch(n, lists, 4 if n % 4 == 0 else 1)
+        print(f"{tag}: hybrid_hub N={n}: {lists.entries} entries ({split.head_nnz} in "
+              f"{split.head_cols.size} head columns, {hub_entries} in {lists.n_hub} hub rows) "
+              f"over {lists.jobs} rows [grid {go.grid[0]} CTAs of {go.threads} threads, "
+              f"{lists.n_hub} x {cdiv(n, 32 * go.cols)} hub CTAs first]: launches {ran}, "
+              f"max_abs_err vs plain {err:.3e}, compensated {err_precise:.3e} (tol 0) "
+              f"kernel {ms['kernel']:.4f} ms plain "
+              f"{ms['plain']:.4f} ms the dense GEMMs and adds {ms['dense']:.4f} ms bound "
+              f"{bound_ms:.5f} ms ({bound_by}) {'ok' if ok else 'MISMATCH'} {at()}", flush=True)
+        if not ok:
+            fail(f"{tag}: hybrid_hub at N={n} disagrees with its plain version "
+                 f"(launches {ran})")
+        return "hybrid_hub", dict(max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"],
+                                  bound_ms=bound_ms, bound_by=bound_by,
+                                  library_ms=ms["dense"])
+
     for n in (512, 16):
         name, row = check_dia("phase 2 (dia)", sx.split_structure(synth, n=n), n, iters=10)
         kernels[name] = row
+    name, row = check_hub("phase 2 (hub)", sx.split_structure(synth, n=512), 512, iters=10)
+    kernels[name] = row
     print(f"phase 2: done (at {time.perf_counter() - t_start:.1f} s)", flush=True)
 
     # ---- phases 3 and 4: the main path ----
     counted = {"spmm_block": spmm_block_padded, "spmm_slab": spmm_slab_padded,
                "spmm_slab_skinny": spmm_slab_skinny_padded,
                "spmm_edge": spmm_edge_padded, "spmm_ell": spmm_ell_gather_padded,
-               "spmm_dia": spmm_dia, "spmm_dia_skinny": spmm_dia_skinny}
+               "spmm_dia": spmm_dia, "spmm_dia_skinny": spmm_dia_skinny,
+               "hybrid_hub": hybrid_hub}
     launches = dict.fromkeys(counted, 0)
     goldens = {}
 
@@ -1245,7 +1332,8 @@ def main() -> int:
             t = statistics.median(time_repeat(pl, b_dev, ALPHA, BETA, c_dev, times=times)
                                   for _ in range(3))
             dia = "spmm_dia_skinny" if n <= SKINNY_MAX_N else "spmm_dia"
-            expected = {dia} | ({"spmm_block"} if pl.residue_plan else set())
+            expected = ({dia} | ({"spmm_block"} if pl.residue_plan else set())
+                        | ({"hybrid_hub"} if any(h.jobs for h in pl.hub_passes) else set()))
             traced = profile(pl, b_dev, c_dev, tuple(expected))
             torch.cuda.synchronize()
             ran = launched_since(counted, marks)
@@ -1282,6 +1370,9 @@ def main() -> int:
             if time_dia:  # the DIA kernel alone, beside its plain version and the library
                 check_dia(tag, split, n, iters=1, rounds=2, slow_plain=True)
                 torch.cuda.empty_cache()
+                if split.head_cols.size or split.head_rows.size:  # and the hub pass
+                    check_hub(tag, split, n, iters=5, rounds=2)
+                    torch.cuda.empty_cache()
 
         for n in (512, 16):
             drive_hybrid("phase 5 synthetic4704", coo, n, times=20, bar=ULP_BAR)
@@ -1476,11 +1567,12 @@ def main() -> int:
         del pl, b_dev, c_dev
         torch.cuda.empty_cache()
         # scircuit_like's hub rows are dot products of ~850 terms that
-        # neither package compensates: they keep the plain path's bar, and
-        # every other row is held to plain mode's reading there (phase 5)
+        # neither package compensates, summed by the hub pass as in plain
+        # mode: every row is held to plain mode's reading there (phase 5)
         for tag, coo_, n, bars in (
                 ("phase 9 scircuit_like", scircuit, 512,
-                 (HUB_ULP_BAR, rest_ulps["scircuit_like", 512, 0])),
+                 (min(HUB_ULP_BAR, runs["scircuit_like", "hybrid", 512, 0][0]),
+                  rest_ulps["scircuit_like", 512, 0])),
                 ("phase 9 laplace3d_64", laplace, 16,
                  (min(DIA_PRECISE_BAR, runs["laplace3d_64", "hybrid", 16, 0][0]), None))):
             tally = {}
@@ -1657,7 +1749,7 @@ def main() -> int:
                                 cache_name="synthetic4704@n512-residue", **kw)(b, ALPHA, BETA, c)
         torch.cuda.synchronize()
         ran = launched_since(counted, marks)
-        if ran != {"spmm_dia": 1, "spmm_block": 1}:
+        if ran != {"spmm_dia": 1, "spmm_block": 1, "hybrid_hub": 1}:
             fail(f"phase 11: the cached hybrid launched {ran}")
         for k, count in ran.items():
             launches[k] += count
@@ -1712,6 +1804,9 @@ def main() -> int:
                          else "benchmarks/scratch/ell_issue_probe.py:24")
     sources["sddmm"] = ("sextans_tpu_torch/csrc/sddmm.cu",
                         "none: sextans_tpu/ops/autodiff.py:58 _sddmm is XLA ops")
+    sources["hybrid_hub"] = ("sextans_tpu_torch/csrc/hybrid_hub.cu",
+                             "none: the dense head and hub-row matmuls of "
+                             "sextans_tpu/ops/hybrid.py are XLA ops")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **kernels[name]}

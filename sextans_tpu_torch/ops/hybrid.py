@@ -18,19 +18,39 @@ into the same arrays (held array-identical by ``tests/test_torch_hybrid.py``):
 ``HybridSpmmPlan`` computes one step in the JAX package's order: the DIA
 epilogue ``alpha * diag + beta * C`` (or ``beta * C``), then
 ``+ alpha * head``, then the hub rows, and the partial result goes to the
-residue's plan as its C with beta = 1. With ``precise`` 1 or 2 it runs the
-JAX package's precise composition instead: each part on its own at
-alpha = 1 (the residue's kernel and the DIA kernel compensated), then
+residue's plan as its C with beta = 1. It has two ways to add the head
+columns and hub rows:
+
+* on the ``"pallas"`` DIA route (K6 or K7; their plain version on the
+  CPU) by the row-sparse pass (``ops/hybrid_hub.py:hybrid_hub``,
+  ``csrc/hybrid_hub.cu`` on a card) over the planes' entries as lists,
+  made at upload, touching no row without one. The plain step adds both
+  parts into the DIA kernel's output in place, in one pass. The planes are
+  not uploaded: 99.5 % of their slots are zeros on a circuit split, which
+  two f32 GEMMs would multiply and two (M, N) passes add;
+* on the ``"xla"`` route (the JAX package's composition on any device) by
+  the dense planes and their f32 matmuls.
+
+With ``precise`` 1 or 2 the plan runs the JAX package's precise
+composition: each part on its own at alpha = 1 (the residue's kernel and
+the DIA kernel compensated; on the ``"pallas"`` route the head columns and
+the hub rows each by a compensated pass of their own into zeros, on
+``"xla"`` by the matmuls, uncompensated as in the JAX package), then
 ``beta * C`` and ``alpha`` times each part combined with error-free
 transforms and rounded once per element.
 
-Under a profiler a step is the span ``sx.hybrid.call`` and its head-column
-and hub-row matmuls, with their gather and adds, the span
+The choice follows what the plan observes, the resolved ``dia_backend``
+and ``precise``; the split is the same either way.
+
+Under a profiler a step is the span ``sx.hybrid.call`` and its hub parts
+(the row-sparse pass, or the matmuls with their gather and adds) the span
 ``sx.hybrid.dense`` (``utils/profiling.py``); the DIA kernels and the
 residue's plan open their own inside it. ``split_structure`` counts as
 ``pack_s`` and the plan's uploads as ``upload_s``; ``hybrid.calls`` counts
-the steps, and the ``hybrid.diag_*``, ``hybrid.dense_*`` and
-``hybrid.residue_entries`` counters each split's parts, once a split.
+the steps, the ``hybrid.diag_*``, ``hybrid.dense_*`` and
+``hybrid.residue_entries`` counters each split's parts, once a split, and
+``hybrid.hub_entries`` and ``hybrid.hub_rows`` the row-sparse pass's
+entries and rows, once a plan that makes its lists.
 """
 
 from __future__ import annotations
@@ -44,6 +64,7 @@ import torch
 
 from sextans_tpu_torch.format.coo import COOMatrix
 from sextans_tpu_torch.ops.df32 import two_prod, two_sum
+from sextans_tpu_torch.ops.hybrid_hub import hub_lists, hybrid_hub
 from sextans_tpu_torch.ops.launch import f32, no_tf32, put
 from sextans_tpu_torch.ops.plan import (
     BACKENDS,
@@ -408,13 +429,24 @@ class HybridSpmmPlan:
     ``f"{matrix}@n{n}-residue"``), and the cache's content fingerprint keeps
     a reused name from aliasing another residue.
 
+    The head columns and hub rows: on the ``"pallas"`` route by the
+    row-sparse pass over their entries (``ops/hybrid_hub.py``; the plain
+    version on the CPU), with no dense plane on the device: on the plain
+    step one pass adds them into the DIA kernel's output in place
+    (``launch.hybrid_hub`` once a step on a card), on the precise step two
+    compensated passes at alpha = 1 into zeros, one a part; on the
+    ``"xla"`` route the dense planes and two f32 matmuls, as in the JAX
+    package.
+
     ``precise`` 1 or 2 is the JAX package's precise composition: the
     residue is packed at that level (where its config has none) and run
     with no C at alpha = 1; the DIA part runs compensated (K6 or K7, or
     their plain version for ``dia_backend="xla"``) at alpha = 1; the head
-    and hub-row matmuls stay plain f32, as in the JAX package; and
-    ``beta * C`` and ``alpha`` times each part are summed with
-    ``two_prod``/``two_sum``, their errors carried beside, and rounded once.
+    columns' and hub rows' sums are compensated too on ``"pallas"`` (the
+    hub pass at the plan's level), and stay plain f32 matmuls on ``"xla"``,
+    as in the JAX package; and ``beta * C`` and ``alpha`` times each part
+    are summed with ``two_prod``/``two_sum``, their errors carried beside,
+    and rounded once.
     """
 
     def __init__(
@@ -485,7 +517,11 @@ class HybridSpmmPlan:
     @timed("upload_s")
     def _upload(self, split: HybridSplit, n: int, dia_backend: str) -> None:
         """Device copies of the split's diagonals (with K6's or K7's run
-        plan), head columns and hub rows; counts the split once."""
+        plan) and of its head columns and hub rows: on the ``"pallas"``
+        route their lists (``ops/hybrid_hub.py:hub_lists``: one for the plain
+        step, one a part for the precise one; counted as
+        ``hybrid.hub_entries`` and ``hybrid.hub_rows`` once a plan), on
+        ``"xla"`` their dense planes. Counts the split once."""
         _count_split(split)
         self._dvals = self._offsets = self._dia = self._runs = None
         self._dia_kw = {}
@@ -498,21 +534,47 @@ class HybridSpmmPlan:
                 self._runs = dia_plan(split.diag_offsets, self.device)
                 self._offsets = self._runs.offsets
                 self._dia_kw = {"runs": self._runs}
-        self._head = self._head_cols = None
+        self._head = self._head_cols = self._hrows = self._hrows_idx = None
+        self._hub = self._head_hub = self._row_hub = None
+        if dia_backend == "pallas":  # the row-sparse pass, no planes
+            r, none = split.head_rows.size, np.zeros(0, dtype=np.int64)
+            if not self.precise:  # both parts in one pass, in place in the step's output
+                if split.head_cols.size or r:
+                    self._hub = hub_lists(split.head_cols, split.head_dense, split.head_rows,
+                                          split.head_rows_dense, self.device)
+            else:  # each part on its own: the head columns' (M, N), the hub rows' (R, N)
+                if split.head_cols.size:
+                    self._head_hub = hub_lists(split.head_cols, split.head_dense, none,
+                                               np.zeros((0, split.k), np.float32), self.device)
+                if r:
+                    self._row_hub = hub_lists(none, np.zeros((r, 0), np.float32),
+                                              np.arange(r), split.head_rows_dense, self.device)
+                    self._hrows_idx = put(split.head_rows, np.int64, self.device)
+            for lists in self.hub_passes:
+                count("hybrid.hub_entries", lists.entries)
+                count("hybrid.hub_rows", lists.jobs)
+            return
         if split.head_cols.size:
             self._head = put(split.head_dense, np.float32, self.device)
             self._head_cols = put(split.head_cols, np.int64, self.device)
-        self._hrows = self._hrows_idx = None
         if split.head_rows.size:
             self._hrows = put(split.head_rows_dense, np.float32, self.device)
             self._hrows_idx = put(split.head_rows, np.int64, self.device)
 
     @property
+    def hub_passes(self) -> tuple:
+        """The hub lists the plan's steps pass over (``ops/hybrid_hub.py``):
+        one for the plain ``"pallas"`` step, the head columns' and the hub
+        rows' apart for the precise one, none on the ``"xla"`` route."""
+        return tuple(h for h in (self._hub, self._head_hub, self._row_hub) if h is not None)
+
+    @property
     def nbytes(self) -> int:
-        """Bytes the plan keeps on its device: the split's dense parts and
-        the residue's pack."""
+        """Bytes the plan keeps on its device: the split's diagonals, its
+        hub lists or dense planes, and the residue's pack."""
         parts = [self._dvals, self._offsets, self._head, self._head_cols, self._hrows,
-                 self._hrows_idx, self._runs and self._runs.ptr]
+                 self._hrows_idx, self._runs and self._runs.ptr,
+                 *(t for lists in self.hub_passes for t in lists.arrays)]
         if self.residue_plan is not None:
             parts += [*self.residue_plan.arrays, *(self.residue_plan.ranges or ()),
                       self.residue_plan.image]
@@ -540,17 +602,47 @@ class HybridSpmmPlan:
         else:
             acc = torch.zeros((self.m, self.n), dtype=torch.float32, device=self.device)
         with annotate("sx.hybrid.dense"):
-            if self._head is not None:
-                with no_tf32():
-                    head = torch.matmul(self._head, b[self._head_cols])
-                acc = acc + f32(alpha) * head
-            if self._hrows is not None:
-                with no_tf32():
-                    hrows = torch.matmul(self._hrows, b)
-                # head rows are unique, so this adds deterministically
-                acc.index_add_(0, self._hrows_idx, f32(alpha) * hrows)
+            acc = self._add_hubs(acc, b, alpha)
         if self.residue_plan is not None:
             acc = self.residue_plan(b, alpha, 1.0, acc)
+        return acc
+
+    def _hub_parts(self, b):
+        """The head columns' (M, N) and the hub rows' (R, N) products at
+        alpha = 1, each on its own, None where the split has none: on the
+        ``"pallas"`` route the row-sparse pass into zeros at the plan's
+        precise level (a compensated sum, rounded once), on ``"xla"`` the
+        planes' f32 matmuls."""
+        head = hrows = None
+        if self._head_hub is not None:
+            head = hybrid_hub(torch.zeros((self.m, self.n), dtype=torch.float32,
+                                          device=self.device), b, 1.0, self._head_hub,
+                              self.precise)
+        elif self._head is not None:
+            with no_tf32():
+                head = torch.matmul(self._head, b[self._head_cols])
+        if self._row_hub is not None:
+            hrows = hybrid_hub(torch.zeros((self._row_hub.m, self.n), dtype=torch.float32,
+                                           device=self.device), b, 1.0, self._row_hub,
+                               self.precise)
+        elif self._hrows is not None:
+            with no_tf32():
+                hrows = torch.matmul(self._hrows, b)
+        return head, hrows
+
+    def _add_hubs(self, acc, b, alpha) -> torch.Tensor:
+        """The plain step's hub parts, ``acc + alpha * (head + hub rows)``:
+        on the ``"pallas"`` route one row-sparse pass in place (``acc`` is
+        never the caller's C), on ``"xla"`` the planes' products added in the
+        JAX package's order. Returns the sum."""
+        if self._hub is not None:
+            return hybrid_hub(acc, b, alpha, self._hub)
+        head, hrows = self._hub_parts(b)
+        if head is not None:
+            acc = acc + f32(alpha) * head
+        if hrows is not None:
+            # head rows are unique, so this adds deterministically
+            acc.index_add_(0, self._hrows_idx, f32(alpha) * hrows)
         return acc
 
     def _precise_step(self, b, c, alpha, beta) -> torch.Tensor:
@@ -581,13 +673,10 @@ class HybridSpmmPlan:
             add(self._dia(self._dvals, self._offsets, b, shape, 1.0, 0.0, with_c=False,
                           precise=1, **self._dia_kw))
         with annotate("sx.hybrid.dense"):
-            if self._head is not None:
-                with no_tf32():
-                    head = torch.matmul(self._head, b[self._head_cols])
+            head, hrows = self._hub_parts(b)
+            if head is not None:
                 add(head)
-            if self._hrows is not None:
-                with no_tf32():
-                    hrows = torch.matmul(self._hrows, b)
+            if hrows is not None:
                 # head rows are unique: set their sums, add their errors
                 p, pe = two_prod(a, hrows)
                 s, e = two_sum(acc[self._hrows_idx], p)

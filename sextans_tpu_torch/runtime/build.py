@@ -68,6 +68,8 @@ _SIGNATURES = {
     # dvals offsets run_ptr b c out m k n n_runs alpha beta
     # with_c precise vec span length rows threads grid smem stream
     "spmm_dia_skinny_launch": [_P] * 6 + [_I] * 4 + [_F, _F] + [_I] * 9 + [_P],
+    # rows ptr mid cols vals b out n_jobs n_hub n alpha vec threads grid stream
+    "hybrid_hub_launch": [_P] * 7 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
     # g b tile_ptr slot_ptr tile_rows slots codes perm out
     # n_tiles n ring_rows vec lanes stream
     "sddmm_tile_launch": [_P] * 9 + [_I] * 5 + [_P],

@@ -16,7 +16,8 @@ counter of the same name. Names:
   wrapper K1-K7 and the SDDMM's, on either device; ``sx.autodiff.ab``,
   ``.atg``, ``.sddmm``, ``.scatter`` and ``sx.plan.slab_image`` (a training
   step); ``sx.hybrid.call`` (a ``HybridSpmmPlan`` step) and, inside it,
-  ``sx.hybrid.dense`` (its head-column and hub-row matmuls, their gather
+  ``sx.hybrid.dense`` (its head columns and hub rows: the row-sparse pass
+  ``hybrid_hub`` on the ``"pallas"`` route, else their matmuls, gather
   and adds).
   A product opens two, one a layer: a recorded span costs the host about
   as much as a pad's own host work, so finer spans would mostly time
@@ -46,7 +47,11 @@ counter of the same name. Names:
   and ``hybrid.diag_slots``, ``hybrid.dense_entries`` and
   ``hybrid.dense_slots``, the entries and slots of a hybrid split's
   diagonal and dense hub planes, and ``hybrid.residue_entries``, once a
-  split at upload (``ops/hybrid.py``).
+  split at upload (``ops/hybrid.py``); ``hybrid.hub_entries`` and
+  ``hybrid.hub_rows``, the entries and rows of the lists the row-sparse
+  pass walks, once a plan that makes them (``launch.hybrid_hub`` counts
+  that pass's launches on a card: one a plain step, one a part a precise
+  step).
 """
 
 from __future__ import annotations

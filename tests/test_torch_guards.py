@@ -83,7 +83,7 @@ def test_build_flags_target_hopper_and_hash_sources():
     assert {p.name for p in build._sources()} == {
         "spmm_block.cu", "spmm_block_precise1.cu", "spmm_block_precise2.cu",
         "spmm_slab.cu", "spmm_edge.cu", "spmm_ell.cu", "spmm_dia.cu", "df32_probe.cu",
-        "gather_probe.cu", "sddmm.cu"}
+        "gather_probe.cu", "sddmm.cu", "hybrid_hub.cu"}
     assert build._source_hash() == build._source_hash()
     # the headers are hashed with the sources, so editing one rebuilds
     for header in ("df32.cuh", "spmm_block.cuh", "async_copy.cuh"):
@@ -93,8 +93,10 @@ def test_build_flags_target_hopper_and_hash_sources():
                 "spmm_slab_skinny_launch": 7, "spmm_edge_launch": 10,
                 "spmm_ell_launch": 12, "spmm_dia_launch": 6, "spmm_dia_skinny_launch": 6,
                 "df32_probe_pairs": 6, "df32_probe_chain": 3,
-                "dma_gather_launch": 4, "ell_issue_launch": 4, "sddmm_tile_launch": 9}
-    # alpha and beta: the SpMM kernels take both, the probes and the SDDMM neither
+                "dma_gather_launch": 4, "ell_issue_launch": 4, "sddmm_tile_launch": 9,
+                "hybrid_hub_launch": 7}
+    # alpha and beta: the SpMM kernels take both, the hub pass alpha alone (it
+    # adds into the DIA kernel's output), the probes and the SDDMM neither
     probes = {"df32_probe_pairs", "df32_probe_chain", "dma_gather_launch", "ell_issue_launch",
               "sddmm_tile_launch"}
     entries = [name for name in build._SIGNATURES if name != "sx_error_string"]
@@ -104,7 +106,8 @@ def test_build_flags_target_hopper_and_hash_sources():
         p = pointers[name]
         assert argtypes[:p] == [ctypes.c_void_p] * p and argtypes[-1] is ctypes.c_void_p
         assert ctypes.c_void_p not in argtypes[p:-1]
-        assert argtypes.count(ctypes.c_float) == (0 if name in probes else 2)
+        floats = 0 if name in probes else 1 if name == "hybrid_hub_launch" else 2
+        assert argtypes.count(ctypes.c_float) == floats
 
 
 def test_each_source_is_compiled_by_its_own_nvcc(monkeypatch, tmp_path):

@@ -16,6 +16,7 @@ from torch.profiler import profile
 
 import sextans_tpu_torch as tx
 from sextans_tpu_torch.ops import df32
+from sextans_tpu_torch.ops.hybrid_hub import hybrid_hub
 from sextans_tpu_torch.ops.spmm_block import spmm_block_padded
 from sextans_tpu_torch.ops.spmm_dia import spmm_dia, spmm_dia_skinny
 from sextans_tpu_torch.ops.spmm_edge import spmm_edge_padded
@@ -30,7 +31,8 @@ N = 40  # over 32: the mxu backend runs K1 (spmm_slab_padded)
 CFG = tx.SpmmConfig(tile_m=256, window_k=512, block_k=16, group_blocks=8)
 WRAPPERS = (spmm_slab_padded, spmm_slab_skinny_padded, spmm_block_padded, spmm_edge_padded,
             spmm_ell_gather_padded, spmm_dia, spmm_dia_skinny, df32.eft_probe_pairs,
-            df32.eft_probe_chain, dma_gather.gather_spmm, ell_issue.ell_issue, sddmm_rows)
+            df32.eft_probe_chain, dma_gather.gather_spmm, ell_issue.ell_issue, sddmm_rows,
+            hybrid_hub)
 
 
 @pytest.fixture(scope="module")
