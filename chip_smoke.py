@@ -977,12 +977,6 @@ def main() -> int:
                     f"{int(blocks.max(initial=0))}), {go.threads} threads a CTA, {SLAB_STAGES} "
                     f"stages of {min(SLAB_CHUNK, cfg.block_k)} terms, {go.smem} bytes of "
                     f"shared memory a CTA]")
-            # how often K1 went through its overlapped tensor-core mainloop
-            tally = sx.counters()
-            k1, overlap = (tally.get("launch.spmm_slab_padded", 0),
-                           tally.get("launch.spmm_slab_padded.overlap", 0))
-            grid += (f" [launch.spmm_slab_padded {k1}, .overlap {overlap} "
-                     f"({100.0 * overlap / max(k1, 1):.1f} %)]")
         elif name == "spmm_ell":
             tiles = pl.ranges
             go = ell_launch(n, 4 if n >= ELL_VEC4_MIN_N and n % 4 == 0 else 1,

@@ -78,7 +78,7 @@ class ValueScatter:
         self.groups = ([(idx[sel], sel) for sel in rank_groups(idx)] if idx.numel() else [])
 
     def __call__(self, vals: torch.Tensor) -> torch.Tensor:
-        with annotate("sx.autodiff.scatter"):
+        with annotate("sx.autodiff.scatter", self.device):
             flat = torch.zeros(self.numel, dtype=torch.float32, device=self.device)
             for idx, sel in self.groups:
                 flat[idx] = flat[idx] + vals[sel]
@@ -139,7 +139,7 @@ class SpmmValueOp:
         """``dvals[e] = g[rows[e]] . b[cols[e]]`` in f32
         (:func:`~sextans_tpu_torch.ops.sddmm.sddmm_rows`: the kernel over the
         op's tiles on the card, the plain version on the CPU)."""
-        with annotate("sx.autodiff.sddmm"):
+        with annotate("sx.autodiff.sddmm", self.device):
             return sddmm_rows(g.contiguous(), b.contiguous(), self.rows, self.cols,
                               tiles=self.sddmm_tiles)
 
@@ -160,23 +160,26 @@ class _SpmmValueFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, op: SpmmValueOp, vals, b, c, alpha, beta):
-        ab = op.ab(vals, b)
-        ctx.op = op
-        ctx.save_for_backward(vals, b, c, alpha, beta, ab if ctx.needs_input_grad[4] else None)
-        return alpha * ab + beta * c
+        with annotate("sx.autodiff.forward", op.device):
+            ab = op.ab(vals, b)
+            ctx.op = op
+            ctx.save_for_backward(vals, b, c, alpha, beta,
+                                  ab if ctx.needs_input_grad[4] else None)
+            return alpha * ab + beta * c
 
     @staticmethod
     def backward(ctx, g):
         op = ctx.op
-        vals, b, c, alpha, beta, ab = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        g = g.to(torch.float32).contiguous()
-        dvals = alpha * op.sddmm(g, b) if need[1] else None
-        db = alpha * op.atg(vals, g) if need[2] else None
-        dc = beta * g if need[3] else None
-        dalpha = torch.dot(g.reshape(-1), ab.reshape(-1)) if need[4] else None
-        dbeta = torch.dot(g.reshape(-1), c.reshape(-1)) if need[5] else None
-        return None, dvals, db, dc, dalpha, dbeta
+        with annotate("sx.autodiff.backward", op.device):
+            vals, b, c, alpha, beta, ab = ctx.saved_tensors
+            need = ctx.needs_input_grad
+            g = g.to(torch.float32).contiguous()
+            dvals = alpha * op.sddmm(g, b) if need[1] else None
+            db = alpha * op.atg(vals, g) if need[2] else None
+            dc = beta * g if need[3] else None
+            dalpha = torch.dot(g.reshape(-1), ab.reshape(-1)) if need[4] else None
+            dbeta = torch.dot(g.reshape(-1), c.reshape(-1)) if need[5] else None
+            return None, dvals, db, dc, dalpha, dbeta
 
 
 def spmm_value_op(

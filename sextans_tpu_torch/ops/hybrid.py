@@ -601,7 +601,7 @@ class HybridSpmmPlan:
             acc = c * f32(beta)
         else:
             acc = torch.zeros((self.m, self.n), dtype=torch.float32, device=self.device)
-        with annotate("sx.hybrid.dense"):
+        with annotate("sx.hybrid.dense", self.device):
             acc = self._add_hubs(acc, b, alpha)
         if self.residue_plan is not None:
             acc = self.residue_plan(b, alpha, 1.0, acc)
@@ -672,7 +672,7 @@ class HybridSpmmPlan:
             shape = torch.zeros(1, device=self.device).expand(self.m, self.n)
             add(self._dia(self._dvals, self._offsets, b, shape, 1.0, 0.0, with_c=False,
                           precise=1, **self._dia_kw))
-        with annotate("sx.hybrid.dense"):
+        with annotate("sx.hybrid.dense", self.device):
             head, hrows = self._hub_parts(b)
             if head is not None:
                 add(head)

@@ -258,7 +258,7 @@ class SpmmPlan:
         need(pv, "pv", torch.float32, self.arrays[0].shape, self.device)
         image = {}
         if self._image:
-            with annotate("sx.plan.slab_image"):
+            with annotate("sx.plan.slab_image", self.device):
                 image["image"] = self._image(pv)
         return self._run(pv, *self.arrays[1:], b_p, c_p, alpha, beta, with_c=with_c, **image)
 

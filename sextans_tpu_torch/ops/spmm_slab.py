@@ -90,11 +90,10 @@ def slab_launch(n: int, n_slabs: int, block_k: int, precise: int = 0) -> Launch:
     (1, 1); a stage holds a chunk of 32 terms of a block, its hi and lo
     tiles for the CTA's rows (:func:`slab_image`) and each warpgroup's 32 B
     rows at its 64 columns; each warpgroup keeps one 8-term step on the
-    tensor cores while it adds up the one before (the overlapped mainloop,
-    counted as ``launch.spmm_slab_padded.overlap``), and a stage is freed by
-    a counter beside its mbarrier. Precise mode contracts on FFMA: 128
-    threads per half slab and 64 columns, each over 8 rows and 4 columns; a
-    stage holds the chunk's values for the half slab and its B rows. Either
+    tensor cores while it adds up the one before (the overlapped mainloop),
+    and a stage is freed by a counter beside its mbarrier. Precise mode
+    contracts on FFMA: 128 threads per half slab and 64 columns, each over
+    8 rows and 4 columns; a stage holds the chunk's values for the half slab and its B rows. Either
     way a ring of four stages, each beside an 8-byte mbarrier, and the
     column tiles of a slab adjacent in the grid. ``lanes`` is the rows and
     ``cols`` the columns of a CTA. A stage holds at most 32 terms whatever
@@ -347,8 +346,6 @@ def spmm_slab_padded(
             c_padded, alpha, beta, ranges=ranges, image=image, m=m, k=k, **kw,
         )
         count("launch.spmm_slab_padded")
-        if not precise:  # on the tensor cores, through the overlapped mainloop
-            count("launch.spmm_slab_padded.overlap")
         return out
 
 

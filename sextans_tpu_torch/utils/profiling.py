@@ -9,16 +9,29 @@ The program names its own work on that timeline with ``annotate`` (a
 tracing is on exactly when someone profiles) and counts it with ``count``
 into one process-wide dictionary that ``counters()`` returns. ``timed``
 is for set-up-scale work: a span that also adds its host seconds to a
-counter of the same name. Names:
+counter of the same name. A span given its CUDA device (``annotate(name,
+device)``) is also clocked on the card while a profiler records: a timing
+CUDA event on the current stream at its entry and one at its exit, which
+``counters()`` resolves into ``device_ms.<span>`` (the events' elapsed
+milliseconds, summed; a span nested in another counts in both) and
+``spans.<span>`` (how many). A span's device time is the stream's time from
+its entry to its exit, so it holds any time the card waited for the host
+inside the span, not only the work the span queued. Names:
 
 * spans: ``sx.plan.call`` (``SpmmPlan.__call__``: the pads, the kernel
   wrapper, the output's slice); ``sx.kernel.<wrapper>`` around each kernel
-  wrapper K1-K7 and the SDDMM's, on either device; ``sx.autodiff.ab``,
-  ``.atg``, ``.sddmm``, ``.scatter`` and ``sx.plan.slab_image`` (a training
-  step); ``sx.hybrid.call`` (a ``HybridSpmmPlan`` step) and, inside it,
-  ``sx.hybrid.dense`` (its head columns and hub rows: the row-sparse pass
-  ``hybrid_hub`` on the ``"pallas"`` route, else their matmuls, gather
-  and adds).
+  wrapper K1-K7 and the SDDMM's, on either device; in a training step
+  ``sx.autodiff.forward`` and ``sx.autodiff.backward`` (the value op's
+  forward and backward, the backward on autograd's thread), inside them
+  ``sx.autodiff.ab``, ``.atg``, ``.sddmm``, ``.scatter`` and
+  ``sx.plan.slab_image``; ``sx.hybrid.call`` (a ``HybridSpmmPlan`` step)
+  and, inside it, ``sx.hybrid.dense`` (its head columns and hub rows: the
+  row-sparse pass ``hybrid_hub`` on the ``"pallas"`` route, else their
+  matmuls, gather and adds). Clocked on a card: ``sx.autodiff.forward``,
+  ``.backward``, ``.scatter``, ``.sddmm``, ``sx.plan.slab_image`` and
+  ``sx.hybrid.dense``; not ``sx.plan.call``, ``sx.hybrid.call`` or
+  ``sx.kernel.*``, whose host time the benchmark reads (an event's record
+  would add to it) and whose kernels a trace times by name.
   A product opens two, one a layer: a recorded span costs the host about
   as much as a pad's own host work, so finer spans would mostly time
   themselves;
@@ -27,11 +40,10 @@ counter of the same name. Names:
   (the calls that handed the slab kernels, the edge kernel or the ELL
   gather kernel B, C and the output unpadded);
   ``launch.<wrapper>``, the kernel launches of each wrapper on a card
-  (:func:`launches`), ``launch.spmm_slab_padded.overlap``, those of K1
-  through its overlapped tensor-core mainloop, and
-  ``launch.spmm_edge_padded.precise1`` and ``.precise2``, those of K4 at
-  each precise level; ``pack_s``, ``upload_s`` and ``library_s``, host
-  seconds of the packers and ``split_structure``, of the upload to the
+  (:func:`launches`), and ``launch.spmm_edge_padded.precise1`` and
+  ``.precise2``, those of K4 at each precise level; ``device_ms.<span>``
+  and ``spans.<span>`` of the clocked spans; ``pack_s``, ``upload_s`` and
+  ``library_s``, host seconds of the packers and ``split_structure``, of the upload to the
   device and of loading (or compiling) the kernel library; ``sddmm.entries`` and
   ``sddmm.b_rows``, the entries of the SDDMM's host plans and the B rows
   their tiles stage a call (their ratio is each staged row's reuse);
@@ -56,11 +68,13 @@ counter of the same name. Names:
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -73,6 +87,9 @@ recording = torch.autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 _COUNTERS: dict = {}
 _TIMED_DEPTH: dict = {}
+# (span, entry event, exit event) of the clocked spans that counters() has
+# not resolved yet; a deque, since autograd's thread appends to it too
+_PENDING: collections.deque = collections.deque()
 
 
 @contextlib.contextmanager
@@ -96,10 +113,34 @@ def trace(logdir=None):
     prof.export_chrome_trace(str(logdir / f"trace_{os.getpid()}.json"))
 
 
-def annotate(name: str):
+def annotate(name: str, device: Optional[torch.device] = None):
     """A span named ``name`` on the profiler's timeline (a context manager)
-    while a profiler records; otherwise one shared no-op."""
-    return record_function(name) if recording() else _OFF
+    while a profiler records; otherwise one shared no-op. Given a CUDA
+    ``device``, the span is also clocked on it (see the module): its device
+    time is the current stream's time from its entry to its exit, waits
+    for the host included. A CPU ``device`` clocks nothing."""
+    if not recording():
+        return _OFF
+    if device is not None and device.type == "cuda":
+        return _clocked(name, device)
+    return record_function(name)
+
+
+def _mark(device: torch.device):
+    """A timing CUDA event recorded now on ``device``'s current stream."""
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+@contextlib.contextmanager
+def _clocked(name: str, device: torch.device):
+    with record_function(name):
+        start = _mark(device)
+        try:
+            yield
+        finally:
+            _PENDING.append((name, start, _mark(device)))
 
 
 def count(name: str, n=1) -> None:
@@ -108,7 +149,15 @@ def count(name: str, n=1) -> None:
 
 
 def counters() -> dict:
-    """A copy of every counter of this process (see the module)."""
+    """A copy of every counter of this process (see the module), once the
+    clocked spans recorded so far are added to ``device_ms.<span>`` and
+    ``spans.<span>``: this waits for each one's exit event, the only wait
+    the clock makes."""
+    while _PENDING:
+        name, start, end = _PENDING.popleft()
+        end.synchronize()
+        count(f"device_ms.{name}", start.elapsed_time(end))
+        count(f"spans.{name}")
     return dict(_COUNTERS)
 
 

@@ -1,14 +1,18 @@
 """The port's spans and counters (``sextans_tpu_torch/utils/profiling.py``)
 on the CPU: no span object while no profiler records, the spans' nesting
-under ``torch.profiler``, the counters' exact counts, and the benchmark's
-readers of them (``bench_torch/program.py``) on a CPU traced window.
+under ``torch.profiler``, the counters' exact counts, the clocked spans'
+device time on a fake event clock, and the benchmark's readers of them
+(``bench_torch/program.py``) on a CPU traced window. One card test holds
+the clock to the profiler's kernel time; it skips without a card.
 """
 
 from __future__ import annotations
 
 import torch_cpu  # noqa: F401  one torch thread per xdist worker
 
+import collections
 import time
+import types
 
 import pytest
 import torch
@@ -87,6 +91,74 @@ def test_annotate_without_a_profiler_is_the_shared_no_op(made):
     assert made == []
 
 
+class FakeEvent:
+    """An event of the fake clock: the time it was recorded at (ms)."""
+
+    def __init__(self, clock):
+        self.at = clock.now
+        self.waits = 0
+        clock.events.append(self)
+
+    def synchronize(self):
+        self.waits += 1
+
+    def elapsed_time(self, end):
+        return end.at - self.at
+
+
+@pytest.fixture
+def clock(monkeypatch):
+    """A fake card clock in place of the CUDA events (``profiling._mark``):
+    an event records ``clock.now``, which the test moves; fresh counters
+    and no pending span."""
+    fake = types.SimpleNamespace(now=0.0, events=[])
+    monkeypatch.setattr(profiling, "_mark", lambda device: FakeEvent(fake))
+    monkeypatch.setattr(profiling, "_COUNTERS", {})
+    monkeypatch.setattr(profiling, "_PENDING", collections.deque())
+    return fake
+
+
+CARD = torch.device("cuda", 0)  # named, never touched: the fake clock records
+
+
+def test_clocked_annotate_without_a_profiler_is_the_shared_no_op(made, clock):
+    assert not profiling.recording()
+    first, second = profiling.annotate("sx.a", CARD), profiling.annotate("sx.b")
+    assert first is second
+    with first:
+        with profiling.annotate("sx.c", torch.device("cpu")):
+            clock.now += 1.0
+    assert made == [] and clock.events == [] and not profiling._PENDING
+    assert profiling.counters() == {}
+
+
+def test_clocked_spans_are_inclusive_and_resolve_once(made, clock):
+    with profile():
+        with profiling.annotate("sx.outer", CARD):  # 0 .. 10
+            clock.now = 2.0
+            for _ in range(2):  # 2 .. 5 and 6 .. 9
+                with profiling.annotate("sx.inner", CARD):
+                    with profiling.annotate("sx.unclocked"):
+                        clock.now += 3.0
+                clock.now += 1.0
+    assert made == ["sx.outer", "sx.inner", "sx.unclocked", "sx.inner", "sx.unclocked"]
+    assert len(profiling._PENDING) == 3 and len(clock.events) == 6
+    got = profiling.counters()
+    assert got == {"device_ms.sx.outer": 10.0, "spans.sx.outer": 1,
+                   "device_ms.sx.inner": 6.0, "spans.sx.inner": 2}
+    assert not profiling._PENDING
+    assert [e.waits for e in clock.events] == [0, 0, 1, 0, 1, 1]  # each exit event, once
+    assert profiling.counters() == got
+
+
+def test_span_on_a_cpu_device_records_nothing(made, clock):
+    with profile() as prof:
+        with profiling.annotate("sx.cpu", torch.device("cpu")):
+            torch.ones(4) + 1
+    assert made == ["sx.cpu"] and "sx.cpu" in spans(prof)
+    assert clock.events == [] and profiling.counters() == {}
+
+
 def test_annotate_under_a_profiler_makes_a_range(made):
     with profile() as prof:
         with profiling.annotate("sx.test.span"):
@@ -132,22 +204,51 @@ def test_traced_plan_call_gives_the_same_bits(plan, with_c):
     assert torch.equal(on, off)
 
 
-def test_value_op_step_spans(coo):
-    op = tx.spmm_value_op(coo, N, config=CFG, fmt="mxu", device="cpu")
+def value_op_step(op, coo, seed=0):
+    """One step of the value op: the output and the gradients of vals, B,
+    C, alpha and beta."""
+    g = torch.Generator().manual_seed(seed)
     vals = torch.as_tensor(coo.vals, dtype=torch.float32).requires_grad_()
-    b = torch.randn(coo.shape[1], N, requires_grad=True)
-    c = torch.randn(coo.shape[0], N)
+    b = torch.randn(coo.shape[1], N, generator=g).requires_grad_()
+    c = torch.randn(coo.shape[0], N, generator=g).requires_grad_()
+    al, be = torch.tensor(0.85, requires_grad=True), torch.tensor(-2.06, requires_grad=True)
+    out = op(vals, b, c, al, be)
+    out.square().mean().backward()
+    return [out.detach()] + [t.grad for t in (vals, b, c, al, be)]
+
+
+def test_value_op_step_spans(coo, clock):
+    op = tx.spmm_value_op(coo, N, config=CFG, fmt="mxu", device="cpu")
     with profile() as prof:
-        out = op(vals, b, c, 0.85, -2.06)
-        out.square().mean().backward()
+        value_op_step(op, coo)
     got = spans(prof)
-    for name in ("sx.autodiff.ab", "sx.autodiff.sddmm", "sx.autodiff.atg",
-                 "sx.autodiff.scatter", "sx.kernel.spmm_slab_padded", "sx.kernel.sddmm_rows"):
+    for name in ("sx.autodiff.forward", "sx.autodiff.backward", "sx.autodiff.ab",
+                 "sx.autodiff.sddmm", "sx.autodiff.atg", "sx.autodiff.scatter",
+                 "sx.kernel.spmm_slab_padded", "sx.kernel.sddmm_rows"):
         assert name in got, name
-    assert inside(got["sx.autodiff.scatter"], got["sx.autodiff.atg"])
+    fwd, bwd = got["sx.autodiff.forward"], got["sx.autodiff.backward"]
+    assert len(fwd) == len(bwd) == 1
+    assert inside(got["sx.autodiff.ab"], fwd)
+    for name in ("sx.autodiff.sddmm", "sx.autodiff.atg"):
+        assert inside(got[name], bwd) and not inside(got[name], fwd), name
+    scatter = sorted(got["sx.autodiff.scatter"])
+    assert len(scatter) == 2  # A's in the forward, A^T's in the backward
+    assert inside(scatter[:1], got["sx.autodiff.ab"]) and inside(scatter[:1], fwd)
+    assert inside(scatter[1:], got["sx.autodiff.atg"]) and inside(scatter[1:], bwd)
     assert len(got["sx.kernel.sddmm_rows"]) == 1
     assert inside(got["sx.kernel.sddmm_rows"], got["sx.autodiff.sddmm"])
     assert len(got["sx.kernel.spmm_slab_padded"]) == 2  # A and A^T
+    assert clock.events == [] and not profiling._PENDING  # a CPU op clocks nothing
+
+
+def test_traced_value_op_step_gives_the_same_bits(coo):
+    op = tx.spmm_value_op(coo, N, config=CFG, fmt="mxu", device="cpu")
+    off = value_op_step(op, coo, seed=5)
+    with profile():
+        on = value_op_step(op, coo, seed=5)
+    assert len(on) == len(off) == 6
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
 
 
 def test_plan_counters_are_exact(coo, plan):
@@ -312,3 +413,63 @@ def test_counter_readers(coo, plan, monkeypatch):
     assert harness.load_reader("pack_s").read(record) == 1.5
     assert harness.load_reader("upload_s").read(record) == 0.25
     assert harness.load_reader("library_s").read(record) is None  # no library on the CPU
+
+
+CLOCK_READERS = {  # metric -> the clocked spans it sums
+    "slab_image_device_ms.train": ("sx.plan.slab_image",),
+    "scatter_device_ms.train": ("sx.autodiff.scatter",),
+    "value_op_device_ms.train": ("sx.autodiff.forward", "sx.autodiff.backward"),
+}
+
+
+@pytest.mark.parametrize("metric", sorted(CLOCK_READERS))
+def test_clock_readers(metric, clock):
+    from bench_torch import harness
+    from bench_torch.trace import Trace
+
+    reader = harness.load_reader(metric)
+    steps = 4
+    record = harness.Record(0.0, 1.0, steps, {}, Trace([], [], [], 0.0, 1.0, steps))
+    assert reader.read(record) is None  # no clocked span: the CPU, or no clock
+    with profile():
+        for ms in (3.0, 5.0):
+            for span in CLOCK_READERS[metric]:
+                with profiling.annotate(span, CARD):
+                    clock.now += ms
+    want = 8.0 * len(CLOCK_READERS[metric]) / steps
+    assert reader.read(record) == pytest.approx(want)
+    assert reader.read(harness.Record(0.0, 1.0, steps, {}, None)) is None  # untraced
+
+
+@pytest.mark.gpu
+def test_sddmm_span_clock_matches_the_kernels_time():
+    """On a card: the SDDMM span's clock (``device_ms.sx.autodiff.sddmm``)
+    against ``torch.profiler``'s time of the SDDMM kernel in it, within 5 %.
+    The card sleeps before each call, so that the span's entry event waits
+    on the stream as in a training step, not on the host's launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.profiler import ProfilerActivity
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    a = fem_like(20000, dofs=3, neighbors=22, seed=2)
+    op = tx.spmm_value_op(a, 512, config=CFG, fmt="mxu", device=card)
+    g = torch.Generator(device=card).manual_seed(0)
+    grad = torch.randn(a.shape[0], 512, device=card, generator=g)
+    b = torch.randn(a.shape[1], 512, device=card, generator=g)
+    op.sddmm(grad, b)
+    torch.cuda.synchronize(card)
+    calls, before = 5, tx.counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            torch.cuda._sleep(2_000_000)
+            op.sddmm(grad, b)
+        torch.cuda.synchronize(card)
+    after = tx.counters()
+    span = "sx.autodiff.sddmm"
+    assert after[f"spans.{span}"] - before.get(f"spans.{span}", 0) == calls
+    clocked = after[f"device_ms.{span}"] - before.get(f"device_ms.{span}", 0.0)
+    kernel = sum(e.device_time_total for e in prof.key_averages()
+                 if "sddmm_tile_kernel" in e.key) / 1e3
+    assert kernel > 0.0
+    assert abs(clocked - kernel) <= 0.05 * kernel, (clocked, kernel)
