@@ -27,7 +27,10 @@ Phases (each prints its lines; any failure exits non-zero):
    grid; K2's its grid (two CTAs a slab), threads, stages and shared memory
    a CTA, and how many slabs hold blocks; K1's the same and its contraction
    and tile; K6's and K7's their run plan (runs of diagonals, their widest
-   span), tiles, threads and shared memory a CTA. K1, K2, K4 and K5 run
+   span), tiles, threads and shared memory a CTA. K6 runs the walk
+   ``HybridSpmmPlan`` chooses, here the entry walk over the split's map
+   (its entries and slots printed), and the dense walk beside it, to the
+   bit and timed (``dense_walk_ms`` of its JSON row). K1, K2, K4 and K5 run
    twice: on padded B, C and output, as ``SpmmPlan.repeat`` and serving
    give them, and on the (K, N) B and (M, N) C and output that
    ``SpmmPlan.__call__`` gives them, to the bit against the padded call's
@@ -827,11 +830,15 @@ def main() -> int:
     from sextans_tpu_torch.ops.plan import BACKEND_FORMATS
     from sextans_tpu_torch.ops.spmm_block import block_launch, spmm_block_padded, stripe_visits
     from sextans_tpu_torch.ops.spmm_dia import (
+        DIA_LANES,
         DIA_SPAN_MAX,
+        dia_entries,
+        dia_entry_launch,
         dia_launch,
         dia_plan,
         dia_runs,
         dia_skinny_launch,
+        entry_walk_slots,
         spmm_dia,
         spmm_dia_ref,
         spmm_dia_skinny,
@@ -1017,23 +1024,37 @@ def main() -> int:
         """Hold the DIA kernel of N against its plain version on the card (to
         the bit, K6 and K7 in every mode) and time both beside
         the library call on the diagonal part and the bound of the DIA work;
-        at a precise level, also beside the same kernel in plain mode."""
+        at a precise level, also beside the same kernel in plain mode. K6
+        runs the walk ``HybridSpmmPlan`` chooses (the entry walk where its
+        map pays, ``entry_walk_slots``); where that is the entry walk, the
+        dense walk is also held to the bit and timed beside it."""
         wide = n > SKINNY_MAX_N
         name = "spmm_dia" if wide else "spmm_dia_skinny"
         m, k = split.m, split.k
         dv = torch.as_tensor(split.diag_vals, device="cuda")
         offs = torch.as_tensor(split.diag_offsets.astype(np.int32), device="cuda")
         b, c = (torch.as_tensor(x, device="cuda") for x in operands(m, k, n))
-        # K6 and K7 walk their run plan, made once as HybridSpmmPlan makes it
+        # K6 and K7 walk their run plan, and K6 its entry map, made once as
+        # HybridSpmmPlan makes them
         runs = dia_plan(split.diag_offsets, "cuda")
         offs = runs.offsets
-        go = (dia_launch(n, m, runs, 4 if n % 4 == 0 else 1) if wide
+        walk = (dia_entries(dv, offs, split.diag_vals,
+                            within=entry_walk_slots(split.diag_offsets, m, precise))
+                if wide else None)
+        vec = 4 if n % 4 == 0 else 1
+        go = (dia_launch(n, m, runs, vec) if walk is None and wide
+              else dia_entry_launch(n, m, walk, vec) if wide
               else dia_skinny_launch(n, m, runs))
-        rows, cols = (64, go.lanes * go.cols) if wide else (go.lanes, n)
-        grid = (f" [{runs.ptr.numel() - 1} runs (span <= {runs.span}, <= {runs.length} "
-                f"diagonals), tiles of {rows} rows x {cols} columns: grid {go.grid[0]} CTAs "
+        rows, cols = (64, DIA_LANES * vec) if wide else (go.lanes, n)
+        walked = (f"the entry walk over {walk.entries} entries in {walk.slots.shape[0]} slots "
+                  f"of 8 rows, {walk.runs.ptr.numel() - 1} runs (span <= {walk.runs.span}), "
+                  if walk else f"{runs.ptr.numel() - 1} runs (span <= {runs.span}, <= "
+                  f"{runs.length} diagonals), ")
+        grid = (f" [{walked}tiles of {rows} rows x {cols} columns: grid {go.grid[0]} CTAs "
                 f"of {go.threads} threads, {go.smem} bytes of shared memory a CTA]")
-        kernel = functools.partial(spmm_dia if wide else spmm_dia_skinny, runs=runs)
+        kernel = functools.partial(spmm_dia if wide else spmm_dia_skinny, runs=runs,
+                                   **({"entries": walk} if walk else {}))
+        dense = functools.partial(spmm_dia, runs=runs) if walk else None
         got = kernel(dv, offs, b, c, ALPHA, BETA, precise=precise)
         want, plain_ms = timed_once(
             lambda: spmm_dia_ref(dv, offs, b, c, ALPHA, BETA, precise=precise))
@@ -1041,6 +1062,10 @@ def main() -> int:
         err = (got - want).abs().max().item()
         tol = 0.0  # K6 and K7 take the plain version's roundings in its order
         ok = bool(torch.isfinite(got).all().item()) and err <= tol
+        if dense:
+            got = dense(dv, offs, b, c, ALPHA, BETA, precise=precise)
+            err_dense = (got - want).abs().max().item()
+            ok = ok and bool(torch.isfinite(got).all().item()) and err_dense <= tol
         del got, want
         d_idx, rows = np.nonzero(split.diag_vals)
         diag_coo = sx.COOMatrix((m, k), rows, rows + split.diag_offsets[d_idx],
@@ -1053,20 +1078,25 @@ def main() -> int:
             del fns["plain"]
         if precise:
             fns["mode0"] = lambda: kernel(dv, offs, b, c, ALPHA, BETA)
+        if dense:
+            fns["dense"] = lambda: dense(dv, offs, b, c, ALPHA, BETA, precise=precise)
         ms = {"plain": plain_ms, **abba_ms(fns, iters, rounds)}
         n_diags = split.diag_offsets.size
         bound_ms, bound_by = dia_bound(n_diags, m, k, n)
         mode0 = (f" (plain mode {ms['mode0']:.4f} ms, x{ms['kernel'] / ms['mode0']:.2f})"
                  if precise else "")
+        dense_walk = (f" dense walk {ms['dense']:.4f} ms (max_abs_err {err_dense:.3e})"
+                      if dense else "")
         print(f"{tag}: {name} precise={precise} N={n} D={n_diags} ({diag_coo.nnz} nnz on the "
               f"diagonals){grid}: max_abs_err vs plain {err:.3e} (tol {tol:.3e}) kernel "
-              f"{ms['kernel']:.4f} ms{mode0} plain {ms['plain']:.4f} ms torch.sparse.addmm "
-              f"{ms['library']:.4f} ms bound {bound_ms:.5f} ms ({bound_by}) "
+              f"{ms['kernel']:.4f} ms{mode0}{dense_walk} plain {ms['plain']:.4f} ms "
+              f"torch.sparse.addmm {ms['library']:.4f} ms bound {bound_ms:.5f} ms ({bound_by}) "
               f"{'ok' if ok else 'MISMATCH'} {at()}", flush=True)
         if not ok:
             fail(f"{tag}: {name} precise={precise} at N={n} disagrees with its plain version")
         return name, dict(max_abs_err=err, ms=ms["kernel"], plain_ms=ms["plain"],
-                          bound_ms=bound_ms, bound_by=bound_by, library_ms=ms["library"])
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=ms["library"],
+                          walk="entries" if walk else "dense", dense_walk_ms=ms.get("dense"))
 
     def check_hub(tag, split, n, iters, rounds=ROUNDS):
         """Hold the hub kernel of the plain hybrid step (``csrc/hybrid_hub.cu``)

@@ -21,8 +21,13 @@
 // order the TPU kernel's clusters give):
 //   acc = fma(dvals[d, i], B[i + offsets[d], j], acc)      from acc = 0
 //   out[i, j] = fma(alpha, acc, beta * C[i, j])   (alpha * acc without C)
-// Every diagonal entry is multiplied, stored zeros included, as on the TPU.
-// Arithmetic: IEEE f32 FFMA (__fmaf_rn), no TF32; the plain versions
+// The dense walks (spmm_dia_kernel, spmm_dia_skinny_kernel) multiply every
+// diagonal entry, stored zeros included, as on the TPU. spmm_dia's entry
+// walk (spmm_dia_entry_kernel) skips the stored zeros where B is finite:
+// there fma(0, x, acc) == acc, so the bits are the same (up to the sign of
+// an exact zero, which compares equal); a window of B that holds an Inf or
+// a NaN is walked densely, so that 0 x Inf and 0 x NaN give NaN as on the
+// TPU. Arithmetic: IEEE f32 FFMA (__fmaf_rn), no TF32; the plain versions
 // (ops/spmm_dia.py) take the same roundings in the same order.
 //
 // Precise mode (PRECISE = 1; the TPU kernels' one `precise` branch, which
@@ -38,8 +43,8 @@
 // spmm_dia (N > 32): a CTA owns a tile of kTileRows = 64 rows and TN =
 // 16 * VEC columns (64 at VEC = 4: N % 4 == 0 and 16-byte aligned B and C;
 // 16 at VEC = 1). The host cuts the ascending offsets into runs whose span
-// (last offset minus first) is at most 64 (ops/launch.py:dia_runs,
-// ops/spmm_dia.py:dia_plan). For each run in order the CTA stages, with
+// (last offset minus first) is at most 64 (ops/spmm_dia.py: dia_runs and
+// dia_plan). For each run in order the CTA stages, with
 // cp.async (16-byte copies of B at VEC = 4, 4-byte otherwise and for
 // dvals), the run's window of B, rows row0 + off_first .. row0 + 63 +
 // off_last of its TN columns, the run's dvals tile (length x 64) and its
@@ -70,6 +75,28 @@
 // 5..60) stage 128 + 119 rows of B a tile where one run staged 184. A
 // plan that needs more
 // than a CTA may hold is refused before launch (SharedMemoryError).
+//
+// spmm_dia's entry walk (N > 32), where the hybrid plan finds that its
+// slots hold at most 0.3 of the dense walk's steps in plain mode, and
+// always in precise mode (ops/spmm_dia.py: entry_walk_slots, from both
+// walks' times on an H100: PERF.md §6; a circuit split's diagonals are 4 %
+// full, a 3-D stencil's 7 take 131 steps): the same tiles, threads and
+// window of B, over an entry map made once a plan from the values it
+// uploads (dia_entry_map), whose runs may span 128 offsets, since no dvals
+// tile is staged (scircuit_like's -60..60: one run, 184 rows of B a tile
+// where the dense walk's two runs stage 128 + 119). A tile's rows are taken
+// in the map's order, the fullest first, so that the 8 rows of a thread
+// hold about as many entries; per run and group of 8 rows the map lists
+// slots of 8 (value, window row) pairs, one a row, in ascending offset
+// order, a row with fewer padded with (0, row 0). Each run the CTA stages,
+// with cp.async, the window and the tile's slots beside it (as many as
+// leave four CTAs an SM; a tile with more reads its own from global
+// memory); each thread then reads the window's values it copied, and one
+// __syncthreads_or tells the CTA whether any is not finite: if so, it walks
+// the run densely, dvals from global memory, else each thread adds its
+// slots, a float4 of B and 4 FFMA a row and slot. The map is made from the
+// values the kernel is given with it: a map of other values would skip
+// their entries (ops/spmm_dia.py refuses one).
 //
 // spmm_dia_skinny (N <= 32) walks the same run plan as spmm_dia. A CTA owns
 // a tile of `rows` rows by all n columns: 64 rows where those tiles fill the
@@ -109,7 +136,15 @@
 // compute and write in step, so the phases add up where more CTAs an SM
 // let them overlap. Gapped offsets (synthetic4704: 256 offsets in
 // -288..300, nine runs) read 589 B rows for 256 diagonals and stage
-// 64 + span rows a run.
+// 64 + span rows a run. The entry walk does 4 % of the dense walk's FFMA
+// on scircuit_like (838,244 entries, 116,368 slots of 8 rows), so what
+// bounds it is what bounds any kernel of this product: B once, C in and
+// the output out, 1.05 GB, 0.316 ms at 3.35 TB/s; its window staging from
+// L2 (2.9 rows of B a row of output), the C read and the output's write run
+// one after another within a CTA, and four CTAs an SM overlap them in part
+// (PERF.md §6: 0.425 ms on an H100, the dense walk 1.14).
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -286,6 +321,170 @@ __global__ void __launch_bounds__(kThreads, PRECISE ? 2 : 4) spmm_dia_kernel(
   }
 }
 
+__device__ __forceinline__ bool finite(float x) { return isfinite(x); }
+__device__ __forceinline__ bool finite(float4 x) {
+  return isfinite(x.x) && isfinite(x.y) && isfinite(x.z) && isfinite(x.w);
+}
+
+// The entry walk: K6's tile and thread map, over an entry map (see the head
+// of this file) in place of the dense diagonals; a thread's 8 rows are the
+// tile's rows order[8 * (tid / 16) ..], not 8 consecutive ones.
+template <int VEC, int PRECISE>
+__global__ void __launch_bounds__(kThreads, PRECISE ? 2 : 4) spmm_dia_entry_kernel(
+    const float* __restrict__ dvals,     // (D, m), walked densely where B is not finite
+    const int* __restrict__ offsets,     // (D,), ascending
+    const int* __restrict__ run_ptr,     // (n_runs + 1,)
+    const uint2* __restrict__ order,     // (groups,): each group's 8 rows in its tile
+    const int* __restrict__ slot_ptr,    // (n_runs * groups + 1,)
+    const int4* __restrict__ slots,      // (S, 4): 8 values' bits, then their window rows
+    const float* __restrict__ b,         // (k, n)
+    const float* __restrict__ c,         // (m, n) or null
+    float* __restrict__ out,             // (m, n)
+    int m, int k, int n, int n_runs, int span, int staged, float alpha, float beta,
+    int with_c) {
+  using T = typename Vec<VEC>::T;
+  constexpr int TN = kLanes * VEC;
+  extern __shared__ float4 smem4[];
+  float* win = reinterpret_cast<float*>(smem4);  // (64 + span, TN)
+  int4* stage = reinterpret_cast<int4*>(win + (kTileRows + span) * TN);  // (staged, 4)
+  const int n_ctiles = (n + TN - 1) / TN;
+  const long long row0 = (long long)(blockIdx.x / n_ctiles) * kTileRows;
+  const int col0 = (blockIdx.x % n_ctiles) * TN;
+  const int tid = threadIdx.x;
+  const int lane = tid % kLanes;
+  const int r0 = (tid / kLanes) * kRows;  // the thread's place in the tile's order
+  const long long groups = (m + kTileRows - 1) / kTileRows * (kTileRows / kRows);
+  const long long group = (row0 + r0) / kRows;  // the thread's 8 rows
+  const long long group0 = row0 / kRows;        // the tile's first
+
+  const size_t nv = (size_t)n / VEC;
+  const int cv = col0 / VEC + lane;
+  if (with_c && (size_t)cv < nv) {  // the tile's C, on its way to L2 meanwhile
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (row0 + r0 + r < m)
+        asm volatile("prefetch.L2 [%0];" ::"l"(reinterpret_cast<const T*>(c) +
+                                                       (size_t)(row0 + r0 + r) * nv + cv));
+  }
+  const uint2 rows8 = __ldg(order + group);
+  int lr[kRows];  // the thread's rows in the tile
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) lr[r] = ((r < 4 ? rows8.x : rows8.y) >> (8 * (r % 4))) & 0xff;
+  T acc[kRows], comp[kRows];  // comp is read only when PRECISE
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = comp[r] = T{};
+  for (int run = 0; run < n_runs; ++run) {
+    const int d0 = run_ptr[run], len = run_ptr[run + 1] - d0;
+    const int off0 = __ldg(offsets + d0);
+    const int rows = kTileRows + __ldg(offsets + d0 + len - 1) - off0;  // the window's
+    // the tile's slots in this run, and the thread's group's among them
+    const int t0 = __ldg(slot_ptr + run * groups + group0);
+    const int t1 = __ldg(slot_ptr + run * groups + group0 + kTileRows / kRows);
+    const int s0 = __ldg(slot_ptr + run * groups + group);
+    const int s1 = __ldg(slot_ptr + run * groups + group + 1);
+    __syncthreads();  // the previous run's window and slots are no longer read
+    if constexpr (VEC == 4) {
+      for (int e = tid; e < rows * kLanes; e += kThreads) {
+        const int i = e / kLanes, col = col0 + (e % kLanes) * 4;
+        const long long row = row0 + off0 + i;
+        float* dst = win + i * TN + (e % kLanes) * 4;
+        if (row >= 0 && row < k && col < n)
+          sx_async::cp_async16(dst, b + row * n + col);
+        else
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    } else {
+      for (int e = tid; e < rows * TN; e += kThreads) {
+        const int i = e / TN, col = col0 + e % TN;
+        const long long row = row0 + off0 + i;
+        if (row >= 0 && row < k && col < n)
+          sx_async::cp_async4(win + e, b + row * n + col);
+        else
+          win[e] = 0.f;
+      }
+    }
+    // The tile's slots beside the window where they fit, else read from
+    // global memory in the walk.
+    const bool here = t1 - t0 <= staged;
+    if (here)
+      for (int e = tid; e < 4 * (t1 - t0); e += kThreads)
+        sx_async::cp_async16(stage + e, slots + 4 * (size_t)t0 + e);
+    sx_async::cp_async_wait_all();  // this thread's copies are visible to it
+    bool bad = false;  // a value of B this thread staged is not finite
+    if constexpr (VEC == 4) {
+      for (int e = tid; e < rows * kLanes; e += kThreads)
+        bad |= !finite(reinterpret_cast<const float4*>(win)[e]);
+    } else {
+      for (int e = tid; e < rows * TN; e += kThreads) bad |= !finite(win[e]);
+    }
+    if (__syncthreads_or(bad)) {
+      // The dense walk: every diagonal of the run, stored zeros included,
+      // its dvals from global memory, so that 0 x Inf and 0 x NaN give NaN.
+      for (int dd = 0; dd < len; ++dd) {
+        const int rel = __ldg(offsets + d0 + dd) - off0;
+        const float* dv = dvals + (size_t)(d0 + dd) * m;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float v = row0 + lr[r] < m ? __ldg(dv + row0 + lr[r]) : 0.f;
+          const T x = win_at<T>(win, lr[r] + rel, lane);
+          if constexpr (PRECISE) {
+            sx_df32::mul_acc_step(v, x, acc[r], comp[r]);
+          } else {
+            acc[r] = mul_add(v, x, acc[r]);
+          }
+        }
+      }
+      continue;
+    }
+    // The group's slots, each 8 (value, window row) pairs, one a row, from
+    // shared memory or global: the next slot is read while this one's are
+    // added.
+    const int4* q = here ? stage + 4 * (s0 - t0) : slots + 4 * (size_t)s0;
+    int4 q0, q1, q2, q3;
+    if (s0 < s1) {
+      q0 = q[0];
+      q1 = q[1];
+      q2 = q[2];
+      q3 = q[3];
+    }
+    for (int s = s0; s < s1; ++s) {
+      const int vb[kRows] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+      const int at[kRows] = {q2.x, q2.y, q2.z, q2.w, q3.x, q3.y, q3.z, q3.w};
+      q += 4;
+      if (s + 1 < s1) {
+        q0 = q[0];
+        q1 = q[1];
+        q2 = q[2];
+        q3 = q[3];
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float v = __int_as_float(vb[r]);
+        const T x = win_at<T>(win, at[r], lane);
+        if constexpr (PRECISE) {
+          sx_df32::mul_acc_step(v, x, acc[r], comp[r]);
+        } else {
+          acc[r] = mul_add(v, x, acc[r]);
+        }
+      }
+    }
+  }
+  if ((size_t)cv >= nv) return;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const long long row = row0 + lr[r];
+    if (row >= m) continue;
+    const size_t o = (size_t)row * nv + cv;
+    T s = acc[r];
+    if (with_c) s = __ldg(reinterpret_cast<const T*>(c) + o);
+    if constexpr (PRECISE) {
+      reinterpret_cast<T*>(out)[o] = sx_df32::epilogue(acc[r], comp[r], s, alpha, beta, with_c);
+    } else {
+      reinterpret_cast<T*>(out)[o] = epi(acc[r], s, alpha, beta, with_c);
+    }
+  }
+}
+
 // K7's tile: `rows` rows by all n <= 32 columns, its threads each over up
 // to kSkinnyCells cells (cells t, t + threads, ... of the tile's row-major
 // (row, column) index): 16 rows, a thread a cell and STAGES = 4 buffers, or
@@ -438,7 +637,56 @@ cudaError_t launch_wide(const float* dvals, const int* offsets, const int* run_p
   return cudaGetLastError();
 }
 
+template <int VEC, int PRECISE>
+cudaError_t launch_entries(const float* dvals, const int* offsets, const int* run_ptr,
+                           const void* order, const int* slot_ptr, const int* slots,
+                           const float* b, const float* c, float* out, int m, int k, int n,
+                           int n_runs, int span, int staged, float alpha, float beta,
+                           int with_c, int threads, int grid, int smem, cudaStream_t stream) {
+  // the wrapper's map (ops/spmm_dia.py:dia_entry_launch) must be this kernel's
+  constexpr int TN = kLanes * VEC;
+  const long long tiles =
+      (long long)((m + kTileRows - 1) / kTileRows) * ((n + TN - 1) / TN);
+  if (threads != kThreads || tiles != grid || span < 0 || staged < 0 ||
+      (long long)smem != 4LL * (kTileRows + span) * TN + 64LL * staged ||
+      reinterpret_cast<uintptr_t>(slots) % 16 || reinterpret_cast<uintptr_t>(order) % 8)
+    return cudaErrorInvalidValue;
+  auto kernel = spmm_dia_entry_kernel<VEC, PRECISE>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      dvals, offsets, run_ptr, reinterpret_cast<const uint2*>(order), slot_ptr,
+      reinterpret_cast<const int4*>(slots), b, c, out, m, k, n, n_runs, span, staged, alpha,
+      beta, with_c);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int spmm_dia_entry_launch(
+    const void* dvals, const void* offsets, const void* run_ptr, const void* order,
+    const void* slot_ptr, const void* slots, const void* b, const void* c, void* out, int m,
+    int k, int n,
+    int n_runs, float alpha, float beta, int with_c, int precise, int vec, int span,
+    int staged, int threads, int grid, int smem, void* stream) {
+#define SX_ENTRY(V, P)                                                                      \
+  launch_entries<V, P>((const float*)dvals, (const int*)offsets, (const int*)run_ptr, order, \
+                       (const int*)slot_ptr, (const int*)slots, (const float*)b,             \
+                       (const float*)c, (float*)out, m, k, n, n_runs, span, staged, alpha,   \
+                       beta, with_c, threads, grid, smem, (cudaStream_t)stream)
+  switch (vec * 2 + precise) {
+    case 2: return SX_ENTRY(1, 0);
+    case 3: return SX_ENTRY(1, 1);
+    case 8: return SX_ENTRY(4, 0);
+    case 9: return SX_ENTRY(4, 1);
+    default: return cudaErrorInvalidValue;
+  }
+#undef SX_ENTRY
+}
 
 extern "C" int spmm_dia_launch(
     const void* dvals, const void* offsets, const void* run_ptr, const void* b, const void* c,

@@ -74,7 +74,14 @@ from sextans_tpu_torch.ops.plan import (
     dense_operand,
     resolve_device,
 )
-from sextans_tpu_torch.ops.spmm_dia import dia_plan, spmm_dia, spmm_dia_ref, spmm_dia_skinny
+from sextans_tpu_torch.ops.spmm_dia import (
+    dia_entries,
+    dia_plan,
+    entry_walk_slots,
+    spmm_dia,
+    spmm_dia_ref,
+    spmm_dia_skinny,
+)
 from sextans_tpu_torch.ops.spmm_slab import SKINNY_MAX_N
 from sextans_tpu_torch.utils.config import SpmmConfig
 from sextans_tpu_torch.utils.profiling import annotate, count, timed
@@ -517,7 +524,9 @@ class HybridSpmmPlan:
     @timed("upload_s")
     def _upload(self, split: HybridSplit, n: int, dia_backend: str) -> None:
         """Device copies of the split's diagonals (with K6's or K7's run
-        plan) and of its head columns and hub rows: on the ``"pallas"``
+        plan, and K6's entry map where its walk pays,
+        ``ops/spmm_dia.py:entry_walk_slots``: counted as ``dia.walk_entries``
+        once a plan) and of its head columns and hub rows: on the ``"pallas"``
         route their lists (``ops/hybrid_hub.py:hub_lists``: one for the plain
         step, one a part for the precise one; counted as
         ``hybrid.hub_entries`` and ``hybrid.hub_rows`` once a plan), on
@@ -534,6 +543,13 @@ class HybridSpmmPlan:
                 self._runs = dia_plan(split.diag_offsets, self.device)
                 self._offsets = self._runs.offsets
                 self._dia_kw = {"runs": self._runs}
+            if self._dia is spmm_dia:  # K6 walks the entries alone where that pays
+                walk = dia_entries(self._dvals, self._offsets, split.diag_vals,
+                                   within=entry_walk_slots(split.diag_offsets, split.m,
+                                                           self.precise))
+                if walk is not None:
+                    self._dia_kw["entries"] = walk
+                    count("dia.walk_entries", walk.entries)
         self._head = self._head_cols = self._hrows = self._hrows_idx = None
         self._hub = self._head_hub = self._row_hub = None
         if dia_backend == "pallas":  # the row-sparse pass, no planes
@@ -572,8 +588,10 @@ class HybridSpmmPlan:
     def nbytes(self) -> int:
         """Bytes the plan keeps on its device: the split's diagonals, its
         hub lists or dense planes, and the residue's pack."""
+        walk = self._dia_kw.get("entries")
         parts = [self._dvals, self._offsets, self._head, self._head_cols, self._hrows,
                  self._hrows_idx, self._runs and self._runs.ptr,
+                 *((walk.runs.ptr, walk.order, walk.slot_ptr, walk.slots) if walk else ()),
                  *(t for lists in self.hub_passes for t in lists.arrays)]
         if self.residue_plan is not None:
             parts += [*self.residue_plan.arrays, *(self.residue_plan.ranges or ()),

@@ -65,6 +65,9 @@ _SIGNATURES = {
     # dvals offsets run_ptr b c out m k n n_runs alpha beta
     # with_c precise vec span length threads grid smem stream
     "spmm_dia_launch": [_P] * 6 + [_I] * 4 + [_F, _F] + [_I] * 8 + [_P],
+    # dvals offsets run_ptr order slot_ptr slots b c out m k n n_runs alpha beta
+    # with_c precise vec span staged threads grid smem stream
+    "spmm_dia_entry_launch": [_P] * 9 + [_I] * 4 + [_F, _F] + [_I] * 8 + [_P],
     # dvals offsets run_ptr b c out m k n n_runs alpha beta
     # with_c precise vec span length rows threads grid smem stream
     "spmm_dia_skinny_launch": [_P] * 6 + [_I] * 4 + [_F, _F] + [_I] * 9 + [_P],

@@ -40,8 +40,11 @@ inside the span, not only the work the span queued. Names:
   (the calls that handed the slab kernels, the edge kernel or the ELL
   gather kernel B, C and the output unpadded);
   ``launch.<wrapper>``, the kernel launches of each wrapper on a card
-  (:func:`launches`), and ``launch.spmm_edge_padded.precise1`` and
-  ``.precise2``, those of K4 at each precise level; ``device_ms.<span>``
+  (:func:`launches`), ``launch.spmm_edge_padded.precise1`` and
+  ``.precise2``, those of K4 at each precise level, and
+  ``launch.spmm_dia.entries``, those of K6 that walk its entry map;
+  ``dia.walk_entries``, the entries of the K6 entry maps the hybrid plans
+  take, once a plan; ``device_ms.<span>``
   and ``spans.<span>`` of the clocked spans; ``pack_s``, ``upload_s`` and
   ``library_s``, host seconds of the packers and ``split_structure``, of the upload to the
   device and of loading (or compiling) the kernel library; ``sddmm.entries`` and

@@ -21,6 +21,7 @@ import torch_cpu  # noqa: F401  one torch thread per xdist worker
 import functools
 import re
 import subprocess
+import types
 
 import numpy as np
 import pytest
@@ -31,6 +32,8 @@ from sextans_tpu_torch.ops import df32
 from sextans_tpu_torch.ops.spmm_block import spmm_block_padded, spmm_block_padded_ref
 from sextans_tpu_torch.ops.spmm_dia import (
     DiaRuns,
+    dia_entries,
+    dia_entry_launch,
     dia_plan,
     dia_runs,
     spmm_dia,
@@ -475,13 +478,13 @@ def _runs_cut_at(offsets, cuda, cut):
 
 
 def _check_dia(kernel, cuda, split, n, with_c, misaligned=False, precise=0,
-               cut=None, poison=None):
+               cut=None, poison=None, walk=False, poison_value=float("nan")):
     rng = np.random.default_rng(n)
     dv = torch.as_tensor(split.diag_vals, device=cuda)
     offs = torch.as_tensor(split.diag_offsets.astype(np.int32), device=cuda)
     b = torch.as_tensor(rng.standard_normal((split.k, n)).astype(np.float32), device=cuda)
     if poison is not None:
-        b[poison] = float("nan")
+        b[poison] = poison_value
     if misaligned:  # B one float past a 16-byte boundary: 4-byte loads
         buf = torch.empty(b.numel() + 1, device=cuda)
         buf[1:] = b.reshape(-1)
@@ -494,11 +497,14 @@ def _check_dia(kernel, cuda, split, n, with_c, misaligned=False, precise=0,
     runs = {"runs": (dia_plan(split.diag_offsets, cuda) if cut is None
                      else _runs_cut_at(split.diag_offsets, cuda, cut))}
     offs = runs["runs"].offsets
-    before = launches(kernel)
+    if walk:  # the entry walk, over the map of these dvals and offsets
+        runs["entries"] = dia_entries(dv, offs)
+    before = launches(kernel), counters().get("launch.spmm_dia.entries", 0)
     got = kernel(dv, offs, b, c, ALPHA, BETA, **runs, **kw)
     want = spmm_dia_ref(dv, offs, b, c, ALPHA, BETA, **kw)
     torch.cuda.synchronize()
-    assert launches(kernel) == before + 1
+    assert launches(kernel) == before[0] + 1
+    assert counters().get("launch.spmm_dia.entries", 0) == before[1] + walk
     assert got.shape == want.shape == (split.m, n) and got.device == cuda
     finite = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), finite)
@@ -1047,6 +1053,77 @@ def test_dia_kernel_multiplies_stored_zeros_with_nonfinite_b(cuda, n, precise):
     # a stored zero of some diagonal reads B[row]: 0 * NaN gives NaN there
     assert (split.diag_vals[np.flatnonzero(inside), rows[inside]] == 0).any()
     _check_dia(spmm_dia, cuda, split, n, with_c=True, precise=precise, poison=row)
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("with_c", [True, False])
+@pytest.mark.parametrize("kind", ["band", "rect"])
+@pytest.mark.parametrize("n", [37, 64, 512])
+def test_dia_entry_walk_gives_the_plain_versions_bits(cuda, kind, n, with_c, precise):
+    # band: -60..60 in one run of the map, 4 % of the slots hold an entry;
+    # rect: 256 offsets in -438..758, eight runs; the last row tile ragged
+    _check_dia(spmm_dia, cuda, _dia_split(kind), n, with_c=with_c, precise=precise, walk=True)
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("n", [37, 64])
+def test_dia_entry_walk_takes_misaligned_b(cuda, n, precise):
+    _check_dia(spmm_dia, cuda, _dia_split("band"), n, with_c=True, misaligned=True,
+               precise=precise, walk=True)
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+def test_dia_entry_walk_reads_slots_past_shared_memory_from_global(cuda, precise):
+    # the band's 121 diagonals full: a tile's slots (8 groups of 121) do not
+    # fit beside its window, so its threads read them from global memory
+    band = _dia_split("band")
+    rng = np.random.default_rng(9)
+    full = types.SimpleNamespace(diag_vals=rng.standard_normal(band.diag_vals.shape)
+                                 .astype(np.float32), diag_offsets=band.diag_offsets,
+                                 m=band.m, k=band.k)
+    walk = dia_entries(torch.from_numpy(full.diag_vals),
+                       torch.from_numpy(full.diag_offsets.astype(np.int32)))
+    assert walk.tile_slots == 8 * 121 > dia_entry_launch(64, full.m, walk, 4).lanes
+    _check_dia(spmm_dia, cuda, full, 64, with_c=True, precise=precise, walk=True)
+
+
+@pytest.mark.parametrize("value", [float("nan"), float("inf")])
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("n", [37, 64])
+def test_dia_entry_walk_multiplies_stored_zeros_with_nonfinite_b(cuda, n, precise, value):
+    # as the dense walk's test above: the windows that hold the row walk
+    # every diagonal, so 0 x NaN and 0 x Inf give NaN where a stored zero
+    # reads it, and the other windows skip the zeros
+    split = _dia_split("band")
+    row = split.k // 2
+    rows = row - split.diag_offsets
+    inside = (rows >= 0) & (rows < split.m)
+    assert (split.diag_vals[np.flatnonzero(inside), rows[inside]] == 0).any()
+    _check_dia(spmm_dia, cuda, split, n, with_c=True, precise=precise, poison=row,
+               walk=True, poison_value=value)
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+def test_hybrid_plan_launches_the_entry_walk_once_a_step(cuda, precise):
+    split = tx.split_structure(circuit_like(3000, seed=2), n=64)
+    rng = np.random.default_rng(3)
+    b = torch.as_tensor(rng.standard_normal((3000, 64)).astype(np.float32), device=cuda)
+    c = torch.as_tensor(rng.standard_normal((3000, 64)).astype(np.float32), device=cuda)
+    walks = counters().get("dia.walk_entries", 0)
+    plan = tx.HybridSpmmPlan(split, 64, precise=precise, device=cuda)
+    walk = plan._dia_kw["entries"]  # 4 % of the slots hold an entry: the walk pays
+    assert walk.dvals is plan._dvals and walk.entries == split.diag_nnz
+    assert counters()["dia.walk_entries"] == walks + split.diag_nnz
+    before = {k: counters().get(k, 0) for k in ("launch.spmm_dia.entries", "launch.spmm_dia",
+                                                 "hybrid.calls")}
+    got = plan(b, ALPHA, BETA, c)
+    plan.repeat(b, ALPHA, BETA, c, times=2)
+    torch.cuda.synchronize()
+    ran = {k: counters()[k] - v for k, v in before.items()}
+    assert ran == {"launch.spmm_dia.entries": 3, "launch.spmm_dia": 3, "hybrid.calls": 3}
+    dense = tx.HybridSpmmPlan(split, 64, precise=precise, device=cuda)
+    del dense._dia_kw["entries"]  # the same plan on K6's dense walk: the same bits
+    assert torch.equal(got, dense(b, ALPHA, BETA, c))
 
 
 def test_dia_kernel_refuses_a_window_that_does_not_fit(cuda):

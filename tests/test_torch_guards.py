@@ -92,6 +92,7 @@ def test_build_flags_target_hopper_and_hash_sources():
     pointers = {"spmm_block_launch": 8, "spmm_slab_launch": 9,
                 "spmm_slab_skinny_launch": 7, "spmm_edge_launch": 10,
                 "spmm_ell_launch": 12, "spmm_dia_launch": 6, "spmm_dia_skinny_launch": 6,
+                "spmm_dia_entry_launch": 9,
                 "df32_probe_pairs": 6, "df32_probe_chain": 3,
                 "dma_gather_launch": 4, "ell_issue_launch": 4, "sddmm_tile_launch": 9,
                 "hybrid_hub_launch": 7}

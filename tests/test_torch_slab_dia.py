@@ -25,6 +25,13 @@ and the DIA kernels (K6, K7), on the CPU.
   each run's window of B zero-filled outside [0, K) and indexed as the
   kernel indexes it, gives ``spmm_dia_ref``'s bits, plain and precise, with
   NaN where a stored zero meets a non-finite B row.
+* K6's entry map (``dia_entry_map``) lists every slot of ``dvals`` that holds
+  a value once (NaN included) and no other, in ascending offset order
+  within a row, past M and past B's ends too; ``spmm_dia`` walks a map only
+  beside the ``dvals`` and offsets it was made from; and a walk of K6's
+  entry walk over it (its slots, and the dense walk in a window that holds
+  a value that is not finite) gives ``spmm_dia_ref``'s bits, plain and
+  precise, on a stencil's band and on a synthetic and a circuit split.
 """
 
 import torch_cpu  # noqa: F401  one torch thread per xdist worker
@@ -52,17 +59,25 @@ from sextans_tpu_torch.ops.launch import (
 from sextans_tpu_torch.ops.serve import bucketize_pack
 from sextans_tpu_torch.utils.config import round_up
 from sextans_tpu_torch.ops.spmm_dia import (
+    DIA_ENTRY_SPAN_MAX,
     DIA_SPAN_MAX,
     DIA_TILE_ROWS,
+    DiaEntries,
     DiaRuns,
+    check_entry_map,
+    dia_entries,
+    dia_entry_launch,
+    dia_entry_map,
     dia_launch,
     dia_plan,
     dia_runs,
     dia_skinny_launch,
+    entry_walk_slots,
     spmm_dia,
     spmm_dia_ref,
     spmm_dia_skinny,
 )
+from sextans_tpu_torch.utils.matrices import circuit_like, stencil_3d
 from sextans_tpu_torch.ops.spmm_slab import (
     SKINNY_STAGES,
     SLAB_CHUNK,
@@ -731,3 +746,259 @@ def test_dia_skinny_launch_map_and_run_plans():
                       torch.tensor([0, 2], dtype=torch.int32), 18000, 2)
     with pytest.raises(SharedMemoryError, match="shared memory"):
         dia_skinny_launch(16, 4704, by_hand)
+
+
+# ---- K6's entry map and its walk ----
+
+def _entry_values(case):
+    """(values, offsets, m, k): random values over a case's offsets with
+    stored zeros, a NaN entry, a -0.0 (no entry) and an empty row."""
+    m, k = (150, 80) if case == "beyond_k" else (203, 230)  # 203: a group past M
+    offs = np.array(OFFSET_CASES[case])
+    rng = np.random.default_rng(len(offs))
+    vals = rng.standard_normal((offs.size, m)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.7] = 0.0
+    vals[:, 17] = 0.0  # an empty row
+    vals[0, 5] = np.nan
+    vals[-1, 6] = -0.0
+    return vals, offs, m, k
+
+
+def _map_entries(ptr, order, slot_ptr, slots, offs, m):
+    """The (diagonal, value bits) a map lists for each (run, row), in its
+    slot order, and each slot's padding checked: bits 0 and window row 0."""
+    groups = order.size // 8
+    listed = {}
+    for r, (d0, d1) in enumerate(zip(ptr[:-1], ptr[1:])):
+        for g in range(groups):
+            block = slots[slot_ptr[r * groups + g]:slot_ptr[r * groups + g + 1]]
+            for lane in range(8):
+                local = int(order[8 * g + lane])
+                row, bits, at = 64 * (g // 8) + local, block[:, lane], block[:, 8 + lane]
+                held = bits != 0
+                # a row's entries first, then its pads
+                assert not np.any(held[1:] & ~held[:-1])
+                assert np.all(at[~held] == 0)
+                if row >= m:
+                    assert not held.any()
+                rel = at[held] - local
+                d = np.searchsorted(offs, offs[d0] + rel)
+                assert np.all((d >= d0) & (d < d1)) and np.all(offs[d] == offs[d0] + rel)
+                assert np.all(np.diff(d) > 0)  # ascending offsets within the row
+                listed[r, row] = list(zip(d.tolist(), bits[held].tolist()))
+    return listed
+
+
+@pytest.mark.parametrize("span_max", [0, 5, DIA_ENTRY_SPAN_MAX])
+@pytest.mark.parametrize("case", list(OFFSET_CASES))
+def test_dia_entry_map_lists_every_entry_once(case, span_max):
+    vals, offs, m, k = _entry_values(case)
+    ptr, order, slot_ptr, slots, entries = dia_entry_map(vals, offs, span_max)
+    assert ptr.tolist() == dia_runs(offs, span_max).tolist()
+    tiles = -(-m // 64)
+    groups = 8 * tiles
+    assert order.dtype == np.uint8 and order.shape == (64 * tiles,)
+    held = np.full(64 * tiles, -1)
+    held[:m] = np.count_nonzero(vals, axis=0)
+    for t in range(tiles):  # a tile's rows, each once, the fullest first
+        assert sorted(order[64 * t:64 * t + 64].tolist()) == list(range(64))
+        assert np.all(np.diff(held[64 * t + order[64 * t:64 * t + 64].astype(int)]) <= 0)
+    assert slot_ptr.dtype == slots.dtype == np.int32 and slots.shape == (slot_ptr[-1], 16)
+    assert slot_ptr.shape == ((ptr.size - 1) * groups + 1,) and np.all(np.diff(slot_ptr) >= 0)
+    listed = _map_entries(ptr, order, slot_ptr, slots, offs, m)
+    bits = vals.view(np.int32)
+    want = {(d, i) for d, i in zip(*np.nonzero(vals != 0))}  # NaN held, -0.0 not
+    got = [(d, row) for (r, row), run in listed.items() for d, _ in run]
+    assert len(got) == len(set(got)) == entries == len(want) and set(got) == want
+    assert all(bits[d, row] == b for (r, row), run in listed.items() for d, b in run)
+    assert (0, 5) in want and (offs.size - 1, 6) not in want and not any(i == 17 for _, i in want)
+    # each group takes as many slots a run as its fullest row has entries
+    place = {64 * (g // 8) + int(order[8 * g + j]): g for g in range(groups) for j in range(8)}
+    for (r, row), run in listed.items():
+        g = place[row]
+        mates = [64 * (g // 8) + int(order[8 * g + j]) for j in range(8)]
+        fullest = max(len(listed.get((r, mate), [])) for mate in mates)
+        assert slot_ptr[r * groups + g + 1] - slot_ptr[r * groups + g] == fullest
+    # the map lists entries whose B row lies outside [0, K) as any other
+    if case == "beyond_k":
+        assert any(not 0 <= i + offs[d] < k for d, i in want)
+    # a map past `within` slots is not made
+    assert dia_entry_map(vals, offs, span_max, within=slots.shape[0] - 1) is None
+    assert dia_entry_map(vals, offs, span_max, within=slots.shape[0])[4] == entries
+
+
+def test_dia_entries_are_held_to_their_dvals_and_runs():
+    vals, offs, m, k = _entry_values("gapped")
+    dv = torch.from_numpy(vals)
+    runs = dia_plan(offs, "cpu")
+    walk = dia_entries(dv, runs.offsets)
+    assert walk.dvals is dv and walk.runs.offsets is runs.offsets
+    assert walk.runs.ptr.tolist() == dia_runs(offs, DIA_ENTRY_SPAN_MAX).tolist()
+    assert walk.entries == np.count_nonzero(vals)
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal((k, 8)).astype(np.float32))
+    c = torch.ones((m, 8))
+    want = spmm_dia_ref(dv, runs.offsets, b, c, ALPHA, BETA)
+    got = spmm_dia(dv, runs.offsets, b, c, ALPHA, BETA, runs=runs, entries=walk)
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    # a map of other values would skip their entries: refused, on any device
+    with pytest.raises(ValueError, match="entries.dvals"):
+        spmm_dia(dv.clone(), runs.offsets, b, c, ALPHA, BETA, runs=runs, entries=walk)
+    with pytest.raises(ValueError, match="entries.runs.offsets"):
+        spmm_dia(dv, runs.offsets.clone(), b, c, ALPHA, BETA, entries=walk)
+    # a map is held to its run plan's windows and its tiles on the host,
+    # before it is uploaded; on its device, to its arrays' types and shapes
+    ptr, order, slot_ptr, slots, _ = dia_entry_map(vals, offs)
+    assert check_entry_map(ptr, order, slot_ptr, slots, offs, m) == walk.tile_slots
+    bad = slots.copy()
+    bad[0, 8] = 64 + offs[ptr[1] - 1] - offs[0]  # one row past the first run's window
+    with pytest.raises(ValueError, match="past its run's window"):
+        check_entry_map(ptr, order, slot_ptr, bad, offs, m)
+    twice = order.copy()
+    twice[1] = twice[0]
+    with pytest.raises(ValueError, match="each row of a tile once"):
+        check_entry_map(ptr, twice, slot_ptr, slots, offs, m)
+    with pytest.raises(ValueError, match="slot_ptr"):
+        check_entry_map(ptr, order, slot_ptr[:-1], slots, offs, m)
+    with pytest.raises(ValueError, match="slot_ptr must cut"):
+        check_entry_map(ptr, order, slot_ptr[::-1].copy(), slots, offs, m)
+    with pytest.raises(ValueError, match="slots must be torch.int32"):
+        DiaEntries(dv, walk.runs, walk.order, walk.slot_ptr, walk.slots.float(), walk.entries,
+                   walk.tile_slots)
+
+
+def test_dia_entry_launch_map():
+    # scircuit_like's -60..60 in one run: 64 + 120 rows of B a tile, no
+    # dvals, four CTAs an SM
+    vals = np.ones((121, 170998), dtype=np.float32)
+    vals[:, ::3] = 0.0
+    walk = dia_entries(torch.from_numpy(vals),
+                       dia_plan(np.arange(-60, 61), "cpu").offsets, vals)
+    assert walk.runs.ptr.tolist() == [0, 121] and walk.runs.span == 120
+    go = dia_entry_launch(512, 170998, walk, 4)
+    assert (go.threads, go.grid, go.cols) == (128, (21376, 1), 4)
+    # beside the window, a tile's slots as far as four CTAs an SM allow: two
+    # rows in three are full, 42 or 43 of a tile, so six groups of 121 slots
+    assert walk.tile_slots == 6 * 121 and go.lanes == (57344 - 47104) // 64 == 160
+    assert go.smem == 4 * (64 + 120) * 64 + 64 * go.lanes == 57344
+    assert 4 * (go.smem + 1024) <= 228 * 1024
+    none = np.zeros_like(vals)
+    empty = dia_entries(torch.from_numpy(none), walk.runs.offsets, none)
+    assert empty.tile_slots == 0 and empty.entries == 0
+    assert dia_entry_launch(37, 170998, empty, 1).smem == 4 * (64 + 120) * 16
+
+
+def _entry_walk(dvals, offsets, b, c, host_map, precise, tn=64):
+    """K6's entry walk over the map: per (64-row tile, run, TN columns) the
+    window of B rows row0 + off_first .. row0 + 63 + off_last, zero outside
+    [0, K); where it is all finite, a group's slots in order, each of its
+    rows (``order``) one FFMA (precise: two_prod and a Neumaier step) with
+    its slot's value and window row; else the run's every diagonal from
+    dvals; the epilogue."""
+    ptr, order, slot_ptr, slots, _ = host_map
+    n_diags, m = dvals.shape
+    k, n = b.shape
+    offs = offsets.tolist()
+    groups = order.size // 8
+    vals = torch.from_numpy(slots[:, :8].copy().view(np.float32))
+    at = torch.from_numpy(slots[:, 8:].astype(np.int64))
+    out_acc, out_comp = torch.zeros((m, n)), torch.zeros((m, n))
+    dv = torch.cat([dvals, torch.zeros((n_diags, DIA_TILE_ROWS))], dim=1)  # 0 past M
+    for row0 in range(0, m, DIA_TILE_ROWS):
+        for col0 in range(0, n, tn):
+            cols = slice(col0, min(n, col0 + tn))
+            acc = torch.zeros((DIA_TILE_ROWS, cols.stop - col0))
+            comp = torch.zeros_like(acc)
+
+            def step(rows, v, x):
+                nonlocal acc, comp
+                if precise:
+                    acc[rows], comp[rows] = acc_step(acc[rows], comp[rows], *two_prod(v, x))
+                else:
+                    acc[rows] = fma_f32(v, x, acc[rows])
+
+            for r, (d0, d1) in enumerate(zip(ptr[:-1], ptr[1:])):
+                off0, last = offs[d0], offs[d1 - 1] - offs[d0]
+                grow = row0 + off0 + np.arange(DIA_TILE_ROWS + last)
+                inside = (grow >= 0) & (grow < k)
+                win = torch.zeros((grow.size, acc.shape[1]))
+                win[torch.from_numpy(inside)] = b[torch.from_numpy(grow[inside]), cols]
+                if not torch.isfinite(win).all():
+                    for d in range(d0, d1):
+                        rel = offs[d] - off0
+                        step(slice(None), dv[d, row0:row0 + DIA_TILE_ROWS, None],
+                             win[rel:rel + DIA_TILE_ROWS])
+                    continue
+                for g in range(row0 // 8, row0 // 8 + DIA_TILE_ROWS // 8):
+                    rows = torch.from_numpy(order[8 * g:8 * g + 8].astype(np.int64))
+                    for s in range(slot_ptr[r * groups + g], slot_ptr[r * groups + g + 1]):
+                        step(rows, vals[s, :, None], win[at[s]])
+            keep = min(DIA_TILE_ROWS, m - row0)
+            out_acc[row0:row0 + keep, cols] = acc[:keep]
+            out_comp[row0:row0 + keep, cols] = comp[:keep]
+    if precise:
+        return compensated_epilogue(ALPHA, out_acc, out_comp, BETA, c)
+    return fma_f32(torch.full_like(out_acc, f32(ALPHA)), out_acc, c * f32(BETA))
+
+
+def _entry_split(kind):
+    if kind == "band":  # a stencil's 7 diagonals, 97 % of their slots full
+        return tx.split_structure(stencil_3d(12, seed=1), n=16)
+    if kind == "synthetic":  # 256 gapped diagonals in -288..300, 4 % full
+        return tx.split_structure(tx.COOMatrix.random(4704, 4704, 104756, seed=42,
+                                                      banded=True, bandwidth=300), n=512)
+    return tx.split_structure(circuit_like(3000, seed=2), n=64)  # -60..60, 4 % full; full
+
+
+@pytest.mark.parametrize("poison", [None, float("nan"), float("inf")])
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("kind", ["band", "synthetic", "circuit"])
+def test_dia_entry_walk_gives_the_plain_versions_bits(kind, precise, poison):
+    split = _entry_split(kind)
+    n = 5
+    rng = np.random.default_rng(3)
+    values = split.diag_vals.copy()
+    d, i = values.shape[0] // 2, split.m // 2
+    values[d, i] = 0.0  # a stored zero that reads B's middle row
+    dvals = torch.from_numpy(values)
+    offsets = torch.from_numpy(split.diag_offsets.astype(np.int32))
+    b = torch.from_numpy(rng.standard_normal((split.k, n)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((split.m, n)).astype(np.float32))
+    if poison is not None:
+        b[i + split.diag_offsets[d], 1] = poison
+    host_map = dia_entry_map(values, split.diag_offsets)
+    got = _entry_walk(dvals, offsets, b, c, host_map, precise, tn=4)
+    want = spmm_dia_ref(dvals, offsets, b, c, ALPHA, BETA, precise=precise)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(want).any()) == (poison is not None)
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.parametrize("precise", [0, 1])
+@pytest.mark.parametrize("kind", ["band", "synthetic", "circuit", "full"])
+def test_hybrid_plan_walks_the_entries_where_that_pays(kind, precise):
+    # the plan's own counts choose: in plain mode a band of 121 consecutive
+    # diagonals that are full keeps the dense walk; splits whose diagonals
+    # are 4 % full, and a stencil's 7 (27 steps of the dense walk), take the
+    # entry walk; in precise mode every split takes it
+    split = _entry_split(kind)
+    if kind == "full":
+        split.diag_vals = np.random.default_rng(2).standard_normal(
+            split.diag_vals.shape).astype(np.float32)
+    walks = kind != "full" or bool(precise)
+    limit = entry_walk_slots(split.diag_offsets, split.m, precise)
+    assert (limit is None) == bool(precise)
+    n = 40  # K6 (N > 32); on the CPU its plain version
+    before = tx.counters().get("dia.walk_entries", 0)
+    plan = tx.HybridSpmmPlan(split, n, dia_backend="pallas", device="cpu", precise=precise,
+                             residue_config=tx.SpmmConfig(), residue_fmt="vpu")
+    walk = plan._dia_kw.get("entries")
+    assert (walk is not None) == walks
+    assert tx.counters().get("dia.walk_entries", 0) == before + (split.diag_nnz if walks else 0)
+    if walks:
+        assert walk.dvals is plan._dvals and walk.runs.offsets is plan._offsets
+    rng = np.random.default_rng(5)
+    b = rng.standard_normal((split.k, n)).astype(np.float32)
+    c = rng.standard_normal((split.m, n)).astype(np.float32)
+    got = plan(b, ALPHA, BETA, c)
+    plan._dia_kw.pop("entries", None)  # the dense walk's plan
+    assert torch.equal(got, plan(b, ALPHA, BETA, c))

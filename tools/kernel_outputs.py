@@ -30,7 +30,8 @@ its kernel, the (M, N) result), and
   (their one precise variant);
 
 each with and without C, on the plan's own arrays (``SpmmPlan`` or
-``HybridSpmmPlan``, and their host scans and, for K1, operand tiles), alpha
+``HybridSpmmPlan``, and their host scans, K6's entry map where the plan
+takes it and, for K1, operand tiles), alpha
 0.85, beta -2.06 and B, C from numpy seed 0. ``--full`` adds the full-size
 shapes: K2 on cant_like (``fem_like(62451, dofs=3, neighbors=21, seed=2)``)
 at N = 16, K1 and K5 on it at N = 512, K6 on scircuit_like (``circuit_like(170998,

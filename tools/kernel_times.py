@@ -21,9 +21,13 @@ runs. The cases:
   bandwidth=300)``) and cant_like (``fem_like(62451, dofs=3, neighbors=21,
   seed=2)``), plain and precise (level 1);
 * K2 over the same packs at N = 16;
-* K6 over the diagonal part of ``split_structure(coo, n=512)`` at N = 512,
-  plain and precise, on synthetic4704 and scircuit_like
-  (``circuit_like(170998, seed=9)``);
+* K6 over the diagonal part of ``split_structure(coo, n=N)``, plain and
+  precise, on synthetic4704 and scircuit_like (``circuit_like(170998,
+  seed=9)``) at N = 512 and laplace3d_64 (``stencil_3d(64, seed=12)``) at
+  N = 64: in a tree with the entry walk both walks, the dense one
+  (``walk=dense``) and over the entry map (``walk=entries``), with the
+  share of the dense slots that hold an entry (``fill``) and that the
+  map's slots cover (``slot_share``), whichever the plan would choose;
 * K7 over the diagonal part of ``split_structure(coo, n=16)`` at N = 16,
   plain and precise, on synthetic4704 and laplace3d_64 (``stencil_3d(64,
   seed=12)``);
@@ -39,6 +43,13 @@ neighbors=22, bandwidth=661, seed=13)``), and stops there.
 ``--vec`` times K5 in a tree that has ``ELL_VEC4_MIN_N`` both ways at every
 N that takes them: 16-byte loads (a thread a 4-column chunk) and 4-byte
 loads (a thread a column, four times the threads).
+
+``--walks`` times K6 alone (the cases above), then both walks, plain and
+precise, on laplace3d_64's 7 diagonals and on scircuit_like's 121
+consecutive offsets filled at random (numpy seed 0) to a share of their
+slots, 1, 3/4, 1/2, 3/8 ... 1/16 (N = 64 and 512 as above), and on a
+tridiagonal matrix of scircuit_like's 170,998 rows at N = 512: the fills at
+which the walks cross set ``DIA_ENTRY_SHARE``.
 
 ``--pace`` adds K6 on scircuit_like's 121 diagonals (-60..60) under plans
 cut by hand at spans 0, 1, 3, 7, 15, 31 and ``DIA_SPAN_MAX`` (121 runs down
@@ -89,7 +100,7 @@ def device_ms(fn, symbol: str) -> float:
 
 def main(argv) -> int:
     flags = argv[1:]
-    if not argv or any(f not in ("--pace", "--vec", "--k1") for f in flags):
+    if not argv or any(f not in ("--pace", "--vec", "--k1", "--walks") for f in flags):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(argv[0]).resolve()))
@@ -113,7 +124,8 @@ def main(argv) -> int:
                              chunk_unroll=2)
     cant = fem_like(62451, dofs=3, neighbors=21, seed=2)
     k1_only = "--k1" in flags
-    mats = [("synthetic4704", synth), ("cant_like", cant)]
+    walks_only = "--walks" in flags
+    mats = [] if walks_only else [("synthetic4704", synth), ("cant_like", cant)]
     if k1_only:
         mats.append(("cant_stand_in", fem_like(62451, dofs=3, neighbors=22, bandwidth=661,
                                                seed=13)))
@@ -139,7 +151,8 @@ def main(argv) -> int:
     vec_min = getattr(spmm_ell, "ELL_VEC4_MIN_N", None)
     modes = ([(" vec4", 1), (" vec1", 1 << 30)] if "--vec" in flags and vec_min
              else [("", vec_min)])
-    for tag, coo, ns in (("synthetic4704", synth, (512, 16, 13)), ("cant_like", cant, (512,))):
+    for tag, coo, ns in () if walks_only else (("synthetic4704", synth, (512, 16, 13)),
+                                                ("cant_like", cant, (512,))):
         for precise in (0, 1):
             packed = sx.pack_ell(coo, sx.SpmmConfig(precise=precise))
             for n in ns:
@@ -160,7 +173,8 @@ def main(argv) -> int:
             del packed
             torch.cuda.empty_cache()
 
-    for tag, coo in (("synthetic4704", synth), ("laplace3d_64", stencil_3d(64, seed=12))):
+    laplace = stencil_3d(64, seed=12)
+    for tag, coo in () if walks_only else (("synthetic4704", synth), ("laplace3d_64", laplace)):
         n = 16
         rng = np.random.default_rng(0)
         b = torch.as_tensor(rng.standard_normal((coo.shape[1], n)).astype(np.float32),
@@ -179,22 +193,47 @@ def main(argv) -> int:
         del pl, b, c
         torch.cuda.empty_cache()
 
+    from sextans_tpu_torch.ops import spmm_dia as dia_mod
+
+    has_walk = hasattr(dia_mod, "dia_entries")  # a tree with the entry walk
     scircuit = circuit_like(170998, seed=9)
-    for tag, coo in (("synthetic4704", synth), ("scircuit_like", scircuit)):
-        n = 512
+
+    def time_k6(label, n, values, offsets, b, c, precisions):
+        """K6 over ``values`` (D, M) on ``offsets``, each walk the tree has."""
+        dv = torch.as_tensor(values, device="cuda")
+        plan = dia_plan(offsets, "cuda")
+        walks = [("", plan, {})]
+        fill = slot_share = None
+        if has_walk:
+            entries = dia_mod.dia_entries(dv, plan.offsets, values)
+            fill = entries.entries / values.size
+            slot_share = dia_mod.DIA_GROUP_ROWS * entries.slots.shape[0] / values.size
+            walks = [(" walk=dense", plan, {}),
+                     (" walk=entries", entries.runs, {"entries": entries})]
+        for walk, runs, kw in walks:
+            for precise in precisions:
+                emit(f"K6 {label} N={n} precise={precise}{walk}", device_ms(
+                    lambda: spmm_dia(dv, plan.offsets, b, c, ALPHA, BETA, runs=plan,
+                                     precise=precise, **kw), "spmm_dia"),
+                     diagonals=int(dv.shape[0]), runs=int(runs.ptr.numel() - 1), fill=fill,
+                     slot_share=slot_share)
+        return dv, plan
+
+    def operands(coo, n):
         rng = np.random.default_rng(0)
-        b = torch.as_tensor(rng.standard_normal((coo.shape[1], n)).astype(np.float32),
-                            device="cuda")
-        c = torch.as_tensor(rng.standard_normal((coo.shape[0], n)).astype(np.float32),
-                            device="cuda")
+        return tuple(torch.as_tensor(rng.standard_normal((rows, n)).astype(np.float32),
+                                     device="cuda") for rows in (coo.shape[1], coo.shape[0]))
+
+    for tag, coo, n in (("synthetic4704", synth, 512), ("scircuit_like", scircuit, 512),
+                        ("laplace3d_64", laplace, 64)):
+        b, c = operands(coo, n)
         split = sx.split_structure(coo, n=n)
-        dv = torch.as_tensor(split.diag_vals, device="cuda")
-        plan = dia_plan(split.diag_offsets, "cuda")
-        plans = [("", plan, dv)]
+        dv, plan = time_k6(tag, n, split.diag_vals, split.diag_offsets, b, c, (0, 1))
         if tag == "scircuit_like" and "--pace" in flags:
             from sextans_tpu_torch.ops.spmm_dia import DIA_SPAN_MAX, DiaRuns, dia_runs
 
             host = split.diag_offsets.astype(np.int64)
+            plans = []
             for cut in (0, 1, 3, 7, 15, 31, DIA_SPAN_MAX):
                 ptr = dia_runs(host, cut)
                 runs = DiaRuns(plan.offsets, torch.from_numpy(ptr).to("cuda"),
@@ -202,14 +241,30 @@ def main(argv) -> int:
                                int(np.diff(ptr).max()))
                 plans.append((f" cut={cut} runs={ptr.size - 1}", runs, dv))
             plans.append((" first diagonal", dia_plan(host[:1], "cuda"), dv[:1].contiguous()))
-        for label, runs, d in plans:
-            for precise in (0, 1):
-                emit(f"K6 {tag} N={n} precise={precise}{label}", device_ms(
-                    lambda: spmm_dia(d, runs.offsets, b, c, ALPHA, BETA, runs=runs,
-                                     precise=precise),
-                    "spmm_dia_kernel"), diagonals=int(d.shape[0]),
-                     runs=int(runs.ptr.numel() - 1))
-        del b, c, dv, plan, plans
+            for label, runs, d in plans:
+                for precise in (0, 1):
+                    emit(f"K6 {tag} N={n} precise={precise}{label}", device_ms(
+                        lambda: spmm_dia(d, runs.offsets, b, c, ALPHA, BETA, runs=runs,
+                                         precise=precise),
+                        "spmm_dia_kernel"), diagonals=int(d.shape[0]),
+                         runs=int(runs.ptr.numel() - 1))
+        if walks_only and has_walk and tag != "synthetic4704":
+            # the same offsets, their slots filled at random to a share
+            rng = np.random.default_rng(0)
+            for share in (1.0, 0.75, 0.5, 0.375, 0.25, 0.125, 0.0625):
+                values = np.where(rng.random(split.diag_vals.shape) < share,
+                                  rng.standard_normal(split.diag_vals.shape), 0.0)
+                if tag == "laplace3d_64":  # the stencil's own values, thinned
+                    values = np.where(values != 0.0, split.diag_vals, 0.0)
+                time_k6(f"{tag} filled={share}", n, values.astype(np.float32),
+                        split.diag_offsets, b, c, (0, 1))
+        if walks_only and has_walk and tag == "scircuit_like":
+            # a tridiagonal matrix (a 1D Laplacian) of as many rows: three
+            # consecutive diagonals, every slot full
+            tri = np.tile(np.array([[-1.0], [2.0], [-1.0]], dtype=np.float32), coo.shape[0])
+            tri[0, 0] = tri[2, -1] = 0.0  # the slots outside the matrix
+            time_k6(f"tridiagonal_{coo.shape[0]}", n, tri, np.arange(-1, 2), b, c, (0, 1))
+        del b, c, dv, plan
         torch.cuda.empty_cache()
     return 0
 
